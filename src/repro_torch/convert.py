@@ -1,0 +1,72 @@
+"""Carry a filter's state across from the reference package.
+
+``from_reference`` takes the reference's ``Filter2D`` as
+``dataclasses.asdict(spec)`` (plain dicts and numbers, so the port never
+imports the reference) plus its coefficients and gains as numpy, and
+returns the port's spec, coefficient tensor and [N, 2] gains table — so
+the two packages can be run on the same state and their results
+compared.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.border_spec import BorderSpec
+from repro_torch.core.pipeline import Filter2D
+from repro_torch.core.requant import RequantSpec
+
+
+def from_reference(spec_fields: dict, coeffs, gains=None
+                   ) -> Tuple[Filter2D, torch.Tensor, Optional[torch.Tensor]]:
+    """The port's ``(Filter2D, coefficients, gains table)`` for a reference
+    filter.
+
+    ``spec_fields``: ``dataclasses.asdict`` of the reference ``Filter2D``
+    (``border`` and ``requant`` nested as dicts). ``coeffs``: numpy
+    ``[w, w]`` coefficients, an ``[N, w, w]`` bank, or for separable specs
+    the ``(u, v)`` factors (or their ``[2, w]`` stack). ``gains``: None
+    (the spec's own gains), a ``RequantSpec`` as a dict (or the port's
+    ``RequantSpec``), a (multiplier, shift) pair or an ``[N, 2]`` table.
+    The gains table is None when the spec carries no requant epilogue.
+    """
+    fields = dict(spec_fields)
+    border = fields.get("border")
+    if isinstance(border, dict):
+        fields["border"] = BorderSpec(**border)
+    rq = fields.get("requant")
+    if isinstance(rq, dict):
+        fields["requant"] = RequantSpec(**rq)
+    known = {f.name for f in dataclasses.fields(Filter2D)}
+    unknown = set(fields) - known
+    if unknown:
+        raise ValueError(f"unknown Filter2D fields {sorted(unknown)}")
+    spec = Filter2D(**fields)
+
+    if spec.separable and isinstance(coeffs, (tuple, list)):
+        co = torch.stack([torch.as_tensor(np.asarray(c)) for c in coeffs])
+    else:
+        co = torch.as_tensor(np.ascontiguousarray(coeffs))
+
+    if spec.requant is None:
+        if gains is not None:
+            raise ValueError("gains given but the spec carries no requant")
+        return spec, co, None
+    n = spec.num_filters
+    if gains is None:
+        table = spec.requant.params(n)
+    elif isinstance(gains, dict):
+        table = RequantSpec(**gains).params(n)
+    elif isinstance(gains, RequantSpec):
+        table = gains.params(n)
+    else:
+        g = np.asarray(gains, np.int64)
+        table = np.broadcast_to(g, (n, 2)) if g.shape == (2,) else g
+    table = torch.as_tensor(np.asarray(table, np.int64)).to(torch.int32)
+    if tuple(table.shape) != (n, 2):
+        raise ValueError(f"gains table must be [{n}, 2]; got "
+                         f"{tuple(table.shape)}")
+    return spec, co, table.contiguous()

@@ -1,0 +1,584 @@
+"""The plan-and-execute front door: ``Filter2D`` spec → ``CompiledFilter``.
+
+The paper's thesis is that a 2D filter is a *static structure* — window,
+form, border policy, wordlengths — that is planned once and then streamed
+at line rate with runtime-swappable coefficients (§I: one bitstream serves
+every filter). This module is that split for the PyTorch port:
+
+  * :class:`Filter2D` — the hashable spec: window size, reduction form,
+    :class:`~repro_torch.core.border_spec.BorderSpec`, separable mode,
+    bank size, the frame's storage-dtype contract and the (gain-free half
+    of the) :class:`~repro_torch.core.requant.RequantSpec` epilogue.
+  * ``spec.compile(frame_spec, execution=..., device=...)`` — plans once:
+    resolves the executor, builds the reference's static ``HaloPlan``
+    accounting for the geometry (plan-time errors surface here), and
+    binds the executor.
+  * :class:`CompiledFilter` — ``__call__(frame, coeffs_or_factors,
+    gains=None)``: coefficients, separable factors and per-filter requant
+    gains are runtime operands of the kernel, so swapping any of them
+    builds nothing (``cache_size()`` counts the kernel variants a
+    pipeline has launched: 1 after the first call, and still 1 after any
+    number of swaps).
+
+Executors: ``'cuda'`` runs the hand-written kernel
+(``kernels/filter2d/kernel.py::filter2d_halo``; the counterpart of the
+reference's ``'pallas'``); ``'core'`` runs the plain torch versions of
+``core/filter2d``; ``'auto'`` is ``'cuda'`` on a CUDA device and
+``'core'`` on the CPU. The reference's ``'xla'``, ``'streaming'`` and
+``'sharded'`` executors are not ported yet and raise. Pipelines run on
+``device`` ('cuda' unless the caller asks for the CPU); asking for a card
+that is not there raises — nothing carries on silently on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import hashlib
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import dtypes
+from repro_torch.core.border_spec import BorderSpec, quantize_constant
+from repro_torch.core.filter2d import (FORMS, _filter2d_impl,
+                                       _filter2d_sep_impl, _filter_bank_impl,
+                                       apply_requant, apply_requant_params,
+                                       is_fixed_point, resolve_requant)
+from repro_torch.core.requant import RequantSpec
+from repro_torch.kernels.filter2d import halo, ops
+from repro_torch.kernels.filter2d import kernel as K
+from repro_torch.obs import events as obs_events
+from repro_torch.obs import metrics as obs_metrics
+
+DEFAULT_VMEM_BUDGET = halo.DEFAULT_VMEM_BUDGET
+
+EXECUTIONS = ("auto", "core", "cuda")
+
+# the reference's executors that wait for a later slice (ROADMAP queue 1)
+NOT_PORTED = {
+    "streaming": "the strip-scan executor (ROADMAP queue 1, still to "
+                 "port, item 1)",
+    "sharded": "the row-sharded executor (ROADMAP queue 1, still to port, "
+               "item 2)",
+    "xla": "the compiler-inferred baseline (ROADMAP queue 1, still to "
+           "port, item 3)",
+}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={str(device)!r} requested but no CUDA device is "
+                "available; pass device='cpu' to run the plain torch path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on ``device``. Host data bound
+    for a card goes through pinned memory with ``non_blocking=True``, so
+    the copy is ordered on the current stream and never waits for it."""
+    t = x if torch.is_tensor(x) else torch.as_tensor(np.ascontiguousarray(x))
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Filter2D:
+    """The static structure of a 2D filter — everything that shapes the
+    pipeline, nothing that can be swapped at line rate.
+
+    ``window``      w of the w×w stencil (the ``(w-1)/2``-radius halo).
+    ``form``        reduction layout (paper §II): direct | transposed |
+                    tree | compress.
+    ``border``      :class:`BorderSpec` policy (+ constant) — paper §III.
+                    A bare policy string is accepted and normalised.
+    ``separable``   ``True`` plans the 2w-MAC two-pass pipeline; calls
+                    then take ``(u, v)`` factor operands instead of a
+                    ``[w, w]`` coefficient block.
+    ``num_filters`` bank size N; calls take ``[N, w, w]`` coefficients and
+                    outputs grow a trailing bank axis.
+    ``dtype``       the frame's *storage* dtype contract (name): float
+                    dtypes stream as-is; int8/uint8/int16 take the
+                    fixed-point datapath (storage-width stream, int32
+                    MAC — paper §IV). ``'bfloat16'`` is a name here too.
+    ``requant``     the fused output-scaler epilogue policy; the
+                    (multiplier, shift) gains ride every call
+                    (``gains=``), defaulting to the ones carried here.
+
+    Hashable and comparable by value: the compile-cache key.
+    """
+
+    window: int
+    form: str = "direct"
+    border: BorderSpec = BorderSpec("mirror")
+    separable: bool = False
+    num_filters: int = 1
+    dtype: str = "float32"
+    requant: Optional[RequantSpec] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "window", int(self.window))
+        if self.window < 1:
+            raise ValueError(f"window must be >= 1; got {self.window}")
+        if self.form not in FORMS:
+            raise ValueError(f"unknown form {self.form!r}; choose from "
+                             f"{FORMS}")
+        if isinstance(self.border, str):
+            object.__setattr__(self, "border", BorderSpec(self.border))
+        if not isinstance(self.border, BorderSpec):
+            raise TypeError("border must be a BorderSpec (or a policy "
+                            f"name); got {type(self.border).__name__}")
+        object.__setattr__(self, "separable", bool(self.separable))
+        object.__setattr__(self, "num_filters", int(self.num_filters))
+        if self.num_filters < 1:
+            raise ValueError("num_filters must be >= 1")
+        if self.separable and self.num_filters > 1:
+            raise ValueError("separable pipelines are single-filter: "
+                             "factor banks are not supported")
+        name = dtypes.name(self.dtype)
+        object.__setattr__(self, "dtype", name)
+        if not (dtypes.is_float(name) or is_fixed_point(name)):
+            raise ValueError(
+                f"dtype {name!r} is not a supported storage contract: "
+                "float dtypes or the fixed-point set int8/uint8/int16")
+        if self.requant is not None:
+            resolve_requant(name, self.requant, num_filters=self.num_filters)
+
+    @property
+    def radius(self) -> int:
+        return (self.window - 1) // 2
+
+    def compile(self, frame_spec, execution: str = "auto", *,
+                device="cuda") -> "CompiledFilter":
+        """Plan the pipeline for one frame geometry, executor and device.
+
+        ``frame_spec``: a shape tuple ([H,W] | [H,W,C] | [B,H,W,C]) or a
+        tensor/array, whose dtype must match the spec's storage contract.
+        ``device`` defaults to the card; ``device='cpu'`` asks for the CPU.
+        Results are memoised: the same (spec, geometry, executor, device)
+        returns the same ``CompiledFilter``.
+        """
+        shape = _frame_shape(frame_spec, self.dtype)
+        if execution in NOT_PORTED:
+            raise NotImplementedError(
+                f"execution={execution!r} is not ported to PyTorch yet: "
+                f"{NOT_PORTED[execution]}")
+        if execution not in EXECUTIONS:
+            raise ValueError(f"unknown execution {execution!r}; choose "
+                             f"from {EXECUTIONS}")
+        return _compiled(self, shape, execution, resolve_device(device))
+
+
+def _frame_shape(frame_spec, dtype_name: str) -> Tuple[int, ...]:
+    if isinstance(frame_spec, (tuple, list)):
+        shape = tuple(int(s) for s in frame_spec)
+    else:
+        try:
+            shape = tuple(int(s) for s in frame_spec.shape)
+            got = dtypes.name(frame_spec.dtype)
+        except AttributeError:
+            raise TypeError(
+                "frame_spec must be a shape tuple or a tensor/array; got "
+                f"{type(frame_spec).__name__}") from None
+        if got != dtype_name:
+            raise ValueError(
+                f"frame dtype {got!r} disagrees with the spec's storage "
+                f"contract {dtype_name!r}; build a spec for this dtype")
+    if len(shape) not in (2, 3, 4):
+        raise ValueError("frames are [H,W] | [H,W,C] | [B,H,W,C]; got "
+                         f"shape {shape}")
+    return shape
+
+
+@functools.lru_cache(maxsize=256)
+def _compiled(spec, shape, execution, device) -> "CompiledFilter":
+    return CompiledFilter(spec, shape, execution, device=device)
+
+
+class CompiledFilter:
+    """One planned filter pipeline (build via ``Filter2D.compile``).
+
+    ``__call__(frame, coeffs_or_factors, gains=None)`` runs it on the
+    pipeline's device and returns the result there: coefficients
+    (``[w, w]``, ``[N, w, w]`` for banks, or ``(u, v)`` factors for
+    separable pipelines) and requant gains are runtime operands, so
+    swapping them reuses the same kernel variant.
+
+    ``self.plan`` is the reference's static
+    :class:`~repro_torch.kernels.filter2d.halo.HaloPlan` accounting for
+    this geometry: for the ``cuda`` executor the plan the reference's
+    Pallas kernel would run (pixel-cache regime when the frame-resident
+    working set fits the reference's default 8 MiB VMEM budget, else the
+    stream geometry derived from that budget);
+    for ``core`` the accounting-only plan. ``hbm_bytes_per_pixel()``
+    reports it.
+    """
+
+    def __init__(self, spec: Filter2D, frame_shape: Tuple[int, ...],
+                 execution: str, *, device: torch.device):
+        t_compile0 = time.perf_counter()
+        self.spec = spec
+        self.frame_shape = frame_shape
+        self.device = device
+        self.vmem_budget = DEFAULT_VMEM_BUDGET
+        nd = len(frame_shape)
+        self._H, self._W = frame_shape[1:3] if nd == 4 else frame_shape[:2]
+        w, r = spec.window, spec.radius
+        db, acc_b, out_b = halo.datapath_byte_widths(spec.dtype, spec.requant)
+        same = spec.border.same_size
+        Ho = self._H if same else max(self._H - 2 * r, 1)
+        Wo = self._W if same else max(self._W - 2 * r, 1)
+        # the reference's frame-resident (pixel-cache) working set, with the
+        # output tile lane-padded as its small-regime plan lays it out
+        wo_pad = Wo + (-Wo) % halo.LANE
+        self.resident_vmem_bytes = halo.stream_vmem_working_set(
+            Ho, wo_pad, w, db, separable=spec.separable,
+            num_filters=spec.num_filters, acc_dtype_bytes=acc_b,
+            out_dtype_bytes=out_b,
+            out_banks=2 if spec.num_filters > 1 else 1)
+
+        requested = execution
+        if execution == "auto":
+            execution = "cuda" if device.type == "cuda" else "core"
+            self.selection = ("device", f"{device.type} device -> "
+                                        f"{execution!r} executor")
+        else:
+            self.selection = ("explicit",
+                              f"execution={execution!r} requested")
+        self.execution = execution
+
+        gain_free = (spec.requant.gain_free() if spec.requant is not None
+                     else None)
+        self.regime = self.strip_h = self.tile_w = None
+        if execution == "cuda":
+            self.regime = ("small" if self.resident_vmem_bytes
+                           <= self.vmem_budget else "stream")
+            strip_h, tile_w = Ho, Wo
+            if self.regime == "stream":
+                strip_h, tile_w = halo.derive_strip_tile(
+                    self._H, self._W, w, dtype=spec.dtype,
+                    vmem_budget=self.vmem_budget,
+                    num_filters=spec.num_filters, separable=spec.separable,
+                    requant=spec.requant, same_size=same)
+            S, Tw, _, _ = ops.resolve_strip_tile(
+                self._H, self._W, w, spec.border, self.regime, strip_h,
+                tile_w)
+            self.strip_h, self.tile_w = S, Tw
+            # the kernel reads policy, constant, radius and epilogue from
+            # this plan; frames below the policy's minimum extent raise here
+            self.plan = halo.make_plan(self._H, self._W, w, spec.border, S,
+                                       Tw, dtype=spec.dtype,
+                                       requant=gain_free)
+        else:
+            try:                 # accounting only; the impl validates
+                self.plan = halo.make_plan(self._H, self._W, w, spec.border,
+                                           Ho, Wo, dtype=spec.dtype,
+                                           requant=gain_free)
+            except (ValueError, AssertionError):
+                self.plan = None
+
+        self._fn = self._build()
+        self._variants = set()
+        planes = 1
+        if nd == 4:
+            planes = frame_shape[0] * frame_shape[3]
+        elif nd == 3:
+            planes = frame_shape[2]
+        self._pixels_per_call = self._H * self._W * planes
+        self._obs_key = (f"{self.execution}"
+                         f"{'/' + self.regime if self.regime else ''}"
+                         f"/{spec.dtype}/w{spec.window}"
+                         f"/{self._H}x{self._W}")
+        if obs_events.enabled():
+            self._emit_compile_events(requested,
+                                      time.perf_counter() - t_compile0)
+
+    def _emit_compile_events(self, requested: str, wall_s: float) -> None:
+        if requested == "auto":
+            obs_events.emit(obs_events.AutoSelectEvent(
+                rule=self.selection[0], execution=self.execution,
+                reason=self.selection[1],
+                resident_vmem_bytes=int(self.resident_vmem_bytes),
+                vmem_budget=int(self.vmem_budget), has_mesh=False))
+        bpp = self.hbm_bytes_per_pixel()
+        obs_events.emit(obs_events.CompileEvent(
+            key=self._obs_key, spec=repr(self.spec),
+            spec_hash=hash(self.spec), frame_shape=self.frame_shape,
+            execution=self.execution, regime=self.regime,
+            strip_h=self.strip_h, tile_w=self.tile_w, ext_banks=None,
+            out_banks=None, vmem_working_set=None,
+            hbm_bytes_per_pixel=None if bpp is None else float(bpp),
+            wall_ms=wall_s * 1e3))
+        obs_metrics.REGISTRY.counter("pipeline.compiles").inc()
+
+    # -- executor ----------------------------------------------------------
+
+    def _build(self):
+        spec = self.spec
+        border = spec.border
+        rq = spec.requant
+        fixed = is_fixed_point(spec.dtype)
+        n = spec.num_filters
+
+        def _epilogue(y, q):
+            if rq is None:
+                return y
+            if n > 1:                     # bank axis is last: [.., N]
+                return apply_requant(y, q[:, 0], q[:, 1],
+                                     rounding=rq.rounding,
+                                     out_dtype=rq.dtype)
+            return apply_requant_params(y, q, rq)
+
+        if self.execution == "core":
+            qc = quantize_constant(border.constant, spec.dtype)
+            if spec.separable:
+                def impl(frame, co, q):
+                    return _epilogue(_filter2d_sep_impl(
+                        frame, co[0], co[1], border=border,
+                        border_constant=qc), q)
+            elif n == 1:
+                def impl(frame, co, q):
+                    return _epilogue(_filter2d_impl(
+                        frame, co, form=spec.form, border=border,
+                        border_constant=qc), q)
+            else:
+                def impl(frame, co, q):
+                    return _epilogue(_filter_bank_impl(
+                        frame, co, border=border, border_constant=qc), q)
+            return impl
+
+        plan = self.plan
+        form = "separable" if spec.separable else spec.form
+        cdt = (torch.int32 if fixed else torch.float64
+               if spec.dtype == "float64" else torch.float32)
+
+        def impl(frame, co, q):
+            planes, tag = ops._fold_planes(frame)
+            co_k = co.to(cdt)
+            if spec.separable or n == 1:
+                co_k = co_k[None]
+            y = K.filter2d_halo(planes, co_k.contiguous(), plan, q_params=q,
+                                form=form)
+            return ops._unfold(y, tag, keep_bank=n > 1)
+        return impl
+
+    # -- operand normalisation ---------------------------------------------
+
+    def _coeff_operand(self, coeffs) -> torch.Tensor:
+        w, n = self.spec.window, self.spec.num_filters
+        if self.spec.separable:
+            if isinstance(coeffs, (tuple, list)):
+                if len(coeffs) != 2:
+                    raise ValueError("separable pipelines take (u, v) — "
+                                     "exactly two 1D factors")
+                co = torch.stack([to_device(c, self.device)
+                                  for c in coeffs])
+            else:
+                co = coeffs if torch.is_tensor(coeffs) else \
+                    torch.as_tensor(np.asarray(coeffs))
+            if tuple(co.shape) != (2, w):
+                raise ValueError(
+                    f"separable pipeline takes (u, v) factors of length "
+                    f"{w} (operand shape (2, {w})); got {tuple(co.shape)}")
+            return to_device(co, self.device)
+        co = coeffs if torch.is_tensor(coeffs) else \
+            torch.as_tensor(np.asarray(coeffs))
+        want = (w, w) if n == 1 else (n, w, w)
+        if tuple(co.shape) != want:
+            raise ValueError(f"this pipeline takes coefficients of shape "
+                             f"{want}; got {tuple(co.shape)}")
+        return to_device(co, self.device)
+
+    def _gain_operand(self, gains) -> torch.Tensor:
+        rq, n = self.spec.requant, self.spec.num_filters
+        if gains is None:
+            g = torch.tensor(rq.params(n), dtype=torch.int32)
+        elif isinstance(gains, RequantSpec):
+            if gains.gain_free() != rq.gain_free():
+                raise ValueError(
+                    "gains spec disagrees with the compiled epilogue "
+                    f"(rounding/storage dtype): {gains.gain_free()} vs "
+                    f"{rq.gain_free()}; compile for a new epilogue")
+            g = torch.tensor(gains.params(n), dtype=torch.int32)
+        else:
+            g = (gains if torch.is_tensor(gains)
+                 else torch.as_tensor(np.asarray(gains))).to(torch.int32)
+            if tuple(g.shape) == (2,):
+                g = g[None].expand(n, 2)
+            if tuple(g.shape) != (n, 2):
+                raise ValueError(f"gains must be a RequantSpec, a "
+                                 f"(multiplier, shift) pair or an [{n}, 2] "
+                                 f"table; got shape {tuple(g.shape)}")
+            if g.device.type == "cpu" and bool(
+                    ((g[:, 1] < 0) | (g[:, 1] > 31)).any()):
+                raise ValueError("requant shifts must be in [0, 31]")
+        return to_device(g.contiguous(), self.device)
+
+    # -- execution ---------------------------------------------------------
+
+    def __call__(self, frame, coeffs, gains=None):
+        frame = to_device(frame, self.device)
+        if tuple(frame.shape) != self.frame_shape:
+            raise ValueError(
+                f"pipeline compiled for frame shape {self.frame_shape}; "
+                f"got {tuple(frame.shape)} — compile for the new geometry")
+        if dtypes.name(frame.dtype) != self.spec.dtype:
+            raise ValueError(
+                f"pipeline compiled for dtype {self.spec.dtype!r}; got "
+                f"{dtypes.name(frame.dtype)!r}")
+        co = self._coeff_operand(coeffs)
+        if self.spec.requant is None:
+            if gains is not None:
+                raise ValueError("gains supplied but the spec carries no "
+                                 "requant epilogue")
+            q = None
+        else:
+            q = self._gain_operand(gains)
+        if obs_events._TRACE is None:
+            self._variants.add(q is not None)
+            return self._fn(frame, co, q)
+        return self._instrumented_call(frame, co, q)
+
+    def _instrumented_call(self, frame, co, q):
+        """Timed execution: wall time until the device finished the call,
+        one :class:`ExecuteEvent` + a latency histogram sample per call."""
+        size0 = self.cache_size()
+        t0 = time.perf_counter()
+        self._variants.add(q is not None)
+        y = self._fn(frame, co, q)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        wall_s = max(time.perf_counter() - t0, 1e-9)
+        size1 = self.cache_size()
+        wall_us = wall_s * 1e6
+        obs_events.emit(obs_events.ExecuteEvent(
+            key=self._obs_key, wall_us=wall_us,
+            pixels_per_s=self._pixels_per_call / wall_s,
+            cache_hit=size1 == size0, cache_size=size1))
+        reg = obs_metrics.REGISTRY
+        reg.histogram(f"call/{self._obs_key}").record(wall_us)
+        reg.counter("pipeline.calls").inc()
+        reg.counter("pipeline.recompiles" if size1 > size0
+                    else "pipeline.cache_hits").inc()
+        return y
+
+    # -- introspection -----------------------------------------------------
+
+    def cache_size(self) -> int:
+        """Kernel variants this pipeline has launched: 1 after the first
+        call, and *still* 1 after any number of coefficient / factor /
+        gain swaps — the served-pipeline invariant."""
+        return len(self._variants)
+
+    def hbm_bytes_per_pixel(self) -> Optional[float]:
+        """Static HBM round-trip bytes/pixel of the reference plan."""
+        if self.plan is None:
+            return None
+        return halo.hbm_bytes_per_pixel(self.plan)
+
+    def __repr__(self) -> str:
+        geo = ""
+        if self.execution == "cuda":
+            geo = (f", plan regime={self.regime!r}, strip_h={self.strip_h},"
+                   f" tile_w={self.tile_w}")
+        return (f"CompiledFilter({self.spec!r}, frame={self.frame_shape}, "
+                f"execution={self.execution!r}, device={self.device}{geo})")
+
+
+# -- batch admission (the serving engine's substrate) -----------------------
+#
+# A compiled pipeline folds batch and channel planes into the kernel's plane
+# dimension ([B, H, W, C] frames stream as B*C planes through one launch),
+# which is exactly the degree of freedom a serving layer wants: k
+# independent same-geometry requests stack into the plane dim of ONE
+# dispatch. These helpers are the admission arithmetic — stable bucket
+# identity, stacking with zero-padding to a static batch, and the inverse
+# split — kept next to the front door so the geometry rules live in one
+# place.
+
+
+def batched_shape(frame_shape: Sequence[int], batch: int) -> Tuple[int, ...]:
+    """The [B, H, W, C] pipeline geometry a wave of ``batch`` frames of
+    ``frame_shape`` ([H, W] or [H, W, C]) compiles for. Already-batched
+    4-D shapes are rejected: the batch dim belongs to the admission
+    layer, not the request."""
+    shape = tuple(int(s) for s in frame_shape)
+    if len(shape) == 2:
+        shape = shape + (1,)
+    if len(shape) != 3:
+        raise ValueError("serving frames are [H, W] or [H, W, C]; got "
+                         f"shape {tuple(frame_shape)}")
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1; got {batch}")
+    return (int(batch),) + shape
+
+
+def bucket_key(spec: Filter2D, frame_shape: Sequence[int], *,
+               batch: int = 1, execution: str = "auto",
+               device="cuda") -> str:
+    """Stable digest naming one warm-cache bucket: the (spec, frame
+    geometry, dtype) identity plus every compile knob. Two requests with
+    equal keys are servable by the same ``CompiledFilter``."""
+    shape = batched_shape(frame_shape, batch)
+    payload = (repr(spec), shape, execution,
+               str(torch.device(device)))
+    return hashlib.sha1(repr(payload).encode()).hexdigest()[:16]
+
+
+def admit_batch(frames: Sequence, batch: int, *,
+                pin_memory: bool = False) -> torch.Tensor:
+    """Stack up to ``batch`` same-geometry host frames (numpy arrays or
+    CPU tensors) into the [B, H, W, C] plane layout, zero-padding the tail
+    so the dispatch shape is static. ``pin_memory`` stacks straight into
+    page-locked memory, ready for a non-blocking copy to the card."""
+    if not frames:
+        raise ValueError("admit_batch needs at least one frame")
+    if len(frames) > batch:
+        raise ValueError(f"wave of {len(frames)} frames exceeds the "
+                         f"batch size {batch}")
+    ts = [f if torch.is_tensor(f) else torch.as_tensor(np.asarray(f))
+          for f in frames]
+    shape, dtype = tuple(ts[0].shape), ts[0].dtype
+    for t in ts[1:]:
+        if tuple(t.shape) != shape:
+            raise ValueError("waves are same-geometry by construction: "
+                             f"got {tuple(t.shape)} in a {shape} wave")
+        if t.dtype != dtype:
+            raise ValueError("waves are same-dtype by construction (a "
+                             f"stack would silently promote): got "
+                             f"{t.dtype} in a {dtype} wave")
+    if len(shape) not in (2, 3):
+        raise ValueError("serving frames are [H, W] or [H, W, C]; got "
+                         f"shape {shape}")
+    full = batched_shape(shape, batch)
+    x = torch.zeros(full, dtype=dtype, pin_memory=pin_memory)
+    for i, t in enumerate(ts):
+        x[i].copy_(t.reshape(full[1:]))
+    return x
+
+
+def split_batch(y, count: int, frame_ndim: int) -> List:
+    """Undo :func:`admit_batch` on a pipeline output: the first ``count``
+    planes (padding dropped), each squeezed back to the request's rank —
+    2-D requests lose the synthesised channel axis; bank pipelines keep
+    their trailing bank axis."""
+    outs = []
+    for i in range(count):
+        yi = y[i]
+        if frame_ndim == 2:
+            # [H, W, 1] or [H, W, 1, N] -> [H, W] / [H, W, N]
+            yi = yi[:, :, 0]
+        outs.append(yi)
+    return outs

@@ -1,0 +1,10 @@
+// bfloat16 storage: float32 accumulator, bfloat16 output.
+#include "filter2d_halo.cuh"
+
+namespace f2d {
+cudaError_t launch_bf16(const Params& p, int out_dtype, int form, int w,
+                        cudaStream_t s) {
+  if (out_dtype != BF16) return cudaErrorInvalidValue;
+  return dispatch<__nv_bfloat16, float, __nv_bfloat16>(p, form, w, s);
+}
+}  // namespace f2d

@@ -1,0 +1,9 @@
+// int16_t storage: int32 accumulator; int32 output, or the requantised type.
+#include "filter2d_halo.cuh"
+
+namespace f2d {
+cudaError_t launch_i16(const Params& p, int out_dtype, int form, int w,
+                       cudaStream_t s) {
+  return dispatch_int<int16_t>(p, out_dtype, form, w, s);
+}
+}  // namespace f2d

@@ -1,0 +1,268 @@
+"""The ``filter2d_halo`` kernel wrapper: CUDA on the card, plain torch on
+the CPU.
+
+Replaces the TPU kernel ``src/repro/kernels/filter2d/kernel.py::
+filter2d_halo`` (``_halo_kernel``, with the halo engine of
+``kernels/filter2d/halo.py`` and the fused ``apply_requant`` epilogue) by
+a kernel written by hand in CUDA C++ for ``sm_90a``:
+``csrc/filter2d_halo.cuh`` (its header comment states the design and what
+bounds it). On an H100 the kernel is bound by HBM bytes at w ≤ 7: about
+8 B/px for float32 in and out, about 2 B/px for an int8 frame with an int8
+requantised output, against 3.35 TB/s.
+
+What it computes, exactly as the reference kernel does: a w×w
+**correlation** of M planes with an N-filter bank (or [N, 2, w] separable
+factors), the border policy resolved on the read path (``neglect``
+shrinks the output by w−1), one of the reduction forms, and an optional
+per-filter requantising epilogue whose [N, 2] int32 (multiplier, shift)
+table is a runtime operand — swapping gains rebuilds nothing.
+
+What differs from the reference kernel, on purpose:
+
+  * one thread block per (output tile, plane), with the tile fixed at
+    32 × 64 pixels (the plan's VMEM-sized strip/tile is accounting
+    only, see ``halo.py``); the output is the exact [M, N, Ho, Wo], with
+    the ragged edge masked — there is no padded output to crop;
+  * bfloat16 frames load at bfloat16 and accumulate in float32 (the
+    reference accumulates at the storage dtype), so bfloat16 results
+    differ from the reference by bfloat16 rounding (tests hold 3e-2);
+  * float coefficients reach the kernel as float32, integer-frame
+    coefficients as int32 (the reference's operand types).
+
+``filter2d_halo`` launches the kernel for a CUDA tensor and runs the plain
+version ``filter2d_halo_ref`` for a CPU tensor, and only then: there is no
+fallback from the card to the plain version. ``filter2d_halo.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import dtypes
+from repro_torch.core.border_spec import BorderSpec, out_shape
+from repro_torch.core.borders import extend
+from repro_torch.core.filter2d import apply_requant, wrap_i32
+from repro_torch.kernels.filter2d import _build
+from repro_torch.kernels.filter2d.halo import HaloPlan
+
+KERNEL_WINDOWS = (1, 3, 5, 7)          # the instantiations in csrc/
+# the bank's coefficients sit in shared memory beside the <= ~20 KiB window
+# (and separable row buffer): together under 48 KiB
+MAX_COEFF_BYTES = 24 * 1024
+
+FORMS = ("direct", "transposed", "tree", "compress", "separable")
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.uint8: 3, torch.int16: 4, torch.int32: 5}
+_POLICY_CODE = {"neglect": 0, "constant": 1, "wrap": 2, "duplicate": 3,
+                "mirror_dup": 4, "mirror": 5}
+_FORM_CODE = {"direct": 0, "transposed": 0, "tree": 1, "compress": 2,
+              "separable": 3}
+_ROUNDING_CODE = {"truncate": 0, "nearest": 1, "nearest_even": 2}
+
+
+def acc_dtype(storage_dtype) -> torch.dtype:
+    """The dtype the port's kernel accumulates in: int32 for fixed-point
+    frames (the paper's B-bit pixels onto a wide DSP48 accumulator),
+    float32 for float32/bfloat16/float16 frames, float64 for float64."""
+    if dtypes.is_fixed_point(storage_dtype):
+        return torch.int32
+    if dtypes.name(storage_dtype) == "float64":
+        return torch.float64
+    return torch.float32
+
+
+def out_dtype(plan: HaloPlan, storage_dtype) -> torch.dtype:
+    """The dtype each output pixel is *stored* at — plan geometry: the
+    requant storage dtype when the plan carries the fused epilogue, int32
+    for other fixed-point frames, else the frame dtype."""
+    if plan.requant is not None:
+        return dtypes.to_torch(plan.requant.dtype)
+    if dtypes.is_fixed_point(storage_dtype):
+        return torch.int32
+    return dtypes.to_torch(storage_dtype)
+
+
+def _reduce_taps(ext, coeffs, Ho: int, Wo: int, w: int, form: str):
+    """w² shifted-product reduction in the reference kernel's order."""
+    prods = [ext[..., i:i + Ho, j:j + Wo] * coeffs[i, j]
+             for i in range(w) for j in range(w)]
+    if form in ("direct", "transposed"):     # left fold, raster order
+        out = prods[0]
+        for p_ in prods[1:]:
+            out = out + p_
+        return out
+    if form == "tree":                       # pairwise log-depth tree
+        while len(prods) > 1:
+            nxt = [prods[k] + prods[k + 1]
+                   for k in range(0, len(prods) - 1, 2)]
+            if len(prods) % 2:
+                nxt.append(prods[-1])
+            prods = nxt
+        return prods[0]
+    if form == "compress":                   # groups of 6, then a chain
+        partials = []
+        for k in range(0, len(prods), 6):
+            g = prods[k:k + 6]
+            s = g[0]
+            for t in g[1:]:
+                s = s + t
+            partials.append(s)
+        out = partials[0]
+        for s in partials[1:]:
+            out = out + s
+        return out
+    raise ValueError(f"unknown form {form!r}")
+
+
+def _reduce_separable(ext, u, v, Ho: int, Wo: int, w: int, fixed: bool):
+    """Column pass (``v`` along the width, every window row), then the row
+    pass (``u`` along the height)."""
+    h = None
+    for j in range(w):
+        t = ext[..., :, j:j + Wo] * v[j]
+        h = t if h is None else h + t
+    if fixed:                                # the kernel's int32 wrap
+        h = wrap_i32(h).to(torch.int64)
+    y = None
+    for i in range(w):
+        t = h[..., i:i + Ho, :] * u[i]
+        y = t if y is None else y + t
+    return y
+
+
+def filter2d_halo_ref(planes: torch.Tensor, coeffs: torch.Tensor,
+                      plan: HaloPlan, *, q_params: Optional[torch.Tensor] = None,
+                      form: str = "direct") -> torch.Tensor:
+    """The plain torch version of the CUDA kernel, on any device: the same
+    arguments, the same [M, N, Ho, Wo] result. Float frames accumulate in
+    float32 (float64 for float64) in the kernel's order, integer frames
+    exactly and then wrapped to int32, then the epilogue. The CPU path of
+    :func:`filter2d_halo`, and the card-side oracle of the kernel."""
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}; choose from {FORMS}")
+    M, H, W = planes.shape
+    N, w = coeffs.shape[0], coeffs.shape[-1]
+    r = (w - 1) // 2
+    border = BorderSpec(plan.policy, plan.constant)
+    fixed = dtypes.is_fixed_point(planes.dtype)
+    acc = torch.int64 if fixed else acc_dtype(planes.dtype)
+    ext = extend(planes, r, border, constant=plan.constant).to(acc)
+    Ho, Wo = out_shape(H, W, w, border)
+    co = coeffs.to(acc)
+    if plan.requant is not None and q_params is None:
+        q_params = torch.tensor(plan.requant.params(N), dtype=torch.int32,
+                                device=planes.device)
+    odt = out_dtype(plan, planes.dtype)
+    outs = []
+    for f in range(N):
+        if form == "separable":
+            y = _reduce_separable(ext, co[f, 0], co[f, 1], Ho, Wo, w, fixed)
+        else:
+            y = _reduce_taps(ext, co[f], Ho, Wo, w, form)
+        if fixed:
+            y = wrap_i32(y)
+        if plan.requant is not None:
+            y = apply_requant(y, q_params[f, 0], q_params[f, 1],
+                              rounding=plan.requant.rounding, out_dtype=odt)
+        outs.append(y.to(odt))
+    return torch.stack(outs, dim=1)
+
+
+def _check(planes, coeffs, plan, q_params, form):
+    """What the kernel takes; anything else raises before a launch."""
+    dev = planes.device
+    if planes.dtype not in _DTYPE_CODE or planes.dtype == torch.int32:
+        raise TypeError(f"the CUDA kernel takes float32, bfloat16, int8, "
+                        f"uint8 or int16 planes; got {planes.dtype}")
+    if planes.ndim != 3 or not planes.is_contiguous():
+        raise ValueError("planes must be a contiguous [M, H, W] tensor; got "
+                         f"shape {tuple(planes.shape)}")
+    M, H, W = planes.shape
+    if (H, W) != (plan.rows.extent, plan.cols.extent):
+        raise ValueError(f"plan is for {plan.rows.extent}x"
+                         f"{plan.cols.extent} frames; got {H}x{W}")
+    if M > 65535:
+        raise ValueError(f"at most 65535 planes per launch; got {M}")
+    w = coeffs.shape[-1]
+    if w not in KERNEL_WINDOWS or w != 2 * plan.rows.r + 1:
+        raise ValueError(f"the CUDA kernel is built for windows "
+                         f"{KERNEL_WINDOWS} matching the plan; got w={w}")
+    want_c = torch.int32 if dtypes.is_fixed_point(planes.dtype) \
+        else torch.float32
+    shape_ok = (coeffs.ndim == 3 and coeffs.shape[1] == (
+        2 if form == "separable" else w))
+    if (coeffs.device != dev or coeffs.dtype != want_c or not shape_ok
+            or not coeffs.is_contiguous()):
+        raise ValueError(f"coeffs must be a contiguous {want_c} "
+                         f"[N, {'2' if form == 'separable' else 'w'}, w] "
+                         f"tensor on {dev}; got {coeffs.dtype} "
+                         f"{tuple(coeffs.shape)} on {coeffs.device}")
+    if coeffs.numel() * 4 > MAX_COEFF_BYTES:
+        raise ValueError(f"bank of {coeffs.shape[0]} filters exceeds the "
+                         f"kernel's {MAX_COEFF_BYTES} B coefficient file")
+    if plan.requant is not None:
+        n = coeffs.shape[0]
+        if (q_params.device != dev or q_params.dtype != torch.int32
+                or tuple(q_params.shape) != (n, 2)
+                or not q_params.is_contiguous()):
+            raise ValueError(f"q_params must be a contiguous int32 [{n}, 2] "
+                             f"tensor on {dev}")
+    elif q_params is not None:
+        raise ValueError("q_params given but the plan carries no requant")
+
+
+def filter2d_halo(planes: torch.Tensor, coeffs: torch.Tensor, plan: HaloPlan,
+                  *, q_params: Optional[torch.Tensor] = None,
+                  form: str = "direct") -> torch.Tensor:
+    """Streaming 2D filter with the border policy on the read path.
+
+    planes: [M, H, W] raw frame planes at their storage dtype. coeffs:
+    [N, w, w] filter bank, or [N, 2, w] (u, v) factors for
+    ``form='separable'`` — float32 for float frames, int32 for fixed-point
+    frames. ``q_params``: the [N, 2] int32 (multiplier, shift) table when
+    ``plan.requant`` is set (defaults to the plan spec's own gains).
+    Returns [M, N, Ho, Wo] at :func:`out_dtype`.
+
+    A CUDA tensor launches the kernel on ``torch.cuda.current_stream()``
+    (the call returns before the card finishes); a CPU tensor runs
+    :func:`filter2d_halo_ref`.
+    """
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}; choose from {FORMS}")
+    if planes.device.type == "cpu":
+        return filter2d_halo_ref(planes, coeffs, plan, q_params=q_params,
+                                 form=form)
+    if planes.device.type != "cuda":
+        raise ValueError(f"no filter2d_halo for device {planes.device}")
+    if plan.requant is not None and q_params is None:
+        q_params = torch.tensor(plan.requant.params(coeffs.shape[0]),
+                                dtype=torch.int32, device=planes.device)
+    _check(planes, coeffs, plan, q_params, form)
+    M, H, W = planes.shape
+    N, w = coeffs.shape[0], coeffs.shape[-1]
+    border = BorderSpec(plan.policy)
+    Ho, Wo = out_shape(H, W, w, border)
+    odt = out_dtype(plan, planes.dtype)
+    out = torch.empty((M, N, Ho, Wo), dtype=odt, device=planes.device)
+    # the constant, rounded to the storage dtype (exact as a double)
+    const = float(torch.tensor(plan.constant).to(planes.dtype).double())
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    with torch.cuda.device(planes.device):
+        rc = lib.filter2d_halo_launch(
+            planes.data_ptr(), coeffs.data_ptr(),
+            q_params.data_ptr() if q_params is not None else None,
+            out.data_ptr(), M, H, W, N, Ho, Wo, w, plan.rows.off,
+            _POLICY_CODE[plan.policy], const, _DTYPE_CODE[planes.dtype],
+            _DTYPE_CODE[odt], _FORM_CODE[form],
+            _ROUNDING_CODE[plan.requant.rounding] if plan.requant else -1,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"filter2d_halo launch failed with CUDA error {rc}")
+    filter2d_halo.launches += 1
+    return out
+
+
+filter2d_halo.launches = 0

@@ -1,0 +1,126 @@
+"""The CUDA kernel on the card: held against its plain torch version, and
+the served main path through it held against the same path on the CPU
+(which the CPU suites hold against the reference package). Marked
+``gpu``; each test decides inside the ``cuda`` fixture whether a card is
+there and skips with a reason where there is none. The machine with the
+card has no JAX, so this file imports only the port. On the card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.border_spec import BorderSpec
+from repro_torch.core.pipeline import Filter2D
+from repro_torch.core.requant import RequantSpec
+from repro_torch.kernels.filter2d import halo
+from repro_torch.kernels.filter2d import kernel as K
+
+pytestmark = pytest.mark.gpu
+
+POLICIES = ("neglect", "constant", "wrap", "duplicate", "mirror_dup",
+            "mirror")
+FORMS = ("direct", "transposed", "tree", "compress", "separable")
+DTYPES = ("float32", "bfloat16", "int8", "uint8", "int16")
+TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _frame(rng, dtype, shape):
+    if dtype in TOL:
+        x = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(x).to(getattr(torch, dtype))
+    info = np.iinfo(dtype)
+    return torch.from_numpy(rng.integers(info.min, int(info.max) + 1, shape)
+                            .astype(dtype))
+
+
+def _coeffs(rng, dtype, shape):
+    if dtype in TOL:
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                / shape[-1])
+    return torch.from_numpy(rng.integers(-9, 10, shape).astype(np.int32))
+
+
+def _same(got, ref, dtype):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if dtype in TOL:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+    else:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("policy", POLICIES)
+def test_kernel_matches_plain_version(cuda, policy, dtype, rng):
+    for form in FORMS:
+        for w in (3, 5, 7):
+            n = 1 if form == "separable" else 3
+            x = _frame(rng, dtype, (2, 37, 70)).to(cuda)
+            co = _coeffs(rng, dtype, (n, 2, w) if form == "separable"
+                         else (n, w, w)).to(cuda)
+            rq = q = None
+            if dtype not in TOL:
+                rq = RequantSpec(rounding="nearest_even", dtype=dtype)
+                q = torch.tensor([[3, 2]] * n, dtype=torch.int32,
+                                 device=cuda)
+            const = 3.7 if dtype in TOL else -300.0
+            plan = halo.make_plan(37, 70, w, BorderSpec(policy, const), 37,
+                                  70, dtype=dtype, requant=rq)
+            before = K.filter2d_halo.launches
+            got = K.filter2d_halo(x, co, plan, q_params=q, form=form)
+            assert K.filter2d_halo.launches == before + 1
+            ref = K.filter2d_halo_ref(x, co, plan, q_params=q, form=form)
+            torch.cuda.synchronize()
+            _same(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("shape", [(40, 50), (40, 50, 3), (2, 40, 50, 3)])
+def test_pipeline_on_the_card_matches_the_cpu(cuda, shape, dtype, rng):
+    x = _frame(rng, dtype, shape)
+    k = _coeffs(rng, dtype, (4, 5, 5))
+    rq = None
+    if dtype not in TOL:
+        k[:, 2, 2] = 50
+        rq = RequantSpec.unity_gain(k.numpy(), dtype)
+    spec = Filter2D(window=5, num_filters=4, dtype=dtype, border="mirror",
+                    requant=rq.gain_free() if rq else None)
+    cf = spec.compile(shape, "auto", device=cuda)
+    assert cf.execution == "cuda"
+    got = cf(x, k, gains=rq)
+    assert got.device.type == "cuda"
+    want = spec.compile(shape, "cuda", device="cpu")(x, k, gains=rq)
+    _same(got.cpu(), want, dtype)
+    with pytest.raises(TypeError):            # float64 has no kernel
+        Filter2D(window=5, dtype="float64").compile((8, 8), device=cuda)(
+            torch.zeros(8, 8, dtype=torch.float64), torch.ones(5, 5))
+
+
+def test_engine_on_the_card(cuda):
+    from repro_torch.serving import FilterServeEngine
+    from repro_torch.serving.bench import build_mix
+    templates = build_mix(np.random.default_rng(2), scale=2)
+    with FilterServeEngine(batch_size=2, device=cuda) as eng:
+        before = K.filter2d_halo.launches
+        reqs = [eng.submit(t.frame, t.coeffs, spec=t.spec, gains=t.gains,
+                           tenant=t.tenant) for t in templates * 2]
+        assert eng.drain(timeout=120)
+        st = eng.stats()
+        assert K.filter2d_halo.launches - before == st["waves"]
+    assert st["recompiles"] == 3 and st["errors"] == 0
+    with FilterServeEngine(batch_size=2, device="cpu",
+                           execution="cuda") as cpu:
+        want = [cpu.submit(t.frame, t.coeffs, spec=t.spec, gains=t.gains,
+                           tenant=t.tenant) for t in templates * 2]
+        assert cpu.drain(timeout=120)
+    for r, w, t in zip(reqs, want, templates * 2):
+        _same(r.result(timeout=10), w.result(timeout=10), t.spec.dtype)
