@@ -7,10 +7,11 @@ Phases, in order; any failure exits non-zero:
 
   1. devices  — the card's name and count, and ``nvidia-smi``'s name and
                 power limit. No card is a failure.
-  2. build    — builds the CUDA ``filter2d_halo`` kernel from ``src/`` into
-                ``build/`` (one ``nvcc`` per source, all at once) and
-                summarises ``-Xptxas -v``: registers, shared memory, spills
-                (the full report stays in ``build/``).
+  2. build    — builds the three CUDA kernels (``filter2d_halo``,
+                ``swattn``, ``dwconv1d``) from ``src/`` into ``build/``
+                (one ``nvcc`` per source, all started together) and
+                summarises ``-Xptxas -v`` per kernel: registers, shared
+                memory, spills (the full reports stay in ``build/``).
   3. kernel   — holds the kernel against its plain torch version
                 (``filter2d_halo_ref``) on the card: 6 border policies
                 (non-zero constant), 4 forms + separable, w ∈ {3, 5, 7},
@@ -34,8 +35,47 @@ Phases, in order; any failure exits non-zero:
                 where one served wave's time goes (host stacking, copy
                 in, pipeline call, copy out).
 
-The line before the last is the ``kernels`` JSON summary; the last line
-is ``{"ok": true, "device": {...}}``.
+  6. swattn   — the banded attention kernel against its plain version
+                (``swattn_ref``) on the card: float32 and bfloat16, window
+                0 / 300 / 1500 over a ragged S = 1000, H/KV 32/8, 8/8 and
+                4/1, hd 64 / 80 / 128, B = 2. float32 within
+                rtol=atol=3e-4; bfloat16 within 3e-2 (p is rounded to
+                bfloat16 before the PV product).
+  7. dwconv1d — the causal depthwise conv kernel against its plain version
+                (``dwconv1d_ref``): k 2 and 4, C 3200 and 130, S 1000 and
+                37, float32 and bfloat16, bit-exact (the plain version
+                repeats the kernel's roundings).
+  8. LM       — ``h2o-danube-1.8b`` at full width (24 layers, d 2560, 32/8
+                heads, hd 80, window 4096, vocab 32000), random weights
+                from a seeded generator, one sequence of 8192 seeded
+                tokens, through ``train_forward`` with ``use_pallas_attn``
+                off (plain attention) and on (the kernel): float32 with
+                TF32 off, then bfloat16. Every kernel forward must add
+                exactly 24 ``swattn`` launches; the logits must be finite
+                and agree (float32: max |Δ| within 1e-3 of max |logit|;
+                bfloat16: relative L2 error within ``LM_TOL``). Two
+                bfloat16 controls, the attention output zeroed and the
+                window ignored, must land beyond that limit. Prints each
+                forward's ms, tokens/s and the kernel's share, and a
+                ``torch.profiler`` breakdown of one bf16 kernel forward
+                (device busy/idle share, top kernels).
+  9. mamba    — ``mamba_block`` at hymba-1.5b width (d 1600, d_in 3200,
+                25 heads, state 16, conv 4), bfloat16, B = 2, S = 4096,
+                with ``use_pallas_conv`` on (one ``dwconv1d`` launch per
+                block) and off, twice each (the second run timed); the
+                outputs agree bit for bit; a profiler breakdown.
+ 10. timing   — both new kernels at their path's shapes, first held
+                against their plain versions there (``swattn`` float32
+                within 3e-4, bfloat16 within rtol=atol=1e-2 and relative
+                L2 1e-2; ``dwconv1d`` bit-exact), then timed with CUDA
+                events: kernel, bound, plain version and a library
+                yardstick the port never calls (SDPA with a band mask and
+                GQA; ``F.conv1d`` with groups=C on a pre-padded input).
+
+Every main path (serving, LM, mamba) runs with the three launch counts
+set to 0 just before it and read just after. The line before the last is
+the ``kernels`` JSON summary; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -60,6 +100,50 @@ FORMS = ("direct", "transposed", "tree", "compress", "separable")
 ROUNDINGS = ("truncate", "nearest", "nearest_even")
 KERNEL_SOURCE = "src/repro_torch/kernels/filter2d/csrc/filter2d_halo.cuh"
 REPLACES = "src/repro/kernels/filter2d/kernel.py:349"
+SWATTN_SOURCE = "src/repro_torch/kernels/swattn/csrc/swattn.cu"
+SWATTN_REPLACES = "src/repro/kernels/swattn/kernel.py:76"
+DWCONV_SOURCE = "src/repro_torch/kernels/dwconv1d/csrc/dwconv1d.cu"
+DWCONV_REPLACES = "src/repro/kernels/dwconv1d/kernel.py:40"
+# LM logits, kernel against plain attention. bfloat16 relative L2 on an
+# H100: 1.2e-2 when sound, 0.14 with the window ignored and 0.95 with the
+# attention output zeroed (the phase's controls); 4e-2 sits about 3.5x
+# from the sound reading and from the nearer fault.
+LM_TOL = {"float32": 1e-3, "bfloat16": 4e-2}
+# swattn at the LM's own shape, where the mean |o| is 0.03: bfloat16 is
+# held to relative L2 1e-2 as well as rtol=atol=1e-2 (an H100 reads 1.8e-3
+# and 3.9e-3), so a kernel that returns zeros cannot pass.
+MAIN_TOL = {"float32": (3e-4, 3e-4), "bfloat16": (1e-2, 1e-2)}
+
+
+def counters():
+    """The launch counters of the three kernel wrappers, by name."""
+    from repro_torch.kernels.dwconv1d import kernel as DW
+    from repro_torch.kernels.filter2d import kernel as F2
+    from repro_torch.kernels.swattn import kernel as SW
+    return {"filter2d_halo": F2.filter2d_halo, "swattn": SW.swattn,
+            "dwconv1d": DW.dwconv1d}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+class saved_counts:
+    """Restores every launch count on exit: launches made to compare a
+    kernel with its plain version, or to time it, are not the main
+    path's."""
+
+    def __enter__(self):
+        self.saved = read_counts()
+
+    def __exit__(self, *exc):
+        for name, fn in counters().items():
+            fn.launches = self.saved[name]
 
 
 def ptxas_summary(text: str):
@@ -76,16 +160,25 @@ def ptxas_summary(text: str):
                       line)
         if m and name:
             spill = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-        if m and name:
-            rows.append((name, int(m.group(1)), int(m.group(2)), spill))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:               # no "bytes smem": no static shared memory
+            sm = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, int(m.group(1)), int(sm.group(1)) if sm else 0,
+                         spill))
             name = None
     return rows
 
 
 def kernel_label(mangled: str) -> str:
-    """``filter2d_halo<storage,acc,out,wW,form>`` from a mangled name."""
+    """``filter2d_halo<storage,acc,out,wW,form>``, ``swattn<dtype,hdN>`` or
+    ``dwconv1d<dtype,kN>`` from a mangled name."""
     import re
+    m = re.search(r"(swattn|dwconv1d)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                  mangled)
+    if m:
+        dt = "f32" if m.group(2) == "f" else "bf16"
+        arg = "hd" if m.group(1) == "swattn" else "k"
+        return f"{m.group(1)}<{dt},{arg}{m.group(3)}>"
     m = re.search(r"filter2d_halo_kernelI(.*?)Li(\d+)ELi(\d+)E", mangled)
     if not m:
         return mangled
@@ -246,7 +339,7 @@ class Smoke:
         picks[:len(templates)] = np.arange(len(templates))  # every template
         engine = FilterServeEngine(batch_size=4, device="cuda")
         try:
-            K.filter2d_halo.launches = 0
+            reset_counts()
             t0 = time.perf_counter()
             handles = [(ti, engine.submit(
                 templates[ti].frame, templates[ti].coeffs,
@@ -352,24 +445,27 @@ class Smoke:
             cf = t.spec.compile(batched_shape(t.frame.shape, 4), "cuda",
                                 device="cuda")
             parts = []
-            for _ in range(reps + 1):
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-                t0 = time.perf_counter()
-                x = admit_batch([t.frame] * 4, 4, pin_memory=True)
-                t1 = time.perf_counter()
-                ev[0].record()
-                xd = x.to("cuda", non_blocking=True)
-                ev[1].record()
-                y = cf(xd, t.coeffs, gains=t.gains)
-                ev[2].record()
-                yh = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-                yh.copy_(y, non_blocking=True)
-                ev[3].record()
-                ev[3].synchronize()
-                t2 = time.perf_counter()
-                parts.append(((t1 - t0) * 1e3, ev[0].elapsed_time(ev[1]),
-                              ev[1].elapsed_time(ev[2]),
-                              ev[2].elapsed_time(ev[3]), (t2 - t0) * 1e3))
+            with saved_counts():
+                for _ in range(reps + 1):
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(4)]
+                    t0 = time.perf_counter()
+                    x = admit_batch([t.frame] * 4, 4, pin_memory=True)
+                    t1 = time.perf_counter()
+                    ev[0].record()
+                    xd = x.to("cuda", non_blocking=True)
+                    ev[1].record()
+                    y = cf(xd, t.coeffs, gains=t.gains)
+                    ev[2].record()
+                    yh = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+                    yh.copy_(y, non_blocking=True)
+                    ev[3].record()
+                    ev[3].synchronize()
+                    t2 = time.perf_counter()
+                    parts.append(((t1 - t0) * 1e3, ev[0].elapsed_time(ev[1]),
+                                  ev[1].elapsed_time(ev[2]),
+                                  ev[2].elapsed_time(ev[3]),
+                                  (t2 - t0) * 1e3))
             med = [float(v) for v in np.median(np.asarray(parts[1:]),
                                                axis=0)]
             self.say(f"wave {t.bucket} batch 4 {tuple(x.shape)} "
@@ -378,78 +474,503 @@ class Smoke:
                      f"{med[3]!r} ms, wall {med[4]!r} ms (medians of {reps})")
 
     def timing_phase(self, templates):
+        rows = {}
+        with saved_counts():
+            for t in templates:
+                if t.bucket not in rows:
+                    rows[t.bucket] = self._filter_timing(t)
+        return rows
+
+    def _filter_timing(self, t):
+        """One bucket's kernel, plain and library times, and its bound."""
         import numpy as np
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.core.borders import extend
         from repro_torch.core.pipeline import batched_shape
         from repro_torch.kernels.filter2d import kernel as K
-        rows = {}
-        saved = K.filter2d_halo.launches
-        for t in templates:
-            if t.bucket in rows:
-                continue
-            cf = t.spec.compile(batched_shape(t.frame.shape, 4), "cuda",
-                                device="cuda")
-            planes = torch.from_numpy(np.stack([t.frame] * 4)).cuda()
-            fixed = t.spec.requant is not None
-            co = torch.as_tensor(np.asarray(t.coeffs)).cuda()
-            co = co.to(torch.int32 if fixed else torch.float32)[None]
-            co = co.contiguous()
-            q = None
-            if t.gains is not None:
-                q = torch.tensor(t.gains.params(1), dtype=torch.int32,
-                                 device="cuda")
-            M, H, W = planes.shape
-            w = t.spec.window
+        cf = t.spec.compile(batched_shape(t.frame.shape, 4), "cuda",
+                            device="cuda")
+        planes = torch.from_numpy(np.stack([t.frame] * 4)).cuda()
+        fixed = t.spec.requant is not None
+        co = torch.as_tensor(np.asarray(t.coeffs)).cuda()
+        co = co.to(torch.int32 if fixed else torch.float32)[None]
+        co = co.contiguous()
+        q = None
+        if t.gains is not None:
+            q = torch.tensor(t.gains.params(1), dtype=torch.int32,
+                             device="cuda")
+        M, H, W = planes.shape
+        w = t.spec.window
 
-            def kern():
-                return K.filter2d_halo(planes, co, cf.plan, q_params=q,
+        def kern():
+            return K.filter2d_halo(planes, co, cf.plan, q_params=q,
+                                   form=t.spec.form)
+
+        def plain():
+            return K.filter2d_halo_ref(planes, co, cf.plan, q_params=q,
                                        form=t.spec.form)
 
-            def plain():
-                return K.filter2d_halo_ref(planes, co, cf.plan, q_params=q,
-                                           form=t.spec.form)
+        ms = self._time(kern, 50)
+        plain_ms = self._time(plain, 5, warmup=1)
+        lib_ms = None
+        if not fixed:
+            torch.backends.cudnn.allow_tf32 = False
+            xp = extend(planes, w // 2, t.spec.border)[:, None]
+            wt = co[:, None]
 
-            ms = self._time(kern, 50)
-            plain_ms = self._time(plain, 5, warmup=1)
-            lib_ms = None
-            if not fixed:
-                torch.backends.cudnn.allow_tf32 = False
-                xp = extend(planes, w // 2, t.spec.border)[:, None]
-                wt = co[:, None]
+            def lib():
+                return F.conv2d(xp, wt)
+            err = float((lib()[:, 0] - kern()[:, 0]).abs().max())
+            if err > 1e-3:
+                raise AssertionError(f"yardstick conv2d disagrees: {err}")
+            lib_ms = self._time(lib, 50)
+        out = kern()
+        bytes_moved = (planes.numel() * planes.element_size()
+                       + out.numel() * out.element_size())
+        ops = 2 * w * w * out.numel()
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS_PER_S[t.spec.dtype] * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        row = {"bucket": t.bucket, "shape": [M, H, W], "w": w,
+               "dtype": t.spec.dtype, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes" if bytes_ms >= ops_ms
+               else "operations",
+               "bytes": bytes_moved, "ops": ops,
+               "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+        self.say(f"timing {t.bucket} planes [{M},{H},{W}] w{w} "
+                 f"{t.spec.dtype}: kernel {ms!r} ms, bound {bound_ms!r} "
+                 f"ms ({row['bound_by']}: {bytes_moved} B / 3.35 TB/s = "
+                 f"{bytes_ms!r} ms; {ops} ops / "
+                 f"{PEAK_OPS_PER_S[t.spec.dtype]:.3g} op/s = "
+                 f"{ops_ms!r} ms), plain {plain_ms!r} ms, library "
+                 f"{lib_ms!r} ms, {bytes_moved / (ms * 1e-3) / 1e12!r} "
+                 "TB/s achieved")
+        return row
 
-                def lib():
-                    return F.conv2d(xp, wt)
-                err = float((lib()[:, 0] - kern()[:, 0]).abs().max())
-                if err > 1e-3:
-                    raise AssertionError(f"yardstick conv2d disagrees: {err}")
-                lib_ms = self._time(lib, 50)
-            out = kern()
-            bytes_moved = (planes.numel() * planes.element_size()
-                           + out.numel() * out.element_size())
-            ops = 2 * w * w * out.numel()
-            bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / PEAK_OPS_PER_S[t.spec.dtype] * 1e3
-            bound_ms = max(bytes_ms, ops_ms)
-            row = {"bucket": t.bucket, "shape": [M, H, W], "w": w,
-                   "dtype": t.spec.dtype, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "bound_ms": bound_ms,
-                   "bound_by": "bytes" if bytes_ms >= ops_ms
-                   else "operations",
-                   "bytes": bytes_moved, "ops": ops,
-                   "bytes_ms": bytes_ms, "ops_ms": ops_ms}
-            rows[t.bucket] = row
-            self.say(f"timing {t.bucket} planes [{M},{H},{W}] w{w} "
-                     f"{t.spec.dtype}: kernel {ms!r} ms, bound {bound_ms!r} "
-                     f"ms ({row['bound_by']}: {bytes_moved} B / 3.35 TB/s = "
-                     f"{bytes_ms!r} ms; {ops} ops / "
-                     f"{PEAK_OPS_PER_S[t.spec.dtype]:.3g} op/s = "
-                     f"{ops_ms!r} ms), plain {plain_ms!r} ms, library "
-                     f"{lib_ms!r} ms, {bytes_moved / (ms * 1e-3) / 1e12!r} "
-                     "TB/s achieved")
-        K.filter2d_halo.launches = saved
+    def profile(self, label: str, fn, top: int = 8) -> None:
+        """One warm call of ``fn`` under ``torch.profiler``: the device's
+        busy and idle share of the call's wall time, and the kernels that
+        took the most device time. Its launches are not the main
+        path's."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        with saved_counts():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for e in prof.key_averages():
+            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                rows.append((us / 1e3, e.count, e.key))
+        if not rows:
+            self.say(f"profile {label}: the profiler saw no device time "
+                     f"(wall {wall_ms!r} ms)")
+            return
+        busy = sum(r[0] for r in rows)
+        self.say(f"profile {label}: wall {wall_ms!r} ms (profiled), device "
+                 f"busy {busy!r} ms, idle share {1 - busy / wall_ms!r}, "
+                 f"{len(rows)} kernel names")
+        for ms, count, key in sorted(rows, reverse=True)[:top]:
+            self.say(f"profile {label}:   {ms!r} ms ({ms / busy:.3f} of "
+                     f"busy) x{count} {key[:90]}")
+
+    # -- phase 6 -------------------------------------------------------------
+
+    def _agree(self, what: str, got, ref, tol: float,
+               rel_l2: float | None = None) -> float:
+        """max |got - ref|, after checking shape, dtype, finiteness,
+        allclose(rtol=atol=tol) and, where given, the relative L2 error."""
+        torch = self.torch
+        if got.shape != ref.shape or got.dtype != ref.dtype:
+            raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+                                 f"{tuple(ref.shape)} {ref.dtype}")
+        g, r = got.float(), ref.float()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: non-finite output")
+        err = float((g - r).abs().max())
+        if not torch.allclose(g, r, rtol=tol, atol=tol):
+            raise AssertionError(f"{what}: max |err| {err} over "
+                                 f"rtol=atol={tol}")
+        if rel_l2 is not None:
+            rel = float((g - r).norm() / r.norm())
+            self.say(f"{what}: max |err| {err!r}, relative L2 {rel!r} "
+                     f"(mean |ref| {float(r.abs().mean())!r})")
+            if not rel <= rel_l2:
+                raise AssertionError(f"{what}: relative L2 error {rel} over "
+                                     f"{rel_l2}")
+        return err
+
+    def _equal(self, what: str, got, ref) -> None:
+        """Bit-exact: the plain version repeats the kernel's roundings."""
+        if got.shape != ref.shape or got.dtype != ref.dtype:
+            raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+                                 f"{tuple(ref.shape)} {ref.dtype}")
+        if not self.torch.equal(got, ref):
+            diff = float((got.float() - ref.float()).abs().max())
+            raise AssertionError(f"{what}: not bit-exact (max |err| {diff})")
+
+    def swattn_phase(self):
+        import numpy as np
+        torch = self.torch
+        from repro_torch.kernels.swattn import kernel as SW
+        rng = np.random.default_rng(12)
+        errs, n = {}, 0
+        B, S = 2, 1000
+        with saved_counts():
+            for dt in ("float32", "bfloat16"):
+                for H, KV in ((32, 8), (8, 8), (4, 1)):
+                    for hd in (64, 80, 128):
+                        q = torch.from_numpy(rng.standard_normal(
+                            (B, S, H, hd)).astype(np.float32)).cuda()
+                        k, v = (torch.from_numpy(rng.standard_normal(
+                            (B, S, KV, hd)).astype(np.float32)).cuda()
+                            for _ in range(2))
+                        q, k, v = (t.to(getattr(torch, dt)) for t in (q, k, v))
+                        for window in (0, 300, 1500):
+                            got = SW.swattn(q, k, v, window=window,
+                                            scale=hd ** -0.5)
+                            ref = SW.swattn_ref(q, k, v, window=window,
+                                                scale=hd ** -0.5)
+                            torch.cuda.synchronize()
+                            err = self._agree(
+                                f"swattn {dt} H{H}/{KV} hd{hd} w{window} "
+                                f"[{B},{S}]", got, ref, TOL[dt])
+                            errs[dt] = max(errs.get(dt, 0.0), err)
+                            n += 1
+        for dt, e in errs.items():
+            self.say(f"swattn phase: {dt} max |kernel - plain| = {e!r}")
+        self.say(f"swattn phase: {n} cases agree")
+        return max(errs.values())
+
+    # -- phase 7 -------------------------------------------------------------
+
+    def dwconv_phase(self):
+        import numpy as np
+        torch = self.torch
+        from repro_torch.kernels.dwconv1d import kernel as DW
+        rng = np.random.default_rng(13)
+        n = 0
+        with saved_counts():
+            for dt in ("float32", "bfloat16"):
+                tdt = getattr(torch, dt)
+                for k in (2, 4):
+                    for C in (3200, 130):
+                        for S in (1000, 37):
+                            x = torch.from_numpy(rng.standard_normal(
+                                (2, S, C)).astype(np.float32)).to("cuda", tdt)
+                            w = torch.from_numpy((rng.standard_normal(
+                                (k, C)) / k).astype(np.float32)).to("cuda", tdt)
+                            b = torch.from_numpy(rng.standard_normal(C).astype(
+                                np.float32)).to("cuda", tdt)
+                            got = DW.dwconv1d(x, w, b)
+                            ref = DW.dwconv1d_ref(x, w, b)
+                            torch.cuda.synchronize()
+                            self._equal(f"dwconv1d {dt} k{k} C{C} S{S}",
+                                        got, ref)
+                            n += 1
+        self.say(f"dwconv1d phase: {n} cases agree bit for bit")
+
+    # -- phase 8 -------------------------------------------------------------
+
+    def lm_phase(self, seq: int = 8192, seed: int = 0):
+        """h2o-danube-1.8b at full width through ``train_forward``, plain
+        attention against the kernel, float32 then bfloat16. Returns
+        ({dtype: {kernel?: forward ms}}, the layer count, the swattn
+        launches of the phase)."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.configs.base import SHAPES, RunConfig
+        from repro_torch.configs.base import get_model_config
+        from repro_torch.models import registry
+        full = get_model_config("h2o_danube_1_8b")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tokens = torch.randint(0, full.vocab_size, (1, seq), generator=gen,
+                               device="cuda")
+        rc = RunConfig(model=full, shape=SHAPES["train_4k"])
+        params = registry.build(rc, device="cuda").init_params(
+            torch.Generator(device="cuda").manual_seed(seed))
+        nparams = sum(t.numel() for t in _leaves(params))
+        self.say(f"LM phase: {full.name}, {nparams} parameters (float32), "
+                 f"{full.num_layers} layers, d {full.d_model}, heads "
+                 f"{full.num_heads}/{full.num_kv_heads}, hd "
+                 f"{full.resolved_head_dim()}, window {full.attn_window}, "
+                 f"1 x {seq} tokens")
+        reset_counts()
+        fwd_ms = {}
+        for dt in ("float32", "bfloat16"):
+            logits, ms = {}, {}
+            for flag in (False, True):
+                mc = dataclasses.replace(full, dtype=dt, use_pallas_attn=flag)
+                bundle = registry.build(RunConfig(model=mc, shape=rc.shape),
+                                        device="cuda")
+                for rep in range(2):          # the second run is timed
+                    before = read_counts()["swattn"]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out, _ = bundle.train_forward(params,
+                                                  {"inputs": tokens})
+                    torch.cuda.synchronize()
+                    ms[flag] = (time.perf_counter() - t0) * 1e3
+                    added = read_counts()["swattn"] - before
+                    want = full.num_layers if flag else 0
+                    if added != want:
+                        raise AssertionError(f"LM {dt} kernel={flag}: "
+                                             f"{added} swattn launches, "
+                                             f"expected {want}")
+                    if rep == 0:
+                        logits[flag] = out
+                    del out
+            a, r = logits[True].float(), logits[False].float()
+            if tuple(a.shape) != (1, seq, full.vocab_size):
+                raise AssertionError(f"LM {dt}: logits {tuple(a.shape)}")
+            if not (bool(torch.isfinite(a).all())
+                    and bool(torch.isfinite(r).all())):
+                raise AssertionError(f"LM {dt}: non-finite logits")
+            max_abs = float((a - r).abs().max())
+            scale = float(r.abs().max())
+            rel_l2 = float((a - r).norm() / r.norm())
+            ok = (max_abs <= LM_TOL[dt] * scale if dt == "float32"
+                  else rel_l2 <= LM_TOL[dt])
+            self.say(f"LM {dt}: kernel vs plain attention logits: max |Δ| "
+                     f"{max_abs!r} (max |logit| {scale!r}, ratio "
+                     f"{max_abs / scale!r}), relative L2 {rel_l2!r}; "
+                     f"forward {ms[False]!r} ms plain, {ms[True]!r} ms "
+                     f"kernel ({seq / (ms[True] * 1e-3)!r} tokens/s)")
+            if not ok:
+                raise AssertionError(f"LM {dt}: kernel and plain logits "
+                                     f"disagree beyond {LM_TOL[dt]}")
+            if dt == "bfloat16":
+                self._lm_controls(bundle, params, tokens, r)
+            fwd_ms[dt] = ms
+            del logits, a, r
+        launches = read_counts()
+        self.profile("LM bf16 forward (kernel attention)",
+                     lambda: bundle.train_forward(params, {"inputs": tokens}))
+        if launches != {"filter2d_halo": 0, "swattn": 2 * 2 * full.num_layers,
+                        "dwconv1d": 0}:
+            raise AssertionError(f"LM phase: counts {launches}")
+        del params
+        torch.cuda.empty_cache()
+        return fwd_ms, full.num_layers, launches["swattn"]
+
+    def _lm_controls(self, bundle, params, tokens, plain_logits) -> None:
+        """Upper readings of the bfloat16 logits check: the kernel forward
+        with the attention output zeroed, and with the window ignored
+        (full causal attention). Each must land beyond ``LM_TOL``, or the
+        check could not tell such a kernel from a sound one."""
+        torch = self.torch
+        from repro_torch.models import transformer
+        real = transformer.swattn_cuda
+        faults = {
+            "attention zeroed":
+                lambda q, k, v, *, window, scale: torch.zeros_like(q),
+            "window ignored":
+                lambda q, k, v, *, window, scale: real(q, k, v, window=0,
+                                                       scale=scale)}
+        r, rel = plain_logits, {}
+        try:
+            with saved_counts():
+                for name, fault in faults.items():
+                    transformer.swattn_cuda = fault
+                    out, _ = bundle.train_forward(params, {"inputs": tokens})
+                    rel[name] = float((out.float() - r).norm() / r.norm())
+                    del out
+                    self.say(f"LM bfloat16 control, {name}: relative L2 "
+                             f"{rel[name]!r} against plain attention (limit "
+                             f"{LM_TOL['bfloat16']})")
+        finally:
+            transformer.swattn_cuda = real
+        passed = [name for name, e in rel.items()
+                  if not e > LM_TOL["bfloat16"]]
+        if passed:
+            raise AssertionError(f"LM bfloat16: the logits check passes a "
+                                 f"kernel with the {' / '.join(passed)}")
+
+    # -- phase 9 -------------------------------------------------------------
+
+    def mamba_phase(self, batch: int = 2, seq: int = 4096, seed: int = 1):
+        """One mamba block at hymba-1.5b width, bfloat16, the conv through
+        the kernel and through the plain layer."""
+        torch = self.torch
+        from repro_torch.configs.base import get_model_config
+        from repro_torch.models import module, ssm
+        mc = get_model_config("hymba_1_5b")
+        specs = ssm.mamba_specs(mc.d_model, expand=mc.ssm_expand,
+                                heads=mc.mamba_heads, state=mc.ssm_state,
+                                conv_width=mc.ssm_conv_width)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = module.init_params(specs, gen)
+        x = torch.randn((batch, seq, mc.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        reset_counts()
+        out, ms = {}, {}
+        for flag in (True, False):
+            for rep in range(2):              # the second run is timed
+                before = read_counts()["dwconv1d"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[flag], _ = ssm.mamba_block(x, params, mc,
+                                               use_pallas_conv=flag)
+                torch.cuda.synchronize()
+                ms[flag] = (time.perf_counter() - t0) * 1e3
+                if read_counts()["dwconv1d"] - before != int(flag):
+                    raise AssertionError(f"mamba kernel={flag}: expected "
+                                         f"{int(flag)} dwconv1d launch")
+        launches = read_counts()
+        if launches != {"filter2d_halo": 0, "swattn": 0, "dwconv1d": 2}:
+            raise AssertionError(f"mamba phase: counts {launches}")
+        # the kernel repeats the plain conv's roundings, so the blocks match
+        self._equal(f"mamba block [{batch},{seq},{mc.d_model}] bf16",
+                    out[True], out[False])
+        self.say(f"mamba phase: d_in {mc.ssm_expand * mc.d_model}, "
+                 f"{mc.mamba_heads} heads, state {mc.ssm_state}, conv "
+                 f"{mc.ssm_conv_width}, [{batch},{seq}] bf16: kernel conv "
+                 f"and plain conv blocks bit-exact; block {ms[True]!r} ms "
+                 f"(kernel conv), {ms[False]!r} ms (plain conv); one "
+                 "dwconv1d launch per kernel-conv block")
+        self.profile("mamba block (kernel conv)", lambda: ssm.mamba_block(
+            x, params, mc, use_pallas_conv=True))
+        return launches["dwconv1d"]
+
+    # -- phase 10 ------------------------------------------------------------
+
+    def _row(self, name, shape, dtype, ms, plain_ms, lib_ms, bytes_moved,
+             ops, peak):
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / peak * 1e3
+        row = {"name": name, "shape": shape, "dtype": dtype, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bytes": bytes_moved, "ops": ops, "bytes_ms": bytes_ms,
+               "ops_ms": ops_ms}
+        self.say(f"timing {name} {shape} {dtype}: kernel {ms!r} ms, bound "
+                 f"{row['bound_ms']!r} ms ({row['bound_by']}: {bytes_moved} "
+                 f"B / 3.35 TB/s = {bytes_ms!r} ms; {ops} ops / {peak:.3g} "
+                 f"op/s = {ops_ms!r} ms), plain {plain_ms!r} ms, library "
+                 f"{lib_ms!r} ms, {ops / (ms * 1e-3) / 1e12!r} TFLOP/s "
+                 "achieved")
+        return row
+
+    def swattn_timing(self, S=8192, H=32, KV=8, hd=80, window=4096):
+        import torch.nn.functional as F
+        torch = self.torch
+        from repro_torch.kernels.swattn import kernel as SW
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        pairs = (window * (window + 1) // 2 + (S - window) * window
+                 if 0 < window < S else S * (S + 1) // 2)
+        ops = 4 * hd * pairs * H
+        rows = {}
+        with saved_counts():
+            for dt in ("bfloat16", "float32"):
+                tdt = getattr(torch, dt)
+                q = torch.randn((1, S, H, hd), generator=gen, device="cuda"
+                                ).to(tdt)
+                k, v = (torch.randn((1, S, KV, hd), generator=gen,
+                                    device="cuda").to(tdt) for _ in range(2))
+                scale = hd ** -0.5
+
+                def kern():
+                    return SW.swattn(q, k, v, window=window, scale=scale)
+
+                def plain():
+                    return SW.swattn_ref(q, k, v, window=window, scale=scale)
+
+                rtol, rel = MAIN_TOL[dt]
+                err = self._agree(
+                    f"swattn {dt} [1,{S},{H}/{KV},{hd}] w{window} vs plain",
+                    kern(), plain(), rtol, rel)
+                ms = self._time(kern, 5, warmup=1)
+                plain_ms = self._time(plain, 2, warmup=1)
+                lib_ms = None
+                if dt == "bfloat16":
+                    pos = torch.arange(S, device="cuda")
+                    band = ((pos[None, :] <= pos[:, None])
+                            & (pos[:, None] - pos[None, :] < window))
+                    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+                    def lib():
+                        return F.scaled_dot_product_attention(
+                            qt, kt, vt, attn_mask=band, scale=scale,
+                            enable_gqa=True)
+                    self._agree("yardstick SDPA vs kernel",
+                                lib().transpose(1, 2), kern(), TOL[dt],
+                                2 * rel)
+                    lib_ms = self._time(lib, 5, warmup=1)
+                nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+                rows[dt] = self._row(
+                    "swattn", [1, S, H, KV, hd, window], dt, ms, plain_ms,
+                    lib_ms, nbytes, ops, PEAK_OPS_PER_S[dt])
+                rows[dt]["max_abs_err"] = err
+                del q, k, v
         return rows
+
+    def dwconv_timing(self, B=2, S=4096, C=3200, k=4):
+        import torch.nn.functional as F
+        torch = self.torch
+        from repro_torch.kernels.dwconv1d import kernel as DW
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        x = torch.randn((B, S, C), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        w = (torch.randn((k, C), generator=gen, device="cuda") / k
+             ).to(torch.bfloat16)
+        b = torch.randn((C,), generator=gen, device="cuda").to(torch.bfloat16)
+        xp = F.pad(x.transpose(1, 2), (k - 1, 0)).contiguous()   # [B,C,S+k-1]
+        wc = w.t().contiguous()[:, None, :]                        # [C,1,k]
+
+        def lib():
+            return F.conv1d(xp, wc, b, groups=C)
+        with saved_counts():
+            self._equal(f"dwconv1d bf16 [{B},{S},{C}] k{k} vs plain",
+                        DW.dwconv1d(x, w, b), DW.dwconv1d_ref(x, w, b))
+            ms = self._time(lambda: DW.dwconv1d(x, w, b), 20)
+            plain_ms = self._time(lambda: DW.dwconv1d_ref(x, w, b), 5)
+            self._agree("yardstick conv1d", lib().transpose(1, 2),
+                        DW.dwconv1d(x, w, b), TOL["bfloat16"])
+            lib_ms = self._time(lib, 20)
+        nbytes = (2 * x.numel() + w.numel() + b.numel()) * x.element_size()
+        return self._row("dwconv1d", [B, S, C, k], "bfloat16", ms, plain_ms,
+                         lib_ms, nbytes, 2 * k * x.numel(),
+                         PEAK_OPS_PER_S["bfloat16"])
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def ptxas_report(smoke, libs) -> None:
+    """Per kernel library: each instantiation's registers, static shared
+    memory and spills, and a summary line."""
+    for lib in libs:
+        kernels = ptxas_summary(lib.ptxas_log.read_text())
+        if not kernels:
+            raise AssertionError(f"no kernel in {lib.name}'s ptxas report")
+        for mangled, nreg, smem, spill in kernels:
+            print(f"ptxas {kernel_label(mangled)}: {nreg} registers, {smem} "
+                  f"B static shared memory, {spill} B spilled")
+        regs = [k[1] for k in kernels]
+        smem = [k[2] for k in kernels]
+        smoke.say(f"ptxas {lib.name}: {len(kernels)} kernel instantiations, "
+                  f"registers {min(regs)}..{max(regs)}, static shared memory "
+                  f"{min(smem)}..{max(smem)} B, spill bytes "
+                  f"{sum(k[3] for k in kernels)} (full report: "
+                  f"{lib.ptxas_log.relative_to(ROOT)})")
 
 
 def main() -> int:
@@ -467,26 +988,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.kernels.filter2d import _build
+    from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    lib = _build.build(verbose=True)
-    _build.load_library()
+    libs = _build.all_libraries()
+    paths = _build.build_all(libs, verbose=True)
+    for lib in libs:
+        lib.load()
     smoke = Smoke(torch, card)
-    kernels = ptxas_summary(_build.PTXAS_LOG.read_text())
-    if not kernels:
-        raise AssertionError("no kernel in the ptxas report")
-    for mangled, nreg, smem, spill in kernels:
-        print(f"ptxas {kernel_label(mangled)}: {nreg} registers, {smem} B "
-              f"static shared memory, {spill} B spilled")
-    regs = [k[1] for k in kernels]
-    smem = [k[2] for k in kernels]
-    smoke.say(f"ptxas: {len(kernels)} kernel instantiations, registers "
-              f"{min(regs)}..{max(regs)}, static shared memory "
-              f"{min(smem)}..{max(smem)} B, spill bytes "
-              f"{sum(k[3] for k in kernels)} (full report: "
-              f"{_build.PTXAS_LOG.relative_to(ROOT)})")
-    smoke.say(f"build: {lib.relative_to(ROOT)} in "
-              f"{time.perf_counter() - t0:.1f} s")
+    ptxas_report(smoke, libs)
+    smoke.say("build: " + ", ".join(str(p.relative_to(ROOT)) for p in paths)
+              + f" in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     smoke.kernel_phase()
@@ -496,7 +1007,32 @@ def main() -> int:
     smoke.say(f"serving phase took {time.perf_counter() - t0:.1f} s")
     rows = smoke.timing_phase(templates)
     smoke.wave_breakdown(templates)
+
+    t0 = time.perf_counter()
+    sw_err = smoke.swattn_phase()
+    smoke.say(f"swattn phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    smoke.dwconv_phase()
+    smoke.say(f"dwconv1d phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fwd_ms, layers, sw_launches = smoke.lm_phase()
+    smoke.say(f"LM phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dw_launches = smoke.mamba_phase()
+    smoke.say(f"mamba phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sw_rows = smoke.swattn_timing()
+    dw_row = smoke.dwconv_timing()
+    for dt, ms in fwd_ms.items():
+        share = layers * sw_rows[dt]["ms"] / ms[True]
+        smoke.say(f"LM {dt}: {layers} swattn launches x "
+                  f"{sw_rows[dt]['ms']!r} ms = {share!r} of the kernel "
+                  f"forward ({ms[True]!r} ms)")
+    smoke.say(f"timing phase (swattn, dwconv1d) took "
+              f"{time.perf_counter() - t0:.1f} s")
+
     main_row = rows["w5f32"]
+    sw = sw_rows["bfloat16"]
     summary = {"kernels": [{
         "name": "filter2d_halo", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
@@ -505,7 +1041,22 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": main_row["shape"], "buckets": list(rows.values()),
-        "card": card}]}
+        "card": card}, {
+        "name": "swattn", "route": "cuda", "source": SWATTN_SOURCE,
+        "replaces": SWATTN_REPLACES, "launches": sw_launches,
+        "max_abs_err": max(sw_err, sw_rows["bfloat16"]["max_abs_err"],
+                           sw_rows["float32"]["max_abs_err"]),
+        "ms": sw["ms"], "plain_ms": sw["plain_ms"],
+        "bound_ms": sw["bound_ms"], "bound_by": sw["bound_by"],
+        "library_ms": sw["library_ms"], "shape": sw["shape"],
+        "dtype": sw["dtype"], "float32": sw_rows["float32"],
+        "card": card}, {
+        "name": "dwconv1d", "route": "cuda", "source": DWCONV_SOURCE,
+        "replaces": DWCONV_REPLACES, "launches": dw_launches,
+        "max_abs_err": 0.0, "ms": dw_row["ms"],       # bit-exact
+        "plain_ms": dw_row["plain_ms"], "bound_ms": dw_row["bound_ms"],
+        "bound_by": dw_row["bound_by"], "library_ms": dw_row["library_ms"],
+        "shape": dw_row["shape"], "dtype": dw_row["dtype"], "card": card}]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,17 @@
-"""Carry a filter's state across from the reference package.
+"""Carry state across from the reference package.
 
 ``from_reference`` takes the reference's ``Filter2D`` as
 ``dataclasses.asdict(spec)`` (plain dicts and numbers, so the port never
 imports the reference) plus its coefficients and gains as numpy, and
-returns the port's spec, coefficient tensor and [N, 2] gains table — so
-the two packages can be run on the same state and their results
-compared.
+returns the port's spec, coefficient tensor and [N, 2] gains table.
+``params_from_reference`` takes a model's parameter tree as numpy and
+returns the port's. Either way the two packages can be run on the same
+state and their results compared.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +19,7 @@ import torch
 from repro_torch.core.border_spec import BorderSpec
 from repro_torch.core.pipeline import Filter2D
 from repro_torch.core.requant import RequantSpec
+from repro_torch.device import resolve_device
 
 
 def from_reference(spec_fields: dict, coeffs, gains=None
@@ -70,3 +72,33 @@ def from_reference(spec_fields: dict, coeffs, gains=None
         raise ValueError(f"gains table must be [{n}, 2]; got "
                          f"{tuple(table.shape)}")
     return spec, co, table.contiguous()
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes: numpy has no bfloat16
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def params_from_reference(tree: Dict[str, Any], device="cuda"
+                          ) -> Dict[str, Any]:
+    """The port's parameters for a reference parameter tree.
+
+    ``tree``: nested dicts of numpy arrays as the reference's
+    ``init_params`` returns them (``jax.tree.map(np.asarray, params)``):
+    a whole LM (``embed``, ``stage_<i>`` with each leaf stacked over the
+    stage's layers on axis 0, ``final_norm``, ``head``, ``meta_tokens``)
+    or one block's params (a mamba block's ``in_proj``, ``conv``, …). The
+    port keeps the same names, layouts and dtypes, so the result is the
+    same tree of tensors on ``device`` (the card unless the caller passes
+    ``device='cpu'``).
+    """
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _tensor(node).to(dev)
+    return conv(tree)

@@ -23,12 +23,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
+
 
 @dataclasses.dataclass
 class CoefficientFile:
     """Runtime coefficient store for a bank of filters of window <= w_max.
 
-    ``table``: [num_slots, w_max, w_max] tensor on ``device``. Slots are
+    ``table``: [num_slots, w_max, w_max] tensor on ``device`` — the card
+    unless the caller passes ``device='cpu'`` (no card raises). Slots are
     rewritable at runtime (`write`), mirroring the paper's coefficient file
     updated by the higher layers of the vision stack without rebuilding.
     """
@@ -36,16 +39,17 @@ class CoefficientFile:
     w_max: int = 7
     num_slots: int = 8
     dtype: torch.dtype = torch.float32
-    device: str = "cpu"
+    device: str = "cuda"
 
     def __post_init__(self):
         if self.w_max % 2 != 1:
             raise ValueError(f"window must be odd; got w_max={self.w_max}")
         self.table = torch.zeros((self.num_slots, self.w_max, self.w_max),
-                                 dtype=self.dtype, device=self.device)
+                                 dtype=self.dtype,
+                                 device=resolve_device(self.device))
 
     @classmethod
-    def from_numpy(cls, table, device: str = "cpu") -> "CoefficientFile":
+    def from_numpy(cls, table, device: str = "cuda") -> "CoefficientFile":
         """A coefficient file holding ``table`` ([num_slots, w, w]) — e.g.
         the ``table`` of a reference-package coefficient file, as numpy."""
         t = torch.from_numpy(np.array(table))     # a copy of the table
@@ -54,7 +58,7 @@ class CoefficientFile:
                              f"{tuple(t.shape)}")
         cf = cls(w_max=int(t.shape[1]), num_slots=int(t.shape[0]),
                  dtype=t.dtype, device=device)
-        cf.table = t.to(device)
+        cf.table = t.to(cf.table.device)
         return cf
 
     def write(self, slot: int, coeffs) -> None:
@@ -172,7 +176,7 @@ def preset(name: str, w: int = 3, **kw) -> torch.Tensor:
 
 
 def default_bank(w_max: int = 7, num_slots: int = 8,
-                 device: str = "cpu") -> CoefficientFile:
+                 device: str = "cuda") -> CoefficientFile:
     """The register file a smart-vision stack would boot with."""
     cf = CoefficientFile(w_max=w_max, num_slots=num_slots, device=device)
     names = ["gaussian", "box", "identity", "sobel_x", "sobel_y",

@@ -47,6 +47,7 @@ from repro_torch.core.filter2d import (FORMS, _filter2d_impl,
                                        apply_requant, apply_requant_params,
                                        is_fixed_point, resolve_requant)
 from repro_torch.core.requant import RequantSpec
+from repro_torch.device import resolve_device
 from repro_torch.kernels.filter2d import halo, ops
 from repro_torch.kernels.filter2d import kernel as K
 from repro_torch.obs import events as obs_events
@@ -65,21 +66,6 @@ NOT_PORTED = {
     "xla": "the compiler-inferred baseline (ROADMAP queue 1, still to "
            "port, item 3)",
 }
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device={str(device)!r} requested but no CUDA device is "
-                "available; pass device='cpu' to run the plain torch path")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def to_device(x, device: torch.device) -> torch.Tensor:

@@ -1,0 +1,24 @@
+"""Device resolution shared by every entry point of the port.
+
+Entry points run on the card unless the caller asks for the CPU; asking
+for the card where there is none raises instead of carrying on silently
+on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={str(device)!r} requested but no CUDA device is "
+                "available; pass device='cpu' to run the plain torch path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev

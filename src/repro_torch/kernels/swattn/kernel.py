@@ -1,0 +1,91 @@
+"""The ``swattn`` kernel wrapper: CUDA on the card, plain torch on the CPU.
+
+Replaces the TPU kernel ``src/repro/kernels/swattn/kernel.py::swattn``
+(``_swattn_kernel``: banded causal flash attention with an online
+softmax, GQA through the kv index map) by a kernel written by hand in
+CUDA C++ for ``sm_90a``: ``csrc/swattn.cu``, whose header states the
+design and what bounds it (operations: about 2,500 FLOP per byte at the
+LM's shapes).
+
+What differs from the reference kernel's interface, on purpose: the
+kernel takes the model's [B, S, H, hd] layout as it is (the reference
+takes [B·H, Sp, hd] after a transpose and a pad to its block), masks the
+ragged edge itself, and returns exactly [B, S, H, hd].
+
+``swattn`` launches the kernel for a CUDA tensor and runs the plain
+version :func:`swattn_ref` for a CPU tensor, and only then: there is no
+fallback from the card to the plain version. ``swattn.launches`` counts
+kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.swattn import _build
+from repro_torch.kernels.swattn.ref import swattn_ref
+
+HEAD_DIMS = (16, 64, 80, 128)              # the instantiations in csrc/
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, k, v, window: int) -> None:
+    if not isinstance(window, int) or window < 0:
+        raise ValueError(f"window must be an int >= 0; got {window!r}")
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError("q must be [B,S,H,hd] and k, v [B,S,KV,hd]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if (tuple(k.shape) != (B, S, KV, hd) or tuple(v.shape) != tuple(k.shape)
+            or KV == 0 or H % KV):
+        raise ValueError(f"k and v must be [{B},{S},KV,{hd}] with {H} % KV "
+                         f"== 0; got {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError("the kernel takes float32 or bfloat16 q, k, v of one "
+                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the kernel is built for head dims {HEAD_DIMS}; "
+                         f"got {hd}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"shape {tuple(q.shape)} exceeds the launch grid")
+
+
+def swattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           window: int, scale: float) -> torch.Tensor:
+    """Banded causal attention. q: [B,S,H,hd]; k, v: [B,S,KV,hd],
+    contiguous, float32 or bfloat16. ``window`` > 0: key j counts for
+    query i iff ``j <= i`` and ``i - j < window``; 0: full causal.
+    Returns [B,S,H,hd] in q's dtype.
+
+    A CUDA tensor launches the kernel on ``torch.cuda.current_stream()``
+    (the call returns before the card finishes); a CPU tensor runs
+    :func:`swattn_ref`.
+    """
+    if q.device.type == "cpu":
+        return swattn_ref(q, k, v, window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no swattn for device {q.device}")
+    _check(q, k, v, window)
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.swattn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), B, S, H, k.shape[2], hd,
+                               window, float(scale), _DTYPE_CODE[q.dtype],
+                               stream)
+    if rc != 0:
+        raise RuntimeError(f"swattn launch failed with CUDA error {rc}")
+    swattn.launches += 1
+    return out
+
+
+swattn.launches = 0

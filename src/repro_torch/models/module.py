@@ -1,0 +1,108 @@
+"""Parameter specs: nested dicts of ``ParamSpec`` (shape, logical axes,
+initializer) that ``init_params`` materialises as nested dicts of
+tensors — the reference's module system (``repro/models/module.py``) with
+torch tensors and an explicit ``torch.Generator``.
+
+The reference seeds each leaf from ``hash()`` of its path, which varies
+from process to process; here the leaves are drawn in sorted path order
+from the one generator, so a seed gives the same parameters in every
+process. The two packages' values never agree: tests carry the
+reference's parameters across with ``repro_torch.convert`` instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]    # logical axis names, len == ndim
+    init: str = "lecun"                # lecun | normal | zeros | ones | embed | small
+    dtype: torch.dtype = torch.float32
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in rank")
+
+
+def p(shape, axes, init="lecun", dtype=torch.float32, scale=1.0) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), init, dtype, scale)
+
+
+# -- tree helpers (nested dicts of ParamSpec / tensors) -----------------------
+
+def tree_paths(tree: Dict, prefix: Tuple[str, ...] = ()
+               ) -> Dict[Tuple[str, ...], Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(tree_paths(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def map_specs(fn: Callable[[ParamSpec], Any], tree):
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _fan_in(shape: Tuple[int, ...]) -> int:
+    if len(shape) == 0:
+        return 1
+    if len(shape) == 1:
+        return shape[0]
+    # contraction dims: everything except the last
+    return max(1, math.prod(shape[:-1]))
+
+
+def init_leaf(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
+    """One parameter on the generator's device."""
+    dev = generator.device
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
+    std = {"embed": 0.02 * spec.scale, "normal": spec.scale,
+           "small": 1e-2 * spec.scale,
+           "lecun": spec.scale / math.sqrt(_fan_in(spec.shape))}.get(spec.init)
+    if std is None:
+        raise ValueError(f"unknown init {spec.init!r}")
+    x = torch.randn(spec.shape, generator=generator, device=dev,
+                    dtype=torch.float32)
+    return (x * std).to(spec.dtype)
+
+
+def init_params(specs, generator: torch.Generator, dtype: Any = None):
+    """Materialise a ParamSpec tree on ``generator.device``, the leaves
+    drawn in sorted path order. ``dtype`` casts floating leaves."""
+    out: Dict[str, Any] = {}
+    for path, spec in sorted(tree_paths(specs).items()):
+        leaf = init_leaf(spec, generator)
+        if dtype is not None and leaf.is_floating_point():
+            leaf = leaf.to(dtype)
+        d = out
+        for seg in path[:-1]:
+            d = d.setdefault(seg, {})
+        d[path[-1]] = leaf
+    return out
+
+
+def count_params(specs) -> int:
+    return sum(math.prod(s.shape) for s in tree_paths(specs).values())
+
+
+def stack_specs(spec_tree, n: int, axis_name: str = "layers"):
+    """Prepend a stacked layer dim to every spec (the layers of a stage)."""
+    def stk(s: ParamSpec) -> ParamSpec:
+        return ParamSpec((n,) + s.shape, (axis_name,) + s.axes, s.init,
+                         s.dtype, s.scale)
+    return map_specs(stk, spec_tree)

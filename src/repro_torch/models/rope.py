@@ -1,0 +1,35 @@
+"""Rotary position embeddings (standard RoPE), as in the reference's
+``models/rope.py``: float32 angles and rotation, cast back."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def _freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: [..., S] int -> cos/sin [..., S, head_dim//2] float32."""
+    ang = positions[..., None].float() * _freqs(head_dim, theta,
+                                                positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, D]; cos/sin: [B, S, D//2] or [S, D//2] (broadcast)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    if cos.ndim == 2:  # [S, half] -> broadcast over batch and heads
+        c, s = cos[None, :, None, :], sin[None, :, None, :]
+    else:              # [B, S, half]
+        c, s = cos[:, :, None, :], sin[:, :, None, :]
+    y1 = x1 * c - x2 * s
+    y2 = x2 * c + x1 * s
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)

@@ -1,6 +1,7 @@
-"""The CUDA kernel on the card: held against its plain torch version, and
-the served main path through it held against the same path on the CPU
-(which the CPU suites hold against the reference package). Marked
+"""The CUDA kernels on the card, each held against its plain torch
+version, and the main paths through them (serving, the LM forward, the
+mamba block) held against the same paths on the CPU (which the CPU
+suites hold against the reference package). Marked
 ``gpu``; each test decides inside the ``cuda`` fixture whether a card is
 there and skips with a reason where there is none. The machine with the
 card has no JAX, so this file imports only the port. On the card:
@@ -124,3 +125,96 @@ def test_engine_on_the_card(cuda):
         assert cpu.drain(timeout=120)
     for r, w, t in zip(reqs, want, templates * 2):
         _same(r.result(timeout=10), w.result(timeout=10), t.spec.dtype)
+
+
+# -- the LM slice: swattn, dwconv1d, the forward and the mamba block ----------
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 64, 80, 128])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (4, 1)])
+def test_swattn_kernel_matches_plain_version(cuda, H, KV, hd, dtype, rng):
+    from repro_torch.kernels.swattn import kernel as SW
+    dt = getattr(torch, dtype)
+    for S, window in ((77, 0), (77, 20), (130, 33), (40, 500)):
+        q = torch.from_numpy(rng.standard_normal((2, S, H, hd))
+                             .astype(np.float32)).to(cuda, dt)
+        k, v = (torch.from_numpy(rng.standard_normal((2, S, KV, hd))
+                                 .astype(np.float32)).to(cuda, dt)
+                for _ in range(2))
+        before = SW.swattn.launches
+        got = SW.swattn(q, k, v, window=window, scale=hd ** -0.5)
+        assert SW.swattn.launches == before + 1
+        ref = SW.swattn_ref(q, k, v, window=window, scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        _same(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_dwconv1d_kernel_matches_plain_version(cuda, k, dtype, rng):
+    from repro_torch.kernels.dwconv1d import kernel as DW
+    dt = getattr(torch, dtype)
+    for B, S, C in ((2, 37, 130), (1, 5, 3200), (3, 64, 33)):
+        x = torch.from_numpy(rng.standard_normal((B, S, C))
+                             .astype(np.float32)).to(cuda, dt)
+        w = torch.from_numpy(rng.standard_normal((k, C)).astype(np.float32)
+                             / k).to(cuda, dt)
+        b = torch.from_numpy(rng.standard_normal(C).astype(np.float32)
+                             ).to(cuda, dt)
+        before = DW.dwconv1d.launches
+        got = DW.dwconv1d(x, w, b)
+        assert DW.dwconv1d.launches == before + 1
+        ref = DW.dwconv1d_ref(x, w, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)          # the plain version's roundings
+
+
+@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "yi_6b"])
+def test_lm_forward_on_the_card_matches_the_cpu(cuda, arch, rng):
+    import dataclasses
+    from repro_torch.configs.base import SHAPES, RunConfig
+    from repro_torch.configs.tiny import tiny_of
+    from repro_torch.kernels.swattn import kernel as SW
+    from repro_torch.models import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc = dataclasses.replace(tiny_of(arch), use_pallas_attn=True)
+    rc = RunConfig(model=mc, shape=SHAPES["train_4k"])
+    toks = torch.from_numpy(rng.integers(0, 255, (2, 61)))
+    cpu = registry.build(rc, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(7))
+    want, _ = cpu.train_forward(params, {"inputs": toks})
+    card = registry.build(rc, device=cuda)
+    on_card = _to(params, cuda)
+    before = SW.swattn.launches
+    got, _ = card.train_forward(on_card, {"inputs": toks})
+    assert SW.swattn.launches - before == mc.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_mamba_block_on_the_card_matches_the_cpu(cuda, use_kernel, rng):
+    import dataclasses
+    from repro_torch.configs.tiny import tiny_of
+    from repro_torch.kernels.dwconv1d import kernel as DW
+    from repro_torch.models import module, ssm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc = dataclasses.replace(tiny_of("hymba_1_5b"), num_meta_tokens=0)
+    specs = ssm.mamba_specs(mc.d_model, expand=mc.ssm_expand,
+                            heads=mc.mamba_heads, state=mc.ssm_state,
+                            conv_width=mc.ssm_conv_width)
+    params = module.init_params(specs, torch.Generator().manual_seed(3))
+    x = torch.from_numpy(rng.standard_normal((2, 48, mc.d_model))
+                         .astype(np.float32))
+    want, _ = ssm.mamba_block(x, params, mc, use_pallas_conv=use_kernel)
+    card = _to(params, cuda)
+    before = DW.dwconv1d.launches
+    got, _ = ssm.mamba_block(x.to(cuda), card, mc,
+                             use_pallas_conv=use_kernel)
+    assert DW.dwconv1d.launches - before == int(use_kernel)
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-4, atol=3e-4)

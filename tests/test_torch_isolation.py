@@ -25,6 +25,10 @@ def test_import_leaves_jax_and_reference_out():
             "import repro_torch.serving.bench\n"
             "import repro_torch.kernels.filter2d, "
             "repro_torch.kernels.filter2d._build\n"
+            "import repro_torch.kernels._build, repro_torch.kernels.swattn, "
+            "repro_torch.kernels.dwconv1d\n"
+            "import repro_torch.configs, repro_torch.configs.tiny\n"
+            "import repro_torch.models.registry, repro_torch.models.ssm\n"
             "sys.path.insert(0, sys.argv[1]); import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
@@ -61,6 +65,24 @@ def test_cuda_without_a_card_raises():
     from repro_torch import obs
     with obs.tracing(), pytest.raises(RuntimeError, match="no CUDA device"):
         bench.run_bench(duration_s=0.1)
+    from repro_torch.core.filters import CoefficientFile, default_bank
+    table = np.zeros((2, 3, 3), np.float32)
+    for make in (CoefficientFile, default_bank,
+                 lambda: CoefficientFile.from_numpy(table)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()                           # the default device is the card
+    assert CoefficientFile(device="cpu").table.device.type == "cpu"
+    cf = CoefficientFile.from_numpy(table, device="cpu")
+    assert cf.table.device.type == "cpu" and cf.num_slots == 2
+    from repro_torch.configs.base import SHAPES, RunConfig
+    from repro_torch.configs.tiny import tiny_of
+    from repro_torch.convert import params_from_reference
+    from repro_torch.models import registry
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.build(RunConfig(model=tiny_of("yi_6b"),
+                                 shape=SHAPES["train_4k"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_reference({"w": table})
 
 
 def test_kernel_wrapper_routes_by_device_only():
@@ -81,6 +103,31 @@ def test_kernel_wrapper_routes_by_device_only():
         K.filter2d_halo(x, co, plan, form="fft")
 
 
+def test_lm_kernel_wrappers_route_by_device_only():
+    from repro_torch.kernels.dwconv1d import kernel as DW
+    from repro_torch.kernels.swattn import kernel as SW
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((1, 9, 2, 16))
+                         .astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((1, 9, 1, 16))
+                          .astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((1, 9, 6)).astype(np.float32))
+    w, b = torch.ones(4, 6), torch.zeros(6)
+    sw_before, dw_before = SW.swattn.launches, DW.dwconv1d.launches
+    torch.testing.assert_close(SW.swattn(q, kv, kv, window=3, scale=0.5),
+                               SW.swattn_ref(q, kv, kv, window=3, scale=0.5))
+    torch.testing.assert_close(DW.dwconv1d(x, w, b), DW.dwconv1d_ref(x, w, b))
+    assert (SW.swattn.launches, DW.dwconv1d.launches) == (sw_before,
+                                                          dw_before)
+    with pytest.raises(ValueError, match="no swattn for device"):
+        SW.swattn(q.to("meta"), kv.to("meta"), kv.to("meta"), window=3,
+                  scale=0.5)
+    with pytest.raises(ValueError, match="no dwconv1d for device"):
+        DW.dwconv1d(x.to("meta"), w.to("meta"), b.to("meta"))
+    assert (SW.swattn.launches, DW.dwconv1d.launches) == (sw_before,
+                                                          dw_before)
+
+
 def test_build_without_nvcc_raises():
     from repro_torch.kernels.filter2d import _build
     if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
@@ -88,3 +135,14 @@ def test_build_without_nvcc_raises():
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert len(_build._sources()[0]) >= 2
+    from repro_torch.kernels import _build as shared
+    libs = shared.all_libraries()
+    assert [lib.name for lib in libs] == ["filter2d_halo", "swattn",
+                                          "dwconv1d"]
+    for lib in libs:
+        assert lib.sources()[0], lib.name
+        assert lib.build_dir.parent == shared.ROOT / "build"
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            lib.build()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        shared.build_all(libs)

@@ -111,10 +111,11 @@ def test_decompose_separable(name, w):
 
 def test_coefficient_file_from_numpy_and_default_bank():
     rbank = r_filters.default_bank(7, 8)
-    pbank = p_filters.default_bank(7, 8)
+    pbank = p_filters.default_bank(7, 8, device="cpu")
     np.testing.assert_array_equal(np.asarray(rbank.table),
                                   pbank.table.numpy())
-    cf = p_filters.CoefficientFile.from_numpy(np.asarray(rbank.table))
+    cf = p_filters.CoefficientFile.from_numpy(np.asarray(rbank.table),
+                                              device="cpu")
     assert (cf.w_max, cf.num_slots) == (7, 8)
     np.testing.assert_array_equal(cf.as_bank().numpy(),
                                   np.asarray(rbank.table))
