@@ -36,9 +36,14 @@ Phases, in order; any failure exits non-zero:
                 in, pipeline call, copy out).
 
   6. swattn   — the banded attention kernel against its plain version
-                (``swattn_ref``) on the card: float32 and bfloat16, window
-                0 / 300 / 1500 over a ragged S = 1000, H/KV 32/8, 8/8 and
-                4/1, hd 64 / 80 / 128, B = 2. float32 within
+                (``swattn_ref``) on the card, swept over the edges of its
+                tile geometry: float32 (the CUDA-core kernel) and bfloat16
+                (the tensor-core kernel), S ∈ {1, 63, 64, 65, 127, 128,
+                129, 191, 192, 193, 1000}, window ∈ {0, 1, BK−1, BK,
+                BK+1, 300, S+7} with BK the dtype's key tile as the
+                built library reports it (``tile_keys``), H/KV 32/8, 8/8
+                and 4/1, hd 16 / 64 / 80 /
+                128, B = 3. float32 within
                 rtol=atol=3e-4; bfloat16 within 3e-2 (p is rounded to
                 bfloat16 before the PV product).
   7. dwconv1d — the causal depthwise conv kernel against its plain version
@@ -70,7 +75,9 @@ Phases, in order; any failure exits non-zero:
                 L2 1e-2; ``dwconv1d`` bit-exact), then timed with CUDA
                 events: kernel, bound, plain version and a library
                 yardstick the port never calls (SDPA with a band mask and
-                GQA; ``F.conv1d`` with groups=C on a pre-padded input).
+                GQA, float32 with TF32 off; ``F.conv1d`` with groups=C on
+                a pre-padded input). The bfloat16 ``swattn`` must beat
+                SDPA.
 
 Every main path (serving, LM, mamba) runs with the three launch counts
 set to 0 just before it and read just after. The line before the last is
@@ -100,7 +107,12 @@ FORMS = ("direct", "transposed", "tree", "compress", "separable")
 ROUNDINGS = ("truncate", "nearest", "nearest_even")
 KERNEL_SOURCE = "src/repro_torch/kernels/filter2d/csrc/filter2d_halo.cuh"
 REPLACES = "src/repro/kernels/filter2d/kernel.py:349"
-SWATTN_SOURCE = "src/repro_torch/kernels/swattn/csrc/swattn.cu"
+SWATTN_SOURCE = "src/repro_torch/kernels/swattn/csrc/swattn_bf16.cu"
+# the swattn kernel per dtype: bfloat16 on the tensor cores, float32 on the
+# CUDA cores (the reference's float32 dot is not TF32)
+SWATTN_ROUTES = {
+    "bfloat16": "tensor-core wgmma (csrc/swattn_bf16.cu)",
+    "float32": "cuda-core (csrc/swattn.cu)"}
 SWATTN_REPLACES = "src/repro/kernels/swattn/kernel.py:76"
 DWCONV_SOURCE = "src/repro_torch/kernels/dwconv1d/csrc/dwconv1d.cu"
 DWCONV_REPLACES = "src/repro/kernels/dwconv1d/kernel.py:40"
@@ -170,15 +182,20 @@ def ptxas_summary(text: str):
 
 
 def kernel_label(mangled: str) -> str:
-    """``filter2d_halo<storage,acc,out,wW,form>``, ``swattn<dtype,hdN>`` or
-    ``dwconv1d<dtype,kN>`` from a mangled name."""
+    """``filter2d_halo<storage,acc,out,wW,form>``, ``swattn<dtype,hdN>``,
+    ``swattn<bf16,hdN,wgmma>`` or ``dwconv1d<dtype,kN>`` from a mangled
+    name."""
     import re
-    m = re.search(r"(swattn|dwconv1d)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
-                  mangled)
+    m = re.search(r"swattn_wgmma_kernelILi(\d+)E", mangled)
     if m:
-        dt = "f32" if m.group(2) == "f" else "bf16"
-        arg = "hd" if m.group(1) == "swattn" else "k"
-        return f"{m.group(1)}<{dt},{arg}{m.group(3)}>"
+        return f"swattn<bf16,hd{m.group(1)},wgmma>"
+    m = re.search(r"swattn_kernelILi(\d+)E", mangled)
+    if m:
+        return f"swattn<f32,hd{m.group(1)}>"
+    m = re.search(r"dwconv1d_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if m:
+        dt = "f32" if m.group(1) == "f" else "bf16"
+        return f"dwconv1d<{dt},k{m.group(2)}>"
     m = re.search(r"filter2d_halo_kernelI(.*?)Li(\d+)ELi(\d+)E", mangled)
     if not m:
         return mangled
@@ -627,30 +644,37 @@ class Smoke:
         from repro_torch.kernels.swattn import kernel as SW
         rng = np.random.default_rng(12)
         errs, n = {}, 0
-        B, S = 2, 1000
+        B = 3
         with saved_counts():
             for dt in ("float32", "bfloat16"):
+                bk = SW.tile_keys(getattr(torch, dt))
                 for H, KV in ((32, 8), (8, 8), (4, 1)):
-                    for hd in (64, 80, 128):
-                        q = torch.from_numpy(rng.standard_normal(
-                            (B, S, H, hd)).astype(np.float32)).cuda()
-                        k, v = (torch.from_numpy(rng.standard_normal(
-                            (B, S, KV, hd)).astype(np.float32)).cuda()
-                            for _ in range(2))
-                        q, k, v = (t.to(getattr(torch, dt)) for t in (q, k, v))
-                        for window in (0, 300, 1500):
-                            got = SW.swattn(q, k, v, window=window,
-                                            scale=hd ** -0.5)
-                            ref = SW.swattn_ref(q, k, v, window=window,
+                    for hd in (16, 64, 80, 128):
+                        for S in (1, 63, 64, 65, 127, 128, 129, 191,
+                                  192, 193, 1000):
+                            q = torch.from_numpy(rng.standard_normal(
+                                (B, S, H, hd)).astype(np.float32)).cuda()
+                            k, v = (torch.from_numpy(rng.standard_normal(
+                                (B, S, KV, hd)).astype(np.float32)).cuda()
+                                for _ in range(2))
+                            q, k, v = (t.to(getattr(torch, dt))
+                                       for t in (q, k, v))
+                            for window in (0, 1, bk - 1, bk, bk + 1, 300,
+                                           S + 7):
+                                got = SW.swattn(q, k, v, window=window,
                                                 scale=hd ** -0.5)
-                            torch.cuda.synchronize()
-                            err = self._agree(
-                                f"swattn {dt} H{H}/{KV} hd{hd} w{window} "
-                                f"[{B},{S}]", got, ref, TOL[dt])
-                            errs[dt] = max(errs.get(dt, 0.0), err)
-                            n += 1
+                                ref = SW.swattn_ref(q, k, v, window=window,
+                                                    scale=hd ** -0.5)
+                                torch.cuda.synchronize()
+                                err = self._agree(
+                                    f"swattn {dt} H{H}/{KV} hd{hd} "
+                                    f"w{window} [{B},{S}]", got, ref,
+                                    TOL[dt])
+                                errs[dt] = max(errs.get(dt, 0.0), err)
+                                n += 1
         for dt, e in errs.items():
-            self.say(f"swattn phase: {dt} max |kernel - plain| = {e!r}")
+            self.say(f"swattn phase: {dt} ({SWATTN_ROUTES[dt]}) max |kernel "
+                     f"- plain| = {e!r}")
         self.say(f"swattn phase: {n} cases agree")
         return max(errs.values())
 
@@ -894,27 +918,30 @@ class Smoke:
                     kern(), plain(), rtol, rel)
                 ms = self._time(kern, 5, warmup=1)
                 plain_ms = self._time(plain, 2, warmup=1)
-                lib_ms = None
-                if dt == "bfloat16":
-                    pos = torch.arange(S, device="cuda")
-                    band = ((pos[None, :] <= pos[:, None])
-                            & (pos[:, None] - pos[None, :] < window))
-                    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                pos = torch.arange(S, device="cuda")
+                band = ((pos[None, :] <= pos[:, None])
+                        & (pos[:, None] - pos[None, :] < window))
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
-                    def lib():
-                        return F.scaled_dot_product_attention(
-                            qt, kt, vt, attn_mask=band, scale=scale,
-                            enable_gqa=True)
-                    self._agree("yardstick SDPA vs kernel",
-                                lib().transpose(1, 2), kern(), TOL[dt],
-                                2 * rel)
-                    lib_ms = self._time(lib, 5, warmup=1)
+                def lib():             # TF32 is off (main)
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=band, scale=scale,
+                        enable_gqa=True)
+                self._agree(f"yardstick SDPA {dt} vs kernel",
+                            lib().transpose(1, 2), kern(), TOL[dt],
+                            2 * rel)
+                lib_ms = self._time(lib, 5, warmup=1)
                 nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
                 rows[dt] = self._row(
                     "swattn", [1, S, H, KV, hd, window], dt, ms, plain_ms,
                     lib_ms, nbytes, ops, PEAK_OPS_PER_S[dt])
                 rows[dt]["max_abs_err"] = err
+                rows[dt]["route"] = SWATTN_ROUTES[dt]
                 del q, k, v
+        sw = rows["bfloat16"]
+        if not sw["ms"] < sw["library_ms"]:
+            raise AssertionError(f"swattn bf16 {sw['ms']} ms does not beat "
+                                 f"SDPA's {sw['library_ms']} ms")
         return rows
 
     def dwconv_timing(self, B=2, S=4096, C=3200, k=4):
@@ -971,6 +998,16 @@ def ptxas_report(smoke, libs) -> None:
                   f"{min(smem)}..{max(smem)} B, spill bytes "
                   f"{sum(k[3] for k in kernels)} (full report: "
                   f"{lib.ptxas_log.relative_to(ROOT)})")
+        tc = [(kernel_label(m), r, sp) for m, r, _, sp in kernels
+              if "wgmma" in kernel_label(m)]
+        if tc:
+            smoke.say(f"ptxas {lib.name} bf16 tensor-core kernel: "
+                      + "; ".join(f"{label} {r} registers, {sp} B spilled"
+                                  for label, r, sp in tc))
+        # ptxas's remark when it must serialise wgmma (C7515 and kin)
+        for line in lib.ptxas_log.read_text().splitlines():
+            if "wgmma" in line and "Performance Loss" in line:
+                smoke.say(f"ptxas {lib.name}: {line.strip()[:300]}")
 
 
 def main() -> int:
@@ -1049,8 +1086,8 @@ def main() -> int:
         "ms": sw["ms"], "plain_ms": sw["plain_ms"],
         "bound_ms": sw["bound_ms"], "bound_by": sw["bound_by"],
         "library_ms": sw["library_ms"], "shape": sw["shape"],
-        "dtype": sw["dtype"], "float32": sw_rows["float32"],
-        "card": card}, {
+        "dtype": sw["dtype"], "routes": SWATTN_ROUTES,
+        "float32": sw_rows["float32"], "card": card}, {
         "name": "dwconv1d", "route": "cuda", "source": DWCONV_SOURCE,
         "replaces": DWCONV_REPLACES, "launches": dw_launches,
         "max_abs_err": 0.0, "ms": dw_row["ms"],       # bit-exact

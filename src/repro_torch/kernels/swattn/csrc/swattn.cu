@@ -1,4 +1,6 @@
-// Banded (sliding-window) causal flash attention for sm_90a.
+// Banded (sliding-window) causal flash attention for sm_90a: the float32
+// kernel, on the CUDA cores, and the C entry point for both dtypes (the
+// bfloat16 kernel, on the tensor cores, is swattn_bf16.cu).
 //
 // Replaces the TPU kernel src/repro/kernels/swattn/kernel.py::swattn
 // (_swattn_kernel, pl.pallas_call at :102). What it computes is the same:
@@ -9,11 +11,10 @@
 // What bounds it on an H100: operations. At the LM's shapes (S 8192,
 // window 4096, hd 80, H 32) the band holds 25,167,872 useful (i, j) pairs
 // per head, 4 * hd FLOP each (QK^T and PV): 2.58e11 FLOP against 105 MB of
-// q, k, v and o, about 2,500 FLOP per byte, far above the card's ~295
-// (bf16 tensor cores) — the bound is the tensor cores' rate. This first
-// kernel does not reach for it: it is the simple, right one, on the CUDA
-// cores in float32 (FMA), for float32 and bfloat16 alike. The tensor-core
-// (wgmma / mma.sync) redesign is later work.
+// q, k, v and o, about 2,500 FLOP per byte — the bound is the arithmetic
+// rate: 67 TFLOP/s for float32 outside the tensor cores, whose float32 mode
+// is TF32, which the reference's float32 dot does not compute. So float32
+// stays here, on the CUDA cores in float32 (FMA), by design.
 //
 // Design, against the TPU kernel:
 //  * One thread block per (32-query tile, head, batch row). The Pallas
@@ -31,9 +32,9 @@
 //  * Masking uses the reference's finite NEG_INF = -1e30 and zeroes p
 //    under the mask, so a row with no key yet gives exp(0) * 0, never NaN.
 //  * Rounding kept from the reference: scores in float32, scale applied
-//    after the dot; l sums the float32 p; p is rounded to v's dtype
-//    before the PV product (the bf16 rounding of kernel.py:65); acc in
-//    float32; the output acc / l (l == 0 -> 1) rounded to q's dtype.
+//    after the dot; l sums the float32 p; the reference rounds p to v's
+//    dtype before the PV product (kernel.py:65), which for float32 leaves
+//    it as it is; acc in float32; the output acc / l (l == 0 -> 1).
 //    Products are fused multiply-adds and the dot's order is the
 //    kernel's own, so float32 agrees with the plain version to rounding,
 //    not bit for bit.
@@ -43,7 +44,6 @@
 //    shuffles. Tiles sit in shared memory as float32, rows padded by one
 //    word against bank conflicts.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,30 +58,17 @@ constexpr int BK = 32;         // keys per tile
 constexpr int CPT = BK / TX;   // score columns per thread
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 template <int HD>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * (HD + 1) + BK * (HD + 1) + BK * HD +
                           BQ * (BK + 1));
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT)
-swattn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int S, int H,
-              int KV, int window, float scale) {
+swattn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int S,
+              int H, int KV, int window, float scale) {
   constexpr int QP = HD + 1;    // row pitches, in floats
   constexpr int KP = HD + 1;
   constexpr int PP = BK + 1;
@@ -101,13 +88,13 @@ swattn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = (tid / TX) * RPT;
   const int64_t q_row = (int64_t)H * HD;    // stride of s in q and o
   const int64_t kv_row = (int64_t)KV * HD;  // stride of s in k and v
-  const T* qb = q + (int64_t)b * S * q_row + (int64_t)h * HD;
-  const T* kb = k + (int64_t)b * S * kv_row + (int64_t)hk * HD;
-  const T* vb = v + (int64_t)b * S * kv_row + (int64_t)hk * HD;
+  const float* qb = q + (int64_t)b * S * q_row + (int64_t)h * HD;
+  const float* kb = k + (int64_t)b * S * kv_row + (int64_t)hk * HD;
+  const float* vb = v + (int64_t)b * S * kv_row + (int64_t)hk * HD;
 
   for (int i = tid; i < BQ * HD; i += NT) {
     const int r = i / HD, d = i % HD, s = q0 + r;
-    Qs[r * QP + d] = s < S ? to_f(qb[s * q_row + d]) : 0.f;
+    Qs[r * QP + d] = s < S ? qb[s * q_row + d] : 0.f;
   }
 
   float m[RPT], l[RPT], acc[RPT][DPT];
@@ -127,8 +114,8 @@ swattn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * HD; i += NT) {
       const int r = i / HD, d = i % HD, s = k0 + r;
       const bool in = s < S;
-      Ks[r * KP + d] = in ? to_f(kb[s * kv_row + d]) : 0.f;
-      Vs[r * HD + d] = in ? to_f(vb[s * kv_row + d]) : 0.f;
+      Ks[r * KP + d] = in ? kb[s * kv_row + d] : 0.f;
+      Vs[r * HD + d] = in ? vb[s * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -173,7 +160,7 @@ swattn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CPT; ++j) {
         const float p = ok[j] ? expf(sc[i][j] - m_new) : 0.f;
         rsum += p;
-        Ps[(r0 + i) * PP + tx + TX * j] = to_f(from_f<T>(p));
+        Ps[(r0 + i) * PP + tx + TX * j] = p;
       }
 #pragma unroll
       for (int off = TX / 2; off > 0; off >>= 1)
@@ -204,43 +191,48 @@ swattn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s = q0 + r0 + i;
     if (s >= S) continue;
     const float den = l[i] > 0.f ? l[i] : 1.f;
-    T* ob = o + ((int64_t)b * S + s) * q_row + (int64_t)h * HD;
+    float* ob = o + ((int64_t)b * S + s) * q_row + (int64_t)h * HD;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) ob[tx + TX * j] = from_f<T>(acc[i][j] / den);
+    for (int j = 0; j < DPT; ++j) ob[tx + TX * j] = acc[i][j] / den;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int H, int KV, int window, float scale,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      swattn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      swattn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  swattn_kernel<T, HD><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, window, scale);
+  swattn_kernel<HD><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
               int S, int H, int KV, int hd, int window, float scale,
               cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KV, window, scale, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, window, scale, st);
-    case 80: return launch<T, 80>(q, k, v, o, B, S, H, KV, window, scale, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, KV, window, scale, st);
+    case 16: return launch<16>(q, k, v, o, B, S, H, KV, window, scale, st);
+    case 64: return launch<64>(q, k, v, o, B, S, H, KV, window, scale, st);
+    case 80: return launch<80>(q, k, v, o, B, S, H, KV, window, scale, st);
+    case 128: return launch<128>(q, k, v, o, B, S, H, KV, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+// The bfloat16 path, on the tensor cores: swattn_bf16.cu.
+int swattn_bf16_launch(const void* q, const void* k, const void* v, void* o,
+                       int B, int S, int H, int KV, int hd, int window,
+                       float scale, cudaStream_t st);
+int swattn_bf16_tile_keys();
 
 // q, o: [B, S, H, hd]; k, v: [B, S, KV, hd]; contiguous, one dtype
 // (0 float32, 1 bfloat16). Returns the launch's CUDA error code.
@@ -253,9 +245,16 @@ extern "C" int swattn_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_hd<float>(q, k, v, o, B, S, H, KV, hd, window, scale, st);
+    return launch_hd(q, k, v, o, B, S, H, KV, hd, window, scale, st);
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, window,
-                                    scale, st);
+    return swattn_bf16_launch(q, k, v, o, B, S, H, KV, hd, window, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Keys per K/V tile of the kernel for dtype (0 float32, 1 bfloat16), so
+// callers can place windows on the tile's edges; -1 for another dtype.
+extern "C" int swattn_tile_keys(int dtype) {
+  if (dtype == 0) return BK;
+  if (dtype == 1) return swattn_bf16_tile_keys();
+  return -1;
 }

@@ -2,10 +2,15 @@
 
 Replaces the TPU kernel ``src/repro/kernels/swattn/kernel.py::swattn``
 (``_swattn_kernel``: banded causal flash attention with an online
-softmax, GQA through the kv index map) by a kernel written by hand in
-CUDA C++ for ``sm_90a``: ``csrc/swattn.cu``, whose header states the
-design and what bounds it (operations: about 2,500 FLOP per byte at the
-LM's shapes).
+softmax, GQA through the kv index map) by kernels written by hand in
+CUDA C++ for ``sm_90a``, one per dtype, whose headers state the design
+and what bounds them (operations: about 2,500 FLOP per byte at the LM's
+shapes):
+
+- bfloat16: ``csrc/swattn_bf16.cu``, on the tensor cores (``wgmma``,
+  K/V tiles by TMA into a ring of shared-memory stages);
+- float32: ``csrc/swattn.cu``, on the CUDA cores in float32 (tensor
+  cores in float32 would be TF32, which the reference does not compute).
 
 What differs from the reference kernel's interface, on purpose: the
 kernel takes the model's [B, S, H, hd] layout as it is (the reference
@@ -26,6 +31,12 @@ from repro_torch.kernels.swattn.ref import swattn_ref
 
 HEAD_DIMS = (16, 64, 80, 128)              # the instantiations in csrc/
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def tile_keys(dtype: torch.dtype) -> int:
+    """Keys per K/V tile of the kernel for ``dtype``, as the built library
+    reports it (so windows can be placed on the tile's edges)."""
+    return _build.load_library().swattn_tile_keys(_DTYPE_CODE[dtype])
 
 
 def _check(q, k, v, window: int) -> None:
@@ -75,6 +86,9 @@ def swattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    # TMA reads from 16-byte aligned bases: a view that starts mid-row of
+    # its storage is copied to a fresh allocation first
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):

@@ -137,16 +137,53 @@ def _to(tree, device):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [16, 64, 80, 128])
-@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (4, 1)])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (4, 1), (32, 8), (8, 8)])
 def test_swattn_kernel_matches_plain_version(cuda, H, KV, hd, dtype, rng):
+    """The edge sweep of the kernel's tile geometry: S on both sides of
+    one, two and three 64-row warpgroup tiles (a bf16 block holds 128 or
+    192 rows), windows on both sides of one key tile (``tile_keys``), and
+    windows of 0 (full causal) and past S."""
     from repro_torch.kernels.swattn import kernel as SW
     dt = getattr(torch, dtype)
-    for S, window in ((77, 0), (77, 20), (130, 33), (40, 500)):
-        q = torch.from_numpy(rng.standard_normal((2, S, H, hd))
+    bk = SW.tile_keys(dt)
+    cases = [(S, w) for S in (1, 63, 64, 65, 127, 128, 129, 191, 192,
+                              193, 1000)
+             for w in (0, 1, bk - 1, bk, bk + 1, 300, S + 7)]
+    for S, window in [(77, 0), (77, 20), (130, 33), (40, 500)] + cases:
+        q = torch.from_numpy(rng.standard_normal((3, S, H, hd))
                              .astype(np.float32)).to(cuda, dt)
-        k, v = (torch.from_numpy(rng.standard_normal((2, S, KV, hd))
+        k, v = (torch.from_numpy(rng.standard_normal((3, S, KV, hd))
                                  .astype(np.float32)).to(cuda, dt)
                 for _ in range(2))
+        before = SW.swattn.launches
+        got = SW.swattn(q, k, v, window=window, scale=hd ** -0.5)
+        assert SW.swattn.launches == before + 1
+        ref = SW.swattn_ref(q, k, v, window=window, scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        _same(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_swattn_kernel_reads_views_at_any_offset(cuda, offset, dtype, rng):
+    """Contiguous views that start ``offset`` elements into their storage:
+    the bf16 kernel's TMA needs 16-byte aligned bases, so the wrapper
+    copies a view that does not start on one; the result is the same."""
+    from repro_torch.kernels.swattn import kernel as SW
+    dt = getattr(torch, dtype)
+    B, S, H, KV, hd = 2, 130, 8, 2, 80
+
+    def view(h):
+        n = B * S * h * hd
+        flat = torch.empty(n + offset, dtype=dt, device=cuda)
+        t = flat[offset:].view(B, S, h, hd)
+        t.copy_(torch.from_numpy(rng.standard_normal((B, S, h, hd))
+                                 .astype(np.float32)))
+        return t
+
+    q, k, v = view(H), view(KV), view(KV)
+    assert q.is_contiguous() and q.storage_offset() == offset
+    for window in (0, 33):
         before = SW.swattn.launches
         got = SW.swattn(q, k, v, window=window, scale=hd ** -0.5)
         assert SW.swattn.launches == before + 1
