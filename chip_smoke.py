@@ -16,24 +16,35 @@ Phases, in order; any failure exits non-zero:
                 (``filter2d_halo_ref``) on the card: 6 border policies
                 (non-zero constant), 4 forms + separable, w ∈ {3, 5, 7},
                 float32/bfloat16/int8/uint8/int16, banks of 4, requant in
-                all 3 roundings on the integer frames, ragged [3, 67, 301]
-                planes, an all-max overflow edge and full-HD [3, 1440,
-                1920] planes. Integers bit-exact; float32 within
-                rtol=atol=3e-4; bfloat16 within 3e-2.
+                all 3 roundings on the integer frames, twice: on ragged
+                [3, 67, 301] planes (rows not 16-byte aligned: the
+                per-thread loader) and on [3, 67, 336] planes (aligned
+                for every dtype, ragged against the tile and the strip:
+                the TMA loader); then frames smaller than one tile and
+                one strip ([2, 5, 48], TMA), a view one element off 16
+                bytes (per-thread), an all-max overflow edge and full-HD
+                [3, 1440, 1920] planes. Every case asserts which loader
+                it took (``filter2d_halo.tma_launches``). Integers
+                bit-exact; float32 within rtol=atol=3e-4; bfloat16 within
+                3e-2.
   4. serving  — ``FilterServeEngine(batch_size=4, device='cuda')`` serves
                 32 requests drawn from ``build_mix(rng, scale=15)`` (1440x1920
                 float32 w5 mirror for two tenants, 960x1440 float32 w3
                 replicate, 960x1440 int8 w3 unity requant). Each result is
                 held against ``filter2d_halo_ref`` on the card; recompiles
                 must equal buckets, errors 0, and the kernel's launch
-                counter must grow by exactly one per wave.
+                counter must grow by exactly one per wave, every launch
+                through the TMA loader.
   5. timing   — CUDA events after warm-up at each bucket's serving shape:
                 the kernel, its bound (HBM bytes over 3.35 TB/s, and the
-                operations over the peak for the input type), the plain
-                version, and for float32 ``F.conv2d`` on a pre-padded frame
-                with TF32 off (a yardstick the port never calls); then
-                where one served wave's time goes (host stacking, copy
-                in, pipeline call, copy out).
+                operations over the peak for the input type) and its share
+                of it, the plain version, a PyTorch copy of the planes
+                (the same bytes in and out: the rate this card reaches),
+                and for float32 ``F.conv2d`` on a pre-padded frame with
+                TF32 off (a yardstick the port never calls); the kernel's
+                tile geometry from the built library; then where one
+                served wave's time goes (host stacking, copy in, pipeline
+                call, copy out).
 
   6. swattn   — the banded attention kernel against its plain version
                 (``swattn_ref``) on the card, swept over the edges of its
@@ -96,16 +107,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
-PEAK_OPS_PER_S = {                     # dense, per input type (data sheet)
-    "float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
-    "uint8": 1979e12, "int16": 67e12,
+# dense, per input type, on the units the kernels use: float32 on the CUDA
+# cores and bf16 on the tensor cores (data sheet); the filter's integer
+# frames run an int32 x int32 MAC on the CUDA cores' 64 IMAD lanes per SM
+# (Hopper white paper): 132 SMs x 64 lanes x 2 ops x 1.98 GHz = 33.5e12
+PEAK_OPS_PER_S = {
+    "float32": 67e12, "bfloat16": 989e12, "int8": 33.5e12,
+    "uint8": 33.5e12, "int16": 33.5e12,
 }
 TOL = {"float32": 3e-4, "bfloat16": 3e-2}
 POLICIES = ("neglect", "constant", "wrap", "duplicate", "mirror_dup",
             "mirror")
 FORMS = ("direct", "transposed", "tree", "compress", "separable")
 ROUNDINGS = ("truncate", "nearest", "nearest_even")
-KERNEL_SOURCE = "src/repro_torch/kernels/filter2d/csrc/filter2d_halo.cuh"
+KERNEL_SOURCE = "src/repro_torch/kernels/filter2d/csrc/filter2d_halo_ring.cuh"
+# the instantiations the serving mix runs (w5 f32, w3 f32, w3 int8 -> int8)
+SERVING_KERNELS = ("filter2d_halo<f32,f32,f32,w5,fold>",
+                   "filter2d_halo<f32,f32,f32,w3,fold>",
+                   "filter2d_halo<i8,i32,i8,w3,fold>")
 REPLACES = "src/repro/kernels/filter2d/kernel.py:349"
 SWATTN_SOURCE = "src/repro_torch/kernels/swattn/csrc/swattn_bf16.cu"
 # the swattn kernel per dtype: bfloat16 on the tensor cores, float32 on the
@@ -139,10 +158,16 @@ def counters():
 def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
+    counters()["filter2d_halo"].tma_launches = 0
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def tma_count() -> int:
+    """``filter2d_halo``'s launches that took the TMA loader."""
+    return counters()["filter2d_halo"].tma_launches
 
 
 class saved_counts:
@@ -152,10 +177,12 @@ class saved_counts:
 
     def __enter__(self):
         self.saved = read_counts()
+        self.tma = tma_count()
 
     def __exit__(self, *exc):
         for name, fn in counters().items():
             fn.launches = self.saved[name]
+        counters()["filter2d_halo"].tma_launches = self.tma
 
 
 def ptxas_summary(text: str):
@@ -247,7 +274,7 @@ class Smoke:
         return x.to(dev), co.to(dev)
 
     def check_case(self, rng, dt, policy, form, w, *, M=3, H=67, W=301,
-                   N=4, rounding=None, x=None, co=None):
+                   N=4, rounding=None, x=None, co=None, loader=None):
         import numpy as np
         torch = self.torch
         from repro_torch.core.border_spec import BorderSpec
@@ -271,11 +298,15 @@ class Smoke:
                  rng.integers(0, 21, N)], axis=1).astype(np.int32))
             q[0, 1] = 0                      # the shift-0 edge
             q = q.cuda()
+        tma_before = tma_count()
         got = filter2d_halo(x, co, plan, q_params=q, form=form)
+        took = "tma" if tma_count() > tma_before else "thread"
         ref = filter2d_halo_ref(x, co, plan, q_params=q, form=form)
         torch.cuda.synchronize()
         case = (f"{dt} {policy} {form} w{w} N{N} [{M},{H},{W}] "
-                f"requant={rounding}")
+                f"requant={rounding} loader={took}")
+        if loader is not None and took != loader:
+            raise AssertionError(f"{case}: expected the {loader} loader")
         if got.shape != ref.shape or got.dtype != ref.dtype:
             raise AssertionError(f"{case}: shape/dtype {tuple(got.shape)} "
                                  f"{got.dtype} vs {tuple(ref.shape)} "
@@ -303,39 +334,63 @@ class Smoke:
         torch = self.torch
         rng = np.random.default_rng(11)
         n = 0
-        for dt in ("float32", "bfloat16", "int8", "uint8", "int16"):
-            for policy in POLICIES:
-                for form in FORMS:
-                    for w in (3, 5, 7):
-                        N = 1 if form == "separable" else 4
-                        self.check_case(rng, dt, policy, form, w, N=N)
-                        n += 1
-                        if dt not in TOL:
-                            rounding = ROUNDINGS[n % 3]
+        # W 301: no dtype's rows are 16-byte aligned (per-thread loader);
+        # W 336: every dtype's are, and 336 is no multiple of the tile
+        for W, loader in ((301, "thread"), (336, "tma")):
+            for dt in ("float32", "bfloat16", "int8", "uint8", "int16"):
+                for policy in POLICIES:
+                    for form in FORMS:
+                        for w in (3, 5, 7):
+                            N = 1 if form == "separable" else 4
                             self.check_case(rng, dt, policy, form, w, N=N,
-                                            rounding=rounding)
+                                            W=W, loader=loader)
                             n += 1
-        for rounding in ROUNDINGS:           # every rounding, every int dtype
-            for dt in ("int8", "uint8", "int16"):
-                self.check_case(rng, dt, "mirror", "direct", 5, N=4,
-                                rounding=rounding)
-                n += 1
+                            if dt not in TOL:
+                                rounding = ROUNDINGS[n % 3]
+                                self.check_case(rng, dt, policy, form, w,
+                                                N=N, W=W, rounding=rounding,
+                                                loader=loader)
+                                n += 1
+            for rounding in ROUNDINGS:       # every rounding, every int dtype
+                for dt in ("int8", "uint8", "int16"):
+                    self.check_case(rng, dt, "mirror", "direct", 5, N=4, W=W,
+                                    rounding=rounding, loader=loader)
+                    n += 1
+        # frames smaller than one tile and one strip, every policy (TMA)
+        for dt in ("float32", "bfloat16", "int8", "uint8", "int16"):
+            for policy in POLICIES[1:]:     # neglect leaves no 5 x 48 output
+                for form in ("direct", "separable"):
+                    self.check_case(rng, dt, policy, form, 7, M=2, H=5, W=48,
+                                    N=4 if form == "direct" else 1,
+                                    rounding=None if dt in TOL else "nearest",
+                                    loader="tma")
+                    n += 1
+        # a view whose first element is one element off 16 bytes
+        x, co = self._inputs(rng, "float32", 3, 67, 336, 4, 5, "direct")
+        view = torch.empty(x.numel() + 1, dtype=x.dtype,
+                           device="cuda")[1:].view(x.shape)
+        view.copy_(x)
+        self.check_case(rng, "float32", "wrap", "direct", 5, x=view, co=co,
+                        loader="thread")
+        n += 1
         # all-max overflow edge: the int32 MAC must wrap like the reference
         x = torch.full((2, 40, 70), 32767, dtype=torch.int16, device="cuda")
         co = torch.full((2, 7, 7), 1 << 20, dtype=torch.int32, device="cuda")
-        self.check_case(rng, "int16", "duplicate", "direct", 7, x=x, co=co)
         self.check_case(rng, "int16", "duplicate", "direct", 7, x=x, co=co,
-                        rounding="nearest")
+                        loader="thread")
+        self.check_case(rng, "int16", "duplicate", "direct", 7, x=x, co=co,
+                        rounding="nearest", loader="thread")
         n += 2
         # full-HD planes
         self.check_case(rng, "float32", "mirror", "direct", 5, M=3, H=1440,
-                        W=1920, N=1)
+                        W=1920, N=1, loader="tma")
         self.check_case(rng, "int8", "mirror", "direct", 3, M=3, H=1440,
-                        W=1920, N=1, rounding="nearest")
+                        W=1920, N=1, rounding="nearest", loader="tma")
         n += 2
         for dt, e in self.max_err.items():
             self.say(f"kernel phase: {dt} max |kernel - plain| = {e!r}")
-        self.say(f"kernel phase: {n} cases agree")
+        self.say(f"kernel phase: {n} cases agree, each through the loader "
+                 "it was meant to take")
 
     # -- phase 4 -------------------------------------------------------------
 
@@ -366,6 +421,7 @@ class Smoke:
                 raise AssertionError("serving phase: drain timed out")
             wall = time.perf_counter() - t0
             launches = K.filter2d_halo.launches
+            tma_launches = K.filter2d_halo.tma_launches
             stats = engine.stats()
             buckets = engine.cache_size()
         finally:
@@ -413,14 +469,18 @@ class Smoke:
         if launches != stats["waves"]:
             raise AssertionError(f"serving: {launches} kernel launches for "
                                  f"{stats['waves']} waves")
+        if tma_launches != launches:
+            raise AssertionError(f"serving: {tma_launches} of {launches} "
+                                 "launches took the TMA loader")
         pixels = sum(h.pixels for _, h in handles)
         self.say(f"serving phase: {requests} requests, {stats['waves']} "
-                 f"waves, {launches} kernel launches, recompiles "
+                 f"waves, {launches} kernel launches ({tma_launches} through "
+                 f"the TMA loader), recompiles "
                  f"{stats['recompiles']} == buckets {buckets}, errors 0")
         self.say(f"serving phase: sustained {pixels / wall!r} px/s "
                  f"({pixels} px in {wall!r} s, burst submit, batch 4, "
                  "host frames in and out)")
-        return launches, templates
+        return launches, tma_launches, templates
 
     # -- phase 5 -------------------------------------------------------------
 
@@ -530,6 +590,8 @@ class Smoke:
 
         ms = self._time(kern, 50)
         plain_ms = self._time(plain, 5, warmup=1)
+        copy = torch.empty_like(planes)
+        copy_ms = self._time(lambda: copy.copy_(planes), 50)
         lib_ms = None
         if not fixed:
             torch.backends.cudnn.allow_tf32 = False
@@ -543,6 +605,7 @@ class Smoke:
                 raise AssertionError(f"yardstick conv2d disagrees: {err}")
             lib_ms = self._time(lib, 50)
         out = kern()
+        geo = K.geometry(planes.dtype, out.dtype, w)
         bytes_moved = (planes.numel() * planes.element_size()
                        + out.numel() * out.element_size())
         ops = 2 * w * w * out.numel()
@@ -555,7 +618,9 @@ class Smoke:
                "bound_by": "bytes" if bytes_ms >= ops_ms
                else "operations",
                "bytes": bytes_moved, "ops": ops,
-               "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+               "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+               "share_of_bound": bound_ms / ms, "copy_ms": copy_ms,
+               "geometry": geo}
         self.say(f"timing {t.bucket} planes [{M},{H},{W}] w{w} "
                  f"{t.spec.dtype}: kernel {ms!r} ms, bound {bound_ms!r} "
                  f"ms ({row['bound_by']}: {bytes_moved} B / 3.35 TB/s = "
@@ -564,6 +629,12 @@ class Smoke:
                  f"{ops_ms!r} ms), plain {plain_ms!r} ms, library "
                  f"{lib_ms!r} ms, {bytes_moved / (ms * 1e-3) / 1e12!r} "
                  "TB/s achieved")
+        copy_bytes = 2 * planes.numel() * planes.element_size()
+        copy_rate = copy_bytes / (copy_ms * 1e-3) / 1e12
+        self.say(f"timing {t.bucket}: share of bound {bound_ms / ms!r}; a "
+                 f"PyTorch copy of the planes ({copy_bytes} B in and out) "
+                 f"takes {copy_ms!r} ms ({copy_rate!r} TB/s); tile "
+                 f"geometry {geo}")
         return row
 
     def profile(self, label: str, fn, top: int = 8) -> None:
@@ -998,6 +1069,19 @@ def ptxas_report(smoke, libs) -> None:
                   f"{min(smem)}..{max(smem)} B, spill bytes "
                   f"{sum(k[3] for k in kernels)} (full report: "
                   f"{lib.ptxas_log.relative_to(ROOT)})")
+        serving = {kernel_label(m): (r, sp) for m, r, _, sp in kernels
+                   if kernel_label(m) in SERVING_KERNELS}
+        if lib.name == "filter2d_halo":
+            if sorted(serving) != sorted(SERVING_KERNELS):
+                raise AssertionError(f"ptxas: serving kernels missing from "
+                                     f"{sorted(serving)}")
+            smoke.say("ptxas filter2d_halo on the serving path: " + "; ".join(
+                f"{label} {r} registers, {sp} B spilled"
+                for label, (r, sp) in serving.items()))
+            spilled = [label for label, (_, sp) in serving.items() if sp]
+            if spilled:
+                raise AssertionError(f"ptxas: serving kernels spill: "
+                                     f"{spilled}")
         tc = [(kernel_label(m), r, sp) for m, r, _, sp in kernels
               if "wgmma" in kernel_label(m)]
         if tc:
@@ -1040,7 +1124,7 @@ def main() -> int:
     smoke.kernel_phase()
     smoke.say(f"kernel phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches, templates = smoke.serving_phase()
+    launches, tma_launches, templates = smoke.serving_phase()
     smoke.say(f"serving phase took {time.perf_counter() - t0:.1f} s")
     rows = smoke.timing_phase(templates)
     smoke.wave_breakdown(templates)
@@ -1073,6 +1157,7 @@ def main() -> int:
     summary = {"kernels": [{
         "name": "filter2d_halo", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
+        "tma_launches": tma_launches,
         "max_abs_err": max(smoke.max_err.values()),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

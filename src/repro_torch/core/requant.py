@@ -17,7 +17,7 @@ plan, and the reference must stay runnable anywhere.
 
 The arithmetic contract (shared verbatim by the numpy reference here, the
 torch epilogue in ``core.filter2d.apply_requant`` and the fused stage of
-the CUDA kernel ``kernels/filter2d/csrc/filter2d_halo.cuh``):
+the CUDA kernel ``kernels/filter2d/csrc/filter2d_halo_ring.cuh``):
 
     prod = acc * multiplier          # int32, caller guarantees headroom
     q    = round_<mode>(prod / 2**shift)

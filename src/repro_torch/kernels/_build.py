@@ -25,6 +25,8 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 ROOT = Path(__file__).resolve().parents[3]
+# headers every kernel package may include (hopper.cuh: mbarriers, TMA)
+COMMON = Path(__file__).resolve().parent / "csrc"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -66,7 +68,7 @@ class KernelLibrary:
     def _digest(self) -> str:
         h = hashlib.sha256(" ".join(FLAGS).encode())
         srcs, hdrs = self.sources()
-        for f in srcs + hdrs:
+        for f in srcs + hdrs + sorted(COMMON.glob("*.cuh")):
             h.update(f.name.encode())
             h.update(f.read_bytes())
         return h.hexdigest()[:16]
@@ -111,8 +113,8 @@ def build_all(libs: Sequence[KernelLibrary],
                 for src in lib.sources()[0]:
                     obj = Path(tmps[lib.name].name) / (src.stem + ".o")
                     jobs.append((lib, src, obj, subprocess.Popen(
-                        [nvcc, *FLAGS, *extra, "-c", str(src), "-o",
-                         str(obj)], stdout=subprocess.PIPE,
+                        [nvcc, *FLAGS, "-I", str(COMMON), *extra, "-c",
+                         str(src), "-o", str(obj)], stdout=subprocess.PIPE,
                         stderr=subprocess.STDOUT, text=True)))
             failed, report = [], {lib.name: [] for lib in todo}
             for lib, src, _, proc in jobs:

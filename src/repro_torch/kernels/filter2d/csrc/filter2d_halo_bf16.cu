@@ -1,5 +1,5 @@
 // bfloat16 storage: float32 accumulator, bfloat16 output.
-#include "filter2d_halo.cuh"
+#include "filter2d_halo_ring.cuh"
 
 namespace f2d {
 cudaError_t launch_bf16(const Params& p, int out_dtype, int form, int w,

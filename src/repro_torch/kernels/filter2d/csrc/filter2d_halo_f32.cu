@@ -1,5 +1,5 @@
 // float32 storage: float32 accumulator, float32 output.
-#include "filter2d_halo.cuh"
+#include "filter2d_halo_ring.cuh"
 
 namespace f2d {
 cudaError_t launch_f32(const Params& p, int out_dtype, int form, int w,

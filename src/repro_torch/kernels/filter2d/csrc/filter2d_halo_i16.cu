@@ -1,5 +1,5 @@
 // int16_t storage: int32 accumulator; int32 output, or the requantised type.
-#include "filter2d_halo.cuh"
+#include "filter2d_halo_ring.cuh"
 
 namespace f2d {
 cudaError_t launch_i16(const Params& p, int out_dtype, int form, int w,

@@ -1,0 +1,798 @@
+// filter2d_halo: w x w correlation of M planes with an N-filter bank, the
+// border policy resolved on chip, one of the paper's reduction forms, and
+// an optional fused requantising epilogue. CUDA C++ for sm_90a.
+//
+// Replaces the TPU kernel src/repro/kernels/filter2d/kernel.py::filter2d_halo
+// (body _halo_kernel, with the halo engine of kernels/filter2d/halo.py and
+// the fused epilogue core/filter2d.py::apply_requant).
+//
+// What bounds it on an H100: HBM bytes. At w <= 7 the kernel does 2*w*w
+// operations per output pixel and moves one input and one output pixel
+// through HBM: ~8 B/px for float32 in and out, ~2 B/px for an int8 frame
+// with an int8 requantised output, against 3.35 TB/s (a PyTorch copy of the
+// same bytes reaches ~2.7-2.9 TB/s; chip_smoke.py times one beside the
+// kernel). The float forms are close behind: no FMA contraction (below)
+// makes w5 49 FP instructions per pixel, ~17 us of issue on 132 SMs for a
+// [4, 1440, 1920] frame against its 26 us of bytes, so loads, reduction and
+// stores have to overlap. The int32 MAC of integer frames runs on the 64
+// IMAD lanes of an SM, half the float rate.
+//
+// Design:
+//  1. Persistent blocks. The work is the reference grid's order (plane,
+//     column tile, row strip; the bank innermost) cut into TILE_W-column x
+//     SH-row items. The launch takes as many blocks as fit on the SMs at
+//     once (at most one per item); block b takes items b, b + G, b + 2G, ...
+//     (G blocks), so the grid sweeps the reference's order a wave at a time
+//     and the frame-edge items, which run the mux, spread over all blocks
+//     (a contiguous run per block left the blocks on the edge columns with
+//     every mux: 49 against 40 us at w5). The bank's coefficients and
+//     requant table come into shared memory once per block, while the
+//     first windows are already in flight.
+//  2. A ring of STAGES windows. One producer warp loads the block's next
+//     items' windows while the consumer warps reduce the current one (the
+//     counterpart of the reference's overlap=True LD || EX || ST schedule),
+//     behind a full/empty mbarrier pair per stage; each consumer warp
+//     releases a stage with one arrival. Two loaders, chosen per launch by
+//     the wrapper:
+//       * TMA (the rule): one elected thread issues one 3D box
+//         (cp.async.bulk.tensor) per window from a tensor map over
+//         [M, H, W] encoded on the host per call; box origins may be
+//         negative or run past the frame, and TMA fills those slots with
+//         zeros. TMA needs a 16-byte aligned base and row pitch
+//         (W * sizeof(T) % 16 == 0), and a box's first column must sit on
+//         a 16-byte boundary too (an H100 faults with an illegal
+//         instruction otherwise), so the box starts LEAD = 16 / sizeof(T)
+//         columns left of the tile, not r: each window row keeps the
+//         frame's 16-byte phase in shared memory;
+//       * per-thread (every other frame: odd widths, views that start off
+//         16 bytes): the 32 producer lanes copy the same box element by
+//         element at the storage width, zeros outside the frame.
+//     The loader is a runtime-uniform branch of the producer; the mux, the
+//     reduction and the epilogue are the same code for both.
+//  3. The border mux after the window lands, only on items whose window
+//     crosses the frame edge (17% of them at 1440 x 1920): the consumers
+//     overwrite the out-of-frame slots that feed real outputs (rows [-r, 0)
+//     and [H, H + r), then columns [-r, 0) and [W, W + r)) with exactly the
+//     value of the border rule: the constant (rounded to the storage type)
+//     or the frame element at map_index(row), map_index(col). A reflection
+//     or a clamp of such a slot lands inside the window, so it is read from
+//     shared memory; wrap reads the opposite edge from global memory (L2).
+//     The consumer warps then sync on a named barrier. Interior items run
+//     no mux and no barrier.
+//  4. Register blocking. Each consumer thread owns C adjacent output columns
+//     (C * sizeof(out) = 16 bytes) and ROWS rows. It reads each window row
+//     segment of C + 2r elements once, with the widest aligned shared loads
+//     that cover it (at a compile-time phase: the segment starts LEAD - r
+//     columns into its words), and slides down: a row's products go
+//     straight into the accumulators of the ROWS outputs it feeds, in the
+//     reference's tap order, so the direct form costs (ROWS + 2r) / ROWS
+//     row-segment loads per output row segment instead of w*w loads per
+//     pixel. The separable form folds each row's v-pass into the same
+//     accumulators with u. The tree and compress forms keep the last w row
+//     segments in registers and reduce each pixel from them. A bank of N
+//     filters reuses the window in shared memory.
+//  5. Stores straight from registers, one 16-byte streaming store (__stcs:
+//     the output is not read again, the input's halo is) per row segment
+//     when Wo % C == 0 (every serving bucket: Wo is 1920 or 1440, float32
+//     or int8), element stores otherwise and at the ragged edge. The
+//     neglect policy runs the same centred windows over the whole frame and
+//     stores output (y - r, x - r) of centre (y, x) where it exists, so one
+//     window phase serves every policy; its stores are element stores. A
+//     TMA store from a staging tile would add a second ring and still need
+//     an element path for unaligned widths; a warp's row of vector stores
+//     already writes whole 128-byte lines.
+//
+// Loader rule (kernels/filter2d/kernel.py::loader_for): TMA when the
+// frame's first element is 16-byte aligned and W * sizeof(T) % 16 == 0,
+// per-thread otherwise. filter2d_halo_launch refuses TMA for anything else
+// (cudaErrorMisalignedAddress).
+//
+// Arithmetic contract, shared with the plain PyTorch version
+// (kernels/filter2d/kernel.py::filter2d_halo_ref):
+//   * float32 and bfloat16 frames load at their storage type and
+//     accumulate in float32 with separately rounded multiplies and adds
+//     (__fmul_rn/__fadd_rn: no FMA contraction), so the kernel and the
+//     plain version agree bit for bit. The reference package accumulates
+//     bfloat16 at bfloat16; the port does not.
+//   * integer frames widen to int32 only at the MAC; the MAC and the
+//     epilogue's acc*multiplier run in uint32 and cast back, which is the
+//     two's-complement wraparound of the reference (signed overflow is
+//     undefined in C++). Because that arithmetic is exact mod 2^32, every
+//     reduction order gives the same integer result, so integer frames use
+//     the left-fold instantiation for direct, transposed, tree and compress.
+//   * forms sum the w*w products in the reference kernel's order
+//     (kernel.py:_reduce_taps/_reduce_separable): direct and transposed as
+//     a left fold in raster order, tree pairwise level by level with the
+//     odd tail carried, compress in groups of 6 then chained; separable
+//     runs the w-tap column pass with v along the width over every window
+//     row, then the w-tap row pass with u.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"  // kernels/csrc: mbarriers, TMA, the map encoder
+
+namespace f2d {
+
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+
+constexpr int TILE_W = 128;      // centre columns per item
+constexpr int NCONS = 256;       // consumer threads: 8 warps
+constexpr int NT = NCONS + 32;   // and one producer warp
+constexpr int STAGES = 3;        // windows in the ring
+constexpr int MUX_BAR = 1;       // the consumers' named barrier
+
+enum Policy { NEGLECT = 0, CONSTANT = 1, WRAP = 2, DUPLICATE = 3,
+              MIRROR_DUP = 4, MIRROR = 5 };
+enum Form { FOLD = 0, TREE = 1, COMPRESS = 2, SEPARABLE = 3 };
+enum Rounding { NO_REQUANT = -1, TRUNCATE = 0, NEAREST = 1, NEAREST_EVEN = 2 };
+
+struct Params {
+  const void* planes;      // [M, H, W] storage type T, contiguous
+  const void* coeffs;      // [N, w, w] or [N, 2, w] (separable), type A
+  const int32_t* qparams;  // [N, 2] (multiplier, shift) or nullptr
+  void* out;               // [M, N, Ho, Wo] type O, contiguous
+  int M, H, W, N, Ho, Wo;
+  int shift;               // output (y, x) is centre (y + shift, x + shift):
+                           // r for neglect, 0 for the same-size policies
+  int policy;
+  double constant;         // constant(c), already exact in the storage type
+  int rounding;
+  int tma;                 // 1: windows arrive by TMA; 0: per-thread loads
+  int tiles, strips;       // column tiles and row strips per plane (host)
+  int vec_store;           // 16-byte output stores allowed (host)
+};
+
+// The tile geometry for storage bytes s, output bytes so and window w; the
+// same numbers on the host (filter2d_halo_geometry) and in the kernel. A
+// window row in shared memory starts LEAD = 16 / s columns left of the tile
+// (a 16-byte boundary, as TMA needs) and covers the tile's C-column thread
+// segments plus r columns either side.
+struct Geometry {
+  int C;      // output columns per consumer thread: 16 bytes of output
+  int ROWS;   // output rows per consumer thread
+  int TX;     // consumer threads across a tile
+  int SH;     // centre rows per item (strip height)
+  int EH;     // window rows: SH + 2r
+  int G;      // alignment of a thread's segment in shared memory (bytes)
+  int PITCH;  // bytes per window row in shared memory = TMA box row
+  int STAGE;  // bytes per ring stage (128-byte aligned)
+};
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+__host__ __device__ constexpr Geometry geometry(int s, int so, int w) {
+  const int r = w / 2;
+  const int C = 16 / so;
+  const int ROWS = C == 16 ? 2 : 4;
+  const int TX = TILE_W / C;
+  const int SH = (NCONS / TX) * ROWS;
+  const int PITCH = round_up(TILE_W * s + 16 + round_up(r * s, 4), 16);
+  return Geometry{C, ROWS, TX, SH, SH + 2 * r, C * s < 16 ? C * s : 16,
+                  PITCH, round_up((SH + 2 * r) * PITCH, 128)};
+}
+
+template <typename T, typename O, int W>
+struct Geo {
+  static constexpr Geometry g = geometry(sizeof(T), sizeof(O), W);
+  static constexpr int S = sizeof(T);
+  static constexpr int R = W / 2;
+  static constexpr int C = g.C, ROWS = g.ROWS, TX = g.TX, SH = g.SH;
+  static constexpr int EH = g.EH, G = g.G, PITCH = g.PITCH, STAGE = g.STAGE;
+  static constexpr int SEG = C + 2 * R;        // a thread's row segment
+  static constexpr int LEAD = 16 / S;          // box columns left of the tile
+  static constexpr int BOX_W = PITCH / S;      // TMA box columns
+  static constexpr int D = LEAD - R;           // segment start in its words
+  static constexpr int FIRST = D * S / 4;      // words a thread loads
+  static constexpr int LAST = ((D + SEG) * S + 3) / 4;
+  static_assert(BOX_W <= 256 && EH <= 256, "a TMA box is <= 256 a side");
+  static_assert(LEAD >= R && (TILE_W - C) * S + 4 * LAST <= PITCH, "layout");
+  static_assert(NCONS % TX == 0 && (C * S) % G == 0, "layout");
+};
+
+// ---------------------------------------------------------------------------
+// border mux: the index rules of core/borders.py::map_index, then a clamp
+// that only matters for window slots feeding masked (ragged-edge) outputs
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ int map_index(int i, int n, int policy) {
+  if (policy == WRAP) {
+    i %= n;
+    if (i < 0) i += n;
+  } else if (policy == MIRROR_DUP) {
+    if (i < 0) i = -i - 1;
+    if (i >= n) i = 2 * n - i - 1;
+  } else if (policy == MIRROR) {
+    if (i < 0) i = -i;
+    if (i >= n) i = 2 * n - i - 2;
+  }
+  return min(max(i, 0), n - 1);
+}
+
+// ---------------------------------------------------------------------------
+// MAC arithmetic: float without contraction, int32 with wraparound
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ int32_t mul(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a * (uint32_t)b);
+}
+__device__ __forceinline__ int32_t add(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+
+template <typename T> __device__ __forceinline__ T from_double(double c) {
+  return (T)c;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_double<__nv_bfloat16>(
+    double c) {
+  return __float2bfloat16_rn((float)c);
+}
+
+// element e of a row held as 32-bit words, widened to A
+template <typename T, typename A, int NW>
+__device__ __forceinline__ A element(const uint32_t (&w)[NW], int e) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(w[e]);
+  } else if constexpr (sizeof(T) == 2) {
+    const uint32_t bits = (w[e >> 1] >> ((e & 1) * 16)) & 0xffffu;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return __uint_as_float(bits << 16);   // bf16 -> f32 is exact
+    else
+      return (int32_t)(int16_t)bits;
+  } else {
+    const uint32_t bits = (w[e >> 2] >> ((e & 3) * 8)) & 0xffu;
+    if constexpr (std::is_same<T, int8_t>::value)
+      return (int32_t)(int8_t)bits;
+    else
+      return (int32_t)bits;
+  }
+}
+
+// words [K, LAST) of a thread's row from shared memory at p (G-aligned),
+// each with the widest load its alignment allows
+template <int K, int LAST, int G, int NW>
+__device__ __forceinline__ void load_words(const unsigned char* p,
+                                           uint32_t (&w)[NW]) {
+  if constexpr (K < LAST) {
+    if constexpr (G == 16 && K % 4 == 0 && K + 4 <= LAST) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p + 4 * K);
+      w[K] = v.x; w[K + 1] = v.y; w[K + 2] = v.z; w[K + 3] = v.w;
+      load_words<K + 4, LAST, G>(p, w);
+    } else if constexpr (G >= 8 && K % 2 == 0 && K + 2 <= LAST) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p + 4 * K);
+      w[K] = v.x; w[K + 1] = v.y;
+      load_words<K + 2, LAST, G>(p, w);
+    } else {
+      w[K] = *reinterpret_cast<const uint32_t*>(p + 4 * K);
+      load_words<K + 1, LAST, G>(p, w);
+    }
+  }
+}
+
+// a thread's row segment: SEG elements starting D elements past p
+template <typename T, typename A, typename GEO>
+__device__ __forceinline__ void load_segment(const unsigned char* p,
+                                             A (&x)[GEO::SEG]) {
+  uint32_t w[GEO::LAST];
+  load_words<GEO::FIRST, GEO::LAST, GEO::G>(p, w);
+#pragma unroll
+  for (int e = 0; e < GEO::SEG; ++e) x[e] = element<T, A>(w, GEO::D + e);
+}
+
+// pairwise tree, level by level, odd tail carried (core/filter2d.py:_tree)
+template <typename A, int N> struct Tree {
+  static __device__ __forceinline__ A run(A* p) {
+    constexpr int H = N / 2;
+#pragma unroll
+    for (int i = 0; i < H; ++i) p[i] = add(p[2 * i], p[2 * i + 1]);
+    if constexpr ((N & 1) != 0) p[H] = p[N - 1];
+    return Tree<A, H + (N & 1)>::run(p);
+  }
+};
+template <typename A> struct Tree<A, 1> {
+  static __device__ __forceinline__ A run(A* p) { return p[0]; }
+};
+
+// one output pixel of the tree or compress form from the w row segments
+// rows[oy .. oy + w - 1], column c
+template <typename A, int W, int FORM, int NR, int SEG>
+__device__ __forceinline__ A reduce_pixel(A (&rows)[NR][SEG], int oy, int c,
+                                          const A* k) {
+  constexpr int NT = W * W;
+  if constexpr (FORM == TREE) {
+    A p[NT];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) p[t] = mul(rows[oy + t / W][c + t % W], k[t]);
+    return Tree<A, NT>::run(p);
+  } else {  // COMPRESS: groups of 6, then a chain over the partial sums
+    A acc = A(0);
+#pragma unroll
+    for (int g = 0; g < NT; g += 6) {
+      A s = mul(rows[oy + g / W][c + g % W], k[g]);
+#pragma unroll
+      for (int t = g + 1; t < g + 6 && t < NT; ++t)
+        s = add(s, mul(rows[oy + t / W][c + t % W], k[t]));
+      acc = (g == 0) ? s : add(acc, s);
+    }
+    return acc;
+  }
+}
+
+// the fused epilogue: the identities of core/filter2d.py::apply_requant
+__device__ __forceinline__ int32_t requant(int32_t acc, int32_t m, int32_t sh,
+                                           int rounding) {
+  sh = min(max(sh, 0), 31);  // RequantSpec's contract; keeps shifts defined
+  const int32_t prod = mul(acc, m);
+  const int32_t shm1 = sh > 0 ? sh - 1 : 0;
+  if (rounding == TRUNCATE) return prod >> sh;  // arithmetic (floor) shift
+  if (rounding == NEAREST) {
+    const int32_t half = sh > 0 ? (1 << shm1) : 0;
+    return add(prod, half) >> sh;
+  }
+  const int32_t base = prod >> sh;  // NEAREST_EVEN: masked-remainder tie rule
+  const int32_t rem = (int32_t)((uint32_t)prod & ((1u << sh) - 1u));
+  const int32_t half = 1 << shm1;
+  const bool up = (rem > half) || (rem == half && (base & 1) != 0);
+  return base + ((sh > 0 && up) ? 1 : 0);
+}
+
+template <typename O> struct Limits;
+template <> struct Limits<int8_t> { static constexpr int32_t lo = -128, hi = 127; };
+template <> struct Limits<uint8_t> { static constexpr int32_t lo = 0, hi = 255; };
+template <> struct Limits<int16_t> { static constexpr int32_t lo = -32768, hi = 32767; };
+
+// the output word of one pixel, as the bits of a packed vector store
+template <typename O, typename A>
+__device__ __forceinline__ uint32_t finish_bits(A acc, int rounding, int32_t m,
+                                                int32_t sh) {
+  if constexpr (std::is_same<O, float>::value) {
+    return __float_as_uint(acc);
+  } else if constexpr (std::is_same<O, __nv_bfloat16>::value) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(acc));
+  } else if constexpr (std::is_same<O, int32_t>::value) {
+    return (uint32_t)acc;
+  } else {
+    const int32_t q = requant(acc, m, sh, rounding);
+    const int32_t c = min(max(q, Limits<O>::lo), Limits<O>::hi);
+    return (uint32_t)c & ((1u << (8 * sizeof(O))) - 1u);
+  }
+}
+
+template <typename O>
+__device__ __forceinline__ O from_bits(uint32_t b) {
+  if constexpr (std::is_same<O, float>::value) return __uint_as_float(b);
+  else if constexpr (std::is_same<O, __nv_bfloat16>::value)
+    return __ushort_as_bfloat16((unsigned short)b);
+  else return (O)b;
+}
+
+// one output row segment of a thread: C pixels at dst, those in [lo, hi)
+// inside the output; one 16-byte store where the whole segment is inside
+// and the row allows it
+template <typename O, typename A, int C>
+__device__ __forceinline__ void emit(O* dst, const A (&acc)[C], int lo,
+                                     int hi, bool vec, int rounding, int32_t m,
+                                     int32_t sh) {
+  uint32_t bits[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) bits[c] = finish_bits<O>(acc[c], rounding, m, sh);
+  if (vec && lo == 0 && hi >= C) {
+    constexpr int PER = 4 / (int)sizeof(O);   // pixels per 32-bit word
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[k] = 0;
+#pragma unroll
+      for (int e = 0; e < PER; ++e)
+        w[k] |= bits[k * PER + e] << (8 * (int)sizeof(O) * e);
+    }
+    // streaming: the output is not read again, the input's halo is
+    __stcs(reinterpret_cast<uint4*>(dst), make_uint4(w[0], w[1], w[2], w[3]));
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (c >= lo && c < hi) dst[c] = from_bits<O>(bits[c]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the consumers' work on one item: every filter of the bank over the
+// thread's ROWS x C centres, from its window rows at `win`; output (y, x)
+// of centre (cy, cx) is (cy - shift, cx - shift)
+// ---------------------------------------------------------------------------
+template <typename T, typename A, typename O, int W, int FORM>
+__device__ __forceinline__ void reduce_item(const unsigned char* win,
+                                            const A* cs, const int32_t* qs,
+                                            const Params& p, int m, int cy0,
+                                            int cx0) {
+  using GEO = Geo<T, O, W>;
+  constexpr int R = GEO::R, C = GEO::C, ROWS = GEO::ROWS, SEG = GEO::SEG;
+  constexpr int PITCH = GEO::PITCH;
+  constexpr int NTAPS = FORM == SEPARABLE ? 2 * W : W * W;
+  const int ox0 = cx0 - p.shift, oy0 = cy0 - p.shift;
+  const int lo = max(0, -ox0), hi = min(C, p.Wo - ox0);
+  const bool vec = p.vec_store != 0;
+  for (int f = 0; f < p.N; ++f) {
+    const int32_t qm = qs != nullptr ? qs[2 * f] : 1;
+    const int32_t qsh = qs != nullptr ? qs[2 * f + 1] : 0;
+    O* out = static_cast<O*>(p.out) +
+             ((size_t)m * p.N + f) * p.Ho * p.Wo + ox0;
+    const A* kf = cs + f * NTAPS;
+    A k[NTAPS];
+#pragma unroll
+    for (int t = 0; t < NTAPS; ++t) k[t] = kf[t];
+    auto store = [&](int row, const A (&a)[C]) {
+      const int gy = oy0 + row;
+      if (gy >= 0 && gy < p.Ho)
+        emit<O, A, C>(out + (ptrdiff_t)gy * p.Wo, a, lo, hi, vec, p.rounding,
+                      qm, qsh);
+    };
+    if constexpr (FORM == FOLD || FORM == SEPARABLE) {
+      // window row y feeds output rows y - i, i < w, as their tap row i:
+      // each pixel's sum runs in raster tap order
+      A acc[ROWS][C];
+#pragma unroll
+      for (int y = 0; y < ROWS + 2 * R; ++y) {
+        A x[SEG];
+        load_segment<T, A, GEO>(win + y * PITCH, x);
+        if constexpr (FORM == FOLD) {
+#pragma unroll
+          for (int i = 0; i < W; ++i) {
+            const int oy = y - i;
+            if (oy < 0 || oy >= ROWS) continue;
+#pragma unroll
+            for (int j = 0; j < W; ++j)
+#pragma unroll
+              for (int c = 0; c < C; ++c) {
+                const A prod = mul(x[c + j], k[i * W + j]);
+                acc[oy][c] = (i == 0 && j == 0) ? prod : add(acc[oy][c], prod);
+              }
+          }
+        } else {  // SEPARABLE: the row's v-pass, then its u term
+          A h[C];
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            h[c] = mul(x[c], k[W]);
+#pragma unroll
+            for (int j = 1; j < W; ++j) h[c] = add(h[c], mul(x[c + j], k[W + j]));
+          }
+#pragma unroll
+          for (int i = 0; i < W; ++i) {
+            const int oy = y - i;
+            if (oy < 0 || oy >= ROWS) continue;
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              const A prod = mul(h[c], k[i]);
+              acc[oy][c] = i == 0 ? prod : add(acc[oy][c], prod);
+            }
+          }
+        }
+        if (y >= 2 * R) store(y - 2 * R, acc[y - 2 * R]);
+      }
+    } else {  // TREE, COMPRESS: the last w row segments stay in registers
+      A rows[ROWS + 2 * R][SEG];
+#pragma unroll
+      for (int y = 0; y < ROWS + 2 * R; ++y) {
+        load_segment<T, A, GEO>(win + y * PITCH, rows[y]);
+        if (y >= 2 * R) {
+          A res[C];
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            res[c] = reduce_pixel<A, W, FORM>(rows, y - 2 * R, c, k);
+          store(y - 2 * R, res);
+        }
+      }
+    }
+  }
+}
+
+// The out-of-frame window slots that feed real outputs, set by the border
+// rule: rows [-r, 0) and [H, H + r) across the window, then columns [-r, 0)
+// and [W, W + r) down it (numpy.pad's rows-then-columns composition: a
+// corner slot reads frame[map(row), map(col)]). The stage holds frame rows
+// from ywin0 and frame columns from bx0, the window's from bx0 + LEAD - r.
+// Reflections and clamps land inside the window, whose in-frame slots the
+// mux never writes, so they are read from shared memory; wrap reads the
+// opposite edge from global memory (L2).
+template <typename T, typename GEO>
+__device__ __forceinline__ void mux(unsigned char* stage, const T* src,
+                                    const Params& p, int ywin0, int bx0,
+                                    int tid) {
+  constexpr int R = GEO::R, EH = GEO::EH, EW = TILE_W + 2 * R;
+  const int xwin0 = bx0 + GEO::LEAD - R;
+  auto span = [](int lo, int hi, int n) {   // [lo, hi) clipped to [0, n)
+    return make_int2(min(max(lo, 0), n), min(max(hi, 0), n));
+  };
+  // the slots that feed real outputs: frame rows [-r, H + r) and columns
+  // [-r, W + r); the reflection of any other slot may leave the window
+  const int2 rows = span(-R - ywin0, p.H + R - ywin0, EH);
+  const int2 cols = span(-R - xwin0, p.W + R - xwin0, EW);
+  const int2 top = span(-R - ywin0, -ywin0, EH);
+  const int2 bot = span(p.H - ywin0, p.H + R - ywin0, EH);
+  const int2 lft = span(-R - xwin0, -xwin0, EW);
+  const int2 rgt = span(p.W - xwin0, p.W + R - xwin0, EW);
+  const int nt = top.y - top.x, nl = lft.y - lft.x;
+  const int nr = nt + (bot.y - bot.x), nc = nl + (rgt.y - rgt.x);
+  const int nw = cols.y - cols.x, nh = rows.y - rows.x;
+  const int total = nr * nw + nh * nc;
+  const T cval = from_double<T>(p.constant);
+  for (int idx = tid; idx < total; idx += NCONS) {
+    int ey, ex;
+    if (idx < nr * nw) {        // out-of-frame rows, across
+      const int k = idx / nw;
+      ey = k < nt ? top.x + k : bot.x + (k - nt);
+      ex = cols.x + (idx - k * nw);
+    } else {                    // out-of-frame columns, down
+      const int j = idx - nr * nw;
+      const int k = j / nh;
+      ey = rows.x + (j - k * nh);
+      ex = k < nl ? lft.x + k : rgt.x + (k - nl);
+    }
+    T v = cval;
+    if (p.policy != CONSTANT) {
+      const int sy = map_index(ywin0 + ey, p.H, p.policy);
+      const int sx = map_index(xwin0 + ex, p.W, p.policy);
+      if (p.policy == WRAP)   // the opposite edge: from L2
+        v = src[(size_t)sy * p.W + sx];
+      else                    // a reflection or a clamp: inside the window
+        v = reinterpret_cast<const T*>(stage + (sy - ywin0) * GEO::PITCH)
+            [sx - bx0];
+    }
+    reinterpret_cast<T*>(stage + ey * GEO::PITCH)[ex + GEO::LEAD - R] = v;
+  }
+}
+
+// the per-thread loader: the producer warp copies the box TMA would copy,
+// at the storage width, zeros outside the frame
+template <typename T, typename GEO>
+__device__ __forceinline__ void fill(unsigned char* stage, const T* src,
+                                     const Params& p, int ywin0, int bx0,
+                                     int lane) {
+  constexpr int BW = GEO::BOX_W;
+  const T zero = from_double<T>(0.0);
+#pragma unroll 8
+  for (int e = lane; e < GEO::EH * BW; e += 32) {
+    const int ey = e / BW, ex = e - (e / BW) * BW;
+    const int gy = ywin0 + ey, gx = bx0 + ex;
+    const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+    reinterpret_cast<T*>(stage + ey * GEO::PITCH)[ex] =
+        inside ? src[(size_t)gy * p.W + gx] : zero;
+  }
+}
+
+// the consumer warps' named barrier. bar.sync is warp-aligned: a warp must
+// arrive converged, so the data-dependent loops before it (the mux, the
+// coefficient copy) are closed with __syncwarp first
+__device__ __forceinline__ void consumers_sync() {
+  __syncwarp();
+  asm volatile("bar.sync %0, %1;\n" ::"n"(MUX_BAR), "n"(NCONS) : "memory");
+}
+
+// The explicit minimum of one block per SM is not a no-op: with the
+// thread count alone ptxas gives the w5 float kernel 62 registers and
+// hoists fewer shared loads, 3% slower on an H100 than with it (93); the
+// serving shapes still run two blocks per SM.
+template <typename T, typename A, typename O, int W, int FORM>
+__global__ void __launch_bounds__(NT, 1)
+filter2d_halo_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
+  using GEO = Geo<T, O, W>;
+  constexpr int NTAPS = FORM == SEPARABLE ? 2 * W : W * W;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u);
+  const uint32_t bars = smem_u32(ring + STAGES * GEO::STAGE);
+  // full[s] at bars + 8 s, empty[s] at bars + 8 (STAGES + s)
+  A* cs = reinterpret_cast<A*>(ring + STAGES * GEO::STAGE + 16 * STAGES);
+  int32_t* qs = reinterpret_cast<int32_t*>(cs + p.N * NTAPS);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, p.tma ? 1 : 32);
+      mbar_init(bars + 8 * (STAGES + s), NCONS / 32);   // a warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // this block's items: blockIdx.x, then every gridDim.x-th, so the grid
+  // sweeps the reference's order (plane, tile, strip) a wave at a time and
+  // the frame-edge items, which run the mux, spread over all blocks
+  const int per_plane = p.tiles * p.strips;
+  const int items = p.M * per_plane;   // < 2^31: the host checks
+  const size_t plane = (size_t)p.H * p.W;
+
+  if (tid >= NCONS) {  // the producer warp: the ring's first windows are
+    const int lane = tid - NCONS;   // in flight while the consumers fetch
+    if (p.tma && lane != 0) return; // the coefficients
+    if (p.tma)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map)) : "memory");
+    for (int it = blockIdx.x, k = 0; it < items; it += gridDim.x, ++k) {
+      const int s = k % STAGES;
+      const int m = it / per_plane, rem = it - m * per_plane;
+      const int ywin0 = (rem % p.strips) * GEO::SH - GEO::R;
+      const int bx0 = (rem / p.strips) * TILE_W - GEO::LEAD;
+      unsigned char* stage = ring + s * GEO::STAGE;
+      mbar_wait(bars + 8 * (STAGES + s), ((k / STAGES) & 1) ^ 1);
+      if (p.tma) {
+        mbar_expect_tx(bars + 8 * s, GEO::EH * GEO::PITCH);
+        hopper::tma_load_3d(smem_u32(stage), &map, bars + 8 * s, bx0, ywin0,
+                            m);
+      } else {
+        fill<T, GEO>(stage, static_cast<const T*>(p.planes) + m * plane, p,
+                     ywin0, bx0, lane);
+        mbar_arrive(bars + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // the bank's coefficients and requant table, once per block
+  const A* gco = static_cast<const A*>(p.coeffs);
+  for (int e = tid; e < p.N * NTAPS; e += NCONS) cs[e] = gco[e];
+  if (p.qparams != nullptr)
+    for (int e = tid; e < 2 * p.N; e += NCONS) qs[e] = p.qparams[e];
+  consumers_sync();
+
+  // the consumers
+  const int tx = tid % GEO::TX, ty = tid / GEO::TX;
+  for (int it = blockIdx.x, k = 0; it < items; it += gridDim.x, ++k) {
+    const int s = k % STAGES;
+    const int m = it / per_plane, rem = it - m * per_plane;
+    const int y0 = (rem % p.strips) * GEO::SH, x0 = (rem / p.strips) * TILE_W;
+    const int ywin0 = y0 - GEO::R;
+    unsigned char* stage = ring + s * GEO::STAGE;
+    mbar_wait(bars + 8 * s, (k / STAGES) & 1);
+    const bool edge = p.policy != NEGLECT &&
+                      (ywin0 < 0 || ywin0 + GEO::EH > p.H ||
+                       x0 - GEO::R < 0 || x0 + TILE_W + GEO::R > p.W);
+    if (edge) {
+      mux<T, GEO>(stage, static_cast<const T*>(p.planes) + m * plane, p,
+                  ywin0, x0 - GEO::LEAD, tid);
+      consumers_sync();
+    }
+    const int cy0 = y0 + ty * GEO::ROWS, cx0 = x0 + tx * GEO::C;
+    if (cy0 - p.shift < p.Ho && cx0 - p.shift < p.Wo &&
+        cy0 + GEO::ROWS > p.shift && cx0 + GEO::C > p.shift)
+      reduce_item<T, A, O, W, FORM>(
+          stage + ty * GEO::ROWS * GEO::PITCH + tx * GEO::C * GEO::S, cs,
+          p.qparams != nullptr ? qs : nullptr, p, m, cy0, cx0);
+    // the mux's generic writes before the next TMA write to this stage
+    if (edge) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();   // the warp is done with the stage: one arrival for it
+    if ((tid & 31) == 0) mbar_arrive(bars + 8 * (STAGES + s));
+  }
+}
+
+// dynamic shared memory of a launch: alignment slack, the ring, the
+// barriers, the bank's coefficients and its requant table
+template <typename T, typename A, typename O, int W, int FORM>
+constexpr size_t smem_bytes(int N) {
+  constexpr int NTAPS = FORM == SEPARABLE ? 2 * W : W * W;
+  return 128 + (size_t)STAGES * Geo<T, O, W>::STAGE + 16 * STAGES +
+         (size_t)N * NTAPS * sizeof(A) + (size_t)N * 8;
+}
+
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
+                          : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+}
+
+// [M, H, W] storage type T as a 3D map (W, H, M); boxes of BOX_W x EH x 1,
+// no swizzle, out-of-frame slots read as zeros
+template <typename T, typename GEO>
+bool make_map(CUtensorMap* map, const Params& p) {
+  hopper::EncodeTiled enc = hopper::encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)p.W, (cuuint64_t)p.H,
+                              (cuuint64_t)p.M};
+  const cuuint64_t strides[2] = {(cuuint64_t)p.W * sizeof(T),
+                                 (cuuint64_t)p.W * p.H * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)GEO::BOX_W, (cuuint32_t)GEO::EH, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return enc(map, tma_type<T>(), 3, const_cast<void*>(p.planes), dims,
+             strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, typename A, typename O, int W, int FORM>
+cudaError_t launch(Params p, cudaStream_t stream) {
+  using GEO = Geo<T, O, W>;
+  // centres cover the frame; neglect keeps those whose window is inside
+  p.tiles = (p.W + TILE_W - 1) / TILE_W;
+  p.strips = (p.H + GEO::SH - 1) / GEO::SH;
+  p.vec_store = p.shift == 0 && p.Wo % GEO::C == 0 &&
+                reinterpret_cast<uintptr_t>(p.out) % 16 == 0;
+  const long long items = (long long)p.M * p.tiles * p.strips;
+  if (items <= 0 || p.N <= 0 || p.Ho <= 0 || p.Wo <= 0)
+    return cudaSuccess;   // an empty output
+  if (items >= (1ll << 31)) return cudaErrorInvalidValue;
+  CUtensorMap map;
+  memset(&map, 0, sizeof map);
+  if (p.tma) {
+    if (reinterpret_cast<uintptr_t>(p.planes) % 16 != 0 ||
+        ((size_t)p.W * sizeof(T)) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+    if (!make_map<T, GEO>(&map, p)) return cudaErrorInvalidValue;
+  }
+  const auto kern = filter2d_halo_kernel<T, A, O, W, FORM>;
+  const size_t smem = smem_bytes<T, A, O, W, FORM>(p.N);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long grid = items < (long long)per_sm * sms
+                             ? items : (long long)per_sm * sms;
+  filter2d_halo_kernel<T, A, O, W, FORM>
+      <<<(unsigned)grid, NT, smem, stream>>>(map, p);
+  return cudaGetLastError();
+}
+template <typename T, typename A, typename O, int W>
+cudaError_t dispatch_form(const Params& p, int form, cudaStream_t stream) {
+  if (form == SEPARABLE) return launch<T, A, O, W, SEPARABLE>(p, stream);
+  if constexpr (std::is_integral<A>::value) {
+    return launch<T, A, O, W, FOLD>(p, stream);  // exact mod 2^32: any order
+  } else {
+    if (form == TREE) return launch<T, A, O, W, TREE>(p, stream);
+    if (form == COMPRESS) return launch<T, A, O, W, COMPRESS>(p, stream);
+    return launch<T, A, O, W, FOLD>(p, stream);
+  }
+}
+
+template <typename T, typename A, typename O>
+cudaError_t dispatch(const Params& p, int form, int w, cudaStream_t stream) {
+  switch (w) {
+    case 1: return dispatch_form<T, A, O, 1>(p, form, stream);
+    case 3: return dispatch_form<T, A, O, 3>(p, form, stream);
+    case 5: return dispatch_form<T, A, O, 5>(p, form, stream);
+    case 7: return dispatch_form<T, A, O, 7>(p, form, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// dtype codes shared with kernels/filter2d/kernel.py
+enum DType { F32 = 0, BF16 = 1, I8 = 2, U8 = 3, I16 = 4, I32 = 5 };
+
+// integer storage T: out is the int32 accumulator or a requantised type
+template <typename T>
+cudaError_t dispatch_int(const Params& p, int out_dtype, int form, int w,
+                         cudaStream_t stream) {
+  switch (out_dtype) {
+    case I32: return dispatch<T, int32_t, int32_t>(p, form, w, stream);
+    case I8: return dispatch<T, int32_t, int8_t>(p, form, w, stream);
+    case U8: return dispatch<T, int32_t, uint8_t>(p, form, w, stream);
+    case I16: return dispatch<T, int32_t, int16_t>(p, form, w, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// one entry per storage type, each in its own translation unit so the
+// instantiations build in parallel
+cudaError_t launch_f32(const Params& p, int out_dtype, int form, int w, cudaStream_t s);
+cudaError_t launch_bf16(const Params& p, int out_dtype, int form, int w, cudaStream_t s);
+cudaError_t launch_i8(const Params& p, int out_dtype, int form, int w, cudaStream_t s);
+cudaError_t launch_u8(const Params& p, int out_dtype, int form, int w, cudaStream_t s);
+cudaError_t launch_i16(const Params& p, int out_dtype, int form, int w, cudaStream_t s);
+
+}  // namespace f2d

@@ -5,24 +5,29 @@ Replaces the TPU kernel ``src/repro/kernels/filter2d/kernel.py::
 filter2d_halo`` (``_halo_kernel``, with the halo engine of
 ``kernels/filter2d/halo.py`` and the fused ``apply_requant`` epilogue) by
 a kernel written by hand in CUDA C++ for ``sm_90a``:
-``csrc/filter2d_halo.cuh`` (its header comment states the design and what
-bounds it). On an H100 the kernel is bound by HBM bytes at w ≤ 7: about
-8 B/px for float32 in and out, about 2 B/px for an int8 frame with an int8
-requantised output, against 3.35 TB/s.
+``csrc/filter2d_halo_ring.cuh`` (its header comment states the design and
+what bounds it). On an H100 the kernel is bound by HBM bytes at w ≤ 7:
+about 8 B/px for float32 in and out, about 2 B/px for an int8 frame with
+an int8 requantised output, against 3.35 TB/s.
 
 What it computes, exactly as the reference kernel does: a w×w
 **correlation** of M planes with an N-filter bank (or [N, 2, w] separable
-factors), the border policy resolved on the read path (``neglect``
-shrinks the output by w−1), one of the reduction forms, and an optional
-per-filter requantising epilogue whose [N, 2] int32 (multiplier, shift)
-table is a runtime operand — swapping gains rebuilds nothing.
+factors), the border policy resolved on chip (``neglect`` shrinks the
+output by w−1), one of the reduction forms, and an optional per-filter
+requantising epilogue whose [N, 2] int32 (multiplier, shift) table is a
+runtime operand — swapping gains rebuilds nothing.
 
 What differs from the reference kernel, on purpose:
 
-  * one thread block per (output tile, plane), with the tile fixed at
-    32 × 64 pixels (the plan's VMEM-sized strip/tile is accounting
-    only, see ``halo.py``); the output is the exact [M, N, Ho, Wo], with
-    the ragged edge masked — there is no padded output to crop;
+  * persistent blocks walk 128-column × SH-row items of the reference
+    grid's order, each window loaded into a ring of shared-memory stages
+    while the previous one is reduced (the plan's VMEM-sized strip/tile is
+    accounting only, see ``halo.py``; :func:`geometry` gives the kernel's
+    own); the output is the exact [M, N, Ho, Wo], with the ragged edge
+    masked — there is no padded output to crop;
+  * windows arrive by TMA when the frame allows it (:func:`loader_for`),
+    else by per-thread loads into the same ring; the choice is the
+    frame's, not the caller's;
   * bfloat16 frames load at bfloat16 and accumulate in float32 (the
     reference accumulates at the storage dtype), so bfloat16 results
     differ from the reference by bfloat16 rounding (tests hold 3e-2);
@@ -32,10 +37,12 @@ What differs from the reference kernel, on purpose:
 ``filter2d_halo`` launches the kernel for a CUDA tensor and runs the plain
 version ``filter2d_halo_ref`` for a CPU tensor, and only then: there is no
 fallback from the card to the plain version. ``filter2d_halo.launches``
-counts kernel launches.
+counts kernel launches, ``filter2d_halo.tma_launches`` those that took the
+TMA loader.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -48,9 +55,11 @@ from repro_torch.kernels.filter2d import _build
 from repro_torch.kernels.filter2d.halo import HaloPlan
 
 KERNEL_WINDOWS = (1, 3, 5, 7)          # the instantiations in csrc/
-# the bank's coefficients sit in shared memory beside the <= ~20 KiB window
-# (and separable row buffer): together under 48 KiB
+# the bank's coefficients sit in shared memory beside the ring of windows
+# (three stages of <= 21 KiB)
 MAX_COEFF_BYTES = 24 * 1024
+# TMA takes a frame whose base and row pitch are multiples of 16 bytes
+TMA_ALIGN = 16
 
 FORMS = ("direct", "transposed", "tree", "compress", "separable")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -170,8 +179,40 @@ def filter2d_halo_ref(planes: torch.Tensor, coeffs: torch.Tensor,
     return torch.stack(outs, dim=1)
 
 
-def _check(planes, coeffs, plan, q_params, form):
-    """What the kernel takes; anything else raises before a launch."""
+def loader_for(planes: torch.Tensor) -> str:
+    """The loader the kernel takes for ``planes``: ``'tma'`` when the frame
+    can be a TMA tensor map — its first element on a 16-byte boundary
+    (``data_ptr`` counts a view's storage offset) and its row pitch, W
+    times the element size, a multiple of 16 bytes — else ``'thread'``
+    (per-thread loads into the same ring). A function of shape, dtype and
+    address only; not a caller's option."""
+    W = planes.shape[-1]
+    aligned = (planes.data_ptr() % TMA_ALIGN == 0
+               and W * planes.element_size() % TMA_ALIGN == 0)
+    return "tma" if aligned else "thread"
+
+
+GEOMETRY_KEYS = ("tile_w", "strip_h", "cols_per_thread", "rows_per_thread",
+                 "threads", "stages", "stage_bytes", "row_pitch_bytes")
+
+
+def geometry(storage_dtype: torch.dtype, out_dtype: torch.dtype,
+             w: int) -> dict:
+    """The built kernel's tile geometry for these dtypes and window, from
+    the library itself (``filter2d_halo_geometry``): tile and strip, each
+    thread's output block, threads per block, ring stages and the bytes of
+    one stage. Needs the CUDA toolkit (it loads the library)."""
+    g = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    rc = _build.load_library().filter2d_halo_geometry(
+        _DTYPE_CODE[storage_dtype], _DTYPE_CODE[out_dtype], w, g)
+    if rc != 0:
+        raise ValueError(f"no geometry for {storage_dtype} -> {out_dtype}")
+    return dict(zip(GEOMETRY_KEYS, g))
+
+
+def check_operands(planes, coeffs, plan, q_params, form):
+    """What the kernel takes; anything else raises before a launch. Runs on
+    tensors of any device (the CPU tests call it)."""
     dev = planes.device
     if planes.dtype not in _DTYPE_CODE or planes.dtype == torch.int32:
         raise TypeError(f"the CUDA kernel takes float32, bfloat16, int8, "
@@ -179,12 +220,10 @@ def _check(planes, coeffs, plan, q_params, form):
     if planes.ndim != 3 or not planes.is_contiguous():
         raise ValueError("planes must be a contiguous [M, H, W] tensor; got "
                          f"shape {tuple(planes.shape)}")
-    M, H, W = planes.shape
+    _, H, W = planes.shape
     if (H, W) != (plan.rows.extent, plan.cols.extent):
         raise ValueError(f"plan is for {plan.rows.extent}x"
                          f"{plan.cols.extent} frames; got {H}x{W}")
-    if M > 65535:
-        raise ValueError(f"at most 65535 planes per launch; got {M}")
     w = coeffs.shape[-1]
     if w not in KERNEL_WINDOWS or w != 2 * plan.rows.r + 1:
         raise ValueError(f"the CUDA kernel is built for windows "
@@ -239,7 +278,7 @@ def filter2d_halo(planes: torch.Tensor, coeffs: torch.Tensor, plan: HaloPlan,
     if plan.requant is not None and q_params is None:
         q_params = torch.tensor(plan.requant.params(coeffs.shape[0]),
                                 dtype=torch.int32, device=planes.device)
-    _check(planes, coeffs, plan, q_params, form)
+    check_operands(planes, coeffs, plan, q_params, form)
     M, H, W = planes.shape
     N, w = coeffs.shape[0], coeffs.shape[-1]
     border = BorderSpec(plan.policy)
@@ -248,6 +287,7 @@ def filter2d_halo(planes: torch.Tensor, coeffs: torch.Tensor, plan: HaloPlan,
     out = torch.empty((M, N, Ho, Wo), dtype=odt, device=planes.device)
     # the constant, rounded to the storage dtype (exact as a double)
     const = float(torch.tensor(plan.constant).to(planes.dtype).double())
+    loader = loader_for(planes)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     with torch.cuda.device(planes.device):
@@ -258,11 +298,13 @@ def filter2d_halo(planes: torch.Tensor, coeffs: torch.Tensor, plan: HaloPlan,
             _POLICY_CODE[plan.policy], const, _DTYPE_CODE[planes.dtype],
             _DTYPE_CODE[odt], _FORM_CODE[form],
             _ROUNDING_CODE[plan.requant.rounding] if plan.requant else -1,
-            stream)
+            int(loader == "tma"), stream)
     if rc != 0:
         raise RuntimeError(f"filter2d_halo launch failed with CUDA error {rc}")
     filter2d_halo.launches += 1
+    filter2d_halo.tma_launches += loader == "tma"
     return out
 
 
 filter2d_halo.launches = 0
+filter2d_halo.tma_launches = 0

@@ -65,9 +65,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"  // kernels/csrc: mbarriers, TMA, the map encoder
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::tma_load_4d;
 
 constexpr int BK = 64;             // keys per K/V tile
 constexpr int STAGES = 3;          // K/V ring depth
@@ -88,55 +96,6 @@ struct Geometry {
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   static constexpr int ALLOC = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// spins until the phase of the given parity completes; a wait that outlasts
-// about ten seconds of clock is a broken pipeline and traps, so a fault
-// ends the launch with an error instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  const long long start = clock64();
-  do {
-    if (clock64() - start > (1ll << 34)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4D tensor map (hd, heads, S, B) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
 
 // wgmma shared-memory matrix descriptor, 32-byte swizzle. K-major tiles
 // (Q, K): 8-row groups 256 bytes apart (sbo); MN-major V: 16-column boxes
@@ -426,15 +385,15 @@ swattn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == G::NCONSUMER) {
       mbar_expect_tx(qbar, G::Q_BYTES);
       for (int j = 0; j < KS; ++j)
-        tma_load(sQ + j * BQ * 32, &tq, qbar, j * BOX, h, q0, b);
+        tma_load_4d(sQ + j * BQ * 32, &tq, qbar, j * BOX, h, q0, b);
       for (int kt = kt0, i = 0; kt <= kt1; ++kt, ++i) {
         const int s = i % STAGES;
         mbar_wait(empty + 8 * s, ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, 2 * G::KV_BYTES);
         for (int j = 0; j < KS; ++j) {
           const uint32_t off = s * G::KV_BYTES + j * BK * 32;
-          tma_load(sK + off, &tk, full + 8 * s, j * BOX, hk, kt * BK, b);
-          tma_load(sV + off, &tv, full + 8 * s, j * BOX, hk, kt * BK, b);
+          tma_load_4d(sK + off, &tk, full + 8 * s, j * BOX, hk, kt * BK, b);
+          tma_load_4d(sV + off, &tv, full + 8 * s, j * BOX, hk, kt * BK, b);
         }
       }
     }
@@ -537,37 +496,11 @@ swattn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime: no -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // [B, S, heads, hd] bf16 as a 4D map (hd, heads, S, B), boxes of 16 columns
 // x 1 head x `rows` positions, 32-byte swizzle; positions >= S read as zeros
 bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int S,
               int B, int rows) {
-  EncodeTiled enc = encoder();
+  hopper::EncodeTiled enc = hopper::encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};

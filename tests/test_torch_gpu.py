@@ -59,6 +59,16 @@ def _same(got, ref, dtype):
         assert torch.equal(got, ref)
 
 
+def _launch(x, co, plan, q, form, loader):
+    """One kernel launch, checked to have taken ``loader``."""
+    before = (K.filter2d_halo.launches, K.filter2d_halo.tma_launches)
+    got = K.filter2d_halo(x, co, plan, q_params=q, form=form)
+    tma = int(loader == "tma")
+    assert (K.filter2d_halo.launches, K.filter2d_halo.tma_launches) == (
+        before[0] + 1, before[1] + tma), loader
+    return got
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("policy", POLICIES)
 def test_kernel_matches_plain_version(cuda, policy, dtype, rng):
@@ -76,12 +86,85 @@ def test_kernel_matches_plain_version(cuda, policy, dtype, rng):
             const = 3.7 if dtype in TOL else -300.0
             plan = halo.make_plan(37, 70, w, BorderSpec(policy, const), 37,
                                   70, dtype=dtype, requant=rq)
-            before = K.filter2d_halo.launches
-            got = K.filter2d_halo(x, co, plan, q_params=q, form=form)
-            assert K.filter2d_halo.launches == before + 1
+            got = _launch(x, co, plan, q, form, "thread")  # 70 cols: unaligned
             ref = K.filter2d_halo_ref(x, co, plan, q_params=q, form=form)
             torch.cuda.synchronize()
             _same(got, ref, dtype)
+
+
+def _case(rng, dtype, policy, form, w, shape, n, rounding, cuda):
+    """Planes, a bank of n (1 for separable), the plan and gains."""
+    x = _frame(rng, dtype, shape).to(cuda)
+    n = 1 if form == "separable" else n
+    co = _coeffs(rng, dtype, (n, 2, w) if form == "separable"
+                 else (n, w, w)).to(cuda)
+    rq = q = None
+    if dtype not in TOL:
+        rq = RequantSpec(rounding=rounding, dtype=dtype)
+        q = torch.from_numpy(np.stack([rng.integers(-(1 << 12), 1 << 12, n),
+                                       rng.integers(0, 21, n)], axis=1)
+                             .astype(np.int32)).to(cuda)
+    const = 3.7 if dtype in TOL else -300.0
+    plan = halo.make_plan(shape[1], shape[2], w, BorderSpec(policy, const),
+                          shape[1], shape[2], dtype=dtype, requant=rq)
+    return x, co, plan, q
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("policy", POLICIES)
+def test_kernel_tma_loader_matches_plain_version(cuda, policy, dtype, rng):
+    """Rows 16-byte aligned for every dtype (W 336, 208): the TMA loader.
+    W 336 is ragged against the 128-column tile, H 67 and 97 against every
+    strip height; a bank of 4; the integer frames cycle the roundings."""
+    k = 0
+    for shape in ((2, 67, 336), (1, 97, 208)):
+        for form in FORMS:
+            for w in (3, 5, 7):
+                rounding = ("truncate", "nearest", "nearest_even")[k % 3]
+                k += 1
+                x, co, plan, q = _case(rng, dtype, policy, form, w, shape, 4,
+                                       rounding, cuda)
+                got = _launch(x, co, plan, q, form, "tma")
+                ref = K.filter2d_halo_ref(x, co, plan, q_params=q, form=form)
+                torch.cuda.synchronize()
+                _same(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 5, 48), (1, 8, 16), (3, 33, 144)])
+def test_kernel_small_frames_every_policy(cuda, shape, dtype, rng):
+    """Frames smaller than one tile and one strip, through TMA: wrap and the
+    reflections read across all four edges and corners of the frame."""
+    for policy in POLICIES[1:]:            # neglect: no output at w 7
+        for form, w in (("direct", 7), ("separable", 5), ("tree", 3)):
+            if dtype not in TOL and form == "tree":
+                form = "compress"          # integer frames: any order
+            x, co, plan, q = _case(rng, dtype, policy, form, w, shape, 4,
+                                   "nearest", cuda)
+            got = _launch(x, co, plan, q, form, "tma")
+            ref = K.filter2d_halo_ref(x, co, plan, q_params=q, form=form)
+            torch.cuda.synchronize()
+            _same(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_reads_a_view_off_16_bytes(cuda, dtype, rng):
+    """A contiguous view whose first element is one element past a 16-byte
+    boundary: the frame cannot be a TMA map, so the per-thread loader fills
+    the same ring; the result is the same."""
+    shape = (2, 67, 336)
+    x, co, plan, q = _case(rng, dtype, "mirror", "direct", 5, shape, 4,
+                           "nearest_even", cuda)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    view = flat[1:].view(shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    assert K.loader_for(view) == "thread" and K.loader_for(x) == "tma"
+    got = _launch(view, co, plan, q, "direct", "thread")
+    want = _launch(x, co, plan, q, "direct", "tma")
+    torch.cuda.synchronize()
+    _same(got, K.filter2d_halo_ref(x, co, plan, q_params=q), dtype)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
@@ -112,11 +195,14 @@ def test_engine_on_the_card(cuda):
     templates = build_mix(np.random.default_rng(2), scale=2)
     with FilterServeEngine(batch_size=2, device=cuda) as eng:
         before = K.filter2d_halo.launches
+        tma_before = K.filter2d_halo.tma_launches
         reqs = [eng.submit(t.frame, t.coeffs, spec=t.spec, gains=t.gains,
                            tenant=t.tenant) for t in templates * 2]
         assert eng.drain(timeout=120)
         st = eng.stats()
         assert K.filter2d_halo.launches - before == st["waves"]
+        # build_mix(scale=2) frames are 256 / 192 columns wide: aligned rows
+        assert K.filter2d_halo.tma_launches - tma_before == st["waves"]
     assert st["recompiles"] == 3 and st["errors"] == 0
     with FilterServeEngine(batch_size=2, device="cpu",
                            execution="cuda") as cpu:
