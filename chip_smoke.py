@@ -36,8 +36,10 @@ Phases, in order; any failure exits non-zero:
                 counter must grow by exactly one per wave, every launch
                 through the TMA loader.
   5. timing   — CUDA events after warm-up at each bucket's serving shape:
-                the kernel, its bound (HBM bytes over 3.35 TB/s, and the
-                operations over the peak for the input type) and its share
+                the kernel, its bound (HBM bytes over the card's memory
+                rate, and the operations over the peak for the input type,
+                both from ``obs/roofline.py``'s table for the card's H100
+                part: 3.35 TB/s for SXM5) and its share
                 of it, the plain version, a PyTorch copy of the planes
                 (the same bytes in and out: the rate this card reaches),
                 and for float32 ``F.conv2d`` on a pre-padded frame with
@@ -45,8 +47,29 @@ Phases, in order; any failure exits non-zero:
                 tile geometry from the built library; then where one
                 served wave's time goes (host stacking, copy in, pipeline
                 call, copy out).
+  6. executors — the strip-scan (``'streaming'``) and library-convolution
+                (``'xla'``) executors held against the ``'cuda'`` executor,
+                with torch's own TF32 setting in force (``'xla'`` switches
+                it off around its call and must hand it back): the three
+                serving buckets, 8K UHD [1,4320,7680] float32 w5 mirror
+                (72 strips), int8 w3 wrap unity requant [4,960,1440] (the
+                wrap prologue), the int16 all-max overflow edge, and
+                policy x {float32, bfloat16, int8, uint8, int16} x w
+                {3, 5} at [3,67,336] (xla; streaming in one strip) and
+                [3,64,336] (streaming in 8 strips). Integers bit-exact,
+                float32 within 3e-4, bfloat16 within 3e-2; every
+                streaming call adds one ``filter2d_halo`` launch per
+                strip. Then ``FilterServeEngine(execution=...)`` serves the
+                serving phase's 32 requests under each (results equal the
+                cuda engine's, recompiles == buckets, counts set to 0
+                before and read after: one launch per strip per wave for
+                streaming, none for xla); then CUDA-event times of all
+                three executors at each bucket and 8K beside
+                ``explain()``'s predicted pixel rate, one ``explain()``
+                text per bucket and executor, and a ``profile_dump``
+                trace of one streaming call.
 
-  6. swattn   — the banded attention kernel against its plain version
+  7. swattn   — the banded attention kernel against its plain version
                 (``swattn_ref``) on the card, swept over the edges of its
                 tile geometry: float32 (the CUDA-core kernel) and bfloat16
                 (the tensor-core kernel), S ∈ {1, 63, 64, 65, 127, 128,
@@ -57,11 +80,11 @@ Phases, in order; any failure exits non-zero:
                 128, B = 3. float32 within
                 rtol=atol=3e-4; bfloat16 within 3e-2 (p is rounded to
                 bfloat16 before the PV product).
-  7. dwconv1d — the causal depthwise conv kernel against its plain version
+  8. dwconv1d — the causal depthwise conv kernel against its plain version
                 (``dwconv1d_ref``): k 2 and 4, C 3200 and 130, S 1000 and
                 37, float32 and bfloat16, bit-exact (the plain version
                 repeats the kernel's roundings).
-  8. LM       — ``h2o-danube-1.8b`` at full width (24 layers, d 2560, 32/8
+  9. LM       — ``h2o-danube-1.8b`` at full width (24 layers, d 2560, 32/8
                 heads, hd 80, window 4096, vocab 32000), random weights
                 from a seeded generator, one sequence of 8192 seeded
                 tokens, through ``train_forward`` with ``use_pallas_attn``
@@ -75,12 +98,12 @@ Phases, in order; any failure exits non-zero:
                 forward's ms, tokens/s and the kernel's share, and a
                 ``torch.profiler`` breakdown of one bf16 kernel forward
                 (device busy/idle share, top kernels).
-  9. mamba    — ``mamba_block`` at hymba-1.5b width (d 1600, d_in 3200,
+ 10. mamba    — ``mamba_block`` at hymba-1.5b width (d 1600, d_in 3200,
                 25 heads, state 16, conv 4), bfloat16, B = 2, S = 4096,
                 with ``use_pallas_conv`` on (one ``dwconv1d`` launch per
                 block) and off, twice each (the second run timed); the
                 outputs agree bit for bit; a profiler breakdown.
- 10. timing   — both new kernels at their path's shapes, first held
+ 11. timing   — both new kernels at their path's shapes, first held
                 against their plain versions there (``swattn`` float32
                 within 3e-4, bfloat16 within rtol=atol=1e-2 and relative
                 L2 1e-2; ``dwconv1d`` bit-exact), then timed with CUDA
@@ -90,9 +113,9 @@ Phases, in order; any failure exits non-zero:
                 a pre-padded input). The bfloat16 ``swattn`` must beat
                 SDPA.
 
-Every main path (serving, LM, mamba) runs with the three launch counts
-set to 0 just before it and read just after. The line before the last is
-the ``kernels`` JSON summary; the last line is
+Every main path (serving, the streaming and xla engines, LM, mamba) runs
+with the three launch counts set to 0 just before it and read just after.
+The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -106,15 +129,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
-# dense, per input type, on the units the kernels use: float32 on the CUDA
-# cores and bf16 on the tensor cores (data sheet); the filter's integer
-# frames run an int32 x int32 MAC on the CUDA cores' 64 IMAD lanes per SM
-# (Hopper white paper): 132 SMs x 64 lanes x 2 ops x 1.98 GHz = 33.5e12
-PEAK_OPS_PER_S = {
-    "float32": 67e12, "bfloat16": 989e12, "int8": 33.5e12,
-    "uint8": 33.5e12, "int16": 33.5e12,
-}
+# The card's device-memory rate and peak operations per input type come
+# from ``repro_torch/obs/roofline.py`` (the H100 data sheet, per part).
 TOL = {"float32": 3e-4, "bfloat16": 3e-2}
 POLICIES = ("neglect", "constant", "wrap", "duplicate", "mirror_dup",
             "mirror")
@@ -243,10 +259,13 @@ def card_line() -> str:
 
 
 class Smoke:
-    def __init__(self, torch, card: str):
+    def __init__(self, torch, card: str, part):
         self.torch = torch
         self.card = card
         self.max_err = {}
+        # the card's H100 part (``obs/roofline.py``): every bound's constants
+        self.hbm_bw = part.hbm_bw
+        self.peak_ops = part.peak_ops
 
     def say(self, msg: str) -> None:
         print(f"[{self.card}] {msg}", flush=True)
@@ -444,8 +463,10 @@ class Smoke:
             y = K.filter2d_halo_ref(planes, co[None], cf.plan, q_params=q,
                                     form=t.spec.form)
             expect[ti] = y[0, 0].cpu()
+        served = []
         for ti, h in handles:
             got = h.result(timeout=60)
+            served.append(got)
             ref = expect[ti]
             if got.shape != ref.shape or got.dtype != ref.dtype:
                 raise AssertionError(f"serving: {templates[ti].name} shape "
@@ -480,7 +501,7 @@ class Smoke:
         self.say(f"serving phase: sustained {pixels / wall!r} px/s "
                  f"({pixels} px in {wall!r} s, burst submit, batch 4, "
                  "host frames in and out)")
-        return launches, tma_launches, templates
+        return launches, tma_launches, templates, picks, served
 
     # -- phase 5 -------------------------------------------------------------
 
@@ -564,6 +585,7 @@ class Smoke:
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.core.borders import extend
+        from repro_torch.core.filter2d import cudnn_without_tf32
         from repro_torch.core.pipeline import batched_shape
         from repro_torch.kernels.filter2d import kernel as K
         cf = t.spec.compile(batched_shape(t.frame.shape, 4), "cuda",
@@ -594,23 +616,24 @@ class Smoke:
         copy_ms = self._time(lambda: copy.copy_(planes), 50)
         lib_ms = None
         if not fixed:
-            torch.backends.cudnn.allow_tf32 = False
             xp = extend(planes, w // 2, t.spec.border)[:, None]
             wt = co[:, None]
 
             def lib():
                 return F.conv2d(xp, wt)
-            err = float((lib()[:, 0] - kern()[:, 0]).abs().max())
-            if err > 1e-3:
-                raise AssertionError(f"yardstick conv2d disagrees: {err}")
-            lib_ms = self._time(lib, 50)
+            with cudnn_without_tf32():
+                err = float((lib()[:, 0] - kern()[:, 0]).abs().max())
+                if err > 1e-3:
+                    raise AssertionError(f"yardstick conv2d disagrees: "
+                                         f"{err}")
+                lib_ms = self._time(lib, 50)
         out = kern()
         geo = K.geometry(planes.dtype, out.dtype, w)
         bytes_moved = (planes.numel() * planes.element_size()
                        + out.numel() * out.element_size())
         ops = 2 * w * w * out.numel()
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / PEAK_OPS_PER_S[t.spec.dtype] * 1e3
+        bytes_ms = bytes_moved / self.hbm_bw * 1e3
+        ops_ms = ops / self.peak_ops[t.spec.dtype] * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         row = {"bucket": t.bucket, "shape": [M, H, W], "w": w,
                "dtype": t.spec.dtype, "ms": ms, "plain_ms": plain_ms,
@@ -623,9 +646,9 @@ class Smoke:
                "geometry": geo}
         self.say(f"timing {t.bucket} planes [{M},{H},{W}] w{w} "
                  f"{t.spec.dtype}: kernel {ms!r} ms, bound {bound_ms!r} "
-                 f"ms ({row['bound_by']}: {bytes_moved} B / 3.35 TB/s = "
-                 f"{bytes_ms!r} ms; {ops} ops / "
-                 f"{PEAK_OPS_PER_S[t.spec.dtype]:.3g} op/s = "
+                 f"ms ({row['bound_by']}: {bytes_moved} B / "
+                 f"{self.hbm_bw:.3g} B/s = {bytes_ms!r} ms; {ops} ops / "
+                 f"{self.peak_ops[t.spec.dtype]:.3g} op/s = "
                  f"{ops_ms!r} ms), plain {plain_ms!r} ms, library "
                  f"{lib_ms!r} ms, {bytes_moved / (ms * 1e-3) / 1e12!r} "
                  "TB/s achieved")
@@ -675,6 +698,333 @@ class Smoke:
                      f"busy) x{count} {key[:90]}")
 
     # -- phase 6 -------------------------------------------------------------
+
+    def _hold(self, what: str, got, ref, dtype: str) -> float:
+        """``got`` against the cuda executor's ``ref``: integers bit for
+        bit, float32 within rtol=atol=3e-4, bfloat16 within 3e-2. Returns
+        max |got - ref|."""
+        torch = self.torch
+        if got.shape != ref.shape or got.dtype != ref.dtype:
+            raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+                                 f"{tuple(ref.shape)} {ref.dtype}")
+        if dtype not in TOL:
+            if not torch.equal(got, ref):
+                diff = int((got.long() - ref.long()).abs().max())
+                raise AssertionError(f"{what}: not bit-exact (max diff "
+                                     f"{diff})")
+            return 0.0
+        return self._agree(what, got, ref, TOL[dtype])
+
+    def _exec_case(self, what, spec, x, co, gains=None, strip_h=None,
+                   executors=("streaming", "xla")) -> dict:
+        """One frame through the cuda executor and each of ``executors``;
+        each held against cuda. A streaming call must add one
+        ``filter2d_halo`` launch per strip, an xla call none, and neither
+        may leave the caller's TF32 setting changed."""
+        torch = self.torch
+        from repro_torch.kernels.filter2d import kernel as K
+        shape = tuple(x.shape)
+        ref = spec.compile(shape, "cuda", device="cuda")(x, co, gains=gains)
+        errs = {}
+        for exe in executors:
+            kw = {"strip_h": strip_h} if exe == "streaming" else {}
+            cf = spec.compile(shape, exe, device="cuda", **kw)
+            tf32 = torch.backends.cudnn.allow_tf32
+            before = K.filter2d_halo.launches
+            got = cf(x, co, gains=gains)
+            added = K.filter2d_halo.launches - before
+            want = cf.n_strips if exe == "streaming" else 0
+            if added != want:
+                raise AssertionError(f"{exe} {what}: {added} filter2d_halo "
+                                     f"launches, expected {want}")
+            if torch.backends.cudnn.allow_tf32 != tf32:
+                raise AssertionError(f"{exe} {what}: the TF32 setting "
+                                     "changed")
+            torch.cuda.synchronize()
+            errs[exe] = self._hold(f"{exe} {what}", got, ref, spec.dtype)
+        return errs
+
+    def executors_phase(self, templates, picks, served):
+        """The strip-scan and library-convolution executors against the
+        cuda executor: the serving buckets, 8K UHD, the int8 wrap prologue,
+        the int16 overflow edge and a policy x dtype x window sweep; then
+        both serve the serving phase's 32 requests; then each bucket and 8K
+        timed under all three executors beside ``explain()``'s roofline."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core.border_spec import BorderSpec
+        from repro_torch.core.pipeline import Filter2D
+        from repro_torch.core.requant import RequantSpec
+        if not torch.backends.cudnn.allow_tf32:
+            raise AssertionError("executors phase: a global TF32 flip is in "
+                                 "force; 'xla' must switch TF32 off itself")
+        rng = np.random.default_rng(14)
+        errs = {"streaming": {}, "xla": {}}
+        n = 0
+
+        def note(found, dt):
+            nonlocal n
+            for exe, e in found.items():
+                errs[exe][dt] = max(errs[exe].get(dt, 0.0), e)
+                n += 1
+
+        cases = {}
+        with saved_counts():
+            for t in templates:                   # the serving buckets
+                if t.bucket in cases:
+                    continue
+                x = torch.from_numpy(np.stack([t.frame] * 4)[..., None])
+                cases[t.bucket] = (t.spec, x.cuda(), t.coeffs, t.gains)
+            uhd = Filter2D(window=5, border=BorderSpec("mirror"))
+            x8k = torch.from_numpy(rng.standard_normal(
+                (1, 4320, 7680, 1)).astype(np.float32)).cuda()
+            k5 = (rng.standard_normal((5, 5)) / 5).astype(np.float32)
+            cases["8K"] = (uhd, x8k, k5, None)
+            for name, (spec, x, co, gains) in cases.items():
+                note(self._exec_case(name, spec, x, co, gains), spec.dtype)
+            ki = rng.integers(-4, 5, (3, 3)).astype(np.int32)
+            ki[1, 1] = 9
+            rq = RequantSpec.unity_gain(ki, "int8")
+            wrap = Filter2D(window=3, border=BorderSpec("wrap"), dtype="int8",
+                            requant=rq.gain_free())
+            xi = torch.from_numpy(rng.integers(-128, 128, (4, 960, 1440, 1))
+                                  .astype(np.int8)).cuda()
+            note(self._exec_case("int8 w3 wrap requant [4,960,1440]", wrap,
+                                 xi, ki, rq), "int8")
+            edge = Filter2D(window=7, border=BorderSpec("duplicate"),
+                            dtype="int16")
+            xe = torch.full((2, 40, 70, 1), 32767, dtype=torch.int16,
+                            device="cuda")
+            ke = np.full((7, 7), 1 << 20, np.int32)
+            note(self._exec_case("int16 all-max overflow edge", edge, xe, ke,
+                                 strip_h=8), "int16")
+            for dt in ("float32", "bfloat16", "int8", "uint8", "int16"):
+                for policy in POLICIES:
+                    for w in (3, 5):
+                        note(self._sweep_case(rng, dt, policy, w), dt)
+        for exe, by_dt in errs.items():
+            self.say(f"executors phase: {exe} max |{exe} - cuda| by dtype "
+                     f"{by_dt}")
+        self.say(f"executors phase: {n} executor calls agree with the cuda "
+                 "executor, streaming launches == strips on each, TF32 left "
+                 "as the caller set it")
+        served_by = {exe: self._serve_with(exe, templates, picks, served)
+                     for exe in ("streaming", "xla")}
+        rows = self.executor_timing(cases)
+        self.profile_dump_check(cases)
+        return errs, served_by, rows
+
+    def _sweep_case(self, rng, dt, policy, w):
+        """One policy x dtype x window case: xla at [3,67,336] (and
+        streaming there too, one strip: the frame's own policy), streaming
+        at [3,64,336] in 8 strips of 8 rows."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core.border_spec import BorderSpec
+        from repro_torch.core.pipeline import Filter2D
+        from repro_torch.core.requant import RequantSpec
+        found = {}
+        for H, strip_h in ((67, None), (64, 8)):
+            if dt in TOL:
+                x = torch.from_numpy(rng.standard_normal((3, H, 336, 1))
+                                     .astype(np.float32)).to(getattr(torch,
+                                                                     dt))
+                co = (rng.standard_normal((w, w)) / w).astype(np.float32)
+                rq = None
+            else:
+                info = np.iinfo(dt)
+                x = torch.from_numpy(rng.integers(info.min, int(info.max) + 1,
+                                                  (3, H, 336, 1)).astype(dt))
+                co = rng.integers(-8, 9, (w, w)).astype(np.int32)
+                rq = RequantSpec(multiplier=int(rng.integers(1, 1 << 10)),
+                                 shift=int(rng.integers(0, 16)),
+                                 rounding=ROUNDINGS[w % 3], dtype=dt)
+            spec = Filter2D(window=w, dtype=dt, requant=rq.gain_free()
+                            if rq else None, border=BorderSpec(
+                                policy, 3.7 if dt in TOL else -300.0))
+            if strip_h is None:                # neglect: no strip scan
+                exes = ("xla",) if policy == "neglect" else ("streaming",
+                                                             "xla")
+            else:
+                exes = () if policy == "neglect" else ("streaming",)
+            if exes:
+                got = self._exec_case(f"{dt} {policy} w{w} [3,{H},336]",
+                                      spec, x.cuda(), co, rq, strip_h, exes)
+                for exe, e in got.items():
+                    found[exe] = max(found.get(exe, 0.0), e)
+        return found
+
+    def _serve_with(self, execution, templates, picks, served) -> dict:
+        """The serving phase's requests through
+        ``FilterServeEngine(execution=...)``; each result held against the
+        cuda engine's. A main path of its own: counts set to 0 before,
+        read after — a streaming wave launches ``filter2d_halo`` once per
+        strip of its bucket, an xla wave not at all."""
+        torch = self.torch
+        from repro_torch import obs
+        from repro_torch.core.pipeline import batched_shape
+        from repro_torch.serving.engine import FilterServeEngine
+        strips = {}
+        for t in templates:
+            cf = t.spec.compile(batched_shape(t.frame.shape, 4), execution,
+                                device="cuda")
+            strips[cf._obs_key] = cf.n_strips or 0
+        engine = FilterServeEngine(batch_size=4, device="cuda",
+                                   execution=execution)
+        try:
+            with obs.tracing():
+                reset_counts()
+                t0 = time.perf_counter()
+                handles = [engine.submit(
+                    templates[ti].frame, templates[ti].coeffs,
+                    spec=templates[ti].spec, gains=templates[ti].gains,
+                    tenant=templates[ti].tenant) for ti in picks]
+                if not engine.drain(timeout=600):
+                    raise AssertionError(f"{execution} serving: drain timed "
+                                         "out")
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+                calls = [e.key for e in obs.events.events(kind="execute")]
+            stats = engine.stats()
+            buckets = engine.cache_size()
+        finally:
+            engine.shutdown()
+        want = sum(strips[k] for k in calls)
+        if launches != {"filter2d_halo": want, "swattn": 0, "dwconv1d": 0}:
+            raise AssertionError(f"{execution} serving: counts {launches}, "
+                                 f"expected {want} filter2d_halo launches "
+                                 f"over {len(calls)} pipeline calls")
+        n_buckets = len({t.bucket for t in templates})
+        if stats["errors"] or not (stats["recompiles"] == buckets
+                                   == n_buckets):
+            raise AssertionError(f"{execution} serving: stats {stats}, "
+                                 f"buckets {buckets}/{n_buckets}")
+        for ti, h, ref in zip(picks, handles, served):
+            self._hold(f"{execution} serving {templates[ti].name}",
+                       h.result(timeout=60), ref, templates[ti].spec.dtype)
+        pixels = sum(h.pixels for h in handles)
+        self.say(f"executors phase: FilterServeEngine(execution="
+                 f"{execution!r}) served {len(handles)} requests in "
+                 f"{stats['waves']} waves ({len(calls)} pipeline calls, "
+                 f"{want} filter2d_halo launches), recompiles "
+                 f"{stats['recompiles']} == buckets {buckets}, results equal "
+                 f"the cuda engine's; {pixels / wall!r} px/s (obs tracing on, "
+                 "a synchronise per call)")
+        return {"launches": want, "waves": stats["waves"],
+                "px_per_s": pixels / wall}
+
+    def _paced(self, fn, iters: int, warmup: int = 2) -> float:
+        """ms per call as the host paces it: CUDA events around ``iters``
+        back-to-back calls, with no covering sleep — host work between
+        launches counts."""
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def executor_timing(self, cases) -> list:
+        """Each bucket and 8K under cuda, streaming and xla: device ms
+        (calls queued behind a sleep) and host-paced ms, beside the
+        predicted pixel rate of ``explain()``'s roofline and the share of
+        it reached; one ``explain()`` text per bucket and executor."""
+        rows = []
+        with saved_counts():
+            for name, (spec, x, co, gains) in cases.items():
+                for exe in ("cuda", "streaming", "xla"):
+                    cf = spec.compile(tuple(x.shape), exe, device="cuda")
+                    d = cf.explain(as_dict=True)
+                    for line in cf.explain().splitlines():
+                        self.say(f"explain {name} {exe}: {line}")
+
+                    def call():
+                        return cf(x, co, gains=gains)
+                    iters = 5 if cf.n_strips and cf.n_strips > 8 else 20
+                    tma0, n0 = tma_count(), read_counts()["filter2d_halo"]
+                    call()
+                    launched = read_counts()["filter2d_halo"] - n0
+                    by_tma = tma_count() - tma0
+                    ms = self._time(call, iters)
+                    paced = self._paced(call, iters)
+                    px = d["frame"]["pixels_per_call"]
+                    pred = d["roofline"]["predicted_pixels_per_s"]
+                    row = {"case": name, "executor": exe,
+                           "shape": list(x.shape), "dtype": spec.dtype,
+                           "w": spec.window, "strips": cf.n_strips,
+                           "launches": launched, "tma_launches": by_tma,
+                           "ms": ms, "paced_ms": paced,
+                           "px_per_s": px / (ms * 1e-3),
+                           "paced_px_per_s": px / (paced * 1e-3),
+                           "predicted_px_per_s": pred,
+                           "share": px / (ms * 1e-3) / pred,
+                           "paced_share": px / (paced * 1e-3) / pred}
+                    rows.append(row)
+                    strips = (f" in {cf.n_strips} strips"
+                              if exe == "streaming" else "")
+                    strips += (f" ({launched} launches, {by_tma} by TMA)"
+                               if launched else "")
+                    self.say(f"executor timing {name} {exe} "
+                             f"{list(x.shape)} {spec.dtype} w{spec.window}"
+                             f"{strips}: {ms!r} ms device "
+                             f"({row['px_per_s']!r} px/s, "
+                             f"{row['share']!r} of the predicted "
+                             f"{pred!r} px/s), {paced!r} ms host-paced "
+                             f"({row['paced_share']!r} of it)")
+        return rows
+
+    def profile_dump_check(self, cases) -> None:
+        """``compile(..., profile_dump=dir)`` on the card: the first call's
+        Chrome trace lands in ``dir``; its device kernels are counted."""
+        import glob
+        spec, x, co, gains = cases["w5f32"]
+        out = os.path.join(ROOT, "build", "profile_dump")
+        for old in glob.glob(os.path.join(out, "*.trace.json")):
+            os.remove(old)
+        with saved_counts():
+            cf = spec.compile(tuple(x.shape), "streaming", device="cuda",
+                              profile_dump=out)
+            cf(x, co, gains=gains)
+            cf(x, co, gains=gains)
+        traces = glob.glob(os.path.join(out, "*.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"profile_dump wrote {len(traces)} traces")
+        with open(traces[0]) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        halo = [e for e in kern if "filter2d_halo" in e.get("name", "")]
+        self.say(f"profile_dump: one trace ({os.path.relpath(traces[0], ROOT)}"
+                 f"), {len(kern)} device kernels, {len(halo)} of them "
+                 f"filter2d_halo (the streaming call makes {cf.n_strips}), "
+                 f"device busy {sum(e.get('dur', 0) for e in kern)!r} us")
+        # where the host's time goes in that call: the outermost torch ops
+        # (each op's time includes the ops it calls) against the host span
+        ops = sorted((e for e in events if e.get("cat") == "cpu_op"),
+                     key=lambda e: e["ts"])
+        top, end, by_name = [], -1.0, {}
+        for e in ops:
+            if e["ts"] >= end:
+                top.append(e)
+                end = e["ts"] + e.get("dur", 0)
+                by_name[e["name"]] = (by_name.get(e["name"], 0.0)
+                                      + e.get("dur", 0))
+        if top:
+            span = top[-1]["ts"] + top[-1].get("dur", 0) - top[0]["ts"]
+            self.say(f"profile_dump: host span {span!r} us, "
+                     f"{len(top)} outermost torch ops taking "
+                     f"{sum(by_name.values())!r} us (the rest is Python "
+                     "between them); by name: " + "; ".join(
+                         f"{n} {us:.0f} us" for n, us in sorted(
+                             by_name.items(), key=lambda kv: -kv[1])[:10]))
+
+
+    # -- phase 7 -------------------------------------------------------------
 
     def _agree(self, what: str, got, ref, tol: float,
                rel_l2: float | None = None) -> float:
@@ -749,7 +1099,7 @@ class Smoke:
         self.say(f"swattn phase: {n} cases agree")
         return max(errs.values())
 
-    # -- phase 7 -------------------------------------------------------------
+    # -- phase 8 -------------------------------------------------------------
 
     def dwconv_phase(self):
         import numpy as np
@@ -777,7 +1127,7 @@ class Smoke:
                             n += 1
         self.say(f"dwconv1d phase: {n} cases agree bit for bit")
 
-    # -- phase 8 -------------------------------------------------------------
+    # -- phase 9 -------------------------------------------------------------
 
     def lm_phase(self, seq: int = 8192, seed: int = 0):
         """h2o-danube-1.8b at full width through ``train_forward``, plain
@@ -893,7 +1243,7 @@ class Smoke:
             raise AssertionError(f"LM bfloat16: the logits check passes a "
                                  f"kernel with the {' / '.join(passed)}")
 
-    # -- phase 9 -------------------------------------------------------------
+    # -- phase 10 -------------------------------------------------------------
 
     def mamba_phase(self, batch: int = 2, seq: int = 4096, seed: int = 1):
         """One mamba block at hymba-1.5b width, bfloat16, the conv through
@@ -939,11 +1289,11 @@ class Smoke:
             x, params, mc, use_pallas_conv=True))
         return launches["dwconv1d"]
 
-    # -- phase 10 ------------------------------------------------------------
+    # -- phase 11 ------------------------------------------------------------
 
     def _row(self, name, shape, dtype, ms, plain_ms, lib_ms, bytes_moved,
              ops, peak):
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        bytes_ms = bytes_moved / self.hbm_bw * 1e3
         ops_ms = ops / peak * 1e3
         row = {"name": name, "shape": shape, "dtype": dtype, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -953,7 +1303,8 @@ class Smoke:
                "ops_ms": ops_ms}
         self.say(f"timing {name} {shape} {dtype}: kernel {ms!r} ms, bound "
                  f"{row['bound_ms']!r} ms ({row['bound_by']}: {bytes_moved} "
-                 f"B / 3.35 TB/s = {bytes_ms!r} ms; {ops} ops / {peak:.3g} "
+                 f"B / {self.hbm_bw:.3g} B/s = {bytes_ms!r} ms; {ops} ops / "
+                 f"{peak:.3g} "
                  f"op/s = {ops_ms!r} ms), plain {plain_ms!r} ms, library "
                  f"{lib_ms!r} ms, {ops / (ms * 1e-3) / 1e12!r} TFLOP/s "
                  "achieved")
@@ -1005,7 +1356,7 @@ class Smoke:
                 nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
                 rows[dt] = self._row(
                     "swattn", [1, S, H, KV, hd, window], dt, ms, plain_ms,
-                    lib_ms, nbytes, ops, PEAK_OPS_PER_S[dt])
+                    lib_ms, nbytes, ops, self.peak_ops[dt])
                 rows[dt]["max_abs_err"] = err
                 rows[dt]["route"] = SWATTN_ROUTES[dt]
                 del q, k, v
@@ -1041,7 +1392,7 @@ class Smoke:
         nbytes = (2 * x.numel() + w.numel() + b.numel()) * x.element_size()
         return self._row("dwconv1d", [B, S, C, k], "bfloat16", ms, plain_ms,
                          lib_ms, nbytes, 2 * k * x.numel(),
-                         PEAK_OPS_PER_S["bfloat16"])
+                         self.peak_ops["bfloat16"])
 
 
 def _leaves(tree):
@@ -1095,6 +1446,10 @@ def ptxas_report(smoke, libs) -> None:
 
 
 def main() -> int:
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
+              "from the root of a checkout", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1106,8 +1461,10 @@ def main() -> int:
     print(f"device: {name} x{count}", flush=True)
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.obs import roofline
+    part = roofline.PARTS[roofline.part_of(name)]
+    print(f"roofline constants: {part.name}, {part.hbm_bw!r} B/s, peak "
+          f"op/s {dict(part.peak_ops)}", flush=True)
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -1115,7 +1472,7 @@ def main() -> int:
     paths = _build.build_all(libs, verbose=True)
     for lib in libs:
         lib.load()
-    smoke = Smoke(torch, card)
+    smoke = Smoke(torch, card, part)
     ptxas_report(smoke, libs)
     smoke.say("build: " + ", ".join(str(p.relative_to(ROOT)) for p in paths)
               + f" in {time.perf_counter() - t0:.1f} s")
@@ -1124,10 +1481,18 @@ def main() -> int:
     smoke.kernel_phase()
     smoke.say(f"kernel phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches, tma_launches, templates = smoke.serving_phase()
+    launches, tma_launches, templates, picks, served = smoke.serving_phase()
     smoke.say(f"serving phase took {time.perf_counter() - t0:.1f} s")
     rows = smoke.timing_phase(templates)
     smoke.wave_breakdown(templates)
+    t0 = time.perf_counter()
+    exec_errs, exec_served, exec_rows = smoke.executors_phase(
+        templates, picks, served)
+    del served
+    smoke.say(f"executors phase took {time.perf_counter() - t0:.1f} s")
+    # the float32 paths below (SDPA, the LM's products) run without TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     sw_err = smoke.swattn_phase()
@@ -1163,6 +1528,8 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": main_row["shape"], "buckets": list(rows.values()),
+        "executors": {"max_abs_err": exec_errs, "serving": exec_served,
+                      "timing": exec_rows},
         "card": card}, {
         "name": "swattn", "route": "cuda", "source": SWATTN_SOURCE,
         "replaces": SWATTN_REPLACES, "launches": sw_launches,

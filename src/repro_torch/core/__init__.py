@@ -7,6 +7,7 @@ same name):
   filters      — runtime coefficient file + preset bank (paper §I/§II)
   filter2d     — direct/transposed/tree/compress forms, plain torch (§II)
   requant      — the fused output-scaler spec + numpy reference (paper §IV)
+  streaming    — row-strip streaming executor with carried row buffer
   pipeline     — the plan-and-execute front door: Filter2D → CompiledFilter
   dtypes       — storage-dtype names (numpy has no bfloat16)
 """
@@ -14,17 +15,23 @@ from repro_torch.core.border_spec import (ALIASES, POLICIES,
                                           SAME_SIZE_POLICIES, BorderSpec,
                                           np_pad_mode, out_shape,
                                           quantize_constant)
-from repro_torch.core.filter2d import FORMS, filter2d, filter_bank
+from repro_torch.core.filter2d import (FORMS, filter2d, filter2d_xla,
+                                       filter_bank, macs_per_pixel,
+                                       reduction_depth)
 from repro_torch.core.filters import (CoefficientFile, decompose_separable,
                                       default_bank, preset)
 from repro_torch.core.pipeline import (DEFAULT_VMEM_BUDGET, EXECUTIONS,
                                        CompiledFilter, Filter2D)
 from repro_torch.core.requant import RequantSpec, requantize_ref
+from repro_torch.core.streaming import (filter2d_streaming,
+                                        strip_height_for_vmem)
 
 __all__ = [
     "ALIASES", "BorderSpec", "CoefficientFile", "CompiledFilter",
     "DEFAULT_VMEM_BUDGET", "EXECUTIONS", "FORMS", "Filter2D", "POLICIES",
     "RequantSpec", "SAME_SIZE_POLICIES", "decompose_separable",
-    "default_bank", "filter2d", "filter_bank", "np_pad_mode", "out_shape",
-    "preset", "quantize_constant", "requantize_ref",
+    "default_bank", "filter2d", "filter2d_streaming", "filter2d_xla",
+    "filter_bank", "macs_per_pixel", "np_pad_mode", "out_shape", "preset",
+    "quantize_constant", "reduction_depth", "requantize_ref",
+    "strip_height_for_vmem",
 ]

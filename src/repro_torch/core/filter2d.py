@@ -24,18 +24,25 @@ exactly in int64 and wraps to int32 once (the same value: addition and
 multiplication commute with reduction mod 2³²).
 
 Layout convention: frames are NHWC ``[B, H, W, C]`` (C=1 for mono), as in
-the reference. No ``F.conv2d``/cuDNN: cuDNN has no integer convolution
-and its float32 path runs TF32 by default.
+the reference. The forms use no ``F.conv2d``/cuDNN: cuDNN has no integer
+convolution and its float32 path runs TF32 by default. The one library
+convolution here is the ``'xla'`` baseline (:func:`_filter2d_xla_impl`),
+the reference's compiler-inferred yardstick, which works around both.
 """
 from __future__ import annotations
 
+import contextlib
+import math
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import dtypes
-from repro_torch.core.border_spec import BorderSpec, out_shape
+from repro_torch.core.border_spec import (BorderSpec, out_shape,
+                                          quantize_constant)
 from repro_torch.core.borders import extend
 from repro_torch.core.filters import decompose_separable
 from repro_torch.core.requant import RequantSpec
@@ -407,3 +414,136 @@ def filter_bank(frame: torch.Tensor, bank, *, form: str = "direct",
                     requant=rq.gain_free() if rq is not None else None)
     cf = spec.compile(frame, "core", device=frame.device)
     return cf(frame, bank, gains=rq)
+
+
+# ---------------------------------------------------------------------------
+# The library-convolution baseline (the paper's "Vivado HLS" analogue)
+# ---------------------------------------------------------------------------
+
+
+# the widest fixed-point window whose float64 convolution is exact
+XLA_MAX_FIXED_WINDOW = 11
+
+
+# serialises the save/flip/restore of torch's process-wide cuDNN TF32 flag
+_TF32_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def cudnn_without_tf32():
+    """cuDNN's float32 convolution without TF32 for the block, whatever
+    the caller set; the caller's setting comes back afterwards. The flag
+    is process-wide, so blocks on different threads (the serving engine
+    runs each wave on its worker thread) take turns: no block restores
+    the flag while another's convolution is being dispatched. Other
+    threads' float32 cuDNN calls made while a block runs also go without
+    TF32."""
+    with _TF32_LOCK:
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+
+
+def _filter2d_xla_impl(frame: torch.Tensor, coeffs, *,
+                       border: BorderSpec) -> torch.Tensor:
+    """One depthwise ``F.conv2d`` (``groups=C``) over the frame extended by
+    its policy (``neglect`` is not extended) — the library's convolution
+    standing where the reference lets XLA infer the structure
+    (``lax.conv_general_dilated``), as Vivado HLS does in the paper's
+    Table X. The ``constant(c)`` value is quantized against the storage
+    dtype first. Float frames convolve at their own dtype with TF32 off.
+    Fixed-point frames convolve in float64, which is exact (every product
+    is at most 2¹⁵ · 2³¹ = 2⁴⁶, so w² < 128 of them — w ≤ 11,
+    :data:`XLA_MAX_FIXED_WINDOW` — sum below 2⁵³ in any order), and the
+    sum wraps to int32 as the reference's int32 accumulation does; cuDNN
+    has no integer convolution, so the CPU takes the same route. The
+    requantising epilogue is the pipeline's."""
+    qc = quantize_constant(border.constant, frame.dtype)
+    fixed = is_fixed_point(frame.dtype)
+    x, add_b, add_c = _as_nhwc(frame)
+    w = coeffs.shape[-1]
+    xp = extend(x, (w - 1) // 2, border, axes=(1, 2), constant=qc)
+    cdt = torch.float64 if fixed else x.dtype
+    xp = xp.permute(0, 3, 1, 2).to(cdt)              # NCHW view of NHWC
+    C = xp.shape[1]
+    rhs = coeffs.to(xp.device, cdt).reshape(1, 1, w, w).expand(
+        C, 1, w, w)
+    with cudnn_without_tf32():
+        y = F.conv2d(xp, rhs, groups=C)
+    y = y.permute(0, 2, 3, 1)
+    if fixed:
+        y = wrap_i32(y.to(torch.int64))
+    return _un_nhwc(y.contiguous(), add_b, add_c)
+
+
+def filter2d_xla(frame: torch.Tensor, coeffs, border_policy: str = "mirror",
+                 *, border: Optional[BorderSpec] = None,
+                 requant: Optional[RequantSpec] = None) -> torch.Tensor:
+    """The library-convolution baseline executor (paper Table X's Vivado
+    HLS analogue) on the frame's device. Pass a full ``BorderSpec`` via
+    ``border`` (wins over ``border_policy``) for non-zero constants;
+    ``requant`` applies the same fused epilogue contract as
+    :func:`filter2d`.
+
+    Thin wrapper over ``core.pipeline.Filter2D`` (``execution='xla'``).
+    """
+    from repro_torch.core.pipeline import Filter2D
+    frame = torch.as_tensor(frame)
+    spec_b = border if border is not None else BorderSpec(border_policy)
+    rq = resolve_requant(frame.dtype, requant)
+    spec = Filter2D(window=int(np.shape(coeffs)[-1]), border=spec_b,
+                    dtype=dtypes.name(frame.dtype),
+                    requant=rq.gain_free() if rq is not None else None)
+    cf = spec.compile(frame, "xla", device=frame.device)
+    return cf(frame, coeffs, gains=rq)
+
+
+# ---------------------------------------------------------------------------
+# Accounting (paper Tables II/III analogues)
+# ---------------------------------------------------------------------------
+
+
+def macs_per_pixel(w: int, form: str = "direct",
+                   separable: bool = False) -> int:
+    """MAC issue count per output pixel (paper Table II analogue).
+
+    All 2D forms issue w² MACs (they differ in reduction shape); the
+    separable fast path issues 2w (one w-tap pass per axis)."""
+    if separable:
+        return 2 * w
+    return w * w
+
+
+def reduction_depth(w: int, form: str) -> int:
+    """Adder stages after the multiplies (paper Table I 'stages')."""
+    n = w * w
+    if form == "direct":
+        return 1                      # one contraction over the taps
+    if form == "transposed":
+        return n - 1                  # chain
+    if form == "tree":
+        return math.ceil(math.log2(n))
+    if form == "compress":
+        groups = math.ceil(n / 6)
+        return 2 + (groups - 1)       # compress (2) + partial-sum chain
+    raise ValueError(form)
+
+
+def startup_latency_rows(w: int, form: str,
+                         separable: bool = False) -> float:
+    """Rows that must stream in before the first output row (Table III
+    analogue): direct-form needs (w−1)/2 +border rows; transposed/neglect
+    needs w−1 (it discards borders, first valid row is row w−1).
+    Separability changes the MAC count, not the stencil's vertical
+    support, so latency depends only on the form."""
+    if form == "transposed":
+        return float(w - 1)
+    return (w - 1) / 2.0
+
+
+def hbm_bytes_per_pixel(dtype_bytes: int = 4, extra_passes: int = 0) -> int:
+    """Single-pass streaming: in once + out once (+ any extra passes)."""
+    return dtype_bytes * (2 + 2 * extra_passes)

@@ -22,12 +22,21 @@ every filter). This module is that split for the PyTorch port:
 
 Executors: ``'cuda'`` runs the hand-written kernel
 (``kernels/filter2d/kernel.py::filter2d_halo``; the counterpart of the
-reference's ``'pallas'``); ``'core'`` runs the plain torch versions of
-``core/filter2d``; ``'auto'`` is ``'cuda'`` on a CUDA device and
-``'core'`` on the CPU. The reference's ``'xla'``, ``'streaming'`` and
-``'sharded'`` executors are not ported yet and raise. Pipelines run on
-``device`` ('cuda' unless the caller asks for the CPU); asking for a card
-that is not there raises — nothing carries on silently on the CPU.
+reference's ``'pallas'``); ``'streaming'`` scans row strips with a carried
+row buffer and runs each strip's MAC through the same kernel
+(``core/streaming.py``); ``'xla'`` is the library-convolution baseline
+(``F.conv2d``, the reference's compiler-inferred yardstick); ``'core'``
+runs the plain torch versions of ``core/filter2d``; ``'auto'`` is
+``'cuda'`` on a CUDA device and ``'core'`` on the CPU, and never picks
+``'xla'`` or ``'streaming'``. The reference's ``'sharded'`` executor is
+not ported yet and raises. Pipelines run on ``device`` ('cuda' unless the
+caller asks for the CPU); asking for a card that is not there raises —
+nothing carries on silently on the CPU.
+
+``CompiledFilter.explain()`` is the plan report: what was compiled, why,
+and what it should cost, every byte figure restated from the plan's
+accounting and the roofline stated in the H100's constants
+(``obs/roofline.py``).
 """
 from __future__ import annotations
 
@@ -42,29 +51,31 @@ import torch
 
 from repro_torch.core import dtypes
 from repro_torch.core.border_spec import BorderSpec, quantize_constant
-from repro_torch.core.filter2d import (FORMS, _filter2d_impl,
-                                       _filter2d_sep_impl, _filter_bank_impl,
+from repro_torch.core.filter2d import (FORMS, XLA_MAX_FIXED_WINDOW,
+                                       _filter2d_impl, _filter2d_sep_impl,
+                                       _filter2d_xla_impl, _filter_bank_impl,
                                        apply_requant, apply_requant_params,
-                                       is_fixed_point, resolve_requant)
+                                       is_fixed_point, macs_per_pixel,
+                                       resolve_requant)
 from repro_torch.core.requant import RequantSpec
+from repro_torch.core.streaming import (_scan_planes, strip_height_for_vmem,
+                                        strip_plans)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.filter2d import halo, ops
 from repro_torch.kernels.filter2d import kernel as K
 from repro_torch.obs import events as obs_events
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import profiler as obs_profiler
+from repro_torch.obs import roofline as obs_roofline
 
 DEFAULT_VMEM_BUDGET = halo.DEFAULT_VMEM_BUDGET
 
-EXECUTIONS = ("auto", "core", "cuda")
+EXECUTIONS = ("auto", "core", "cuda", "streaming", "xla")
 
 # the reference's executors that wait for a later slice (ROADMAP queue 1)
 NOT_PORTED = {
-    "streaming": "the strip-scan executor (ROADMAP queue 1, still to "
-                 "port, item 1)",
     "sharded": "the row-sharded executor (ROADMAP queue 1, still to port, "
-               "item 2)",
-    "xla": "the compiler-inferred baseline (ROADMAP queue 1, still to "
-           "port, item 3)",
+               "item 2: its halo exchange exists only across cards)",
 }
 
 
@@ -147,14 +158,20 @@ class Filter2D:
         return (self.window - 1) // 2
 
     def compile(self, frame_spec, execution: str = "auto", *,
-                device="cuda") -> "CompiledFilter":
+                device="cuda", strip_h: Optional[int] = None,
+                profile_dump: Optional[str] = None) -> "CompiledFilter":
         """Plan the pipeline for one frame geometry, executor and device.
 
         ``frame_spec``: a shape tuple ([H,W] | [H,W,C] | [B,H,W,C]) or a
         tensor/array, whose dtype must match the spec's storage contract.
         ``device`` defaults to the card; ``device='cpu'`` asks for the CPU.
-        Results are memoised: the same (spec, geometry, executor, device)
-        returns the same ``CompiledFilter``.
+        ``strip_h`` shapes the ``'streaming'`` scan and no other executor
+        (the CUDA kernel's tiling is its own); when it is not given, the
+        scan takes the reference's strip height for its default 8 MiB
+        VMEM budget. ``profile_dump`` (opt-in) captures the first
+        call under ``torch.profiler`` and writes its Chrome trace into
+        that directory. Results are memoised: the same (spec, geometry,
+        executor, device, knobs) returns the same ``CompiledFilter``.
         """
         shape = _frame_shape(frame_spec, self.dtype)
         if execution in NOT_PORTED:
@@ -164,7 +181,14 @@ class Filter2D:
         if execution not in EXECUTIONS:
             raise ValueError(f"unknown execution {execution!r}; choose "
                              f"from {EXECUTIONS}")
-        return _compiled(self, shape, execution, resolve_device(device))
+        if execution != "streaming" and strip_h is not None:
+            raise ValueError(
+                "strip_h shapes the 'streaming' strip scan only; "
+                f"execution={execution!r} does not take it (the CUDA "
+                "kernel's tiling is its own)")
+        return _compiled(self, shape, execution, resolve_device(device),
+                         None if strip_h is None else int(strip_h),
+                         None if profile_dump is None else str(profile_dump))
 
 
 def _frame_shape(frame_spec, dtype_name: str) -> Tuple[int, ...]:
@@ -189,8 +213,10 @@ def _frame_shape(frame_spec, dtype_name: str) -> Tuple[int, ...]:
 
 
 @functools.lru_cache(maxsize=256)
-def _compiled(spec, shape, execution, device) -> "CompiledFilter":
-    return CompiledFilter(spec, shape, execution, device=device)
+def _compiled(spec, shape, execution, device, strip_h=None,
+              profile_dump=None) -> "CompiledFilter":
+    return CompiledFilter(spec, shape, execution, device=device,
+                          strip_h=strip_h, profile_dump=profile_dump)
 
 
 class CompiledFilter:
@@ -207,20 +233,28 @@ class CompiledFilter:
     this geometry: for the ``cuda`` executor the plan the reference's
     Pallas kernel would run (pixel-cache regime when the frame-resident
     working set fits the reference's default 8 MiB VMEM budget, else the
-    stream geometry derived from that budget);
-    for ``core`` the accounting-only plan. ``hbm_bytes_per_pixel()``
-    reports it.
+    stream geometry derived from that budget); for ``streaming`` the
+    reference's strip-scan accounting plan at ``strip_h``; for ``core``
+    and ``xla`` the accounting-only plan. ``hbm_bytes_per_pixel()``,
+    ``vmem_working_set()`` and ``explain()`` report it. ``n_strips`` is
+    the number of kernel launches one ``streaming`` call makes (``None``
+    for the other executors).
     """
 
     def __init__(self, spec: Filter2D, frame_shape: Tuple[int, ...],
-                 execution: str, *, device: torch.device):
+                 execution: str, *, device: torch.device,
+                 strip_h: Optional[int] = None,
+                 profile_dump: Optional[str] = None):
         t_compile0 = time.perf_counter()
         self.spec = spec
         self.frame_shape = frame_shape
         self.device = device
+        self.profile_dump = profile_dump
+        self._profiled = False
         self.vmem_budget = DEFAULT_VMEM_BUDGET
         nd = len(frame_shape)
         self._H, self._W = frame_shape[1:3] if nd == 4 else frame_shape[:2]
+        self._C = frame_shape[-1] if nd >= 3 else 1
         w, r = spec.window, spec.radius
         db, acc_b, out_b = halo.datapath_byte_widths(spec.dtype, spec.requant)
         same = spec.border.same_size
@@ -244,10 +278,23 @@ class CompiledFilter:
             self.selection = ("explicit",
                               f"execution={execution!r} requested")
         self.execution = execution
+        if execution in ("xla", "streaming"):
+            if spec.num_filters > 1:
+                raise ValueError(f"execution={execution!r} runs single "
+                                 "filters; banks take 'core' or 'cuda'")
+            if spec.separable:
+                raise ValueError(f"execution={execution!r} has no "
+                                 "separable path; use 'core' or 'cuda'")
+        if (execution == "xla" and is_fixed_point(spec.dtype)
+                and spec.window > XLA_MAX_FIXED_WINDOW):
+            raise ValueError(
+                f"execution='xla' convolves fixed-point frames in float64, "
+                f"exact only up to w={XLA_MAX_FIXED_WINDOW}; got "
+                f"w={spec.window}")
 
         gain_free = (spec.requant.gain_free() if spec.requant is not None
                      else None)
-        self.regime = self.strip_h = self.tile_w = None
+        self.regime = self.strip_h = self.tile_w = self.n_strips = None
         if execution == "cuda":
             self.regime = ("small" if self.resident_vmem_bytes
                            <= self.vmem_budget else "stream")
@@ -268,14 +315,26 @@ class CompiledFilter:
                                        Tw, dtype=spec.dtype,
                                        requant=gain_free)
         else:
+            if execution == "streaming":
+                # the reference's scan widens fixed-point strips to the
+                # int32 accumulator: its strip is derived at that width
+                self.strip_h = (self._streaming_strip(acc_b)
+                                if strip_h is None else int(strip_h))
+                # the kernel plan of every strip; bad geometry raises here
+                self.n_strips, self._strip_plan, self._strip_idx = \
+                    strip_plans(self._H, self._W, w, spec.border,
+                                self.strip_h, dtype=spec.dtype,
+                                requant=gain_free, device=device)
             try:                 # accounting only; the impl validates
-                self.plan = halo.make_plan(self._H, self._W, w, spec.border,
-                                           Ho, Wo, dtype=spec.dtype,
-                                           requant=gain_free)
+                self.plan = halo.make_plan(
+                    self._H, self._W, w, spec.border,
+                    Ho if self.strip_h is None else self.strip_h, Wo,
+                    dtype=spec.dtype, requant=gain_free)
             except (ValueError, AssertionError):
                 self.plan = None
 
-        self._fn = self._build()
+        with obs_profiler.annotate("repro_torch.pipeline.compile"):
+            self._fn = self._build()
         self._variants = set()
         planes = 1
         if nd == 4:
@@ -298,16 +357,33 @@ class CompiledFilter:
                 reason=self.selection[1],
                 resident_vmem_bytes=int(self.resident_vmem_bytes),
                 vmem_budget=int(self.vmem_budget), has_mesh=False))
+        eb, ob = self._plan_banks()
+        ws = self.vmem_working_set()
         bpp = self.hbm_bytes_per_pixel()
         obs_events.emit(obs_events.CompileEvent(
             key=self._obs_key, spec=repr(self.spec),
             spec_hash=hash(self.spec), frame_shape=self.frame_shape,
             execution=self.execution, regime=self.regime,
-            strip_h=self.strip_h, tile_w=self.tile_w, ext_banks=None,
-            out_banks=None, vmem_working_set=None,
+            strip_h=self.strip_h, tile_w=self.tile_w, ext_banks=eb,
+            out_banks=ob, vmem_working_set=None if ws is None else int(ws),
             hbm_bytes_per_pixel=None if bpp is None else float(bpp),
             wall_ms=wall_s * 1e3))
         obs_metrics.REGISTRY.counter("pipeline.compiles").inc()
+
+    def _streaming_strip(self, dtype_bytes: int) -> int:
+        """Largest divisor of H within the budget-derived strip height
+        (the scan needs H % strip == 0 and strip >= w-1) — the
+        reference's rule."""
+        H, w = self._H, self.spec.window
+        target = strip_height_for_vmem(self._W, self._C, w,
+                                       self.vmem_budget, dtype_bytes)
+        lo = max(w - 1, 1)
+        divs = [d for d in range(1, H + 1) if H % d == 0]
+        ok = [d for d in divs if lo <= d <= max(target, lo)]
+        if ok:
+            return max(ok)
+        over = [d for d in divs if d >= lo]
+        return min(over) if over else H
 
     # -- executor ----------------------------------------------------------
 
@@ -345,10 +421,31 @@ class CompiledFilter:
                         frame, co, border=border, border_constant=qc), q)
             return impl
 
+        if self.execution == "xla":
+            def impl(frame, co, q):
+                return _epilogue(_filter2d_xla_impl(frame, co,
+                                                    border=border), q)
+            return impl
+
         plan = self.plan
         form = "separable" if spec.separable else spec.form
         cdt = (torch.int32 if fixed else torch.float64
                if spec.dtype == "float64" else torch.float32)
+
+        if self.execution == "streaming":
+            strip_plan, n_strips = self._strip_plan, self.n_strips
+            strip_idx, strip_h = self._strip_idx, self.strip_h
+
+            def impl(frame, co, q):
+                # each emitted strip is requantised by its own launch: the
+                # output stream leaves at storage width strip by strip
+                planes, tag = ops._fold_planes(frame)
+                y = _scan_planes(planes, co.to(cdt)[None].contiguous(), q,
+                                 strip_plan, n_strips, strip_idx,
+                                 border=border,
+                                 strip_h=strip_h, form=form)
+                return ops._unfold(y, tag, keep_bank=False)
+            return impl
 
         def impl(frame, co, q):
             planes, tag = ops._fold_planes(frame)
@@ -432,32 +529,43 @@ class CompiledFilter:
             q = None
         else:
             q = self._gain_operand(gains)
-        if obs_events._TRACE is None:
+        # the default path: one attribute test, then straight into the
+        # executor — observability off costs a single branch
+        if obs_events._TRACE is None and self.profile_dump is None:
             self._variants.add(q is not None)
             return self._fn(frame, co, q)
         return self._instrumented_call(frame, co, q)
 
     def _instrumented_call(self, frame, co, q):
         """Timed execution: wall time until the device finished the call,
-        one :class:`ExecuteEvent` + a latency histogram sample per call."""
+        one :class:`ExecuteEvent` + a latency histogram sample per call
+        when tracing is on, and the first call captured under
+        ``torch.profiler`` when ``profile_dump`` is set."""
+        dump = None
+        if self.profile_dump is not None and not self._profiled:
+            self._profiled = True          # capture the first call only
+            dump = self.profile_dump
         size0 = self.cache_size()
         t0 = time.perf_counter()
-        self._variants.add(q is not None)
-        y = self._fn(frame, co, q)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        with obs_profiler.profile_dump(dump):
+            with obs_profiler.annotate("repro_torch.pipeline.call"):
+                self._variants.add(q is not None)
+                y = self._fn(frame, co, q)
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
         wall_s = max(time.perf_counter() - t0, 1e-9)
         size1 = self.cache_size()
-        wall_us = wall_s * 1e6
-        obs_events.emit(obs_events.ExecuteEvent(
-            key=self._obs_key, wall_us=wall_us,
-            pixels_per_s=self._pixels_per_call / wall_s,
-            cache_hit=size1 == size0, cache_size=size1))
-        reg = obs_metrics.REGISTRY
-        reg.histogram(f"call/{self._obs_key}").record(wall_us)
-        reg.counter("pipeline.calls").inc()
-        reg.counter("pipeline.recompiles" if size1 > size0
-                    else "pipeline.cache_hits").inc()
+        if obs_events._TRACE is not None:
+            wall_us = wall_s * 1e6
+            obs_events.emit(obs_events.ExecuteEvent(
+                key=self._obs_key, wall_us=wall_us,
+                pixels_per_s=self._pixels_per_call / wall_s,
+                cache_hit=size1 == size0, cache_size=size1))
+            reg = obs_metrics.REGISTRY
+            reg.histogram(f"call/{self._obs_key}").record(wall_us)
+            reg.counter("pipeline.calls").inc()
+            reg.counter("pipeline.recompiles" if size1 > size0
+                        else "pipeline.cache_hits").inc()
         return y
 
     # -- introspection -----------------------------------------------------
@@ -468,19 +576,181 @@ class CompiledFilter:
         gain swaps — the served-pipeline invariant."""
         return len(self._variants)
 
+    def vmem_working_set(self) -> Optional[int]:
+        """Per-step VMEM bytes of the reference schedule for this plan —
+        both scratch banks counted for ``cuda``, whose plan is the
+        reference's double-buffered Pallas one. Accounting: the CUDA
+        kernel's shared-memory ring is its own."""
+        if self.plan is None:
+            return None
+        return halo.plan_vmem_working_set(
+            self.plan, num_filters=self.spec.num_filters,
+            separable=self.spec.separable,
+            overlap=self.execution == "cuda")
+
     def hbm_bytes_per_pixel(self) -> Optional[float]:
         """Static HBM round-trip bytes/pixel of the reference plan."""
         if self.plan is None:
             return None
         return halo.hbm_bytes_per_pixel(self.plan)
 
+    def _plan_banks(self) -> Tuple[Optional[int], Optional[int]]:
+        """(halo-scratch, output-tile) bank counts of the reference
+        schedule for ``cuda``; ``(None, None)`` for the other executors."""
+        if self.execution != "cuda" or self.plan is None:
+            return None, None
+        return halo.plan_banks(self.plan, num_filters=self.spec.num_filters)
+
+    def _roofline(self) -> dict:
+        """The two-ceiling prediction for this pipeline's work (flops and
+        bytes per pixel from the plan) in the constants of the H100 part
+        it runs on — the SXM5 part for a pipeline planned on the CPU."""
+        part = obs_roofline.PARTS[obs_roofline.part_of(
+            torch.cuda.get_device_name(self.device)
+            if self.device.type == "cuda" else None)]
+        spec = self.spec
+        flops = 2.0 * macs_per_pixel(spec.window, form=spec.form,
+                                     separable=spec.separable) \
+            * spec.num_filters
+        # float16/float64 frames are stated against the float32 rate
+        peak = part.peak_ops.get(spec.dtype, part.peak_ops["float32"])
+        roof = obs_roofline.predicted_pixel_rate(
+            flops, self.hbm_bytes_per_pixel(), peak_flops=peak,
+            hbm_bw=part.hbm_bw)
+        roof["part"] = part.name
+        return roof
+
+    def explain(self, as_dict: bool = False):
+        """The plan report: what compiled, why, and what it should cost.
+
+        Every byte figure here IS the existing static accounting —
+        ``vmem_working_set()`` / ``hbm_bytes_per_pixel()`` /
+        ``halo.read_amplification`` — restated, not re-derived, plus the
+        two-ceiling roofline prediction (:meth:`_roofline`). The keys are
+        the reference's; ``verify`` stays ``None`` (the port has no static
+        kernel verifier yet). ``as_dict=True`` returns the
+        machine-readable twin."""
+        spec, plan = self.spec, self.plan
+        eb, ob = self._plan_banks()
+        ws = self.vmem_working_set()
+        bpp = self.hbm_bytes_per_pixel()
+        d = {
+            "spec": {
+                "window": spec.window, "form": spec.form,
+                "border": spec.border.policy, "separable": spec.separable,
+                "num_filters": spec.num_filters, "dtype": spec.dtype,
+                "requant": None if spec.requant is None
+                           else repr(spec.requant),
+            },
+            "frame": {"shape": self.frame_shape,
+                      "pixels_per_call": self._pixels_per_call},
+            "execution": {"executor": self.execution, "regime": self.regime,
+                          "rule": self.selection[0],
+                          "why": self.selection[1]},
+            "geometry": None if plan is None else {
+                "strip_h": self.strip_h, "tile_w": self.tile_w,
+                "strips": plan.rows.n, "tiles": plan.cols.n,
+                "ext_banks": eb, "out_banks": ob,
+                "scratch_eh": plan.eh, "scratch_ew": plan.ew,
+            },
+            "vmem": {
+                "working_set_bytes": None if ws is None else int(ws),
+                "budget_bytes": int(self.vmem_budget),
+                "resident_estimate_bytes": int(self.resident_vmem_bytes),
+                "fits_budget": None if ws is None
+                               else bool(ws <= self.vmem_budget),
+            },
+            "hbm": None if plan is None else {
+                "read_bytes_per_pixel": halo.read_bytes_per_pixel(plan),
+                "write_bytes_per_pixel":
+                    halo.hbm_write_bytes_per_pixel(plan),
+                "bytes_per_pixel": bpp,
+                "read_amplification": halo.read_amplification(plan),
+            },
+            "roofline": self._roofline(),
+            "verify": None,
+        }
+        if as_dict:
+            return d
+        return self._render_explain(d)
+
+    def _render_explain(self, d) -> str:
+        def _b(n):
+            if n is None:
+                return "n/a"
+            return (f"{n / 2**20:.2f} MiB" if n >= 2**20
+                    else f"{n / 2**10:.1f} KiB" if n >= 2**10
+                    else f"{n} B")
+        s, e, g, v, h, r = (d["spec"], d["execution"], d["geometry"],
+                            d["vmem"], d["hbm"], d["roofline"])
+        lines = [
+            f"CompiledFilter: {s['window']}x{s['window']} "
+            + ("separable " if s["separable"] else "")
+            + f"{s['form']} filter"
+            + (f" bank[{s['num_filters']}]" if s["num_filters"] > 1 else "")
+            + f", {s['dtype']}, border={s['border']}"
+            + (f", requant={s['requant']}" if s["requant"] else ""),
+            f"  frame     {d['frame']['shape']} "
+            f"({d['frame']['pixels_per_call']} px/call)",
+            f"  executor  {e['executor']}"
+            + (f" regime={e['regime']!r}" if e["regime"] else "")
+            + f" [{e['rule']}] — {e['why']}",
+        ]
+        if g is not None:
+            lines.append(
+                f"  geometry  {g['strips']} strips x {g['tiles']} tiles "
+                f"(strip_h={g['strip_h']}, tile_w={g['tile_w']}), scratch "
+                f"{g['scratch_eh']}x{g['scratch_ew']}"
+                + (f", banks ext={g['ext_banks']} out={g['out_banks']}"
+                   if g["ext_banks"] is not None else ""))
+        lines.append(
+            f"  vmem      working set {_b(v['working_set_bytes'])} of "
+            f"{_b(v['budget_bytes'])} budget"
+            + ("" if v["fits_budget"] is None
+               else " (fits)" if v["fits_budget"] else " (OVER)")
+            + f"; frame-resident est. {_b(v['resident_estimate_bytes'])}"
+            + " (reference accounting)")
+        if h is not None:
+            lines.append(
+                f"  hbm       {h['bytes_per_pixel']:.3f} B/px round trip "
+                f"(read {h['read_bytes_per_pixel']:.3f} + write "
+                f"{h['write_bytes_per_pixel']:.3f}), read amplification "
+                f"{h['read_amplification']:.4f}x")
+        lines.append(
+            f"  roofline  {r['predicted_pixels_per_s']:.3e} px/s "
+            f"({r['bound']}-bound; {r['flops_per_pixel']:.0f} flop/px, "
+            + (f"{r['bytes_per_pixel']:.3f} B/px" if r["bytes_per_pixel"]
+               is not None else "bytes unknown")
+            + f"; {r['part']}: {r['peak_flops']:.3g} op/s, "
+            f"{r['hbm_bw']:.3g} B/s)")
+        return "\n".join(lines)
+
+    def _explain_line(self) -> str:
+        """One-line plan summary (folded into ``__repr__``)."""
+        eb, ob = self._plan_banks()
+        bits = [self._obs_key, f"rule={self.selection[0]}"]
+        if self.plan is not None:
+            bits.append(f"{self.plan.rows.n}x{self.plan.cols.n} grid")
+        if eb is not None:
+            bits.append(f"banks ext={eb} out={ob}")
+        ws = self.vmem_working_set()
+        if ws is not None:
+            bits.append(f"vmem {ws}/{self.vmem_budget} B")
+        bpp = self.hbm_bytes_per_pixel()
+        if bpp is not None:
+            bits.append(f"{bpp:.2f} B/px")
+        return " | ".join(bits)
+
     def __repr__(self) -> str:
         geo = ""
         if self.execution == "cuda":
             geo = (f", plan regime={self.regime!r}, strip_h={self.strip_h},"
                    f" tile_w={self.tile_w}")
+        elif self.execution == "streaming":
+            geo = f", strip_h={self.strip_h}"
         return (f"CompiledFilter({self.spec!r}, frame={self.frame_shape}, "
-                f"execution={self.execution!r}, device={self.device}{geo})")
+                f"execution={self.execution!r}, device={self.device}{geo})"
+                f"\n  <{self._explain_line()}>")
 
 
 # -- batch admission (the serving engine's substrate) -----------------------

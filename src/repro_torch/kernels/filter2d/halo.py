@@ -412,3 +412,38 @@ def stream_vmem_working_set(strip_h: int, tile_w: int, w: int,
     out_tile = out_banks * strip_h * tile_w * out_dtype_bytes
     coeff = num_filters * (2 * w if separable else w * w) * acc_dtype_bytes
     return ext_scratch + out_tile + coeff
+
+
+def plan_banks(plan: HaloPlan, num_filters: int = 1,
+               overlap: bool = True) -> tuple:
+    """(ext_banks, out_banks) the reference kernel allocates for this plan
+    (``src/repro/kernels/filter2d/kernel.py::plan_banks``).
+
+    The input scratch is double-banked only when there is a next strip to
+    prefetch (``rows.n > 1``); the output buffer only when there is a
+    later step to pre-wait behind (more than one (strip, filter) step per
+    tile). Accounting of the reference's Pallas schedule: the CUDA
+    kernel's ring of shared-memory stages is its own."""
+    if not overlap:
+        return 1, 1
+    ext_banks = 2 if plan.rows.n > 1 else 1
+    out_banks = 2 if plan.rows.n * num_filters > 1 else 1
+    return ext_banks, out_banks
+
+
+def plan_vmem_working_set(plan: HaloPlan, *, num_filters: int = 1,
+                          separable: bool = False,
+                          overlap: bool = True) -> int:
+    """VMEM bytes per grid step of the reference schedule, straight from a
+    built plan (``src/repro/kernels/filter2d/kernel.py::
+    plan_vmem_working_set``): the plan's ``eh × ew`` scratch at storage
+    width, the ``strip × tile`` output tile at the plan's write width and
+    the coefficient file at the accumulator width, each times the bank
+    count :func:`plan_banks` gives."""
+    w = 2 * plan.rows.r + 1
+    ext_banks, out_banks = plan_banks(plan, num_filters, overlap)
+    scratch = ext_banks * plan.eh * plan.ew * plan.dtype_bytes
+    out_tile = (out_banks * plan.rows.block * plan.cols.block
+                * plan.out_dtype_bytes)
+    coeff = num_filters * (2 * w if separable else w * w) * plan.acc_bytes
+    return scratch + out_tile + coeff

@@ -213,6 +213,88 @@ def test_engine_on_the_card(cuda):
         _same(r.result(timeout=10), w.result(timeout=10), t.spec.dtype)
 
 
+# -- the strip-scan and library-convolution executors ------------------------
+
+def _executor_case(rng, dtype, policy, shape, w=5):
+    x = _frame(rng, dtype, shape)
+    k = _coeffs(rng, dtype, (w, w))
+    rq = None
+    if dtype not in TOL:
+        rq = RequantSpec(multiplier=3, shift=6, rounding="nearest",
+                         dtype=dtype)
+    spec = Filter2D(window=w, dtype=dtype, requant=rq.gain_free() if rq
+                    else None, border=BorderSpec(
+                        policy, 3.7 if dtype in TOL else -300.0))
+    return x, k, rq, spec
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("policy", POLICIES[1:])
+def test_streaming_on_the_card_matches_cuda(cuda, policy, dtype, rng):
+    """One kernel launch per strip (6 strips of 8 rows), each window
+    through ``filter2d_halo``: the same kernel and roundings as the cuda
+    executor, and the scan's plain version on the CPU."""
+    x, k, rq, spec = _executor_case(rng, dtype, policy, (2, 48, 61, 2))
+    cf = spec.compile(x.shape, "streaming", strip_h=8, device=cuda)
+    before = K.filter2d_halo.launches
+    got = cf(x, k, gains=rq)
+    assert K.filter2d_halo.launches - before == 6
+    ref = spec.compile(x.shape, "cuda", device=cuda)(x, k, gains=rq)
+    cpu = spec.compile(x.shape, "streaming", strip_h=8, device="cpu")(
+        x, k, gains=rq)
+    torch.cuda.synchronize()
+    _same(got, ref, dtype)
+    _same(got.cpu(), cpu, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("policy", POLICIES)
+def test_xla_on_the_card_matches_cuda(cuda, policy, dtype, rng):
+    """``F.conv2d`` with TF32 off around the call (the caller's TF32 flag
+    comes back as it was), held against the cuda executor."""
+    x, k, rq, spec = _executor_case(rng, dtype, policy, (2, 40, 50, 3))
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        got = spec.compile(x.shape, "xla", device=cuda)(x, k, gains=rq)
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    ref = spec.compile(x.shape, "cuda", device=cuda)(x, k, gains=rq)
+    torch.cuda.synchronize()
+    _same(got, ref, dtype)
+
+
+@pytest.mark.parametrize("w", [5, 7])
+def test_xla_overflow_edge_on_the_card(cuda, w):
+    x = torch.full((2, 40, 70), 32767, dtype=torch.int16)
+    k = torch.full((w, w), 1 << 20, dtype=torch.int32)
+    spec = Filter2D(window=w, dtype="int16", border="duplicate")
+    got = spec.compile(x.shape, "xla", device=cuda)(x, k)
+    ref = spec.compile(x.shape, "cuda", device=cuda)(x, k)
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("execution", ["streaming", "xla"])
+def test_engine_on_the_card_other_executors(cuda, execution):
+    from repro_torch.serving import FilterServeEngine
+    from repro_torch.serving.bench import build_mix
+    templates = build_mix(np.random.default_rng(3), scale=2) * 2
+    results = {}
+    for device in (cuda, "cpu"):
+        with FilterServeEngine(batch_size=2, device=device,
+                               execution=execution) as eng:
+            reqs = [eng.submit(t.frame, t.coeffs, spec=t.spec,
+                               gains=t.gains, tenant=t.tenant)
+                    for t in templates]
+            assert eng.drain(timeout=120)
+            st = eng.stats()
+        assert st["recompiles"] == 3 and st["errors"] == 0
+        results[str(device)] = [r.result(timeout=10) for r in reqs]
+    for g, w, t in zip(results[str(cuda)], results["cpu"], templates):
+        _same(g, w, t.spec.dtype)
+
+
 # -- the LM slice: swattn, dwconv1d, the forward and the mamba block ----------
 
 def _to(tree, device):

@@ -22,6 +22,8 @@ FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:[.\s]|$)",
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys\n"
             "import repro_torch, repro_torch.convert, repro_torch.core\n"
+            "import repro_torch.core.streaming, repro_torch.obs.roofline, "
+            "repro_torch.obs.profiler\n"
             "import repro_torch.serving.bench\n"
             "import repro_torch.kernels.filter2d, "
             "repro_torch.kernels.filter2d._build\n"
@@ -59,6 +61,14 @@ def test_cuda_without_a_card_raises():
         spec.compile((8, 8))                 # the default device is the card
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spec.compile((8, 8), "cuda", device="cuda")
+    for execution in ("streaming", "xla"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            spec.compile((8, 8), execution)  # the default device is the card
+    from repro_torch.core import filter2d_streaming, filter2d_xla
+    assert filter2d_xla(torch.zeros(8, 8), np.ones((3, 3))).device.type == \
+        "cpu"                                # the wrappers follow the frame
+    assert filter2d_streaming(torch.zeros(8, 8), np.ones((3, 3)),
+                              strip_h=4).device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FilterServeEngine()
     from repro_torch.serving import bench

@@ -134,7 +134,7 @@ def test_plan_errors_surface_at_compile():
 
 def test_executor_and_spec_rules():
     spec = Filter2D(window=3)
-    for name in ("xla", "streaming", "sharded"):
+    for name in ("sharded",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             spec.compile((8, 8), name, device="cpu")
     with pytest.raises(ValueError):
