@@ -53,8 +53,10 @@ Phases, in order; any failure exits non-zero:
                 it off around its call and must hand it back): the three
                 serving buckets, 8K UHD [1,4320,7680] float32 w5 mirror
                 (72 strips), int8 w3 wrap unity requant [4,960,1440] (the
-                wrap prologue), the int16 all-max overflow edge, and
-                policy x {float32, bfloat16, int8, uint8, int16} x w
+                wrap prologue), the int16 all-max overflow edge, xla
+                int16 at w 13 and 15 (split coefficient halves; all-max
+                and random frames, held against ``'core'`` on the CPU,
+                since the kernel stops at w 7), and policy x {float32, bfloat16, int8, uint8, int16} x w
                 {3, 5} at [3,67,336] (xla; streaming in one strip) and
                 [3,64,336] (streaming in 8 strips). Integers bit-exact,
                 float32 within 3e-4, bfloat16 within 3e-2; every
@@ -68,6 +70,21 @@ Phases, in order; any failure exits non-zero:
                 ``explain()``'s predicted pixel rate, one ``explain()``
                 text per bucket and executor, and a ``profile_dump``
                 trace of one streaming call.
+ 6b. sharded  — the halo ring (``'sharded'``) on meshes of 2 and 4 entries
+                of ``cuda:0`` (and of all cards where there are several)
+                held against ``'cuda'`` on the same frame: the three
+                serving buckets, 8K UHD on 4 shards, each policy (zero,
+                constant -3, replicate, mirror, mirror_dup, wrap) x
+                {float32, int16, uint8, int8 with requant} x w {3, 5} at
+                [2,64,332], and a gain swap on one compiled ring.
+                Integers bit-exact, float32 within 3e-4; exactly one
+                ``filter2d_halo`` launch per shard per call; the halo rows
+                at the storage dtype, as many bytes as ``wire_bytes`` (on
+                one card's entries these are the neighbours' own slices,
+                counted as no copies: the check bites across cards);
+                TMA launches per case; then device and host-paced ms of
+                each bucket and 8K beside ``'cuda'``, and a profiler
+                breakdown of one 4-shard call of two buckets.
 
   7. swattn   — the banded attention kernel against its plain version
                 (``swattn_ref``) on the card, swept over the edges of its
@@ -113,7 +130,8 @@ Phases, in order; any failure exits non-zero:
                 a pre-padded input). The bfloat16 ``swattn`` must beat
                 SDPA.
 
-Every main path (serving, the streaming and xla engines, LM, mamba) runs
+Every main path (serving, the streaming and xla engines, the ring, LM,
+mamba) runs
 with the three launch counts set to 0 just before it and read just after.
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -508,24 +526,32 @@ class Smoke:
     def _time(self, fn, iters: int, warmup: int = 3) -> float:
         """Device ms per call: CUDA events around ``iters`` calls that
         were all queued while the card was held busy by a sleep kernel, so
-        the host's per-call Python overhead does not pace the launches."""
+        the host's per-call Python overhead does not pace the launches.
+        Where the calls outran the sleep (the card's launch queue is
+        bounded, and a call of many small kernels fills it), the count
+        halves and the timing runs again."""
         torch = self.torch
         for _ in range(warmup):
             fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)       # ~0.1 s of device clock
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        covered = not start.query()          # the sleep outlasted queueing
-        end.synchronize()
-        if not covered:
-            raise AssertionError("timing: the launches were not all queued "
-                                 "before the covering sleep ended")
-        return start.elapsed_time(end) / iters
+        while True:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(200_000_000)       # ~0.1 s of device clock
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            covered = not start.query()          # the sleep outlasted queueing
+            end.synchronize()
+            if covered:
+                return start.elapsed_time(end) / iters
+            if iters == 1:
+                raise AssertionError("timing: one call was not queued "
+                                     "before the covering sleep ended")
+            self.say(f"timing: {iters} calls outran the covering sleep; "
+                     f"timing {iters // 2}")
+            iters //= 2
 
     def wave_breakdown(self, templates, reps: int = 5):
         """Where one served wave's time goes, per bucket: stacking the
@@ -747,7 +773,8 @@ class Smoke:
     def executors_phase(self, templates, picks, served):
         """The strip-scan and library-convolution executors against the
         cuda executor: the serving buckets, 8K UHD, the int8 wrap prologue,
-        the int16 overflow edge and a policy x dtype x window sweep; then
+        the int16 overflow edge (and xla's split halves at w 13 and 15,
+        against core) and a policy x dtype x window sweep; then
         both serve the serving phase's 32 requests; then each bucket and 8K
         timed under all three executors beside ``explain()``'s roofline."""
         import numpy as np
@@ -798,6 +825,7 @@ class Smoke:
             ke = np.full((7, 7), 1 << 20, np.int32)
             note(self._exec_case("int16 all-max overflow edge", edge, xe, ke,
                                  strip_h=8), "int16")
+            note(self._wide_xla_cases(rng), "int16")
             for dt in ("float32", "bfloat16", "int8", "uint8", "int16"):
                 for policy in POLICIES:
                     for w in (3, 5):
@@ -813,6 +841,52 @@ class Smoke:
         rows = self.executor_timing(cases)
         self.profile_dump_check(cases)
         return errs, served_by, rows
+
+    def _wide_xla_cases(self, rng) -> dict:
+        """'xla' at w 13 and 15, where one float64 convolution of int16
+        sums could pass 2^53 and the coefficients split in 16-bit halves:
+        an all-max frame under duplicate (every output is 32767 * sum(k)
+        wrapped to int32) and a random frame under mirror, with
+        coefficients over all of int32. The kernel is built for w <= 7,
+        so each is held bit for bit against the plain 'core' executor on
+        the CPU, and the all-max frame against its closed form too."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core.border_spec import BorderSpec
+        from repro_torch.core.pipeline import Filter2D
+        from repro_torch.kernels.filter2d import kernel as K
+        for w in (13, 15):
+            k = np.full((w, w), 1 << 20, np.int32)
+            k[0, 0], k[w // 2, w // 2] = -(1 << 31), 0x7FFFBEEF
+            edge = (32767 * int(k.astype(np.int64).sum()) + 2 ** 31) \
+                % 2 ** 32 - 2 ** 31
+            kr = rng.integers(-2 ** 31, 2 ** 31, (w, w)).astype(np.int32)
+            xr = rng.integers(-2 ** 15, 2 ** 15, (2, 52, 67, 1)).astype(
+                np.int16)
+            for what, policy, x, co in (
+                    ("all-max", "duplicate",
+                     np.full((2, 40, 70, 1), 32767, np.int16), k),
+                    ("random", "mirror", xr, kr)):
+                spec = Filter2D(window=w, dtype="int16",
+                                border=BorderSpec(policy))
+                xc = torch.from_numpy(x)
+                want = spec.compile(xc.shape, "core", device="cpu")(xc, co)
+                if what == "all-max" and not bool((want == edge).all()):
+                    raise AssertionError(f"core int16 all-max w{w}: not the "
+                                         f"closed form {edge}")
+                before = K.filter2d_halo.launches
+                got = spec.compile(xc.shape, "xla", device="cuda")(
+                    xc.cuda(), co)
+                if K.filter2d_halo.launches != before:
+                    raise AssertionError(f"xla int16 {what} w{w}: launched "
+                                         "filter2d_halo")
+                torch.cuda.synchronize()
+                self._hold(f"xla int16 {what} w{w} (split halves)",
+                           got.cpu(), want, "int16")
+        self.say("executors phase: xla int16 at w 13 and 15 (split "
+                 "coefficient halves) equals core on the CPU bit for bit, "
+                 "all-max and random")
+        return {"xla": 0.0}
 
     def _sweep_case(self, rng, dt, policy, w):
         """One policy x dtype x window case: xla at [3,67,336] (and
@@ -1023,6 +1097,189 @@ class Smoke:
                          f"{n} {us:.0f} us" for n, us in sorted(
                              by_name.items(), key=lambda kv: -kv[1])[:10]))
 
+
+    # -- phase 6b ------------------------------------------------------------
+
+    def sharded_phase(self, templates):
+        """The halo ring (``'sharded'``) on meshes of 2 and 4 entries of
+        ``cuda:0`` (and of every card where there is more than one), each
+        case held against the cuda executor on the same frame: the serving
+        buckets, 8K UHD on 4 shards, each policy x {float32, int16, uint8,
+        int8 with requant} x w {3, 5} at [2,64,332], and a gain swap on
+        one compiled ring. A main path: counts set to 0 before the ring
+        calls and read after (the cuda references are not counted); every
+        call launches ``filter2d_halo`` once per shard and moves its halo
+        rows at the storage dtype. Then device and host-paced ms beside
+        cuda for each bucket and 8K."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core import distributed
+        from repro_torch.core.border_spec import BorderSpec
+        from repro_torch.core.pipeline import Filter2D
+        from repro_torch.core.requant import RequantSpec
+        meshes = [["cuda:0"] * 2, ["cuda:0"] * 4]
+        if torch.cuda.device_count() > 1:
+            meshes.append([f"cuda:{i}" for i in range(
+                torch.cuda.device_count())])
+        self.say(f"sharded phase: meshes {meshes}")
+        rng = np.random.default_rng(16)
+        wire, copies = [], [0, 0]
+        real_exchange = distributed._exchange_halos
+
+        def spy(shards, r):
+            tops, bots = real_exchange(shards, r)
+            wire.extend(tops + bots)
+            # a halo still viewing its neighbour's shard moved no bytes
+            copies[0] += sum(t._base is None for t in tops + bots)
+            copies[1] += len(tops + bots)
+            return tops, bots
+        cases = {}
+        for t in templates:                       # the serving buckets
+            if t.bucket not in cases:
+                x = torch.from_numpy(np.stack([t.frame] * 4)[..., None])
+                cases[t.bucket] = (t.spec, x.cuda(), t.coeffs, t.gains,
+                                   meshes)
+        x8k = torch.from_numpy(rng.standard_normal(
+            (1, 4320, 7680, 1)).astype(np.float32)).cuda()
+        cases["8K"] = (Filter2D(window=5, border=BorderSpec("mirror")), x8k,
+                       (rng.standard_normal((5, 5)) / 5).astype(np.float32),
+                       None, [["cuda:0"] * 4])
+        for dt in ("float32", "int16", "uint8", "int8"):
+            for policy, c in (("constant", 0.0), ("constant", -3.0),
+                              ("duplicate", 0.0), ("mirror", 0.0),
+                              ("mirror_dup", 0.0), ("wrap", 0.0)):
+                for w in (3, 5):
+                    if dt == "float32":
+                        x = rng.standard_normal((2, 64, 332, 1)).astype(
+                            np.float32)
+                        co = (rng.standard_normal((w, w)) / w).astype(
+                            np.float32)
+                        rq = None
+                    else:
+                        info = np.iinfo(dt)
+                        x = rng.integers(info.min, int(info.max) + 1,
+                                         (2, 64, 332, 1)).astype(dt)
+                        co = rng.integers(-8, 9, (w, w)).astype(np.int32)
+                        rq = RequantSpec(
+                            multiplier=int(rng.integers(1, 1 << 10)),
+                            shift=int(rng.integers(0, 16)),
+                            rounding=ROUNDINGS[w % 3], dtype=dt)
+                    spec = Filter2D(window=w, dtype=dt,
+                                    border=BorderSpec(policy, c),
+                                    requant=rq.gain_free() if rq else None)
+                    cases[f"{dt} {policy}({c}) w{w} [2,64,332]"] = (
+                        spec, torch.from_numpy(x).cuda(), co, rq, meshes)
+        main = [t.bucket for t in templates] + ["8K"]   # timed below
+        errs, n, expected, sweep_tma = {}, 0, 0, {}
+        distributed._exchange_halos = spy
+        try:
+            reset_counts()
+            for name, (spec, x, co, gains, on) in cases.items():
+                with saved_counts():
+                    ref = spec.compile(tuple(x.shape), "cuda",
+                                       device="cuda")(x, co, gains=gains)
+                for mesh in on:
+                    if x.shape[1] % len(mesh):
+                        self.say(f"sharded phase: {name} skipped on {mesh} "
+                                 f"(H % {len(mesh)} != 0)")
+                        continue
+                    cf = spec.compile(tuple(x.shape), "sharded", mesh=mesh)
+                    before, tma0 = read_counts()["filter2d_halo"], tma_count()
+                    del wire[:]
+                    got = cf(x, co, gains=gains)
+                    added = read_counts()["filter2d_halo"] - before
+                    if added != cf.n_shards:
+                        raise AssertionError(
+                            f"sharded {name} {mesh}: {added} filter2d_halo "
+                            f"launches, expected {cf.n_shards}")
+                    dts = {t.dtype for t in wire}
+                    moved = sum(t.nbytes for t in wire)
+                    if dts != {x.dtype} or moved != cf.wire_bytes:
+                        raise AssertionError(
+                            f"sharded {name} {mesh}: halo rows {dts}, "
+                            f"{moved} B; expected {x.dtype}, "
+                            f"{cf.wire_bytes} B")
+                    expected += cf.n_shards
+                    torch.cuda.synchronize()
+                    e = self._hold(f"sharded {name} {len(mesh)} shards", got,
+                                   ref, spec.dtype)
+                    errs[spec.dtype] = max(errs.get(spec.dtype, 0.0), e)
+                    n += 1
+                    tma = tma_count() - tma0
+                    if name in main:
+                        self.say(f"sharded {name} {len(mesh)} shards: {tma} "
+                                 f"of {len(mesh)} launches by TMA, {moved} B "
+                                 "of halo rows per call")
+                    else:
+                        key = f"{spec.dtype} w{spec.window}"
+                        sweep_tma[key] = sweep_tma.get(key, 0) + tma
+            swap = cases["w3i8"]
+            cf = swap[0].compile(tuple(swap[1].shape), "sharded",
+                                 mesh=meshes[1])
+            cuda = swap[0].compile(tuple(swap[1].shape), "cuda",
+                                   device="cuda")
+            for g in ((1, 0), (5, 3), (-7, 11), (300, 12)):
+                got = cf(swap[1], swap[2], gains=g)
+                expected += cf.n_shards
+                with saved_counts():
+                    ref = cuda(swap[1], swap[2], gains=g)
+                self._hold(f"sharded gain swap {g}", got, ref, "int8")
+                n += 1
+            if cf.cache_size() != 1:
+                raise AssertionError(f"sharded gain swap: cache_size "
+                                     f"{cf.cache_size()}")
+            launches = read_counts()
+        finally:
+            distributed._exchange_halos = real_exchange
+        if launches != {"filter2d_halo": expected, "swattn": 0,
+                        "dwconv1d": 0}:
+            raise AssertionError(f"sharded phase: counts {launches}, "
+                                 f"expected {expected} filter2d_halo")
+        self.say(f"sharded phase: {n} ring calls agree with the cuda "
+                 f"executor, {expected} filter2d_halo launches (one per "
+                 f"shard per call), halo rows at the storage dtype; max "
+                 f"|sharded - cuda| by dtype {errs}")
+        self.say(f"sharded phase: {copies[0]} of {copies[1]} halo tensors "
+                 "were copies (a mesh of one card's entries hands each shard "
+                 "its neighbour's slice, so the wire check means something "
+                 "only across cards)")
+        self.say(f"sharded sweep: TMA launches by dtype and window, over "
+                 f"every policy and mesh: {sweep_tma}")
+        rows = self.sharded_timing({k: cases[k] for k in dict.fromkeys(main)})
+        return {"launches": expected, "calls": n, "max_abs_err": errs,
+                "meshes": meshes, "timing": rows}
+
+    def sharded_timing(self, cases) -> list:
+        """Each bucket (2 and 4 shards of cuda:0) and 8K (4 shards): device
+        ms (calls queued behind a sleep) and host-paced ms, beside the cuda
+        executor on the same frame."""
+        rows = []
+        with saved_counts():
+            for name, (spec, x, co, gains, _) in cases.items():
+                runs = [("cuda", spec.compile(tuple(x.shape), "cuda",
+                                              device="cuda"))]
+                for k in ((4,) if name == "8K" else (2, 4)):
+                    runs.append((f"sharded x{k}", spec.compile(
+                        tuple(x.shape), "sharded", mesh=["cuda:0"] * k)))
+                for label, cf in runs:
+                    def call():
+                        return cf(x, co, gains=gains)
+                    iters = 10 if name == "8K" else 20
+                    ms = self._time(call, iters)
+                    paced = self._paced(call, iters)
+                    rows.append({"case": name, "executor": label,
+                                 "shape": list(x.shape), "dtype": spec.dtype,
+                                 "w": spec.window, "ms": ms,
+                                 "paced_ms": paced,
+                                 "wire_bytes": cf.wire_bytes})
+                    self.say(f"sharded timing {name} {label} "
+                             f"{list(x.shape)} {spec.dtype} w{spec.window}: "
+                             f"{ms!r} ms device, {paced!r} ms host-paced"
+                             + (f", {cf.wire_bytes} B of halo rows per call"
+                                if cf.wire_bytes else ""))
+                if name in ("w5f32", "w3i8"):     # where a ring call goes
+                    self.profile(f"sharded {name} {label}", call)
+        return rows
 
     # -- phase 7 -------------------------------------------------------------
 
@@ -1490,6 +1747,9 @@ def main() -> int:
         templates, picks, served)
     del served
     smoke.say(f"executors phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded = smoke.sharded_phase(templates)
+    smoke.say(f"sharded phase took {time.perf_counter() - t0:.1f} s")
     # the float32 paths below (SDPA, the LM's products) run without TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1530,6 +1790,7 @@ def main() -> int:
         "shape": main_row["shape"], "buckets": list(rows.values()),
         "executors": {"max_abs_err": exec_errs, "serving": exec_served,
                       "timing": exec_rows},
+        "sharded": sharded,
         "card": card}, {
         "name": "swattn", "route": "cuda", "source": SWATTN_SOURCE,
         "replaces": SWATTN_REPLACES, "launches": sw_launches,

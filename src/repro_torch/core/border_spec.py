@@ -127,3 +127,14 @@ def min_extent(spec: BorderSpec, radius: int) -> int:
     if spec.policy in ("mirror_dup", "wrap"):
         return radius
     return 1
+
+
+def check_min_extent(spec: BorderSpec, radius: int, H: int, W: int) -> None:
+    """Refuse an H×W frame smaller than :func:`min_extent` — the one
+    compile-time rule (and wording) of every executor that plans or
+    extends a frame."""
+    need = min_extent(spec, radius)
+    if min(H, W) < need:
+        raise ValueError(f"policy {spec.policy!r} with radius {radius} needs "
+                         f"frames of at least {need} rows/cols (min_extent); "
+                         f"got {(H, W)}")

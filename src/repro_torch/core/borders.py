@@ -19,7 +19,7 @@ are built by remap because ``torch.nn.functional.pad`` has no
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,7 +31,8 @@ from repro_torch.core.border_spec import (ALIASES, POLICIES,
 __all__ = [
     "ALIASES", "BorderSpec", "POLICIES", "SAME_SIZE_POLICIES",
     "min_extent", "np_pad_mode", "out_shape",
-    "map_index", "valid_mask", "gather_rows", "extend",
+    "map_index", "valid_mask", "RowGather", "plan_gather", "take_rows",
+    "gather_rows", "extend",
 ]
 
 
@@ -64,26 +65,53 @@ def valid_mask(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx >= 0) & (idx < n)
 
 
+class RowGather(NamedTuple):
+    """One :func:`gather_rows` with its remap done ahead of the data: the
+    in-range source indices, and for ``constant`` the validity mask (shaped
+    for its axis) and the fill at the frame dtype (``None`` otherwise).
+    Built once where the geometry is fixed, run by :func:`take_rows`."""
+
+    index: torch.Tensor
+    mask: Optional[torch.Tensor]
+    fill: Optional[torch.Tensor]
+
+
+def plan_gather(idx: torch.Tensor, n: int, spec: BorderSpec, *, axis: int,
+                ndim: int, dtype: torch.dtype, constant=None) -> RowGather:
+    """The :class:`RowGather` of (possibly out-of-range) ``idx`` over an
+    axis of length ``n`` of an ``ndim``-dimensional frame of ``dtype``.
+    ``constant`` overrides ``spec.constant`` (callers pass the value
+    already quantized against the storage dtype)."""
+    j = map_index(idx, n, spec.policy)
+    if spec.policy != "constant":
+        return RowGather(j, None, None)
+    c = spec.constant if constant is None else constant
+    shape = [1] * ndim
+    shape[axis] = idx.shape[0]
+    # a Python float lands as float32 first (as the reference's
+    # jnp.asarray does), then rounds to the frame dtype; a 0-dim CPU
+    # tensor is a scalar to torch.where on any device (no copy)
+    return RowGather(j, valid_mask(idx, n).reshape(shape),
+                     torch.tensor(c).to(dtype))
+
+
+def take_rows(x: torch.Tensor, g: RowGather, axis: int) -> torch.Tensor:
+    """Gather ``x`` along ``axis`` by a planned :class:`RowGather`: one
+    ``index_select``, and one ``where`` under ``constant``."""
+    out = torch.index_select(x, axis, g.index)
+    return out if g.mask is None else torch.where(g.mask, out, g.fill)
+
+
 def gather_rows(x: torch.Tensor, idx: torch.Tensor, spec: BorderSpec,
                 axis: int = 0, constant=None) -> torch.Tensor:
     """Gather rows/cols of ``x`` along ``axis`` at (possibly out-of-range)
     ``idx`` under ``spec`` — the lean mux: one gather, no padded copy.
     ``constant`` overrides ``spec.constant`` (callers pass the value
     already quantized against the storage dtype)."""
-    n = x.shape[axis]
-    j = map_index(idx, n, spec.policy)
-    out = torch.index_select(x, axis, j)
-    if spec.policy == "constant":
-        c = spec.constant if constant is None else constant
-        shape = [1] * out.ndim
-        shape[axis] = idx.shape[0]
-        mask = valid_mask(idx, n).reshape(shape)
-        # a Python float lands as float32 first (as the reference's
-        # jnp.asarray does), then rounds to the frame dtype; a 0-dim CPU
-        # tensor is a scalar to torch.where on any device (no copy)
-        fill = torch.tensor(c).to(out.dtype)
-        out = torch.where(mask, out, fill)
-    return out
+    axis %= x.ndim
+    return take_rows(x, plan_gather(idx, x.shape[axis], spec, axis=axis,
+                                    ndim=x.ndim, dtype=x.dtype,
+                                    constant=constant), axis)
 
 
 def extend(x: torch.Tensor, radius: int, spec: BorderSpec,

@@ -421,8 +421,19 @@ def filter_bank(frame: torch.Tensor, bank, *, form: str = "direct",
 # ---------------------------------------------------------------------------
 
 
-# the widest fixed-point window whose float64 convolution is exact
-XLA_MAX_FIXED_WINDOW = 11
+def xla_fixed_convolutions(dtype, w: int) -> int:
+    """The float64 convolutions that the ``'xla'`` route needs to compute a
+    fixed-point frame of storage ``dtype`` under a w × w int32 window
+    exactly: 1 while every sum of w² products stays exact in any order
+    (max|x| · 2³¹ · w² <= 2⁵³: int8 to w 181, uint8 to w 127, int16 to
+    w 11); 2, the coefficients split in 16-bit halves, while
+    max|x| · 2¹⁶ · w² <= 2⁵³ (int16 to w 2047); 0 past that."""
+    info = torch.iinfo(dtypes.to_torch(dtype))
+    peak = max(-info.min, info.max) * w * w
+    for n, coeff_bits in ((1, 31), (2, 16)):
+        if peak << coeff_bits <= 1 << 53:
+            return n
+    return 0
 
 
 # serialises the save/flip/restore of torch's process-wide cuDNN TF32 flag
@@ -455,12 +466,15 @@ def _filter2d_xla_impl(frame: torch.Tensor, coeffs, *,
     (``lax.conv_general_dilated``), as Vivado HLS does in the paper's
     Table X. The ``constant(c)`` value is quantized against the storage
     dtype first. Float frames convolve at their own dtype with TF32 off.
-    Fixed-point frames convolve in float64, which is exact (every product
-    is at most 2¹⁵ · 2³¹ = 2⁴⁶, so w² < 128 of them — w ≤ 11,
-    :data:`XLA_MAX_FIXED_WINDOW` — sum below 2⁵³ in any order), and the
-    sum wraps to int32 as the reference's int32 accumulation does; cuDNN
-    has no integer convolution, so the CPU takes the same route. The
-    requantising epilogue is the pipeline's."""
+    Fixed-point frames take the reference's int32 arithmetic through
+    float64, which cuDNN and the CPU both convolve, and wrap the exact sum
+    to int32. Where one convolution's sums could pass 2⁵³
+    (:func:`xla_fixed_convolutions`: int16 past w 11), the int32
+    coefficients split as ``hi·2¹⁶ + lo`` with ``lo`` in [0, 2¹⁶), and one
+    convolution computes both halves (two filters per channel), whose
+    products are at most 2¹⁵ · 2¹⁶ = 2³¹; the halves recombine in int64.
+    Only the low 32 bits survive the wrap, so ``hi_sum`` is taken mod 2¹⁶
+    before the shift. The requantising epilogue is the pipeline's."""
     qc = quantize_constant(border.constant, frame.dtype)
     fixed = is_fixed_point(frame.dtype)
     x, add_b, add_c = _as_nhwc(frame)
@@ -469,14 +483,22 @@ def _filter2d_xla_impl(frame: torch.Tensor, coeffs, *,
     cdt = torch.float64 if fixed else x.dtype
     xp = xp.permute(0, 3, 1, 2).to(cdt)              # NCHW view of NHWC
     C = xp.shape[1]
-    rhs = coeffs.to(xp.device, cdt).reshape(1, 1, w, w).expand(
-        C, 1, w, w)
+    split = fixed and xla_fixed_convolutions(frame.dtype, w) == 2
+    if split:                   # [lo, hi] halves of the int32 coefficients
+        c = wrap_i32(torch.as_tensor(coeffs).to(xp.device, torch.int64))
+        c = c.to(torch.int64)
+        rhs = torch.stack([c & 0xFFFF, c >> 16]).to(cdt)
+    else:
+        rhs = coeffs.to(xp.device, cdt)[None]
+    rhs = rhs.reshape(1, -1, 1, w, w).expand(C, -1, 1, w, w)
     with cudnn_without_tf32():
-        y = F.conv2d(xp, rhs, groups=C)
-    y = y.permute(0, 2, 3, 1)
+        y = F.conv2d(xp, rhs.reshape(-1, 1, w, w), groups=C)
+    if split:                   # channel c's halves at 2c, 2c + 1
+        y = y.to(torch.int64)
+        y = ((y[:, 1::2] & 0xFFFF) << 16) + y[:, 0::2]
     if fixed:
         y = wrap_i32(y.to(torch.int64))
-    return _un_nhwc(y.contiguous(), add_b, add_c)
+    return _un_nhwc(y.permute(0, 2, 3, 1).contiguous(), add_b, add_c)
 
 
 def filter2d_xla(frame: torch.Tensor, coeffs, border_policy: str = "mirror",

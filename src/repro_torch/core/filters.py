@@ -222,3 +222,13 @@ def decompose_separable(coeffs, tol: float = 1e-5):
     v = Vt[0] * root
     sign = 1.0 if v[np.argmax(np.abs(v))] >= 0 else -1.0
     return ((u * sign).astype(np.float32), (v * sign).astype(np.float32))
+
+
+def flops_per_pixel(w: int) -> int:
+    """2·w² (paper: w² multipliers + w²-1 adders, counting MAC = 2 flops)."""
+    return 2 * w * w
+
+
+def arithmetic_intensity(w: int, bytes_per_pixel: int = 8) -> float:
+    """flops per HBM byte for a single-pass filter (in once + out once)."""
+    return flops_per_pixel(w) / bytes_per_pixel

@@ -26,12 +26,15 @@ reference's ``'pallas'``); ``'streaming'`` scans row strips with a carried
 row buffer and runs each strip's MAC through the same kernel
 (``core/streaming.py``); ``'xla'`` is the library-convolution baseline
 (``F.conv2d``, the reference's compiler-inferred yardstick); ``'core'``
-runs the plain torch versions of ``core/filter2d``; ``'auto'`` is
-``'cuda'`` on a CUDA device and ``'core'`` on the CPU, and never picks
-``'xla'`` or ``'streaming'``. The reference's ``'sharded'`` executor is
-not ported yet and raises. Pipelines run on ``device`` ('cuda' unless the
-caller asks for the CPU); asking for a card that is not there raises —
-nothing carries on silently on the CPU.
+runs the plain torch versions of ``core/filter2d``; ``'sharded'`` splits
+the frame into row shards over a mesh of devices and runs each shard's
+MAC through the same kernel after a halo ring exchange
+(``core/distributed.py``). ``'auto'`` is ``'sharded'`` when a mesh is
+given, else ``'cuda'`` on a CUDA device and ``'core'`` on the CPU; it
+never picks ``'xla'`` or ``'streaming'``. Pipelines run on ``device``
+('cuda' unless the caller asks for the CPU; a mesh's first device when a
+mesh is given); asking for a card that is not there raises — nothing
+carries on silently on the CPU.
 
 ``CompiledFilter.explain()`` is the plan report: what was compiled, why,
 and what it should cost, every byte figure restated from the plan's
@@ -50,17 +53,21 @@ import numpy as np
 import torch
 
 from repro_torch.core import dtypes
-from repro_torch.core.border_spec import BorderSpec, quantize_constant
-from repro_torch.core.filter2d import (FORMS, XLA_MAX_FIXED_WINDOW,
-                                       _filter2d_impl, _filter2d_sep_impl,
+from repro_torch.core.border_spec import (BorderSpec, check_min_extent,
+                                          quantize_constant)
+from repro_torch.core.distributed import (Mesh, _filter2d_sharded_impl,
+                                          ring_plans, wire_bytes)
+from repro_torch.core.filter2d import (FORMS, _filter2d_impl,
+                                       _filter2d_sep_impl,
                                        _filter2d_xla_impl, _filter_bank_impl,
                                        apply_requant, apply_requant_params,
                                        is_fixed_point, macs_per_pixel,
-                                       resolve_requant)
+                                       resolve_requant,
+                                       xla_fixed_convolutions)
 from repro_torch.core.requant import RequantSpec
 from repro_torch.core.streaming import (_scan_planes, strip_height_for_vmem,
                                         strip_plans)
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels.filter2d import halo, ops
 from repro_torch.kernels.filter2d import kernel as K
 from repro_torch.obs import events as obs_events
@@ -70,25 +77,7 @@ from repro_torch.obs import roofline as obs_roofline
 
 DEFAULT_VMEM_BUDGET = halo.DEFAULT_VMEM_BUDGET
 
-EXECUTIONS = ("auto", "core", "cuda", "streaming", "xla")
-
-# the reference's executors that wait for a later slice (ROADMAP queue 1)
-NOT_PORTED = {
-    "sharded": "the row-sharded executor (ROADMAP queue 1, still to port, "
-               "item 2: its halo exchange exists only across cards)",
-}
-
-
-def to_device(x, device: torch.device) -> torch.Tensor:
-    """A numpy array or tensor as a tensor on ``device``. Host data bound
-    for a card goes through pinned memory with ``non_blocking=True``, so
-    the copy is ordered on the current stream and never waits for it."""
-    t = x if torch.is_tensor(x) else torch.as_tensor(np.ascontiguousarray(x))
-    if t.device == device:
-        return t
-    if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+EXECUTIONS = ("auto", "core", "cuda", "sharded", "streaming", "xla")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,13 +147,18 @@ class Filter2D:
         return (self.window - 1) // 2
 
     def compile(self, frame_spec, execution: str = "auto", *,
-                device="cuda", strip_h: Optional[int] = None,
+                device=None, mesh=None, strip_h: Optional[int] = None,
                 profile_dump: Optional[str] = None) -> "CompiledFilter":
         """Plan the pipeline for one frame geometry, executor and device.
 
         ``frame_spec``: a shape tuple ([H,W] | [H,W,C] | [B,H,W,C]) or a
         tensor/array, whose dtype must match the spec's storage contract.
         ``device`` defaults to the card; ``device='cpu'`` asks for the CPU.
+        ``mesh`` (a :class:`~repro_torch.core.distributed.Mesh` or a
+        sequence of devices, repeats allowed) drives the ``'sharded'``
+        ring, which ``'auto'`` then picks; its first device is the
+        pipeline's device, and a ``device`` given beside it must be that
+        one.
         ``strip_h`` shapes the ``'streaming'`` scan and no other executor
         (the CUDA kernel's tiling is its own); when it is not given, the
         scan takes the reference's strip height for its default 8 MiB
@@ -174,10 +168,6 @@ class Filter2D:
         executor, device, knobs) returns the same ``CompiledFilter``.
         """
         shape = _frame_shape(frame_spec, self.dtype)
-        if execution in NOT_PORTED:
-            raise NotImplementedError(
-                f"execution={execution!r} is not ported to PyTorch yet: "
-                f"{NOT_PORTED[execution]}")
         if execution not in EXECUTIONS:
             raise ValueError(f"unknown execution {execution!r}; choose "
                              f"from {EXECUTIONS}")
@@ -186,7 +176,22 @@ class Filter2D:
                 "strip_h shapes the 'streaming' strip scan only; "
                 f"execution={execution!r} does not take it (the CUDA "
                 "kernel's tiling is its own)")
-        return _compiled(self, shape, execution, resolve_device(device),
+        if mesh is None:
+            if execution == "sharded":
+                raise ValueError("execution='sharded' needs a mesh")
+            dev = resolve_device("cuda" if device is None else device)
+        else:
+            if execution not in ("sharded", "auto"):
+                raise ValueError(f"a mesh was supplied but execution is "
+                                 f"{execution!r}; meshes drive 'sharded' "
+                                 "(or 'auto')")
+            if not isinstance(mesh, Mesh):
+                mesh = Mesh(mesh)
+            dev = mesh.devices[0]
+            if device is not None and resolve_device(device) != dev:
+                raise ValueError(f"device={str(device)!r} disagrees with the "
+                                 f"mesh's first device {dev}")
+        return _compiled(self, shape, execution, dev, mesh,
                          None if strip_h is None else int(strip_h),
                          None if profile_dump is None else str(profile_dump))
 
@@ -213,9 +218,9 @@ def _frame_shape(frame_spec, dtype_name: str) -> Tuple[int, ...]:
 
 
 @functools.lru_cache(maxsize=256)
-def _compiled(spec, shape, execution, device, strip_h=None,
+def _compiled(spec, shape, execution, device, mesh=None, strip_h=None,
               profile_dump=None) -> "CompiledFilter":
-    return CompiledFilter(spec, shape, execution, device=device,
+    return CompiledFilter(spec, shape, execution, device=device, mesh=mesh,
                           strip_h=strip_h, profile_dump=profile_dump)
 
 
@@ -235,20 +240,23 @@ class CompiledFilter:
     working set fits the reference's default 8 MiB VMEM budget, else the
     stream geometry derived from that budget); for ``streaming`` the
     reference's strip-scan accounting plan at ``strip_h``; for ``core``
-    and ``xla`` the accounting-only plan. ``hbm_bytes_per_pixel()``,
-    ``vmem_working_set()`` and ``explain()`` report it. ``n_strips`` is
-    the number of kernel launches one ``streaming`` call makes (``None``
-    for the other executors).
+    and ``xla`` and ``sharded`` the accounting-only plan.
+    ``hbm_bytes_per_pixel()``, ``vmem_working_set()`` and ``explain()``
+    report it. ``n_strips`` is the number of kernel launches one
+    ``streaming`` call makes; ``n_shards`` the number one ``sharded`` call
+    makes, and ``wire_bytes`` the halo bytes its ring moves per call
+    (``None`` for the other executors).
     """
 
     def __init__(self, spec: Filter2D, frame_shape: Tuple[int, ...],
-                 execution: str, *, device: torch.device,
+                 execution: str, *, device: torch.device, mesh=None,
                  strip_h: Optional[int] = None,
                  profile_dump: Optional[str] = None):
         t_compile0 = time.perf_counter()
         self.spec = spec
         self.frame_shape = frame_shape
         self.device = device
+        self.mesh = mesh
         self.profile_dump = profile_dump
         self._profiled = False
         self.vmem_budget = DEFAULT_VMEM_BUDGET
@@ -270,7 +278,11 @@ class CompiledFilter:
             out_banks=2 if spec.num_filters > 1 else 1)
 
         requested = execution
-        if execution == "auto":
+        if execution == "auto" and mesh is not None:
+            execution = "sharded"
+            self.selection = ("mesh", "a mesh was supplied -> halo-exchange "
+                                      "ring executor")
+        elif execution == "auto":
             execution = "cuda" if device.type == "cuda" else "core"
             self.selection = ("device", f"{device.type} device -> "
                                         f"{execution!r} executor")
@@ -278,7 +290,7 @@ class CompiledFilter:
             self.selection = ("explicit",
                               f"execution={execution!r} requested")
         self.execution = execution
-        if execution in ("xla", "streaming"):
+        if execution in ("xla", "streaming", "sharded"):
             if spec.num_filters > 1:
                 raise ValueError(f"execution={execution!r} runs single "
                                  "filters; banks take 'core' or 'cuda'")
@@ -286,15 +298,19 @@ class CompiledFilter:
                 raise ValueError(f"execution={execution!r} has no "
                                  "separable path; use 'core' or 'cuda'")
         if (execution == "xla" and is_fixed_point(spec.dtype)
-                and spec.window > XLA_MAX_FIXED_WINDOW):
+                and not xla_fixed_convolutions(spec.dtype, spec.window)):
             raise ValueError(
-                f"execution='xla' convolves fixed-point frames in float64, "
-                f"exact only up to w={XLA_MAX_FIXED_WINDOW}; got "
-                f"w={spec.window}")
+                f"execution='xla' convolves fixed-point frames as two "
+                f"float64 halves, exact while max|x|·2¹⁶·w² <= 2⁵³ (for "
+                f"int16, w² < 2²²); got {spec.dtype} w={spec.window}")
+        if execution in ("core", "xla") and same:
+            # the plain versions extend the whole frame by index remaps
+            check_min_extent(spec.border, r, self._H, self._W)
 
         gain_free = (spec.requant.gain_free() if spec.requant is not None
                      else None)
         self.regime = self.strip_h = self.tile_w = self.n_strips = None
+        self.n_shards = self.wire_bytes = None
         if execution == "cuda":
             self.regime = ("small" if self.resident_vmem_bytes
                            <= self.vmem_budget else "stream")
@@ -325,6 +341,20 @@ class CompiledFilter:
                     strip_plans(self._H, self._W, w, spec.border,
                                 self.strip_h, dtype=spec.dtype,
                                 requant=gain_free, device=device)
+            elif execution == "sharded":
+                # the window plan and index vectors of every shard; bad
+                # geometry raises here
+                self.n_shards = len(mesh.devices)
+                self._ring_plan, self._ring_idx = ring_plans(
+                    self._H, self._W, w, spec.border, mesh,
+                    dtype=spec.dtype, requant=gain_free)
+                self.wire_bytes = wire_bytes(frame_shape, w, self.n_shards,
+                                             spec.dtype)
+                self.selection = (self.selection[0], (
+                    f"{self.selection[1]}; {self.n_shards} row shards of "
+                    f"{self._H // self.n_shards} rows over {mesh}, "
+                    f"{self.wire_bytes} B of storage-width halo rows per "
+                    "call"))
             try:                 # accounting only; the impl validates
                 self.plan = halo.make_plan(
                     self._H, self._W, w, spec.border,
@@ -356,7 +386,8 @@ class CompiledFilter:
                 rule=self.selection[0], execution=self.execution,
                 reason=self.selection[1],
                 resident_vmem_bytes=int(self.resident_vmem_bytes),
-                vmem_budget=int(self.vmem_budget), has_mesh=False))
+                vmem_budget=int(self.vmem_budget),
+                has_mesh=self.mesh is not None))
         eb, ob = self._plan_banks()
         ws = self.vmem_working_set()
         bpp = self.hbm_bytes_per_pixel()
@@ -431,6 +462,18 @@ class CompiledFilter:
         form = "separable" if spec.separable else spec.form
         cdt = (torch.int32 if fixed else torch.float64
                if spec.dtype == "float64" else torch.float32)
+
+        if self.execution == "sharded":
+            mesh, ring_plan, ring_idx = (self.mesh, self._ring_plan,
+                                         self._ring_idx)
+
+            def impl(frame, co, q):
+                # the gains ride to every shard: each requantises its own
+                # tile, so the gathered tiles stay storage-width
+                return _filter2d_sharded_impl(
+                    frame, co.to(cdt)[None].contiguous(), q, mesh,
+                    ring_plan, ring_idx, border=border, form=form)
+            return impl
 
         if self.execution == "streaming":
             strip_plan, n_strips = self._strip_plan, self.n_strips
@@ -512,7 +555,8 @@ class CompiledFilter:
     # -- execution ---------------------------------------------------------
 
     def __call__(self, frame, coeffs, gains=None):
-        frame = to_device(frame, self.device)
+        if self.execution != "sharded":   # the ring places its own shards
+            frame = to_device(frame, self.device)
         if tuple(frame.shape) != self.frame_shape:
             raise ValueError(
                 f"pipeline compiled for frame shape {self.frame_shape}; "
@@ -551,8 +595,10 @@ class CompiledFilter:
             with obs_profiler.annotate("repro_torch.pipeline.call"):
                 self._variants.add(q is not None)
                 y = self._fn(frame, co, q)
-                if self.device.type == "cuda":
-                    torch.cuda.current_stream(self.device).synchronize()
+                for dev in (set(self.mesh.devices) if self.mesh is not None
+                            else {self.device}):
+                    if dev.type == "cuda":
+                        torch.cuda.current_stream(dev).synchronize()
         wall_s = max(time.perf_counter() - t0, 1e-9)
         size1 = self.cache_size()
         if obs_events._TRACE is not None:
@@ -748,6 +794,9 @@ class CompiledFilter:
                    f" tile_w={self.tile_w}")
         elif self.execution == "streaming":
             geo = f", strip_h={self.strip_h}"
+        elif self.execution == "sharded":
+            geo = (f", mesh={self.mesh}, shards={self.n_shards}, "
+                   f"wire_bytes={self.wire_bytes}")
         return (f"CompiledFilter({self.spec!r}, frame={self.frame_shape}, "
                 f"execution={self.execution!r}, device={self.device}{geo})"
                 f"\n  <{self._explain_line()}>")

@@ -37,9 +37,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import dtypes
-from repro_torch.core.border_spec import (BorderSpec, min_extent,
+from repro_torch.core.border_spec import (BorderSpec, check_min_extent,
                                           quantize_constant)
-from repro_torch.core.borders import gather_rows
+from repro_torch.core.borders import plan_gather, take_rows
 from repro_torch.core.filter2d import resolve_requant
 from repro_torch.core.requant import RequantSpec
 from repro_torch.kernels.filter2d import halo
@@ -59,16 +59,52 @@ def strip_height_for_vmem(width: int, channels: int, w: int,
     return max(8, int(h))
 
 
+def window_plan(rows: int, W: int, w: int, *, dtype,
+                requant: Optional[RequantSpec] = None):
+    """The ``neglect`` kernel plan of one (rows + 2r) × (W + 2r) window,
+    which yields exactly its rows × W outputs: built once at compile time
+    for every window of a strip scan or of a shard ring."""
+    r = (w - 1) // 2
+    return halo.make_plan(rows + 2 * r, W + 2 * r, w, BorderSpec("neglect"),
+                          rows, W, dtype=dtype, requant=requant)
+
+
+def window_index(rows: int, W: int, r: int, border: BorderSpec, dtype,
+                 device):
+    """The planned gathers (:class:`~repro_torch.core.borders.RowGather`)
+    of a window of ``rows`` output rows of a ``dtype`` frame, on
+    ``device``, remapped by ``border`` once: the column extension
+    ``[-r, W + r)``, and the row remaps of the first window
+    ``[-r, rows + r)`` (over [window | r rows below]) and of the last
+    ``[0, rows + 2r)`` (over [r rows above | window]). Each call then
+    costs one ``index_select`` per gather (and one ``where`` under
+    ``constant``)."""
+    dt = dtypes.to_torch(dtype)
+    qc = quantize_constant(border.constant, dt)   # the plan's rule
+    return tuple(plan_gather(torch.arange(a, b, device=device), n, border,
+                             axis=axis, ndim=3, dtype=dt, constant=qc)
+                 for a, b, n, axis in ((-r, W + r, W, 2),
+                                       (-r, rows + r, rows + r, 1),
+                                       (0, rows + 2 * r, rows + r, 1)))
+
+
+def filter_window(ext: torch.Tensor, co: torch.Tensor, q, plan,
+                  form: str) -> torch.Tensor:
+    """The MAC and requant of one window: one ``filter2d_halo`` launch on
+    ``ext`` under its :func:`window_plan` (the plain version for a CPU
+    window) → [M, N, rows, W]."""
+    return filter2d_halo(ext.contiguous(), co, plan, q_params=q, form=form)
+
+
 def strip_plans(H: int, W: int, w: int, border: BorderSpec, strip_h: int, *,
                 dtype: str, requant: Optional[RequantSpec] = None,
                 device="cpu"):
-    """The kernel plan and index vectors of one strip scan, built once at
-    compile time: ``(n_strips, plan, idx)``. Two or more strips share one
-    ``neglect`` plan over a (strip_h + 2r) × (W + 2r) window, and ``idx``
-    holds, on ``device``, the column indices of the extension and the row
-    indices of the first and last strips' remaps; a single strip takes the
-    frame's own plan and policy, and ``idx`` is ``None``. Raises
-    ``ValueError`` for geometry the scan cannot take."""
+    """The kernel plan and planned gathers of one strip scan, built once
+    at compile time: ``(n_strips, plan, idx)``. Two or more strips share
+    one :func:`window_plan`, and ``idx`` holds :func:`window_index` on
+    ``device`` for frames of ``dtype``; a single strip takes the frame's
+    own plan and policy, and ``idx`` is ``None``. Raises ``ValueError``
+    for geometry the scan cannot take."""
     r = (w - 1) // 2
     if border.policy == "neglect":
         raise ValueError("the streaming executor does not support 'neglect' "
@@ -80,16 +116,10 @@ def strip_plans(H: int, W: int, w: int, border: BorderSpec, strip_h: int, *,
     if n_strips < 2:
         return n_strips, halo.make_plan(H, W, w, border, H, W, dtype=dtype,
                                         requant=requant), None
-    need = min_extent(border, r)
-    if W < need:
-        raise ValueError(f"policy {border.policy!r} with radius {r} needs "
-                         f"frames of at least {need} columns; got {W}")
-    plan = halo.make_plan(strip_h + 2 * r, W + 2 * r, w,
-                          BorderSpec("neglect"), strip_h, W, dtype=dtype,
-                          requant=requant)
-    idx = tuple(torch.arange(a, b, device=device) for a, b in
-                ((-r, W + r), (-r, strip_h + r), (0, strip_h + 2 * r)))
-    return n_strips, plan, idx
+    check_min_extent(border, r, H, W)
+    return (n_strips, window_plan(strip_h, W, w, dtype=dtype,
+                                  requant=requant),
+            window_index(strip_h, W, r, border, dtype, device))
 
 
 def _scan_planes(planes: torch.Tensor, co: torch.Tensor, q, plan,
@@ -102,11 +132,8 @@ def _scan_planes(planes: torch.Tensor, co: torch.Tensor, q, plan,
     H = planes.shape[1]
     r = plan.rows.r
     S = strip_h
-    # the constant, quantized against the storage dtype (the plan's rule)
-    qc = quantize_constant(border.constant, planes.dtype)
     col_idx, first_idx, last_idx = idx
-    xc = gather_rows(planes, col_idx, border, axis=2,
-                     constant=qc)                     # [M, H, W + 2r]
+    xc = take_rows(planes, col_idx, axis=2)           # [M, H, W + 2r]
     top_rows, bot_rows = xc[:, :r], xc[:, H - r:]     # the wrap prologue
     row_buf = xc[:, :0]
     ys = []
@@ -116,17 +143,16 @@ def _scan_planes(planes: torch.Tensor, co: torch.Tensor, q, plan,
         if i == 0 and border.policy == "wrap":
             ext = torch.cat([bot_rows, strip, nxt[:, :r]], dim=1)
         elif i == 0:
-            ext = gather_rows(torch.cat([strip, nxt[:, :r]], dim=1),
-                              first_idx, border, axis=1, constant=qc)
+            ext = take_rows(torch.cat([strip, nxt[:, :r]], dim=1),
+                            first_idx, axis=1)
         elif i == n_strips - 1 and border.policy == "wrap":
             ext = torch.cat([row_buf, strip, top_rows], dim=1)
         elif i == n_strips - 1:
-            ext = gather_rows(torch.cat([row_buf, strip], dim=1), last_idx,
-                              border, axis=1, constant=qc)
+            ext = take_rows(torch.cat([row_buf, strip], dim=1), last_idx,
+                            axis=1)
         else:
             ext = torch.cat([row_buf, strip, nxt[:, :r]], dim=1)
-        ys.append(filter2d_halo(ext.contiguous(), co, plan, q_params=q,
-                                form=form))
+        ys.append(filter_window(ext, co, q, plan, form))
         row_buf = strip[:, S - r:]
     return torch.cat(ys, dim=2)
 

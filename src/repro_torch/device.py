@@ -6,6 +6,7 @@ on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,3 +23,15 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on ``device``. Host data bound
+    for a card goes through pinned memory with ``non_blocking=True``, so
+    the copy is ordered on the current stream and never waits for it."""
+    t = x if torch.is_tensor(x) else torch.as_tensor(np.ascontiguousarray(x))
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from repro_torch.core import dtypes
-from repro_torch.core.border_spec import (BorderSpec, min_extent,
+from repro_torch.core.border_spec import (BorderSpec, check_min_extent,
                                           quantize_constant)
 from repro_torch.core.requant import RequantSpec
 from repro_torch.obs import events as obs_events
@@ -179,11 +179,7 @@ def make_plan(H: int, W: int, w: int, spec: BorderSpec, strip_h: int,
     ``hbm_write_bytes_per_pixel`` reports). Float frames take no requant.
     """
     r = (w - 1) // 2
-    need = min_extent(spec, r)
-    if min(H, W) < need:
-        raise ValueError(f"policy {spec.policy!r} with radius {r} needs "
-                         f"frames of at least {need} rows/cols; got "
-                         f"{(H, W)}")
+    check_min_extent(spec, r, H, W)
     integer = dtypes.is_integer(dtype)
     if requant is not None and not integer:
         raise ValueError("requant is the fixed-point epilogue; "

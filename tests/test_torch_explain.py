@@ -228,6 +228,19 @@ def test_accounting_functions_equal_the_reference(form, w):
         P_F2D.reduction_depth(w, "fft")
 
 
+@pytest.mark.parametrize("w", [1, 3, 5, 7, 9, 15])
+def test_flops_and_intensity_equal_the_reference(w):
+    """``core/filters.py::flops_per_pixel`` / ``arithmetic_intensity``."""
+    from repro.core import filters as r_filters
+    from repro_torch.core import filters as p_filters
+    assert p_filters.flops_per_pixel(w) == r_filters.flops_per_pixel(w)
+    for bpp in (1, 2, 8):
+        assert p_filters.arithmetic_intensity(w, bpp) == \
+            r_filters.arithmetic_intensity(w, bpp)
+    assert p_filters.arithmetic_intensity(w) == \
+        r_filters.arithmetic_intensity(w)
+
+
 @pytest.mark.parametrize("policy", ["mirror", "neglect", "wrap"])
 @pytest.mark.parametrize("dtype,rq", [("float32", None), ("int8", "int8"),
                                       ("int16", None)])

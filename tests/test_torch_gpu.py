@@ -265,14 +265,56 @@ def test_xla_on_the_card_matches_cuda(cuda, policy, dtype, rng):
     _same(got, ref, dtype)
 
 
-@pytest.mark.parametrize("w", [5, 7])
+@pytest.mark.parametrize("w", [5, 7, 13, 15])
 def test_xla_overflow_edge_on_the_card(cuda, w):
+    """All-max int16 under duplicate: every output is 32767 · Σk wrapped
+    to int32. Past w 11 'xla' splits the coefficients in 16-bit halves;
+    the kernel stops at w 7, so those windows are held against the plain
+    'core' executor on the CPU and the closed form."""
     x = torch.full((2, 40, 70), 32767, dtype=torch.int16)
     k = torch.full((w, w), 1 << 20, dtype=torch.int32)
+    if w > 7:                   # a negative tap and a low half that carries
+        k[0, 0], k[w // 2, w // 2] = -(1 << 31), 0x7FFFBEEF
     spec = Filter2D(window=w, dtype="int16", border="duplicate")
     got = spec.compile(x.shape, "xla", device=cuda)(x, k)
-    ref = spec.compile(x.shape, "cuda", device=cuda)(x, k)
+    if w in K.KERNEL_WINDOWS:
+        ref = spec.compile(x.shape, "cuda", device=cuda)(x, k)
+    else:
+        ref = spec.compile(x.shape, "core", device="cpu")(x, k).to(cuda)
+    edge = (32767 * int(k.long().sum()) + 2 ** 31) % 2 ** 32 - 2 ** 31
     assert got.dtype == torch.int32 and torch.equal(got, ref)
+    assert bool((got == edge).all())
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("policy", POLICIES[1:])
+def test_sharded_on_the_card_matches_cuda(cuda, policy, dtype, shards, rng):
+    """A ring over ``shards`` entries of the one card, fed a host frame:
+    one kernel launch per shard on its window, the same kernel and
+    roundings as the cuda executor, and the ring's plain version on the
+    CPU."""
+    x, k, rq, spec = _executor_case(rng, dtype, policy, (2, 48, 61, 2))
+    cf = spec.compile(x.shape, "sharded", mesh=[cuda] * shards)
+    before = K.filter2d_halo.launches
+    got = cf(x, k, gains=rq)
+    assert K.filter2d_halo.launches - before == shards
+    assert got.device == cf.mesh.devices[0]
+    ref = spec.compile(x.shape, "cuda", device=cuda)(x.to(cuda), k,
+                                                      gains=rq)
+    cpu = spec.compile(x.shape, "sharded", mesh=["cpu"] * shards)(
+        x, k, gains=rq)
+    torch.cuda.synchronize()
+    _same(got, ref, dtype)
+    _same(got.cpu(), cpu, dtype)
+
+
+def test_sharded_mesh_and_device_must_agree(cuda):
+    spec = Filter2D(window=3)
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        spec.compile((16, 16), "sharded", mesh=["cpu"] * 2, device=cuda)
+    with pytest.raises(ValueError, match="all CUDA devices or all"):
+        spec.compile((16, 16), "sharded", mesh=[cuda, "cpu"])
 
 
 @pytest.mark.parametrize("execution", ["streaming", "xla"])

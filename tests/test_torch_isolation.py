@@ -23,7 +23,7 @@ def test_import_leaves_jax_and_reference_out():
     code = ("import sys\n"
             "import repro_torch, repro_torch.convert, repro_torch.core\n"
             "import repro_torch.core.streaming, repro_torch.obs.roofline, "
-            "repro_torch.obs.profiler\n"
+            "repro_torch.obs.profiler, repro_torch.core.distributed\n"
             "import repro_torch.serving.bench\n"
             "import repro_torch.kernels.filter2d, "
             "repro_torch.kernels.filter2d._build\n"
@@ -64,7 +64,12 @@ def test_cuda_without_a_card_raises():
     for execution in ("streaming", "xla"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             spec.compile((8, 8), execution)  # the default device is the card
-    from repro_torch.core import filter2d_streaming, filter2d_xla
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spec.compile((8, 8), "sharded", mesh=["cuda"] * 2)
+    from repro_torch.core import (filter2d_sharded, filter2d_streaming,
+                                  filter2d_xla)
+    assert filter2d_sharded(torch.zeros(8, 8), np.ones((3, 3)),
+                            ["cpu"] * 2).device.type == "cpu"
     assert filter2d_xla(torch.zeros(8, 8), np.ones((3, 3))).device.type == \
         "cpu"                                # the wrappers follow the frame
     assert filter2d_streaming(torch.zeros(8, 8), np.ones((3, 3)),

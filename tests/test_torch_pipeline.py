@@ -15,6 +15,7 @@ from repro.core.pipeline import Filter2D as RFilter2D
 from repro.core.pipeline import admit_batch as r_admit
 from repro.core.pipeline import split_batch as r_split
 from repro.core.requant import RequantSpec as RRequant
+from repro.kernels.filter2d import halo as r_halo
 from repro_torch import obs
 from repro_torch.convert import from_reference
 from repro_torch.core.filter2d import filter2d as p_filter2d
@@ -132,10 +133,30 @@ def test_plan_errors_surface_at_compile():
     assert spec.compile((4, 30), "core", device="cpu").plan is None
 
 
+@pytest.mark.parametrize("execution", ["core", "xla", "sharded", "cuda"])
+@pytest.mark.parametrize("policy,w,shape", [
+    ("mirror", 5, (16, 2)), ("mirror", 5, (2, 16)), ("mirror", 3, (1, 9)),
+    ("mirror_dup", 5, (16, 1)), ("wrap", 5, (1, 16)),
+    ("wrap", 7, (2, 8, 2, 3))])
+def test_frames_below_min_extent_refused_at_compile(policy, w, shape,
+                                                    execution):
+    """Every executor that extends the frame refuses a frame below the
+    policy's ``min_extent`` at compile time, where the reference's own
+    planner (``halo.make_plan``) refuses it; the reference's jnp paths
+    would return ``np.pad``'s values or NaN instead."""
+    H, W = shape[1:3] if len(shape) == 4 else shape[:2]
+    with pytest.raises(ValueError, match="at least"):
+        r_halo.make_plan(H, W, w, RBorder(policy), H, W)
+    kw = (dict(mesh=["cpu"]) if execution == "sharded"
+          else dict(device="cpu"))
+    with pytest.raises(ValueError, match="min_extent"):
+        Filter2D(window=w, border=policy).compile(shape, execution, **kw)
+
+
 def test_executor_and_spec_rules():
     spec = Filter2D(window=3)
     for name in ("sharded",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="needs a mesh"):
             spec.compile((8, 8), name, device="cpu")
     with pytest.raises(ValueError):
         spec.compile((8, 8), "pallas", device="cpu")

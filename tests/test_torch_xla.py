@@ -20,6 +20,7 @@ from repro_torch.convert import from_reference
 from repro_torch.core import filter2d_xla
 from repro_torch.core.border_spec import BorderSpec
 from repro_torch.core.filter2d import F as conv_functional
+from repro_torch.core.filter2d import xla_fixed_convolutions
 from repro_torch.core.pipeline import Filter2D
 from repro_torch.core.requant import RequantSpec
 
@@ -75,11 +76,12 @@ def test_xla_requant(policy, dtype, rounding, rng):
     assert got.dtype == getattr(torch, dtype)
 
 
-@pytest.mark.parametrize("w", [7, 9, 11])
+@pytest.mark.parametrize("w", [7, 9, 11, 13, 15])
 def test_xla_overflow_edge(w):
     """All-max int16 frames under coefficients of 2²⁰ overflow the int32
-    accumulator; the float64 convolution is exact and wraps to the
-    reference's int32 sum, bit for bit."""
+    accumulator; the split float64 convolutions are exact and wrap to the
+    reference's int32 sum, bit for bit (w 13 and 15 lie past the single
+    float64 convolution's exact range)."""
     x = np.full((2, 40, 70), 32767, np.int16)
     k = np.full((w, w), 1 << 20, np.int32)
     k[0, 0] = -(1 << 31)                          # the most negative tap too
@@ -89,6 +91,57 @@ def test_xla_overflow_edge(w):
         got.shape, "core", device="cpu")(to_torch(x, "int16"), k)
     assert torch.equal(got, core)
     assert got.dtype == torch.int32 and int(got.abs().max()) > 2 ** 30
+
+
+@pytest.mark.parametrize("w", [13, 15])
+@pytest.mark.parametrize("dtype", ["int8", "int16"])
+@pytest.mark.parametrize("policy", ["mirror", "wrap", "constant"])
+def test_xla_wide_fixed_point_windows(policy, dtype, w, rng):
+    """Windows past w 11, with coefficients over the whole int32 range (the
+    high halves of the split carry signal), against the reference's
+    ``filter2d_xla``: bit for bit."""
+    x = frame(rng, dtype, (2, 19, 24, 2))
+    k = rng.integers(-2 ** 31, 2 ** 31, (w, w)).astype(np.int32)
+    rspec = RFilter2D(window=w, dtype=dtype,
+                      border=RBorder(policy, border_constant(dtype)))
+    got = _both(rspec, x, k, dtype, what=f"{policy} {dtype} w{w}")
+    core = Filter2D(window=w, dtype=dtype,
+                    border=BorderSpec(policy, border_constant(dtype))
+                    ).compile(got.shape, "core", device="cpu")
+    assert torch.equal(got, core(to_torch(x, dtype), k))
+
+
+@pytest.mark.parametrize("dtype,w,n", [
+    ("int8", 3, 1), ("int8", 181, 1), ("int8", 183, 2), ("uint8", 127, 1),
+    ("uint8", 129, 2), ("int16", 11, 1), ("int16", 13, 2),
+    ("int16", 2047, 2), ("int16", 2049, 0)])
+def test_xla_fixed_point_convolution_count(dtype, w, n):
+    """One float64 convolution while max|x| · 2³¹ · w² <= 2⁵³, the split
+    halves while max|x| · 2¹⁶ · w² <= 2⁵³, none past that."""
+    assert xla_fixed_convolutions(dtype, w) == n
+
+
+@pytest.mark.parametrize("dtype,w,split", [
+    ("int8", 3, False), ("int8", 15, False), ("uint8", 15, False),
+    ("int16", 11, False), ("int16", 13, True)])
+def test_xla_splits_only_where_one_convolution_is_inexact(dtype, w, split,
+                                                         rng, monkeypatch):
+    """The route is chosen from the storage dtype and w: one filter per
+    channel where one float64 convolution is exact, two (the coefficient
+    halves) only where it is not; bit for bit with 'core' either way."""
+    filters = []
+    real = conv_functional.conv2d
+
+    def spy(x, weight, **kw):
+        filters.append(weight.shape[0] // x.shape[1])
+        return real(x, weight, **kw)
+    monkeypatch.setattr(conv_functional, "conv2d", spy)
+    x = to_torch(frame(rng, dtype, (2, 18, 21, 3)), dtype)
+    k = rng.integers(-2 ** 31, 2 ** 31, (w, w)).astype(np.int32)
+    spec = Filter2D(window=w, dtype=dtype, border="mirror_dup")
+    got = spec.compile(x, "xla", device="cpu")(x, k)
+    assert filters == [2 if split else 1]
+    assert torch.equal(got, spec.compile(x, "core", device="cpu")(x, k))
 
 
 @pytest.mark.parametrize("policy", ["mirror", "constant", "neglect"])
@@ -195,11 +248,12 @@ def test_refusals_and_selection():
     with pytest.raises(ValueError, match="separable"):
         Filter2D(window=3, separable=True).compile((8, 8), "xla",
                                                    device="cpu")
-    with pytest.raises(ValueError, match="exact only up to w=11"):
-        Filter2D(window=13, dtype="int16").compile((32, 32), "xla",
-                                                   device="cpu")
-    assert Filter2D(window=13).compile((32, 32), "xla",
-                                       device="cpu").execution == "xla"
+    with pytest.raises(ValueError, match="w² < 2²²"):
+        Filter2D(window=2049, dtype="int16").compile((32, 32), "xla",
+                                                     device="cpu")
+    for dtype in ("int16", "float32"):
+        assert Filter2D(window=13, dtype=dtype).compile(
+            (32, 32), "xla", device="cpu").execution == "xla"
     cf = Filter2D(window=3).compile((8, 8), "xla", device="cpu")
     assert cf.execution == "xla" and cf.selection[0] == "explicit"
     assert Filter2D(window=3).compile((8, 8), device="cpu").execution == \
