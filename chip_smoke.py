@@ -120,7 +120,34 @@ Phases, in order; any failure exits non-zero:
                 with ``use_pallas_conv`` on (one ``dwconv1d`` launch per
                 block) and off, twice each (the second run timed); the
                 outputs agree bit for bit; a profiler breakdown.
- 11. timing   — both new kernels at their path's shapes, first held
+ 10b. LM serving — ``prefill`` and greedy ``decode_step`` at full width,
+                bf16 weights drawn in bf16 from a seeded generator.
+                h2o-danube-1.8b: 4 prompts of 6144 tokens (past the 4096
+                window: the ring's eviction write), 64 steps (the ring
+                wraps from slot 2048); hymba-1.5b: 2 x 2048 (+128 meta
+                tokens in sink slots, past the 1024 window), 32 steps, the
+                mamba state through ``ssd_step``. The kernel gate on: 24
+                ``swattn`` launches per h2o-danube prefill, none in
+                decode nor for hymba (the sinks bar it). Checks: the
+                gated prefill's last logits against the plain prefill's
+                (relative L2 within ``LM_TOL``); every row that made a
+                token against the teacher-forced ``train_forward`` over
+                prompt + generated tokens (no farther, in relative L2,
+                from the float32 forward on the same weights than the
+                bf16 forward is, plus ``LM_TOL``; the token equal to the
+                bf16 forward's argmax wherever its top-2 margin exceeds
+                twice the row's max |Δ|); every stage's cache
+                positions on the ring's slot layout; two controls (the
+                cache write skipped, the ring slot off by one) must fail
+                that check; h2o-danube with int8 KV within the
+                reference's 0.05 of max |logit| of the bf16-cache decode;
+                float32 (h2o-danube 1 x 4608 + 16, hymba 1 x 2048 + 8)
+                within 1e-3 of max |logit|.
+                Prints prefill ms (the second call), decode ms per step
+                (median, p90), tokens/s, cache bytes and a profile of one
+                decode step.
+ 11. timing   — both new kernels at their path's shapes (``swattn`` also
+                at the serving prefill's [4,6144], bf16), first held
                 against their plain versions there (``swattn`` float32
                 within 3e-4, bfloat16 within rtol=atol=1e-2 and relative
                 L2 1e-2; ``dwconv1d`` bit-exact), then timed with CUDA
@@ -131,7 +158,7 @@ Phases, in order; any failure exits non-zero:
                 SDPA.
 
 Every main path (serving, the streaming and xla engines, the ring, LM,
-mamba) runs
+mamba, LM serving) runs
 with the three launch counts set to 0 just before it and read just after.
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1546,6 +1573,348 @@ class Smoke:
             x, params, mc, use_pallas_conv=True))
         return launches["dwconv1d"]
 
+    # -- phase 10b: LM serving ------------------------------------------------
+
+    def _bundle(self, arch: str, batch: int, seq_len: int, **fields):
+        import dataclasses
+        from repro_torch.configs.base import SHAPES, RunConfig
+        from repro_torch.configs.base import get_model_config
+        from repro_torch.models import registry
+        mc = dataclasses.replace(get_model_config(arch), **fields)
+        shape = dataclasses.replace(SHAPES["prefill_32k"], seq_len=seq_len,
+                                    global_batch=batch)
+        return registry.build(RunConfig(model=mc, shape=shape),
+                              device="cuda")
+
+    def _serve(self, bundle, params, prompt, steps: int, feed=None):
+        """``prefill`` of ``prompt`` [B,P], then ``steps`` greedy
+        ``decode_step`` calls (or the tokens of ``feed`` [B,steps], teacher
+        forced). Returns the logits of each row that made a token (the
+        prefill's last, then each step's: [steps + 1, B, V]), the tokens
+        fed [B, steps], the prefill's and each step's host ms (each call
+        synchronised), the caches, and the swattn launches of the
+        prefill."""
+        torch = self.torch
+        sw = counters()["swattn"]
+        before = sw.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, caches = bundle.prefill(params, {"inputs": prompt})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = sw.launches - before
+        M = bundle.cfg.model.num_meta_tokens
+        P = prompt.shape[1]
+        rows, fed, ms = [last], [], []
+        for i in range(steps):
+            tok = (rows[-1].argmax(-1) if feed is None else feed[:, i])
+            fed.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = sw.launches
+            step, caches = bundle.decode_step(params, tok[:, None], caches,
+                                              P + M + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if sw.launches != before:
+                raise AssertionError(f"decode step {i} launched swattn")
+            rows.append(step)
+        return (torch.stack(rows), torch.stack(fed, dim=1), prefill_ms, ms,
+                caches, prefill_launches)
+
+    def _oracle(self, bundle, params, prompt, fed):
+        """The teacher-forced ``train_forward`` over prompt + fed tokens:
+        the logits at the rows ``_serve`` made tokens from, [steps+1,B,V].
+        A check, so its launches are not the main path's."""
+        P = prompt.shape[1]
+        with saved_counts():
+            logits, _ = bundle.train_forward(
+                params, {"inputs": self.torch.cat([prompt, fed], dim=1)})
+            out = logits[:, P - 1:].transpose(0, 1).contiguous()
+        del logits
+        return out
+
+    def _ring_layout(self, bundle, caches, end: int) -> list:
+        """Where each stage's cache positions must sit after position
+        ``end`` was written: a sink p < M at slot p, a ring position at M +
+        (p - M) % (L - M), the last L - M positions live, every other slot
+        empty. Returns the stages (index, layer count) that differ."""
+        import numpy as np
+        torch = self.torch
+        M = bundle.cfg.model.num_meta_tokens
+        bad = []
+        for i, c in enumerate(caches):
+            pos = (c["attn"] if "attn" in c else c)["pos"]
+            L = pos.shape[1]
+            want = np.full(L, -1, np.int32)
+            for p in list(range(min(M, end + 1))) + list(
+                    range(max(M, end + 1 - (L - M)), end + 1)):
+                want[p if p < M else M + (p - M) % (L - M)] = p
+            want = torch.from_numpy(want).to(pos.device)
+            wrong = int((pos != want[None]).any(dim=1).sum())
+            if wrong:
+                bad.append((i, wrong))
+        return bad
+
+    def _decode_check(self, rows, oracle, truth=None):
+        """Each row that made a token against the teacher-forced forward
+        ``oracle`` (same dtype). float32 (``truth`` None): max |Δ| within
+        1e-3 of max |logit|. bfloat16: ``truth`` is the float32 forward's
+        rows on the same weights, and the decode may be no farther from it
+        (relative L2) than the bf16 forward is plus ``LM_TOL`` — the bf16
+        model's own rounding moves hymba-1.5b's logits 3-7% from float32,
+        past any fixed limit between two bf16 paths. Either way the token
+        must equal the forward's argmax wherever the forward's top-2 margin
+        exceeds twice the row's max |Δ|. Returns (worst error against the
+        limit, worst relative L2 between decode and forward, rows excluded
+        by the margin rule, failed reasons, and the least and most relative
+        L2 between the bf16 and float32 forwards over the rows)."""
+        torch = self.torch
+        dtype = "float32" if truth is None else "bfloat16"
+        worst, worst_l2, excluded, fails, gap = 0.0, 0.0, 0, [], []
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm())
+        for i in range(rows.shape[0]):
+            g, r = rows[i].float(), oracle[i].float()
+            if not bool(torch.isfinite(g).all()):
+                fails.append(f"row {i}: non-finite logits")
+                continue
+            dmax = float((g - r).abs().max())
+            worst_l2 = max(worst_l2, rel(g, r))
+            if truth is None:
+                err = dmax / float(r.abs().max())
+            else:
+                t = truth[i].float()
+                gap.append(rel(r, t))
+                err = rel(g, t) - gap[-1]
+            worst = max(worst, err)
+            if not err <= LM_TOL[dtype]:
+                fails.append(f"row {i}: error {err!r} over {LM_TOL[dtype]}")
+            top2 = r.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * dmax
+            excluded += int((~sure).sum())
+            if bool((sure & (g.argmax(-1) != r.argmax(-1))).any()):
+                fails.append(f"row {i}: a token differs from the forward's "
+                             "argmax beyond the margin")
+        return (worst, worst_l2, excluded, fails,
+                (min(gap), max(gap)) if gap else None)
+
+    def _serving_controls(self, bundle, params, prompt, fed, oracle, truth,
+                          steps: int) -> None:
+        """The decode check must fail a decode with the cache write skipped
+        (``write_cache`` returns its input) and one with the ring slot off
+        by one, fed the sound run's tokens for ``steps`` steps."""
+        from repro_torch.models import attention
+        real_write, real_slot = attention.write_cache, attention.ring_slot
+
+        def skipped(cache, *args, **kw):
+            return cache
+
+        def off_by_one(p, cache_len, sinks=0):
+            if p < sinks:
+                return p
+            return sinks + (real_slot(p, cache_len, sinks) - sinks + 1) % (
+                cache_len - sinks)
+        faults = {"cache write skipped": ("write_cache", skipped),
+                  "ring slot off by one": ("ring_slot", off_by_one)}
+        real = {"write_cache": real_write, "ring_slot": real_slot}
+        P = prompt.shape[1]
+        M = bundle.cfg.model.num_meta_tokens
+        name = bundle.cfg.model.name
+        passed = []
+        with saved_counts():
+            for label, (attr, fault) in faults.items():
+                setattr(attention, attr, fault)
+                try:
+                    rows, *_, caches, _ = self._serve(
+                        bundle, params, prompt, steps, feed=fed[:, :steps])
+                finally:
+                    setattr(attention, attr, real[attr])
+                worst, worst_l2, _, fails, _ = self._decode_check(
+                    rows, oracle[:steps + 1], truth[:steps + 1])
+                bad = self._ring_layout(bundle, caches, P + M + steps - 1)
+                self.say(f"LM serving {name} control, {label}: worst "
+                         f"error {worst!r} (limit {LM_TOL['bfloat16']}), "
+                         f"relative L2 to the forward {worst_l2!r}, "
+                         f"{len(fails)} of "
+                         f"{steps + 1} rows fail the logits rules, stages "
+                         f"off the slot layout (stage, layers) {bad}")
+                if not fails and not bad:
+                    passed.append(label)
+                del caches, rows
+        if passed:
+            raise AssertionError(f"LM serving {name}: the decode check "
+                                 f"passes a decode with the "
+                                 f"{' / '.join(passed)}")
+
+    def _cache_bytes(self, caches) -> int:
+        return sum(t.numel() * t.element_size() for c in caches
+                   for t in _leaves(c))
+
+    def _serve_model(self, arch: str, batch: int, prompt_len: int,
+                     steps: int, seed: int, extra=None):
+        """One model through prefill and greedy decode at full width in
+        bfloat16 (weights drawn in bfloat16 from a seeded generator), held
+        against the teacher-forced forward, with the controls. ``extra``
+        runs more checks on the same weights and run."""
+        torch = self.torch
+        bundle = self._bundle(arch, batch, prompt_len + steps,
+                              use_pallas_attn=True)
+        mc = bundle.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = bundle.init_params(gen, torch.bfloat16)
+        prompt = torch.randint(0, mc.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        M = mc.num_meta_tokens
+        gated = 0 if M else mc.num_layers
+        # the plain prefill (kernel gate off) against the kernel prefill
+        plain = self._bundle(arch, batch, prompt_len + steps)
+        with saved_counts():
+            plain_last, plain_caches = plain.prefill(params,
+                                                     {"inputs": prompt})
+        del plain_caches
+        bundle.prefill(params, {"inputs": prompt})  # warm-up: time the second
+        rows, fed, prefill_ms, ms, caches, launches = self._serve(
+            bundle, params, prompt, steps)
+        self._agree_l2(f"LM serving {mc.name} prefill, kernel gate on vs off",
+                       rows[0], plain_last)
+        if launches != gated:
+            raise AssertionError(f"LM serving {mc.name}: {launches} swattn "
+                                 f"launches in prefill, expected {gated}")
+        oracle = self._oracle(bundle, params, prompt, fed)
+        truth = self._oracle(self._bundle(arch, batch, prompt_len + steps,
+                                          dtype="float32",
+                                          use_pallas_attn=True),
+                             params, prompt, fed)
+        worst, worst_l2, excluded, fails, gap = self._decode_check(
+            rows, oracle, truth)
+        bad = self._ring_layout(bundle, caches, prompt_len + M + steps - 1)
+        if fails or bad:
+            raise AssertionError(f"LM serving {mc.name}: {fails[:3]}, stages "
+                                 f"off the slot layout {bad}")
+        ms_sorted = sorted(ms)
+        med = ms_sorted[len(ms) // 2]
+        p90 = ms_sorted[min(len(ms) - 1, int(0.9 * len(ms)))]
+        self.say(f"LM serving {mc.name}: {batch} x {prompt_len} prompt "
+                 f"(+{M} meta), {steps} greedy steps, bf16; prefill "
+                 f"{prefill_ms!r} ms (the second call), "
+                 f"{launches} swattn launches per prefill, 0 per step; "
+                 f"decode step median {med!r} ms, p90 {p90!r} ms, "
+                 f"{batch / (med * 1e-3)!r} tokens/s; cache "
+                 f"{self._cache_bytes(caches)} B; against teacher forcing: "
+                 f"worst relative L2 {worst_l2!r} to the bf16 forward, "
+                 f"worst excess over the bf16 forward's distance from the "
+                 f"float32 forward {worst!r} (limit {LM_TOL['bfloat16']}; "
+                 f"the bf16 forward sits {gap[0]!r}..{gap[1]!r} from the "
+                 f"float32 forward), "
+                 f"{excluded} of {rows.shape[0] * batch} rows excluded by "
+                 "the margin rule; every stage on its slot layout")
+        end = prompt_len + M + steps
+        tok = rows[-1].argmax(-1)[:, None]
+        self.profile(f"LM serving {mc.name} decode step",
+                     lambda: bundle.decode_step(params, tok, caches, end))
+        del caches
+        self._serving_controls(bundle, params, prompt, fed, oracle, truth,
+                               min(steps, 8))
+        out = {"prefill_ms": prefill_ms, "step_ms_median": med,
+               "step_ms_p90": p90, "tokens_per_s": batch / (med * 1e-3),
+               "worst_rel_l2": worst_l2, "worst_excess": worst,
+               "bf16_vs_float32_forward": gap,
+               "excluded_rows": excluded}
+        if extra is not None:
+            out.update(extra(bundle, params, prompt, fed, rows))
+        del params, oracle, truth
+        torch.cuda.empty_cache()
+        return out
+
+    def _agree_l2(self, what: str, got, ref) -> float:
+        g, r = got.float(), ref.float()
+        if got.shape != ref.shape or not bool(self.torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: {tuple(got.shape)} vs "
+                                 f"{tuple(ref.shape)} or non-finite")
+        rel = float((g - r).norm() / r.norm())
+        self.say(f"{what}: relative L2 {rel!r} (limit {LM_TOL['bfloat16']})")
+        if not rel <= LM_TOL["bfloat16"]:
+            raise AssertionError(f"{what}: relative L2 {rel} over "
+                                 f"{LM_TOL['bfloat16']}")
+        return rel
+
+    def _danube_extra(self, bundle, params, prompt, fed, rows):
+        """The int8-KV decode, fed the bf16 run's tokens, against the
+        bf16-cache decode: max |Δ| / max |logit| < 0.05 (the reference's
+        bar, tests/test_quantization.py)."""
+        arch = "h2o_danube_1_8b"
+        B, P = prompt.shape
+        steps = fed.shape[1]
+        q8 = self._bundle(arch, B, P + steps, use_pallas_attn=True,
+                          kv_cache_dtype="int8")
+        q_rows, *_, caches, _ = self._serve(q8, params, prompt, steps,
+                                            feed=fed)
+        g, r = q_rows.float(), rows.float()
+        ratio = float((g - r).abs().max() / r.abs().max())
+        self.say(f"LM serving {q8.cfg.model.name} int8 KV: max |Δ| / max "
+                 f"|logit| {ratio!r} against the bf16 cache over "
+                 f"{steps + 1} rows (limit 0.05); cache "
+                 f"{self._cache_bytes(caches)} B")
+        if not (bool(self.torch.isfinite(g).all()) and ratio < 0.05):
+            raise AssertionError(f"LM serving int8 KV: {ratio} not < 0.05")
+        return {"int8_ratio": ratio}
+
+    def _float32_serving(self, arch="h2o_danube_1_8b", batch=1,
+                         prompt_len=4608, steps=16, seed=3):
+        """float32 (TF32 off): prefill and decode held to the teacher-forced
+        forward within max |Δ| <= 1e-3 * max |logit|, every stage on its
+        slot layout."""
+        torch = self.torch
+        bundle = self._bundle(arch, batch, prompt_len + steps, dtype="float32",
+                              use_pallas_attn=True)
+        mc = bundle.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = bundle.init_params(gen)
+        prompt = torch.randint(0, mc.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        rows, fed, _, ms, caches, launches = self._serve(bundle, params,
+                                                         prompt, steps)
+        M = mc.num_meta_tokens
+        if launches != (0 if M else mc.num_layers):
+            raise AssertionError(f"LM serving float32: {launches} swattn "
+                                 "launches in prefill")
+        oracle = self._oracle(bundle, params, prompt, fed)
+        worst, _, excluded, fails, _ = self._decode_check(rows, oracle)
+        bad = self._ring_layout(bundle, caches, prompt_len + M + steps - 1)
+        self.say(f"LM serving {mc.name} float32 {batch} x {prompt_len} + "
+                 f"{steps}: worst max |Δ| / max |logit| {worst!r} (limit "
+                 f"{LM_TOL['float32']}), {excluded} rows excluded by the "
+                 f"margin rule; decode step median "
+                 f"{sorted(ms)[len(ms) // 2]!r} ms")
+        if fails or bad:
+            raise AssertionError(f"LM serving float32: {fails[:3]}, {bad}")
+        del params, caches, oracle
+        torch.cuda.empty_cache()
+        return worst
+
+    def lm_serving_phase(self, danube=(4, 6144, 64), hymba=(2, 2048, 32)):
+        """h2o-danube-1.8b (ring eviction and wrap, the prefill through
+        swattn, int8 KV, a float32 run) and hymba-1.5b (sink slots, mamba
+        state) served at full width. Returns (per-model numbers, the swattn
+        launches of the phase's prefills)."""
+        reset_counts()
+        out = {"h2o-danube-1.8b": self._serve_model(
+            "h2o_danube_1_8b", *danube, seed=2, extra=self._danube_extra)}
+        out["float32_worst"] = self._float32_serving()
+        out["hymba-1.5b"] = self._serve_model("hymba_1_5b", *hymba, seed=4)
+        out["hymba_float32_worst"] = self._float32_serving(
+            "hymba_1_5b", prompt_len=2048, steps=8, seed=5)
+        launches = read_counts()
+        from repro_torch.configs.base import get_model_config
+        # h2o-danube's kernel-gated prefills: bf16 (warm-up, served), int8
+        # KV, float32; hymba's meta tokens bar the kernel
+        want = 4 * get_model_config("h2o_danube_1_8b").num_layers
+        if launches != {"filter2d_halo": 0, "swattn": want, "dwconv1d": 0}:
+            raise AssertionError(f"LM serving phase: counts {launches}")
+        return out, launches["swattn"]
+
     # -- phase 11 ------------------------------------------------------------
 
     def _row(self, name, shape, dtype, ms, plain_ms, lib_ms, bytes_moved,
@@ -1567,21 +1936,22 @@ class Smoke:
                  "achieved")
         return row
 
-    def swattn_timing(self, S=8192, H=32, KV=8, hd=80, window=4096):
+    def swattn_timing(self, S=8192, H=32, KV=8, hd=80, window=4096, B=1,
+                      dtypes=("bfloat16", "float32")):
         import torch.nn.functional as F
         torch = self.torch
         from repro_torch.kernels.swattn import kernel as SW
         gen = torch.Generator(device="cuda").manual_seed(5)
         pairs = (window * (window + 1) // 2 + (S - window) * window
                  if 0 < window < S else S * (S + 1) // 2)
-        ops = 4 * hd * pairs * H
+        ops = 4 * hd * pairs * H * B
         rows = {}
         with saved_counts():
-            for dt in ("bfloat16", "float32"):
+            for dt in dtypes:
                 tdt = getattr(torch, dt)
-                q = torch.randn((1, S, H, hd), generator=gen, device="cuda"
+                q = torch.randn((B, S, H, hd), generator=gen, device="cuda"
                                 ).to(tdt)
-                k, v = (torch.randn((1, S, KV, hd), generator=gen,
+                k, v = (torch.randn((B, S, KV, hd), generator=gen,
                                     device="cuda").to(tdt) for _ in range(2))
                 scale = hd ** -0.5
 
@@ -1593,7 +1963,7 @@ class Smoke:
 
                 rtol, rel = MAIN_TOL[dt]
                 err = self._agree(
-                    f"swattn {dt} [1,{S},{H}/{KV},{hd}] w{window} vs plain",
+                    f"swattn {dt} [{B},{S},{H}/{KV},{hd}] w{window} vs plain",
                     kern(), plain(), rtol, rel)
                 ms = self._time(kern, 5, warmup=1)
                 plain_ms = self._time(plain, 2, warmup=1)
@@ -1612,13 +1982,13 @@ class Smoke:
                 lib_ms = self._time(lib, 5, warmup=1)
                 nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
                 rows[dt] = self._row(
-                    "swattn", [1, S, H, KV, hd, window], dt, ms, plain_ms,
+                    "swattn", [B, S, H, KV, hd, window], dt, ms, plain_ms,
                     lib_ms, nbytes, ops, self.peak_ops[dt])
                 rows[dt]["max_abs_err"] = err
                 rows[dt]["route"] = SWATTN_ROUTES[dt]
                 del q, k, v
-        sw = rows["bfloat16"]
-        if not sw["ms"] < sw["library_ms"]:
+        sw = rows[dtypes[0]]
+        if dtypes[0] == "bfloat16" and not sw["ms"] < sw["library_ms"]:
             raise AssertionError(f"swattn bf16 {sw['ms']} ms does not beat "
                                  f"SDPA's {sw['library_ms']} ms")
         return rows
@@ -1767,7 +2137,12 @@ def main() -> int:
     dw_launches = smoke.mamba_phase()
     smoke.say(f"mamba phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    serving_lm, serve_sw = smoke.lm_serving_phase()
+    smoke.say(f"LM serving phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     sw_rows = smoke.swattn_timing()
+    # the serving prefill's shape: h2o-danube, 4 prompts of 6144 tokens
+    sw_prefill = smoke.swattn_timing(B=4, S=6144, dtypes=("bfloat16",))
     dw_row = smoke.dwconv_timing()
     for dt, ms in fwd_ms.items():
         share = layers * sw_rows[dt]["ms"] / ms[True]
@@ -1793,14 +2168,18 @@ def main() -> int:
         "sharded": sharded,
         "card": card}, {
         "name": "swattn", "route": "cuda", "source": SWATTN_SOURCE,
-        "replaces": SWATTN_REPLACES, "launches": sw_launches,
+        "replaces": SWATTN_REPLACES, "launches": sw_launches + serve_sw,
+        "launches_lm_forward": sw_launches, "launches_lm_serving": serve_sw,
         "max_abs_err": max(sw_err, sw_rows["bfloat16"]["max_abs_err"],
+                           sw_prefill["bfloat16"]["max_abs_err"],
                            sw_rows["float32"]["max_abs_err"]),
         "ms": sw["ms"], "plain_ms": sw["plain_ms"],
         "bound_ms": sw["bound_ms"], "bound_by": sw["bound_by"],
         "library_ms": sw["library_ms"], "shape": sw["shape"],
         "dtype": sw["dtype"], "routes": SWATTN_ROUTES,
-        "float32": sw_rows["float32"], "card": card}, {
+        "float32": sw_rows["float32"],
+        "prefill_shape": sw_prefill["bfloat16"], "lm_serving": serving_lm,
+        "card": card}, {
         "name": "dwconv1d", "route": "cuda", "source": DWCONV_SOURCE,
         "replaces": DWCONV_REPLACES, "launches": dw_launches,
         "max_abs_err": 0.0, "ms": dw_row["ms"],       # bit-exact

@@ -5,13 +5,15 @@
 imports the reference) plus its coefficients and gains as numpy, and
 returns the port's spec, coefficient tensor and [N, 2] gains table.
 ``params_from_reference`` takes a model's parameter tree as numpy and
-returns the port's. Either way the two packages can be run on the same
-state and their results compared.
+returns the port's, ``caches_from_reference`` the reference's decode
+caches, and ``caches_to_numpy`` hands the port's caches back as numpy.
+Either way the two packages can be run on the same state and their
+results compared.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,10 +97,34 @@ def params_from_reference(tree: Dict[str, Any], device="cuda"
     same tree of tensors on ``device`` (the card unless the caller passes
     ``device='cpu'``).
     """
-    dev = resolve_device(device)
+    return _tree_to_torch(tree, resolve_device(device))
 
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _tensor(node).to(dev)
-    return conv(tree)
+
+def caches_from_reference(caches: List[Any], device="cuda") -> List[Any]:
+    """The port's caches for the reference's (``prefill``'s output or
+    ``tfm.cache_init``, as numpy): a list per stage of dicts — ``k``,
+    ``v`` ([layers, B, L, KV, hd]), ``pos`` ([layers, L] int32), and
+    ``k_scale`` / ``v_scale`` for int8 KV; nested ``{'attn', 'mamba'}``
+    for hymba, the mamba state as ``conv`` and ``ssm``. Same names,
+    layouts and dtypes, on ``device`` (the card unless the caller passes
+    ``device='cpu'``)."""
+    return _tree_to_torch(caches, resolve_device(device))
+
+
+def caches_to_numpy(caches: List[Any]) -> List[Any]:
+    """The port's caches as numpy, in the reference's tree. numpy has no
+    bfloat16, so bfloat16 leaves come back as float32 (exact)."""
+    if isinstance(caches, (list, tuple)):
+        return [caches_to_numpy(c) for c in caches]
+    if isinstance(caches, dict):
+        return {k: caches_to_numpy(v) for k, v in caches.items()}
+    t = caches.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _tree_to_torch(node, dev: torch.device):
+    if isinstance(node, (list, tuple)):
+        return [_tree_to_torch(v, dev) for v in node]
+    if isinstance(node, dict):
+        return {k: _tree_to_torch(v, dev) for k, v in node.items()}
+    return _tensor(node).to(dev)

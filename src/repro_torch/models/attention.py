@@ -1,12 +1,19 @@
-"""GQA attention for training and scoring (no cache), as in the
-reference's ``models/attention.py``: the projections, the position-based
-mask and the q-chunked plain ``attend``. The KV-cache half (ring caches,
-prefill writes, decode) waits for the prefill/decode slice.
+"""GQA attention, as in the reference's ``models/attention.py``: the
+projections, the position-based mask, the q-chunked plain ``attend`` for
+training and prefill, and the KV cache (contiguous or ring, reserved sink
+slots, optional int8 values) with one-token ``decode_attend``.
 
 Masking is position-based: every key carries its absolute position (PAD =
 -1 never attended, META = -2 always attended — hymba meta tokens act as
 attention sinks). The banded CUDA kernel (``kernels/swattn``) replaces
-``attend`` where the transformer's kernel gate lets it.
+``attend`` where the transformer's kernel gate lets it; decode attention
+is plain torch, as in the reference (einsums, no kernel).
+
+The caches are written in place: ``write_cache`` stores into the
+preallocated tensors it is given and returns the same dict. The
+reference's ``write_cache`` is functional (under ``jit`` XLA writes in
+place); a functional copy here would rewrite the whole cache on every
+decode step.
 """
 from __future__ import annotations
 
@@ -121,3 +128,144 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.cat([block(q[:, i:i + q_chunk], q_pos[:, i:i + q_chunk])
                           for i in range(0, Sq, q_chunk)], dim=1)
     return block(q, q_pos)
+
+
+# -- KV cache (contiguous or ring; optional int8 quantisation) ---------------
+#
+# int8 KV: symmetric per-(position, head) scales over head_dim —
+# k_int8[b,s,h,:] * k_scale[b,s,h]. Quantised at write (once per token),
+# dequantised at read.
+
+def quantize_kv(x: torch.Tensor):
+    """[B,S,KV,hd] -> (int8 values, [B,S,KV] float32 scales). The division
+    is in float32 and ``torch.round`` rounds half to even, as ``jnp.round``
+    does, so values and scales equal the reference's bit for bit."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def init_cache(batch: int, cache_len: int, num_kv: int, head_dim: int,
+               dtype: torch.dtype = torch.bfloat16, device="cpu"):
+    """An empty cache: every slot's position is PAD. int8 adds the
+    float32 per-(position, head) scales."""
+    shape = (batch, cache_len, num_kv, head_dim)
+    out = {"k": torch.zeros(shape, dtype=dtype, device=device),
+           "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        out["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                     device=device)
+        out["v_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                     device=device)
+    # absolute position of each slot; PAD_POS = empty
+    out["pos"] = torch.full((cache_len,), PAD_POS, dtype=torch.int32,
+                            device=device)
+    return out
+
+
+def ring_slot(p: int, cache_len: int, sinks: int = 0) -> int:
+    """The slot of absolute position ``p``: position p < M lives at slot p
+    (a permanent sink slot), p >= M at M + (p − M) % (L − M). M = 0 gives
+    the plain ring p % L."""
+    if p < sinks:
+        return p
+    return sinks + (p - sinks) % (cache_len - sinks)
+
+
+def write_cache(cache, k_new: torch.Tensor, v_new: torch.Tensor, cur: int,
+                pos_new: Optional[torch.Tensor] = None, sinks: int = 0):
+    """Insert [B, S_new, Kv, hd] into the ring at absolute position
+    ``cur`` (a Python int), in place; returns ``cache``.
+
+    Slot invariant (uniform across the batch; decode is synchronous), with
+    ``sinks`` = M reserved slots: see :func:`ring_slot`. The sink slots
+    hold hymba's meta tokens and are never evicted. Two cases:
+
+      S_new <  L : decode / short prefill — the chunk goes to the slots
+                   from ``ring_slot(cur)`` on. A chunk that would run past
+                   the last slot is refused: the reference's
+                   ``dynamic_update_slice`` silently moves its start back
+                   (a clamp), which breaks the slot invariant.
+      S_new >= L : window prefill — the sink prefix goes to its reserved
+                   slots; of the rest only the last L − M tokens are kept,
+                   each at its ring slot.
+
+    ``pos_new``: [S_new] absolute positions (defaults to cur + arange).
+    """
+    L = cache["k"].shape[1]
+    S_new = k_new.shape[1]
+    quant = cache["k"].dtype == torch.int8
+    if quant:
+        k_new, ks_new = quantize_kv(k_new)
+        v_new, vs_new = quantize_kv(v_new)
+    if pos_new is None:
+        pos_new = cur + torch.arange(S_new, dtype=torch.int32,
+                                     device=k_new.device)
+    new = {"k": k_new, "v": v_new, "pos": pos_new}
+    if quant:
+        new["k_scale"], new["v_scale"] = ks_new, vs_new
+    M = sinks
+    W = L - M
+
+    def put(dst: slice, src: slice) -> None:
+        for name, t in new.items():
+            if name == "pos":
+                cache[name][dst].copy_(t[src])
+            else:
+                cache[name][:, dst].copy_(t[:, src])
+
+    if S_new < L:
+        start = ring_slot(cur, L, M)
+        if start + S_new > L:
+            raise ValueError(
+                f"a chunk of {S_new} tokens from position {cur} (slot "
+                f"{start}) would wrap past the last of {L} cache slots; "
+                "write it in chunks that end at the ring's edge")
+        put(slice(start, start + S_new), slice(None))
+        return cache
+    # eviction write: sinks to their reserved slots, the ring tail for the
+    # rest, each token at its slot (the reference's roll)
+    first = cur + (S_new - W)                 # abs position of the tail's [0]
+    shift = ring_slot(first, L, M) - M
+    put(slice(0, M), slice(0, M))
+    put(slice(M + shift, L), slice(S_new - W, S_new - shift))
+    put(slice(M, M + shift), slice(S_new - shift, S_new))
+    return cache
+
+
+def decode_attend(q: torch.Tensor, cache, num_heads: int, *, window=None,
+                  softcap: float = 0.0, scale: Optional[float] = None,
+                  q_pos: Optional[torch.Tensor] = None,
+                  sinks: int = 0) -> torch.Tensor:
+    """One-token attention against the cache. q: [B,1,H,hd].
+
+    The reference repeats the cache's KV heads to H before ``attend``;
+    here each query head reads its KV head through a grouped view
+    ([B,KV,G,hd] against [B,L,KV,hd]), the same values without the H/KV
+    copies of the cache. Softmax in float32, as in ``attend``.
+    """
+    B, _, H, hd = q.shape
+    ck, cv = cache["k"], cache["v"]
+    if ck.dtype == torch.int8:
+        ck = dequantize_kv(ck, cache["k_scale"], q.dtype)
+        cv = dequantize_kv(cv, cache["v_scale"], q.dtype)
+    KV = ck.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kv_pos = cache["pos"][None].expand(B, -1)
+    if q_pos is None:
+        q_pos = cache["pos"].max()[None, None].expand(B, 1)
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgd,blkd->bkgl", qg, ck).float() * scale
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    m = _mask(q_pos, kv_pos, True, window, sinks)          # [B,1,1,L]
+    s = torch.where(m, s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgl,blkd->bkgd", w, cv)
+    return o.reshape(B, 1, H, hd)

@@ -4,6 +4,8 @@ parameter to the activation dtype, except norm scales, which apply in
 float32."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -46,7 +48,9 @@ def embed_specs(vocab: int, d: int):
 
 def embed(tokens: torch.Tensor, params,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    return params["table"].to(dtype)[tokens]
+    # gather, then cast: the cast is element by element, so this equals
+    # casting the whole table first, without reading all of it per call
+    return params["table"][tokens].to(dtype)
 
 
 def unembed(x: torch.Tensor, params) -> torch.Tensor:
@@ -69,15 +73,19 @@ def dwconv1d_specs(channels: int, k: int):
             "b": p((channels,), ("ssm_inner",), init="zeros")}
 
 
-def dwconv1d(x: torch.Tensor, params):
-    """Causal depthwise conv with zero history. x: [B, S, C]. Returns (y,
-    new_state): the taps accumulated as shifted multiplies, no patch
-    materialisation; new_state is the last k-1 rows [B, k-1, C], the
-    carry a streaming caller would pass on (the decode slice)."""
+def dwconv1d(x: torch.Tensor, params,
+             state: Optional[torch.Tensor] = None):
+    """Causal depthwise conv. x: [B, S, C]; state: [B, k-1, C] carry (the
+    last k-1 inputs of the stream so far) or None (zero history).
+
+    Returns (y, new_state): the taps accumulated as shifted multiplies, no
+    patch materialisation; new_state is the last k-1 rows of [state; x]."""
     w = params["w"].to(x.dtype)                  # [C, k]
     k = w.shape[1]
     B, S, C = x.shape
-    xp = torch.cat([x.new_zeros((B, k - 1, C)), x], dim=1)   # [B, S+k-1, C]
+    if state is None:
+        state = x.new_zeros((B, k - 1, C))
+    xp = torch.cat([state, x], dim=1)            # [B, S+k-1, C]
     y = torch.zeros_like(x)
     for i in range(k):                           # k is small (4): unrolled
         y = y + xp[:, i:i + S, :] * w[:, i]

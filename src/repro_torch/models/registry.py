@@ -3,18 +3,23 @@ reference's ``models/registry.py``.
 
 ``build(run_config, device='cuda')`` returns a :class:`ModelBundle` with
 
-  init_params(generator, dtype)   -> params (on the bundle's device)
-  train_forward(params, batch)    -> (logits, aux_loss)
+  init_params(generator, dtype)        -> params (on the bundle's device)
+  train_forward(params, batch)         -> (logits, aux_loss)
+  prefill(params, batch)               -> (last_logits, caches)
+  decode_step(params, inp, caches, cur) -> (logits, caches)
+  cache_init(batch, seq_len)           -> empty caches
 
-for the decoder-LM families. This slice ports the cache-less forward
-(scoring a batch of sequences, forward only) of the ``dense`` family,
-hymba-style meta tokens included. The loss, ``prefill``,
-``decode_step`` and the caches, and the other families, wait for later
-slices.
+for the decoder-LM families whose layer kinds are ported (``dense`` and
+``hymba``; hymba-style meta tokens included). ``cache_init`` is the
+concrete twin of the reference's ``cache_abstract``. The loss, the
+abstract cache and its logical axes, ``input_specs`` and the other
+families wait for later slices. The reference has no generation loop, and
+neither has the port: a caller runs ``decode_step`` once per token.
 """
 from __future__ import annotations
 
 import dataclasses
+import operator
 from typing import Any, Callable
 
 import torch
@@ -23,7 +28,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import module as mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import embed
+from repro_torch.models.layers import embed, lm_head, unembed
 
 META = "meta_tokens"
 
@@ -35,6 +40,9 @@ class ModelBundle:
     device: torch.device
     init_params: Callable       # (generator, dtype) -> params
     train_forward: Callable     # (params, batch) -> (logits, aux)
+    prefill: Callable           # (params, batch) -> (last logits, caches)
+    decode_step: Callable       # (params, inp, caches, cur) -> (logits, caches)
+    cache_init: Callable        # (batch, seq_len) -> caches
 
 
 def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
@@ -60,9 +68,9 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         return (torch.cat([meta, x], dim=1),
                 torch.cat([mpos, positions + M], dim=1))
 
-    def train_forward(params, batch):
-        """The cache-less forward: [B,S] tokens (or [B,S,D] embeddings)
-        in ``batch['inputs']`` -> ([B,S,V] logits, aux loss 0)."""
+    def _prompt(params, batch):
+        """The prompt's inputs and [B, S(+M)] positions from 0, the meta
+        tokens prepended."""
         inputs = torch.as_tensor(batch["inputs"], device=device)
         B, S = inputs.shape[0], inputs.shape[1]
         positions = torch.arange(S, dtype=torch.int32,
@@ -71,13 +79,53 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
             x = (embed(inputs, params["embed"], dt) if inputs.ndim == 2
                  else inputs.to(dt))
             inputs, positions = _with_meta(params, x, positions)
-        logits = tfm.forward(params, inputs, positions, mc)
+        return inputs, positions
+
+    def train_forward(params, batch):
+        """The cache-less forward: [B,S] tokens (or [B,S,D] embeddings)
+        in ``batch['inputs']`` -> ([B,S,V] logits, aux loss 0)."""
+        inputs, positions = _prompt(params, batch)
+        logits, _ = tfm.forward(params, inputs, positions, mc)
         if M:
             logits = logits[:, M:]
         return logits, torch.zeros((), dtype=torch.float32, device=device)
 
+    def cache_init(batch: int, seq_len: int):
+        """Empty caches for ``batch`` streams of up to ``seq_len`` tokens
+        (the meta tokens' slots added)."""
+        return tfm.cache_init(mc, batch, seq_len + M, device)
+
+    def prefill(params, batch):
+        """The prompt ([B,S] tokens or [B,S,D] embeddings) into fresh
+        caches sized ``rc.shape.seq_len`` (+ M). Returns ([B,V] logits of
+        the last position, caches). Only the last position is projected
+        to the vocabulary (the reference's stream-out discipline)."""
+        inputs, positions = _prompt(params, batch)
+        caches = cache_init(inputs.shape[0], rc.shape.seq_len)
+        hidden, caches = tfm.forward(params, inputs, positions, mc,
+                                     caches=caches, cur=0, logits=False)
+        last = hidden[:, -1]
+        logits = (unembed(last, params["embed"]) if mc.tie_embeddings
+                  else lm_head(last, params["head"]))
+        return logits, caches
+
+    def decode_step(params, inp, caches, cur: int):
+        """One token per stream: ``inp`` [B,1] tokens (or [B,1,D]
+        embeddings) at absolute position ``cur`` (a Python int; with meta
+        tokens, the prompt's length + M for the first step). The caches
+        are written in place. Returns ([B,V] logits, caches)."""
+        cur = operator.index(cur)
+        inp = torch.as_tensor(inp, device=device)
+        positions = torch.full((inp.shape[0], 1), cur, dtype=torch.int32,
+                               device=device)
+        logits, caches = tfm.forward(params, inp, positions, mc,
+                                     caches=caches, cur=cur)
+        return logits[:, -1], caches
+
     return ModelBundle(cfg=rc, specs=specs, device=device,
-                       init_params=init_params, train_forward=train_forward)
+                       init_params=init_params, train_forward=train_forward,
+                       prefill=prefill, decode_step=decode_step,
+                       cache_init=cache_init)
 
 
 def build(rc: RunConfig, device="cuda") -> ModelBundle:

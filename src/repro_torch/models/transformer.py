@@ -4,18 +4,30 @@
 Layers are grouped into *stages* — maximal runs of contiguous layers with
 identical (kind, attention window). Each stage's parameters are stacked on
 a leading ``layers`` axis; where the reference scans over that axis with
-``jax.lax.scan``, the port loops over it. This slice runs the ``dense``
-kind (attention + gated MLP) without caches, the attention through the
-CUDA ``swattn`` kernel where the reference's kernel gate lets it
-(``cfg.use_pallas_attn``: no cache, no sinks, no softcap, an int window).
-The other kinds (moe, hymba, mamba, mlstm, slstm) and the caches wait for
-later slices; ``make_stages`` already partitions every family.
+``jax.lax.scan``, the port loops over it. Each stage owns a cache of the
+length its window needs (a local stage's ring holds only the live window).
+This slice runs the ``dense`` kind (attention + gated MLP) and the
+``hymba`` kind (attention ∥ mamba, then the MLP), with or without caches;
+the other kinds (moe, mamba, mlstm, slstm) wait for later slices.
+
+The kernel gate (``cfg.use_pallas_attn``: no sinks, no softcap, an int
+window) sends attention through the CUDA ``swattn`` kernel. The
+reference's gate also requires no cache, so its prefill runs plain
+``attend``; here the gate admits a prefill chunk too (more than one query
+with a cache), because a chunk's positions are cur + arange(S), whose
+banded causal attention within the chunk is what ``swattn`` computes.
+That is a difference of dispatch, not of result. Decode never runs it.
+
+The caches are written in place: ``forward`` stores each layer's new keys
+and state into its slice of the stage's stacked tensors and returns the
+same tree (the reference returns a new tree; a copy here would rewrite
+the whole cache on every decode step).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -23,12 +35,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.swattn import swattn_cuda
 from repro_torch.models import attention as attn
 from repro_torch.models import rope
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed, embed_specs, head_specs,
                                        lm_head, mlp, mlp_specs, rms_norm,
                                        rms_norm_specs, unembed)
 from repro_torch.models.module import p, stack_specs
 
-NOT_PORTED = ("moe", "hymba", "mamba", "mlstm", "slstm")
+NOT_PORTED = ("moe", "mamba", "mlstm", "slstm")
 
 
 # ---------------------------------------------------------------------------
@@ -42,6 +55,11 @@ class Stage:
     start: int                # first layer index
     count: int
     window: int               # 0 = full attention (attn kinds only)
+
+    def cache_len(self, seq_len: int) -> int:
+        if self.window > 0:
+            return min(self.window, seq_len)
+        return seq_len
 
 
 def layer_kind(cfg: ModelConfig, l: int) -> str:
@@ -96,22 +114,26 @@ def make_stages(cfg: ModelConfig) -> List[Stage]:
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"layer kind {kind!r} is not ported yet (ROADMAP queue 1); the port "
-        "runs 'dense'")
+        "runs 'dense' and 'hymba'")
 
 
 def layer_specs(cfg: ModelConfig, kind: str):
-    if kind == "dense":
-        return {
-            "ln1": rms_norm_specs(cfg.d_model),
-            "attn": attn.attn_specs(cfg.d_model, cfg.num_heads,
-                                    cfg.num_kv_heads, cfg.resolved_head_dim(),
-                                    cfg.use_qk_norm),
-            "ln2": rms_norm_specs(cfg.d_model),
-            "mlp": mlp_specs(cfg.d_model, cfg.d_ff),
-        }
-    if kind in NOT_PORTED:
-        raise _not_ported(kind)
-    raise ValueError(kind)
+    if kind not in BLOCKS:
+        if kind in NOT_PORTED:
+            raise _not_ported(kind)
+        raise ValueError(kind)
+    specs = {
+        "ln1": rms_norm_specs(cfg.d_model),
+        "attn": attn.attn_specs(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                                cfg.resolved_head_dim(), cfg.use_qk_norm),
+        "ln2": rms_norm_specs(cfg.d_model),
+    }
+    if kind == "hymba":
+        specs["mamba"] = ssm_mod.mamba_specs(
+            cfg.d_model, expand=cfg.ssm_expand, heads=cfg.mamba_heads,
+            state=cfg.ssm_state, conv_width=cfg.ssm_conv_width)
+    specs["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff)
+    return specs
 
 
 def model_specs(cfg: ModelConfig):
@@ -128,22 +150,74 @@ def model_specs(cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# Cache / state trees
+# ---------------------------------------------------------------------------
+
+
+def cache_dtype(cfg: ModelConfig) -> torch.dtype:
+    if cfg.kv_cache_dtype == "int8":
+        return torch.int8
+    return model_dtype(cfg)
+
+
+def stage_cache_init(cfg: ModelConfig, st: Stage, batch: int, seq_len: int,
+                     device="cpu"):
+    """A stage's streaming state, each leaf stacked over the stage's
+    layers on axis 0: the KV cache (``dense``), or ``{'attn': KV cache,
+    'mamba': conv and ssm state}`` (``hymba``)."""
+    if st.kind not in BLOCKS:
+        raise _not_ported(st.kind)
+    cl = st.cache_len(seq_len)
+    if st.window > 0 and cfg.num_meta_tokens:
+        # reserved sink slots: meta tokens never evicted by the ring
+        cl = min(cl + cfg.num_meta_tokens, seq_len)
+    tree = attn.init_cache(batch, cl, cfg.num_kv_heads,
+                           cfg.resolved_head_dim(), cache_dtype(cfg), device)
+    if st.kind == "hymba":
+        tree = {"attn": tree,
+                "mamba": ssm_mod.mamba_state_init(cfg, batch, device)}
+    return _stack(tree, st.count)
+
+
+def cache_init(cfg: ModelConfig, batch: int, seq_len: int, device="cpu"):
+    """One stacked cache tree per stage (``seq_len`` counts meta tokens)."""
+    return [stage_cache_init(cfg, st, batch, seq_len, device)
+            for st in make_stages(cfg)]
+
+
+def _stack(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _stack(v, n) for k, v in tree.items()}
+    return tree[None].repeat((n,) + (1,) * tree.ndim)
+
+
+# ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
 
 def _attention_part(lp, x, cos_sin, q_pos, cfg: ModelConfig, window,
-                    softcap: float = 0.0, sinks: int = 0) -> torch.Tensor:
-    """The shared attention sub-block, without a cache."""
+                    cache=None, cur=None, softcap: float = 0.0,
+                    sinks: int = 0) -> torch.Tensor:
+    """The shared attention sub-block. With a cache (one layer's slice),
+    the new keys and values are written into it first: decode (one query)
+    attends against the cache, a prefill chunk within itself."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(h, lp["attn"], cfg.use_qk_norm)
     cos, sin = cos_sin
     q = rope.apply_rope(q, cos, sin)
     k = rope.apply_rope(k, cos, sin)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim())
-    use_kernel = (cfg.use_pallas_attn and sinks == 0 and softcap == 0.0
-                  and isinstance(window, int))
-    if use_kernel:
+    decode = cache is not None and q.shape[1] == 1
+    if cache is not None:
+        attn.write_cache(cache, k, v, cur, pos_new=q_pos[0], sinks=sinks)
+    use_kernel = (cfg.use_pallas_attn and not decode and sinks == 0
+                  and softcap == 0.0 and isinstance(window, int))
+    if decode:
+        o = attn.decode_attend(q, cache, cfg.num_heads, window=window,
+                               softcap=softcap, scale=scale, q_pos=q_pos,
+                               sinks=sinks)
+    elif use_kernel:
         # the banded CUDA kernel: the online-softmax state stays on chip,
         # no S×S score plane in device memory, k/v read per GQA group
         o = swattn_cuda(q, k, v, window=window, scale=scale)
@@ -156,13 +230,35 @@ def _attention_part(lp, x, cos_sin, q_pos, cfg: ModelConfig, window,
     return attn.out_project(o, lp["attn"])
 
 
-def dense_block(lp, x, ctx, cfg: ModelConfig) -> torch.Tensor:
+def dense_block(lp, x, ctx, cfg: ModelConfig, cache=None) -> torch.Tensor:
     """Attention + gated MLP, pre-norm residual."""
-    a = _attention_part(lp, x, ctx["cos_sin"], ctx["q_pos"], cfg,
-                        ctx["window"], cfg.attn_logit_softcap, ctx["sinks"])
-    x = x + a
+    x = x + _attention_part(lp, x, ctx["cos_sin"], ctx["q_pos"], cfg,
+                            ctx["window"], cache, ctx["cur"],
+                            cfg.attn_logit_softcap, ctx["sinks"])
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp(h, lp["mlp"])
+
+
+def hymba_block(lp, x, ctx, cfg: ModelConfig, cache=None) -> torch.Tensor:
+    """Attention ∥ mamba on the same normed input (the mean of the two
+    paths), then the gated MLP. The mamba state streams through
+    ``cache['mamba']``, updated in place."""
+    a = _attention_part(lp, x, ctx["cos_sin"], ctx["q_pos"], cfg,
+                        ctx["window"], None if cache is None
+                        else cache["attn"], ctx["cur"], 0.0, ctx["sinks"])
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    m, state = ssm_mod.mamba_block(
+        h, lp["mamba"], cfg, state_in=None if cache is None
+        else cache["mamba"])
+    if cache is not None:
+        cache["mamba"]["conv"].copy_(state["conv"])
+        cache["mamba"]["ssm"].copy_(state["ssm"])
+    x = x + 0.5 * (a + m)
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp(h2, lp["mlp"])
+
+
+BLOCKS = {"dense": dense_block, "hymba": hymba_block}
 
 
 # ---------------------------------------------------------------------------
@@ -182,12 +278,17 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
-            cfg: ModelConfig, *, logits: bool = True) -> torch.Tensor:
-    """Run the decoder stack, without caches.
+            cfg: ModelConfig, *, caches=None, cur: Optional[int] = None,
+            logits: bool = True):
+    """Run the decoder stack.
 
     inputs: [B,S] int tokens, or [B,S,D] embeddings (embeddings_in archs).
-    positions: [B,S] absolute positions. Returns the logits [B,S,V] (the
-    final hidden states [B,S,D] with ``logits=False``).
+    positions: [B,S] absolute positions. caches: one tree per stage (from
+    ``cache_init``) or None; cur: the absolute position of the chunk's
+    first token (prefill 0, decode the position), a Python int, so the
+    slots are worked out on the host with no device sync. Returns
+    (logits [B,S,V], or the final hidden states [B,S,D] with
+    ``logits=False``; the caches, written in place, or None).
     """
     dtype = model_dtype(cfg)
     if inputs.ndim == 2:
@@ -198,24 +299,25 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     cos_sin = _positions_cos_sin(cfg, positions)
     for i, st in enumerate(make_stages(cfg)):
-        if st.kind != "dense":
+        if st.kind not in BLOCKS:
             raise _not_ported(st.kind)
+        block = BLOCKS[st.kind]
         sp = params[f"stage_{i}"]
         ctx = {"cos_sin": cos_sin, "q_pos": positions, "window": st.window,
-               "sinks": cfg.num_meta_tokens}
+               "cur": cur, "sinks": cfg.num_meta_tokens}
         for layer in range(st.count):
-            lp = _layer(sp, layer)
-            x = dense_block(lp, x, ctx, cfg)
+            x = block(_layer(sp, layer), x, ctx, cfg,
+                      None if caches is None else _layer(caches[i], layer))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if not logits:
-        return x
-    if cfg.tie_embeddings:
-        return unembed(x, params["embed"])
-    return lm_head(x, params["head"])
+    if logits:
+        x = (unembed(x, params["embed"]) if cfg.tie_embeddings
+             else lm_head(x, params["head"]))
+    return x, caches
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a stage's stacked params (a view, no copy)."""
+    """Layer ``i`` of a stage's stacked params or cache (views, no copy:
+    writes to a cache's layer land in the stacked tensors)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]

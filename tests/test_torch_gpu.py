@@ -465,3 +465,59 @@ def test_mamba_block_on_the_card_matches_the_cpu(cuda, use_kernel, rng):
                              use_pallas_conv=use_kernel)
     assert DW.dwconv1d.launches - before == int(use_kernel)
     torch.testing.assert_close(got.cpu(), want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "yi_6b", "hymba_1_5b"])
+def test_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch, use_kernel,
+                                                      rng):
+    """Tiny prefill (24 tokens: h2o-danube's ring of 8 takes the eviction
+    write, hymba its sink slots) and three decode steps on the card
+    against the same calls on the CPU (which tests/test_torch_decode.py
+    holds against the reference): logits within rtol=atol=3e-4 after
+    prefill and 5e-4 after each step, the caches' positions exactly and
+    their values within 5e-4. The kernel gate sends each prefill layer
+    through swattn (not hymba's: its meta tokens bar the kernel); decode
+    never launches it."""
+    import dataclasses
+    from repro_torch.configs.base import SHAPES, RunConfig
+    from repro_torch.configs.tiny import tiny_of
+    from repro_torch.kernels.swattn import kernel as SW
+    from repro_torch.models import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc = dataclasses.replace(tiny_of(arch), use_pallas_attn=use_kernel)
+    rc = RunConfig(model=mc, shape=dataclasses.replace(
+        SHAPES["prefill_32k"], seq_len=32, global_batch=2))
+    toks = torch.from_numpy(rng.integers(0, 255, (2, 27)))
+    cpu = registry.build(rc, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(7))
+    card = registry.build(rc, device=cuda)
+    on_card = _to(params, cuda)
+    want, want_c = cpu.prefill(params, {"inputs": toks[:, :24]})
+    before = SW.swattn.launches
+    got, got_c = card.prefill(on_card, {"inputs": toks[:, :24]})
+    gated = use_kernel and not mc.num_meta_tokens
+    assert SW.swattn.launches - before == (mc.num_layers if gated else 0)
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-4, atol=3e-4)
+    for i in range(3):
+        cur = 24 + mc.num_meta_tokens + i
+        want, _ = cpu.decode_step(params, toks[:, 24 + i:25 + i], want_c, cur)
+        before = SW.swattn.launches
+        got, _ = card.decode_step(on_card, toks[:, 24 + i:25 + i], got_c, cur)
+        assert SW.swattn.launches == before
+        torch.testing.assert_close(got.cpu(), want, rtol=5e-4, atol=5e-4)
+    for g, w in zip(got_c, want_c):
+        for key, leaf in _flat(w):
+            other = dict(_flat(g))[key].cpu()
+            if leaf.is_floating_point():
+                torch.testing.assert_close(other, leaf, rtol=5e-4, atol=5e-4)
+            else:
+                assert torch.equal(other, leaf), key
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, prefix + (k,))
+    else:
+        yield prefix, tree

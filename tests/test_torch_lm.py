@@ -150,8 +150,9 @@ def test_init_params_is_seeded_and_follows_the_specs():
 
 
 def test_unported_family_and_kind_raise():
-    mc = tiny_of("hymba_1_5b")
-    with pytest.raises(NotImplementedError, match="hymba"):
+    mc = dataclasses.replace(tiny_of("yi_6b"), family="moe", num_experts=4,
+                             num_experts_per_tok=2)
+    with pytest.raises(NotImplementedError, match="moe"):
         registry.build(RunConfig(model=mc, shape=SHAPES["train_4k"]),
                        device="cpu")
     with pytest.raises(ValueError, match="not ported|no config"):
