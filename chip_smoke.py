@@ -156,6 +156,30 @@ Phases, in order; any failure exits non-zero:
                 GQA, float32 with TF32 off; ``F.conv1d`` with groups=C on
                 a pre-padded input). The bfloat16 ``swattn`` must beat
                 SDPA.
+ 12. LM training — ``make_train_step`` / ``train_loop`` of h2o-danube-1.8b,
+                the config's gate off (plain attention, as the reference
+                trains; the kernels refuse a gradient). (a) 2 layers at full
+                width, float32 (TF32 off), [2, 512], microbatch 1 (two
+                microbatches): one step on the card against the same step on
+                the CPU from the same weights and batch — the loss within
+                relative 1e-5, the clipped gradients and the updated
+                parameters within relative L2 1e-5; two controls (only the
+                first microbatch accumulated, the labels unshifted) must
+                fail it. (b) The gradients under remat 'none', 'full' and
+                'dots' agree within 1e-6. (c) The published config (24
+                layers, bf16 compute, float32 master weights and AdamW
+                state) at [4, 4096], microbatch 2, remat 'full': step 1's
+                gradients against a float32 step on the same weights and
+                batch (relative L2 within ``TRAIN_BF16_TOL``; the labels
+                unshifted beyond it), then a warm-up step and 3 timed ones,
+                the last profiled again: every loss
+                finite, step 1's within 0.2 of ln V + 1/2, no kernel launch;
+                step ms, tokens/s, peak memory, the model-FLOPs share of the
+                bf16 peak, a profile of one step. (d) ``train_loop`` 3 steps
+                against 2 steps, a checkpoint and step 3 resumed (2-layer
+                setup of (a)). (e) ``python -m repro_torch.launch.train
+                --arch h2o_danube_1_8b --tiny --steps 3`` exits 0 (a
+                subprocess beside (a) and (b)).
 
 Every main path (serving, the streaming and xla engines, the ring, LM,
 mamba, LM serving) runs
@@ -205,6 +229,18 @@ LM_TOL = {"float32": 1e-3, "bfloat16": 4e-2}
 # held to relative L2 1e-2 as well as rtol=atol=1e-2 (an H100 reads 1.8e-3
 # and 3.9e-3), so a kernel that returns zeros cannot pass.
 MAIN_TOL = {"float32": (3e-4, 3e-4), "bfloat16": (1e-2, 1e-2)}
+# LM training. float32 on the card against the same step on the CPU: the
+# loss relative, the clipped gradients and the updated parameters in
+# relative L2 (the first AdamW step moves a weight by about lr·sign(g),
+# so elementwise limits would read the signs of near-zero gradients); the
+# remat policies' gradients in relative L2. bf16 step-1 gradients of
+# h2o-danube-1.8b at full width against a float32 step on the same
+# weights and batch: an H100 reads 2.2e-2 when sound, 0.48 with the
+# labels unshifted and 1.0 with one microbatch of two; 0.1 sits about
+# 4.6x from the sound reading and from the nearer fault.
+TRAIN_F32_TOL = 1e-5
+TRAIN_REMAT_TOL = 1e-6
+TRAIN_BF16_TOL = 0.1
 
 
 def counters():
@@ -713,15 +749,18 @@ class Smoke:
                  f"geometry {geo}")
         return row
 
-    def profile(self, label: str, fn, top: int = 8) -> None:
-        """One warm call of ``fn`` under ``torch.profiler``: the device's
+    def profile(self, label: str, fn, top: int = 8, warm: bool = False
+                ) -> None:
+        """One warm call of ``fn`` under ``torch.profiler`` (``warm``: the
+        caller has run it already, so no call precedes it): the device's
         busy and idle share of the call's wall time, and the kernels that
         took the most device time. Its launches are not the main
         path's."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         with saved_counts():
-            fn()
+            if not warm:
+                fn()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -1430,7 +1469,8 @@ class Smoke:
         rc = RunConfig(model=full, shape=SHAPES["train_4k"])
         params = registry.build(rc, device="cuda").init_params(
             torch.Generator(device="cuda").manual_seed(seed))
-        nparams = sum(t.numel() for t in _leaves(params))
+        from repro_torch.models.module import tree_leaves
+        nparams = sum(t.numel() for t in tree_leaves(params))
         self.say(f"LM phase: {full.name}, {nparams} parameters (float32), "
                  f"{full.num_layers} layers, d {full.d_model}, heads "
                  f"{full.num_heads}/{full.num_kv_heads}, hd "
@@ -1749,8 +1789,8 @@ class Smoke:
                                  f"{' / '.join(passed)}")
 
     def _cache_bytes(self, caches) -> int:
-        return sum(t.numel() * t.element_size() for c in caches
-                   for t in _leaves(c))
+        from repro_torch.models.module import tree_leaves
+        return sum(t.numel() * t.element_size() for t in tree_leaves(caches))
 
     def _serve_model(self, arch: str, batch: int, prompt_len: int,
                      steps: int, seed: int, extra=None):
@@ -1915,6 +1955,327 @@ class Smoke:
             raise AssertionError(f"LM serving phase: counts {launches}")
         return out, launches["swattn"]
 
+    # -- phase 12: LM training ----------------------------------------------
+
+    def _train_rc(self, mc, seq: int, batch: int, microbatch: int,
+                  remat: str = "full"):
+        import dataclasses
+        from repro_torch.configs.base import SHAPES, RunConfig, TrainConfig
+        shape = dataclasses.replace(SHAPES["train_4k"], seq_len=seq,
+                                    global_batch=batch)
+        return RunConfig(model=mc, shape=shape, train=TrainConfig(
+            microbatch=microbatch, remat_policy=remat))
+
+    def _tree_rel(self, got, want) -> float:
+        """Relative L2 of two lists of matching tensors (``got`` moved to
+        ``want``'s device), summed in float64 on the host."""
+        torch = self.torch
+        num = den = 0.0
+        for a, b in zip(got, want, strict=True):
+            b = b.float()
+            num += float(torch.linalg.vector_norm(a.to(b.device).float()
+                                                  - b)) ** 2
+            den += float(torch.linalg.vector_norm(b)) ** 2
+        return (num / den) ** 0.5
+
+    def _one_step(self, rc, start, device: str, batch=None):
+        """One ``train_step`` on ``device`` from a copy of the host weights
+        ``start``: (metrics as floats, the parameters after, the clipped
+        gradients, host ms of the synchronised step)."""
+        torch = self.torch
+        from repro_torch.data import make_train_batch
+        from repro_torch.models import registry
+        from repro_torch.models.module import tree_leaves, tree_map
+        from repro_torch.optim import adamw_init
+        from repro_torch.training import make_train_step
+        bundle = registry.build(rc, device=device)
+        params = tree_map(lambda t: t.to(device, copy=True), start)
+        opt = adamw_init(params)
+        batch = make_train_batch(rc, 0, device) if batch is None else batch
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = make_train_step(bundle, rc)(params, opt, batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        leaves = tree_leaves(params)
+        return ({k: float(v) for k, v in m.items()}, leaves,
+                [p.grad for p in leaves], ms)
+
+    def train_parity(self, mc, seq: int, batch: int, microbatch: int):
+        """(a) one float32 train step on the card against the same step on
+        the CPU, from the same weights and batch, with two controls that
+        must fail the gradient check; (b) the remat policies' gradients on
+        the card agree."""
+        torch = self.torch
+        from repro_torch.data import make_train_batch
+        from repro_torch.models import registry
+        from repro_torch.models.module import tree_leaves, tree_map
+        from repro_torch.training import make_grad_fn
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("training parity: TF32 must be off")
+        rc = self._train_rc(mc, seq, batch, microbatch)
+        start = tree_map(lambda t: t.cpu(), registry.build(
+            rc, device="cuda").init_params(
+                torch.Generator(device="cuda").manual_seed(0)))
+        cpu_m, cpu_p, cpu_g, cpu_ms = self._one_step(rc, start, "cpu")
+        card_m, card_p, card_g, card_ms = self._one_step(rc, start, "cuda")
+        loss_rel = abs(card_m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
+        g_rel = self._tree_rel(card_g, cpu_g)
+        p_rel = self._tree_rel(card_p, cpu_p)
+        moved = self._tree_rel(cpu_p, tree_leaves(start))
+        self.say(f"LM training (a) float32 parity, {mc.name} {mc.num_layers} "
+                 f"layers full width, [{batch},{seq}] microbatch "
+                 f"{microbatch}: loss card {card_m['loss']!r} cpu "
+                 f"{cpu_m['loss']!r} (relative {loss_rel!r}), grad norm "
+                 f"{card_m['grad_norm']!r} / {cpu_m['grad_norm']!r}, clipped "
+                 f"gradients relative L2 {g_rel!r}, updated parameters "
+                 f"{p_rel!r} (the step moved them by {moved!r}); step "
+                 f"{card_ms!r} ms card, {cpu_ms!r} ms cpu")
+        if not (loss_rel <= TRAIN_F32_TOL and g_rel <= TRAIN_F32_TOL
+                and p_rel <= TRAIN_F32_TOL):
+            raise AssertionError(f"LM training parity beyond {TRAIN_F32_TOL}")
+        b0 = make_train_batch(rc, 0, "cuda")
+        mb = microbatch or batch
+        controls = {
+            "only the first microbatch accumulated":
+                (self._train_rc(mc, seq, mb, mb),
+                 {k: v[:mb] for k, v in b0.items()}),
+            "labels unshifted":
+                (rc, {"inputs": b0["inputs"], "labels": b0["inputs"]})}
+        for name, (crc, cbatch) in controls.items():
+            g = self._one_step(crc, start, "cuda", cbatch)[2]
+            rel = self._tree_rel(g, cpu_g)
+            self.say(f"LM training (a) control, {name}: clipped gradients "
+                     f"relative L2 {rel!r} (limit {TRAIN_F32_TOL})")
+            if not rel > TRAIN_F32_TOL:
+                raise AssertionError(f"LM training: the parity check passes "
+                                     f"a step with {name}")
+        del card_p, card_g, cpu_p, cpu_g
+        # (b) what backward keeps differs by policy, the gradients do not
+        grads = {}
+        for policy in ("none", "full", "dots"):
+            prc = self._train_rc(mc, seq, batch, microbatch, remat=policy)
+            params = tree_map(lambda t: t.to("cuda", copy=True), start)
+            make_grad_fn(registry.build(prc, device="cuda"), prc)(params, b0)
+            grads[policy] = [p.grad for p in tree_leaves(params)]
+        rels = {p: self._tree_rel(grads[p], grads["none"])
+                for p in ("full", "dots")}
+        self.say(f"LM training (b) remat policies on the card, gradients "
+                 f"relative L2 against 'none': {rels!r} (limit "
+                 f"{TRAIN_REMAT_TOL})")
+        if not all(r <= TRAIN_REMAT_TOL for r in rels.values()):
+            raise AssertionError("LM training: remat policies disagree")
+        return {"loss_rel": loss_rel, "grads_rel_l2": g_rel,
+                "params_rel_l2": p_rel, "remat_rel_l2": rels}
+
+    def train_full_width(self, mc, seq: int, batch: int, microbatch: int,
+                         steps: int = 3):
+        """(c) the published config at full width, bf16 compute on float32
+        master weights and AdamW state: step 1's gradients against a
+        float32 step on the same weights and batch (two controls must
+        break that bar), then a warm-up step and ``steps`` timed ones."""
+        import dataclasses
+        import math
+        import statistics
+        torch = self.torch
+        from repro_torch.data import make_train_batch
+        from repro_torch.models import registry
+        from repro_torch.models.module import tree_leaves
+        from repro_torch.optim import adamw_init
+        from repro_torch.training import make_grad_fn, make_train_step
+        rc = self._train_rc(mc, seq, batch, microbatch)
+        rc32 = rc.replace(model=dataclasses.replace(mc, dtype="float32"))
+        bundle = registry.build(rc, device="cuda")
+        params = bundle.init_params(
+            torch.Generator(device="cuda").manual_seed(1))
+        leaves = tree_leaves(params)
+        nparams = sum(p.numel() for p in leaves)
+        self.say(f"LM training (c) {mc.name}: {nparams} parameters "
+                 f"(float32 master, AdamW m and v float32), {mc.dtype} "
+                 f"compute, [{batch},{seq}] microbatch {microbatch}, remat "
+                 f"{rc.train.remat_policy}; allocated with the parameters "
+                 f"{torch.cuda.memory_allocated()} B")
+        b0 = make_train_batch(rc, 0, "cuda")
+        loss32, _ = make_grad_fn(registry.build(rc32, device="cuda"),
+                                 rc32)(params, b0)
+        g32 = [p.grad for p in leaves]
+        grad_fn = make_grad_fn(bundle, rc)
+        lossb, _ = grad_fn(params, b0)
+        rel = self._tree_rel([p.grad for p in leaves], g32)
+        # the nearer of (a)'s two faults (at full width: the labels
+        # unshifted 0.48, one microbatch of two 1.0)
+        grad_fn(params, {"inputs": b0["inputs"], "labels": b0["inputs"]})
+        ctrl_rel = {"labels unshifted": self._tree_rel(
+            [p.grad for p in leaves], g32)}
+        for p in leaves:
+            p.grad = None
+        del g32
+        self.say(f"LM training (c) step-1 gradients, bf16 against float32 "
+                 f"on the same weights and batch: relative L2 {rel!r} "
+                 f"(limit {TRAIN_BF16_TOL}); losses bf16 {float(lossb)!r}, "
+                 f"float32 {float(loss32)!r}; controls {ctrl_rel!r}")
+        if not rel <= TRAIN_BF16_TOL:
+            raise AssertionError(f"LM training: bf16 gradients beyond "
+                                 f"{TRAIN_BF16_TOL} of float32")
+        passed = [n for n, r in ctrl_rel.items() if not r > TRAIN_BF16_TOL]
+        if passed:
+            raise AssertionError(f"LM training: the bf16 gradient check "
+                                 f"passes {passed}")
+
+        opt = adamw_init(params)
+        step = make_train_step(bundle, rc)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, ms = [], []
+        for i in range(1 + steps):
+            b = make_train_batch(rc, i, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if launches != {"filter2d_halo": 0, "swattn": 0, "dwconv1d": 0}:
+            raise AssertionError(f"LM training: kernel launches {launches}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"LM training: losses {losses}")
+        # at random init the logits are about N(0, d·std²) with the head's
+        # std 1/sqrt(d): variance 1, so E[CE] = ln V + 1/2 (a 2-layer
+        # float32 forward on the CPU reads 10.93 against 10.87)
+        head_var = mc.d_model * (1 / math.sqrt(mc.d_model)) ** 2
+        expect = math.log(mc.vocab_size) + head_var / 2
+        if abs(losses[0] - expect) > 0.2:
+            raise AssertionError(f"LM training: step 1 loss {losses[0]} is "
+                                 f"not within 0.2 of ln V + 1/2 = {expect}")
+        med = statistics.median(ms[1:])
+        tokens = batch * seq
+        # model FLOPs per token: 6 per weight of every product (the
+        # embedding table is a lookup) plus attention's two products,
+        # forward and backward (x3), over the keys each query attends
+        n_mm = mc.param_count() - mc.vocab_size * mc.d_model
+        keys = sum(min(i + 1, mc.attn_window or seq)
+                   for i in range(seq)) / seq
+        attn = (12 * mc.num_layers * mc.num_heads * mc.resolved_head_dim()
+                * keys)
+        flops_tok = 6 * n_mm + attn
+        share = flops_tok * tokens / (med * 1e-3) / self.peak_ops["bfloat16"]
+        self.say(f"LM training (c) steps: losses {losses!r} (step 1 "
+                 f"expected {expect!r}); step ms "
+                 f"{ms!r} (the first is the warm-up); median {med!r} ms, "
+                 f"{tokens / (med * 1e-3)!r} tokens/s; peak allocated {peak} "
+                 f"B; model FLOPs per token {flops_tok!r} (6 x {n_mm} + "
+                 f"attention {attn!r}), {share!r} of the bf16 dense peak "
+                 f"{self.peak_ops['bfloat16']!r}; kernel launches per step: "
+                 f"swattn {launches['swattn']}, dwconv1d "
+                 f"{launches['dwconv1d']}")
+        self.profile("LM training step", lambda: step(
+            params, opt, make_train_batch(rc, 0, "cuda")), warm=True)
+        del params, opt, leaves, b0
+        torch.cuda.empty_cache()
+        return {"step_ms": ms, "median_step_ms": med,
+                "tokens_per_s": tokens / (med * 1e-3), "losses": losses,
+                "launches_per_step": launches["swattn"] + launches[
+                    "dwconv1d"],
+                "peak_allocated_bytes": peak, "model_flops_per_token":
+                flops_tok, "bf16_peak_share": share, "bf16_vs_f32_rel_l2":
+                rel, "controls_rel_l2": ctrl_rel, "parameters": nparams}
+
+    def train_resume(self, mc, seq: int, batch: int, microbatch: int):
+        """(d) ``train_loop`` on the card: 3 steps in one run against 2
+        steps, a checkpoint, and step 3 resumed into fresh state."""
+        import tempfile
+        torch = self.torch
+        from repro_torch.checkpoint import restore_checkpoint
+        from repro_torch.models import registry
+        from repro_torch.models.module import tree_leaves
+        from repro_torch.optim import adamw_init
+        from repro_torch.training.trainer import train_loop
+        rc = self._train_rc(mc, seq, batch, microbatch)
+
+        def quiet(*a):
+            pass
+        params = registry.build(rc, device="cuda").init_params(
+            torch.Generator(device="cuda").manual_seed(rc.train.seed))
+        whole = train_loop(rc, num_steps=3, device="cuda", log_every=0,
+                           log_fn=quiet, params=params)  # in place
+        with tempfile.TemporaryDirectory() as d:
+            train_loop(rc, num_steps=2, device="cuda", ckpt_dir=d,
+                       ckpt_every=2, log_every=0, log_fn=quiet)
+            rest = train_loop(rc, num_steps=1, device="cuda", ckpt_dir=d,
+                              ckpt_every=1, log_every=0, log_fn=quiet)
+            state, saved = restore_checkpoint(
+                d, {"params": params, "opt": adamw_init(params)})
+        if (rest.resumed_from, rest.steps_run, saved) != (2, 1, 3):
+            raise AssertionError(f"LM training resume: resumed from "
+                                 f"{rest.resumed_from}, {rest.steps_run} "
+                                 f"steps, last checkpoint {saved}")
+        a, b = whole.final_metrics["loss"], rest.final_metrics["loss"]
+        loss_rel = abs(b - a) / abs(a)
+        p_rel = self._tree_rel(tree_leaves(state["params"]),
+                               tree_leaves(params))
+        self.say(f"LM training (d) resume on the card: step 3 loss "
+                 f"{b!r} resumed, {a!r} uninterrupted (relative "
+                 f"{loss_rel!r}); parameters after step 3 relative L2 "
+                 f"{p_rel!r} (limit {TRAIN_F32_TOL})")
+        if not (loss_rel <= TRAIN_F32_TOL and p_rel <= TRAIN_F32_TOL):
+            raise AssertionError("LM training: the resumed step 3 differs")
+        return {"loss_rel": loss_rel, "params_rel_l2": p_rel}
+
+    def _start_launcher(self):
+        """(e) ``python -m repro_torch.launch.train --tiny`` on the card,
+        started as a subprocess (it overlaps (a) and (b), ahead of the
+        timed steps). Returns (process, command, start time)."""
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "h2o_danube_1_8b", "--tiny", "--steps", "3"]
+        return (subprocess.Popen(cmd, env=env, cwd=ROOT, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE),
+                cmd, time.perf_counter())
+
+    def _finish_launcher(self, proc, cmd, t0) -> None:
+        out, err = proc.communicate(timeout=300)
+        last = (out.strip().splitlines() or [""])[-1]
+        self.say(f"LM training (e) {' '.join(cmd[1:])}: exit "
+                 f"{proc.returncode} {time.perf_counter() - t0:.1f} s after "
+                 f"its start: {last}")
+        if proc.returncode != 0 or not last.startswith("[train] done: 3"):
+            raise AssertionError(f"LM training launcher: {err[-2000:]}")
+
+    def train_phase(self, arch: str = "h2o_danube_1_8b", layers: int = 2,
+                    parity=(512, 2, 1), full=(4096, 4, 2)):
+        """(a)-(e) of the LM training path; ``parity`` and ``full`` are
+        (sequence, global batch, microbatch)."""
+        import dataclasses
+        from repro_torch.configs.base import get_model_config
+        published = get_model_config(arch)
+        narrow = dataclasses.replace(published, num_layers=layers,
+                                     dtype="float32")
+        out, took = {}, {}
+        t0 = time.perf_counter()
+        proc, cmd, t_start = self._start_launcher()
+        try:
+            out["parity"] = self.train_parity(narrow, *parity)
+            self._finish_launcher(proc, cmd, t_start)
+        finally:
+            if proc.poll() is None:          # a failure above: stop it
+                proc.kill()
+                proc.wait()
+        took["parity_and_launcher"] = time.perf_counter() - t0
+        for name, run in (("full_width", lambda: self.train_full_width(
+                published, *full)), ("resume", lambda: self.train_resume(
+                    narrow, *parity))):
+            t0 = time.perf_counter()
+            out[name] = run()
+            took[name] = time.perf_counter() - t0
+        self.say(f"LM training parts took (s): {took!r}")
+        return out
+
     # -- phase 11 ------------------------------------------------------------
 
     def _row(self, name, shape, dtype, ms, plain_ms, lib_ms, bytes_moved,
@@ -2020,14 +2381,6 @@ class Smoke:
         return self._row("dwconv1d", [B, S, C, k], "bfloat16", ms, plain_ms,
                          lib_ms, nbytes, 2 * k * x.numel(),
                          self.peak_ops["bfloat16"])
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def ptxas_report(smoke, libs) -> None:
@@ -2151,6 +2504,9 @@ def main() -> int:
                   f"forward ({ms[True]!r} ms)")
     smoke.say(f"timing phase (swattn, dwconv1d) took "
               f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    training = smoke.train_phase()
+    smoke.say(f"LM training phase took {time.perf_counter() - t0:.1f} s")
 
     main_row = rows["w5f32"]
     sw = sw_rows["bfloat16"]
@@ -2170,6 +2526,8 @@ def main() -> int:
         "name": "swattn", "route": "cuda", "source": SWATTN_SOURCE,
         "replaces": SWATTN_REPLACES, "launches": sw_launches + serve_sw,
         "launches_lm_forward": sw_launches, "launches_lm_serving": serve_sw,
+        "launches_lm_training": training["full_width"]["launches_per_step"],
+        "lm_training": training,
         "max_abs_err": max(sw_err, sw_rows["bfloat16"]["max_abs_err"],
                            sw_prefill["bfloat16"]["max_abs_err"],
                            sw_rows["float32"]["max_abs_err"]),
@@ -2185,7 +2543,9 @@ def main() -> int:
         "max_abs_err": 0.0, "ms": dw_row["ms"],       # bit-exact
         "plain_ms": dw_row["plain_ms"], "bound_ms": dw_row["bound_ms"],
         "bound_by": dw_row["bound_by"], "library_ms": dw_row["library_ms"],
-        "shape": dw_row["shape"], "dtype": dw_row["dtype"], "card": card}]}
+        "shape": dw_row["shape"], "dtype": dw_row["dtype"],
+        "launches_lm_training": training["full_width"]["launches_per_step"],
+        "card": card}]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

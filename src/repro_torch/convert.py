@@ -6,9 +6,10 @@ imports the reference) plus its coefficients and gains as numpy, and
 returns the port's spec, coefficient tensor and [N, 2] gains table.
 ``params_from_reference`` takes a model's parameter tree as numpy and
 returns the port's, ``caches_from_reference`` the reference's decode
-caches, and ``caches_to_numpy`` hands the port's caches back as numpy.
-Either way the two packages can be run on the same state and their
-results compared.
+caches and ``opt_state_from_reference`` its AdamW state;
+``params_to_numpy``, ``caches_to_numpy`` and ``opt_state_to_numpy`` hand
+the port's back as numpy. Either way the two packages can be run on the
+same state and their results compared.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from repro_torch.core.border_spec import BorderSpec
 from repro_torch.core.pipeline import Filter2D
 from repro_torch.core.requant import RequantSpec
 from repro_torch.device import resolve_device
+from repro_torch.models.module import tree_map
+from repro_torch.optim.adamw import AdamWState
 
 
 def from_reference(spec_fields: dict, coeffs, gains=None
@@ -111,20 +114,46 @@ def caches_from_reference(caches: List[Any], device="cuda") -> List[Any]:
     return _tree_to_torch(caches, resolve_device(device))
 
 
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's parameters as numpy, in the reference's tree. numpy has
+    no bfloat16, so bfloat16 leaves come back as float32 (exact)."""
+    return _tree_to_numpy(params)
+
+
 def caches_to_numpy(caches: List[Any]) -> List[Any]:
-    """The port's caches as numpy, in the reference's tree. numpy has no
-    bfloat16, so bfloat16 leaves come back as float32 (exact)."""
-    if isinstance(caches, (list, tuple)):
-        return [caches_to_numpy(c) for c in caches]
-    if isinstance(caches, dict):
-        return {k: caches_to_numpy(v) for k, v in caches.items()}
-    t = caches.detach().cpu()
+    """The port's caches as numpy, in the reference's tree (bfloat16
+    leaves as float32)."""
+    return _tree_to_numpy(caches)
+
+
+def opt_state_from_reference(state, device="cuda") -> AdamWState:
+    """The port's AdamW state for the reference's ``AdamWState(step, m,
+    v)`` as numpy (``jax.tree.map(np.asarray, state)``, or any triple in
+    that order): the step a 0-d int32 tensor on the host, m and v trees
+    on ``device`` (the card unless the caller passes ``device='cpu'``)."""
+    step, m, v = state
+    dev = resolve_device(device)
+    return AdamWState(step=torch.tensor(int(np.asarray(step)),
+                                        dtype=torch.int32),
+                      m=_tree_to_torch(m, dev), v=_tree_to_torch(v, dev))
+
+
+def opt_state_to_numpy(state: AdamWState) -> AdamWState:
+    """The port's AdamW state as numpy: the step an int32 0-d array, m
+    and v trees of arrays (the reference's ``AdamWState(*...)`` takes
+    it)."""
+    return AdamWState(step=np.asarray(int(state.step), np.int32),
+                      m=_tree_to_numpy(state.m), v=_tree_to_numpy(state.v))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _tree_to_torch(node, dev: torch.device):
-    if isinstance(node, (list, tuple)):
-        return [_tree_to_torch(v, dev) for v in node]
-    if isinstance(node, dict):
-        return {k: _tree_to_torch(v, dev) for k, v in node.items()}
-    return _tensor(node).to(dev)
+def _tree_to_numpy(tree):
+    return tree_map(_to_numpy, tree)
+
+
+def _tree_to_torch(tree, dev: torch.device):
+    return tree_map(lambda a: _tensor(a).to(dev), tree)

@@ -98,7 +98,7 @@ def filter_window(ext: torch.Tensor, co: torch.Tensor, q, plan,
 
 def strip_plans(H: int, W: int, w: int, border: BorderSpec, strip_h: int, *,
                 dtype: str, requant: Optional[RequantSpec] = None,
-                device="cpu"):
+                device):
     """The kernel plan and planned gathers of one strip scan, built once
     at compile time: ``(n_strips, plan, idx)``. Two or more strips share
     one :func:`window_plan`, and ``idx`` holds :func:`window_index` on

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.dwconv1d import _build
 from repro_torch.kernels.dwconv1d.ref import dwconv1d_ref
 
@@ -60,8 +61,10 @@ def dwconv1d(x: torch.Tensor, w: torch.Tensor,
 
     A CUDA tensor launches the kernel on ``torch.cuda.current_stream()``
     (the call returns before the card finishes); a CPU tensor runs
-    :func:`dwconv1d_ref`.
+    :func:`dwconv1d_ref`. On either device, an input that needs a gradient
+    raises ``NotImplementedError``: there is no backward kernel.
     """
+    refuse_grad("dwconv1d", x, w, b)
     if x.device.type == "cpu":
         return dwconv1d_ref(x, w, b)
     if x.device.type != "cuda":

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.swattn import _build
 from repro_torch.kernels.swattn.ref import swattn_ref
 
@@ -75,8 +76,10 @@ def swattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     A CUDA tensor launches the kernel on ``torch.cuda.current_stream()``
     (the call returns before the card finishes); a CPU tensor runs
-    :func:`swattn_ref`.
+    :func:`swattn_ref`. On either device, an input that needs a gradient
+    raises ``NotImplementedError``: there is no backward kernel.
     """
+    refuse_grad("swattn", q, k, v)
     if q.device.type == "cpu":
         return swattn_ref(q, k, v, window=window, scale=scale)
     if q.device.type != "cuda":

@@ -152,7 +152,7 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 
 
 def init_cache(batch: int, cache_len: int, num_kv: int, head_dim: int,
-               dtype: torch.dtype = torch.bfloat16, device="cpu"):
+               dtype: torch.dtype = torch.bfloat16, *, device):
     """An empty cache: every slot's position is PAD. int8 adds the
     float32 per-(position, head) scales."""
     shape = (batch, cache_len, num_kv, head_dim)

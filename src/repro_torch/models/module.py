@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -47,6 +47,31 @@ def tree_paths(tree: Dict, prefix: Tuple[str, ...] = ()
         else:
             out[prefix + (k,)] = v
     return out
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of a tree of dicts, lists and tuples (named tuples
+    included), in order: dicts by insertion, as the trees built from one
+    spec tree share. ``None`` is an empty subtree."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of the
+    trees in ``rest``), the structure kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        seq = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return type(tree)(*seq) if hasattr(tree, "_fields") \
+            else type(tree)(seq)
+    return None if tree is None else fn(tree, *rest)
 
 
 def map_specs(fn: Callable[[ParamSpec], Any], tree):

@@ -5,15 +5,16 @@ reference's ``models/registry.py``.
 
   init_params(generator, dtype)        -> params (on the bundle's device)
   train_forward(params, batch)         -> (logits, aux_loss)
+  loss_fn(params, batch, ...)          -> (loss, (aux_loss, denom))
   prefill(params, batch)               -> (last_logits, caches)
   decode_step(params, inp, caches, cur) -> (logits, caches)
   cache_init(batch, seq_len)           -> empty caches
 
 for the decoder-LM families whose layer kinds are ported (``dense`` and
 ``hymba``; hymba-style meta tokens included). ``cache_init`` is the
-concrete twin of the reference's ``cache_abstract``. The loss, the
-abstract cache and its logical axes, ``input_specs`` and the other
-families wait for later slices. The reference has no generation loop, and
+concrete twin of the reference's ``cache_abstract``. The abstract cache
+and its logical axes, ``input_specs`` and the other families wait for
+later slices. The reference has no generation loop, and
 neither has the port: a caller runs ``decode_step`` once per token.
 """
 from __future__ import annotations
@@ -29,6 +30,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import module as mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed, lm_head, unembed
+from repro_torch.training.loss import chunked_ce_from_hidden
 
 META = "meta_tokens"
 
@@ -40,6 +42,7 @@ class ModelBundle:
     device: torch.device
     init_params: Callable       # (generator, dtype) -> params
     train_forward: Callable     # (params, batch) -> (logits, aux)
+    loss_fn: Callable           # (params, batch, ...) -> (loss, (aux, denom))
     prefill: Callable           # (params, batch) -> (last logits, caches)
     decode_step: Callable       # (params, inp, caches, cur) -> (logits, caches)
     cache_init: Callable        # (batch, seq_len) -> caches
@@ -81,19 +84,48 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
             inputs, positions = _with_meta(params, x, positions)
         return inputs, positions
 
-    def train_forward(params, batch):
+    def _no_aux():
+        # the dense and hymba kinds add no auxiliary loss (moe would)
+        return torch.zeros((), dtype=torch.float32, device=device)
+
+    def train_forward(params, batch, remat_policy: str = "none"):
         """The cache-less forward: [B,S] tokens (or [B,S,D] embeddings)
         in ``batch['inputs']`` -> ([B,S,V] logits, aux loss 0)."""
         inputs, positions = _prompt(params, batch)
-        logits, _ = tfm.forward(params, inputs, positions, mc)
+        logits, _ = tfm.forward(params, inputs, positions, mc,
+                                remat_policy=remat_policy)
         if M:
             logits = logits[:, M:]
-        return logits, torch.zeros((), dtype=torch.float32, device=device)
+        return logits, _no_aux()
+
+    def loss_fn(params, batch, remat_policy: str = "none",
+                loss_chunk: int = 2048, z_loss: float = 0.0,
+                aux_weight: float = 0.01):
+        """Mean next-token CE of ``batch['labels']`` [B,S] (``IGNORE``
+        skipped) from the cache-less forward of ``batch['inputs']``, the
+        head projected per ``loss_chunk`` positions, the meta tokens'
+        hidden states dropped first. Returns (loss + aux_weight · aux,
+        (aux, the count of labels))."""
+        inputs, positions = _prompt(params, batch)
+        hidden, _ = tfm.forward(params, inputs, positions, mc,
+                                remat_policy=remat_policy, logits=False)
+        if M:
+            hidden = hidden[:, M:]
+        if mc.tie_embeddings:
+            head_w, tr = params["embed"]["table"], True
+        else:
+            head_w, tr = params["head"]["w"], False
+        labels = torch.as_tensor(batch["labels"], device=device)
+        loss, denom = chunked_ce_from_hidden(
+            hidden, head_w, labels, chunk=loss_chunk, z_loss=z_loss,
+            transpose_head=tr)
+        aux = _no_aux()
+        return loss + aux_weight * aux, (aux, denom)
 
     def cache_init(batch: int, seq_len: int):
         """Empty caches for ``batch`` streams of up to ``seq_len`` tokens
         (the meta tokens' slots added)."""
-        return tfm.cache_init(mc, batch, seq_len + M, device)
+        return tfm.cache_init(mc, batch, seq_len + M, device=device)
 
     def prefill(params, batch):
         """The prompt ([B,S] tokens or [B,S,D] embeddings) into fresh
@@ -124,8 +156,8 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
 
     return ModelBundle(cfg=rc, specs=specs, device=device,
                        init_params=init_params, train_forward=train_forward,
-                       prefill=prefill, decode_step=decode_step,
-                       cache_init=cache_init)
+                       loss_fn=loss_fn, prefill=prefill,
+                       decode_step=decode_step, cache_init=cache_init)
 
 
 def build(rc: RunConfig, device="cuda") -> ModelBundle:

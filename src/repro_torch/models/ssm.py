@@ -180,7 +180,7 @@ def _conv_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def mamba_state_init(cfg, batch: int, device="cpu"):
+def mamba_state_init(cfg, batch: int, *, device):
     """A zero streaming state: the conv's last k-1 inputs and the ssm
     carry."""
     d_in = cfg.ssm_expand * cfg.d_model

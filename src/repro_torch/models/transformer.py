@@ -4,7 +4,11 @@
 Layers are grouped into *stages* — maximal runs of contiguous layers with
 identical (kind, attention window). Each stage's parameters are stacked on
 a leading ``layers`` axis; where the reference scans over that axis with
-``jax.lax.scan``, the port loops over it. Each stage owns a cache of the
+``jax.lax.scan``, the port loops over it, the stack unbound once per
+stage (so backward stacks the layers' gradients once), each cache-less
+layer under the reference's remat policy (``_remat``: plain
+``torch.utils.checkpoint`` for ``jax.checkpoint``, selective checkpointing
+for its dots policies). Each stage owns a cache of the
 length its window needs (a local stage's ring holds only the live window).
 This slice runs the ``dense`` kind (attention + gated MLP) and the
 ``hymba`` kind (attention ∥ mamba, then the MLP), with or without caches;
@@ -16,7 +20,9 @@ reference's gate also requires no cache, so its prefill runs plain
 ``attend``; here the gate admits a prefill chunk too (more than one query
 with a cache), because a chunk's positions are cur + arange(S), whose
 banded causal attention within the chunk is what ``swattn`` computes.
-That is a difference of dispatch, not of result. Decode never runs it.
+That is a difference of dispatch, not of result. Decode never runs it,
+and neither does training: the kernel has no backward and refuses a
+gradient, as the reference's does.
 
 The caches are written in place: ``forward`` stores each layer's new keys
 and state into its slice of the stage's stacked tensors and returns the
@@ -30,6 +36,9 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.swattn import swattn_cuda
@@ -161,7 +170,7 @@ def cache_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def stage_cache_init(cfg: ModelConfig, st: Stage, batch: int, seq_len: int,
-                     device="cpu"):
+                     *, device):
     """A stage's streaming state, each leaf stacked over the stage's
     layers on axis 0: the KV cache (``dense``), or ``{'attn': KV cache,
     'mamba': conv and ssm state}`` (``hymba``)."""
@@ -172,16 +181,18 @@ def stage_cache_init(cfg: ModelConfig, st: Stage, batch: int, seq_len: int,
         # reserved sink slots: meta tokens never evicted by the ring
         cl = min(cl + cfg.num_meta_tokens, seq_len)
     tree = attn.init_cache(batch, cl, cfg.num_kv_heads,
-                           cfg.resolved_head_dim(), cache_dtype(cfg), device)
+                           cfg.resolved_head_dim(), cache_dtype(cfg),
+                           device=device)
     if st.kind == "hymba":
         tree = {"attn": tree,
-                "mamba": ssm_mod.mamba_state_init(cfg, batch, device)}
+                "mamba": ssm_mod.mamba_state_init(cfg, batch,
+                                                  device=device)}
     return _stack(tree, st.count)
 
 
-def cache_init(cfg: ModelConfig, batch: int, seq_len: int, device="cpu"):
+def cache_init(cfg: ModelConfig, batch: int, seq_len: int, *, device):
     """One stacked cache tree per stage (``seq_len`` counts meta tokens)."""
-    return [stage_cache_init(cfg, st, batch, seq_len, device)
+    return [stage_cache_init(cfg, st, batch, seq_len, device=device)
             for st in make_stages(cfg)]
 
 
@@ -279,16 +290,18 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
             cfg: ModelConfig, *, caches=None, cur: Optional[int] = None,
-            logits: bool = True):
+            remat_policy: str = "none", logits: bool = True):
     """Run the decoder stack.
 
     inputs: [B,S] int tokens, or [B,S,D] embeddings (embeddings_in archs).
     positions: [B,S] absolute positions. caches: one tree per stage (from
     ``cache_init``) or None; cur: the absolute position of the chunk's
     first token (prefill 0, decode the position), a Python int, so the
-    slots are worked out on the host with no device sync. Returns
-    (logits [B,S,V], or the final hidden states [B,S,D] with
-    ``logits=False``; the caches, written in place, or None).
+    slots are worked out on the host with no device sync.
+    ``remat_policy`` (cache-less only, as in the reference): what backward
+    recomputes of each layer (:func:`_remat`). Returns (logits [B,S,V],
+    or the final hidden states [B,S,D] with ``logits=False``; the caches,
+    written in place, or None).
     """
     dtype = model_dtype(cfg)
     if inputs.ndim == 2:
@@ -305,9 +318,16 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
         sp = params[f"stage_{i}"]
         ctx = {"cos_sin": cos_sin, "q_pos": positions, "window": st.window,
                "cur": cur, "sinks": cfg.num_meta_tokens}
-        for layer in range(st.count):
-            x = block(_layer(sp, layer), x, ctx, cfg,
-                      None if caches is None else _layer(caches[i], layer))
+        # one unbind per stage: backward stacks the layers' gradients once
+        # (indexing each layer would add a zero-filled stack per layer)
+        layer_params = _unstack(sp, st.count)
+        if caches is None:
+            run = _remat(block, remat_policy)
+            for lp in layer_params:
+                x = run(lp, x, ctx, cfg)
+        else:
+            for layer, lp in enumerate(layer_params):
+                x = block(lp, x, ctx, cfg, _layer(caches[i], layer))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits:
         x = (unembed(x, params["embed"]) if cfg.tie_embeddings
@@ -315,9 +335,59 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
     return x, caches
 
 
+def hidden_forward(params, inputs, positions, cfg, **kw):
+    return forward(params, inputs, positions, cfg, logits=False, **kw)
+
+
 def _layer(tree, i: int):
-    """Layer ``i`` of a stage's stacked params or cache (views, no copy:
-    writes to a cache's layer land in the stacked tensors)."""
+    """Layer ``i`` of a stage's stacked cache (views, no copy: writes to
+    a cache's layer land in the stacked tensors)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, n: int) -> List[Dict[str, Any]]:
+    """A stage's stacked params as ``n`` per-layer trees, one
+    ``torch.unbind`` per leaf."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+# what each policy saves of a layer for backward; the rest is recomputed
+_SAVED_OPS = {"dots": ("mm", "bmm", "addmm"),
+              "dots_with_no_batch": ("mm", "addmm")}
+
+
+def _remat(block, policy: str):
+    """``block`` with the reference's rematerialisation policy:
+    ``'none'`` saves what autograd saves; ``'full'`` saves only the
+    layer's input and recomputes the layer in backward (the reference's
+    ``jax.checkpoint``); ``'dots'`` saves the outputs of the matrix
+    products (``aten.mm``, ``bmm``, ``addmm``) and recomputes the rest,
+    ``'dots_with_no_batch'`` those of ``mm`` and ``addmm`` only (its
+    ``checkpoint_dots`` and ``checkpoint_dots_with_no_batch_dims``).
+    The blocks draw no random numbers, so no RNG state is kept."""
+    if policy == "none":
+        return block
+    if policy == "full":
+        context_fn = noop_context_fn
+    elif policy in _SAVED_OPS:
+        saved = tuple(getattr(torch.ops.aten, op).default
+                      for op in _SAVED_OPS[policy])
+
+        def keep(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in saved
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        def context_fn():
+            return create_selective_checkpoint_contexts(keep)
+    else:
+        raise ValueError(policy)
+
+    def run(lp, x, ctx, cfg):
+        return checkpoint(block, lp, x, ctx, cfg, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=context_fn)
+    return run

@@ -100,7 +100,7 @@ def test_write_cache_matches_reference(case, sinks, int8, rng):
     dt = "int8" if int8 else "float32"
     L = WIN + sinks
     ref = r_attn.init_cache(B, L, KV, HD, jnp.dtype(dt))
-    got = attn.init_cache(B, L, KV, HD, getattr(torch, dt))
+    got = attn.init_cache(B, L, KV, HD, getattr(torch, dt), device="cpu")
     _assert_tree(caches_to_numpy(got), ref, what="init")
     for cur, n in _writes(case, sinks):
         k, v = _kv(rng, n)
@@ -134,7 +134,7 @@ def test_wrapping_chunk_refused_where_the_reference_clamps(sinks, rng):
                              pos_new=jnp.asarray(pos), sinks=sinks)
     np.testing.assert_array_equal(np.asarray(ref["pos"])[L - n:], pos)
     assert attn.ring_slot(cur, L, sinks) != L - n     # the clamp moved it
-    cache = attn.init_cache(B, L, KV, HD, torch.float32)
+    cache = attn.init_cache(B, L, KV, HD, torch.float32, device="cpu")
     with pytest.raises(ValueError, match="wrap"):
         attn.write_cache(cache, torch.from_numpy(k), torch.from_numpy(v),
                          cur, pos_new=torch.from_numpy(pos), sinks=sinks)
@@ -239,7 +239,7 @@ def test_mamba_block_streams_like_the_reference(rng):
     single steps through ssd_step, the state carried by both."""
     rmc, mc, rparams, params = _mamba()
     rstate = jax.tree.map(np.asarray, r_ssm.mamba_state_init(rmc, 2))
-    state = ssm.mamba_state_init(mc, 2)
+    state = ssm.mamba_state_init(mc, 2, device="cpu")
     _assert_tree(caches_to_numpy(state), rstate, what="init")
     for n in (16, 1, 1, 1):
         x = rng.standard_normal((2, n, mc.d_model)).astype(np.float32)
@@ -266,7 +266,7 @@ def test_cache_init_trees_equal_reference(arch, dtype, kv):
     mc = dataclasses.replace(tiny_of(arch), dtype=dtype, kv_cache_dtype=kv)
     seq = 40                       # past hymba's ring of 8 + 4 sinks
     ref = jax.tree.map(np.asarray, r_tfm.cache_init(rmc, 2, seq))
-    got = transformer.cache_init(mc, 2, seq)
+    got = transformer.cache_init(mc, 2, seq, device="cpu")
     assert len(got) == len(ref) == len(transformer.make_stages(mc))
     _assert_tree(caches_to_numpy(got), ref, what=arch)
     want_dt = {"int8": torch.int8, "": getattr(torch, dtype)}[kv]

@@ -521,3 +521,93 @@ def _flat(tree, prefix=()):
             yield from _flat(v, prefix + (k,))
     else:
         yield prefix, tree
+
+
+# -- the training slice: a step on the card, the kernels' refusal -----------
+
+
+@pytest.mark.parametrize("microbatch", [0, 2])
+@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "hymba_1_5b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch, microbatch):
+    """Two float32 train steps (TF32 off) on the card against the same
+    steps on the CPU (which tests/test_torch_train.py holds against the
+    reference): the loss and the gradient norm within relative 1e-5, the
+    clipped gradients and the parameters within relative L2 1e-4 (the CPU
+    suite's bar against the reference: hymba's SSD sums read 1.3e-5 on an
+    H100); no kernel launched (the config's gate is off, as the reference
+    trains)."""
+    import dataclasses
+    from repro_torch.configs.base import SHAPES, RunConfig, TrainConfig
+    from repro_torch.configs.tiny import tiny_of
+    from repro_torch.data import make_train_batch
+    from repro_torch.kernels.dwconv1d import kernel as DW
+    from repro_torch.kernels.swattn import kernel as SW
+    from repro_torch.models import registry
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rc = RunConfig(model=tiny_of(arch), shape=dataclasses.replace(
+        SHAPES["train_4k"], seq_len=64, global_batch=4),
+        train=TrainConfig(microbatch=microbatch, warmup_steps=2))
+    params0 = registry.build(rc, device="cpu").init_params(
+        torch.Generator().manual_seed(5))
+
+    def run(dev):
+        """Two steps from a copy of params0 on ``dev``: (metrics, the
+        parameters, the last step's clipped gradients), on the host."""
+        b = registry.build(rc, device=dev)
+        params = _copy(params0, dev)
+        opt = adamw_init(params)
+        step = make_train_step(b, rc)
+        before = SW.swattn.launches, DW.dwconv1d.launches
+        metrics = []
+        for i in range(2):
+            params, opt, m = step(params, opt, make_train_batch(rc, i, dev))
+            metrics.append({k: float(v) for k, v in m.items()})
+        assert (SW.swattn.launches, DW.dwconv1d.launches) == before
+        leaves = tree_leaves(params)
+        return (metrics, [p.cpu() for p in leaves],
+                [p.grad.cpu() for p in leaves])
+
+    def rel(a, b):
+        num = sum(float((x.double() - y.double()).square().sum())
+                  for x, y in zip(a, b))
+        return (num / sum(float(y.double().square().sum()) for y in b)) ** .5
+    want_m, want_p, want_g = run("cpu")
+    got_m, got_p, got_g = run(cuda)
+    for g, w in zip(got_m, want_m):
+        for k in ("loss", "grad_norm"):
+            assert g[k] == pytest.approx(w[k], rel=1e-5), k
+    assert rel(got_g, want_g) <= 1e-4
+    assert rel(got_p, want_p) <= 1e-4
+
+
+def _copy(tree, device):
+    """A copy of a parameter tree on ``device`` (a CPU tree's ``.to('cpu')``
+    would be the same tensors, which the step updates in place)."""
+    if isinstance(tree, dict):
+        return {k: _copy(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def test_kernels_refuse_a_gradient_on_the_card(cuda, rng):
+    from repro_torch.kernels.dwconv1d import dwconv1d_cuda
+    from repro_torch.kernels.dwconv1d import kernel as DW
+    from repro_torch.kernels.swattn import kernel as SW
+    from repro_torch.kernels.swattn import swattn_cuda
+    q = torch.randn(1, 64, 4, 64, device=cuda, requires_grad=True)
+    kv = torch.randn(1, 64, 1, 64, device=cuda)
+    x = torch.randn(2, 64, 32, device=cuda, requires_grad=True)
+    w, b = torch.randn(32, 4, device=cuda), torch.zeros(32, device=cuda)
+    before = SW.swattn.launches, DW.dwconv1d.launches
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        swattn_cuda(q, kv, kv, window=16)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        dwconv1d_cuda(x, w, b)
+    assert (SW.swattn.launches, DW.dwconv1d.launches) == before
+    with torch.no_grad():                     # no gradient asked: launches
+        swattn_cuda(q, kv, kv, window=16)
+        dwconv1d_cuda(x, w, b)
+    assert (SW.swattn.launches, DW.dwconv1d.launches) == (before[0] + 1,
+                                                          before[1] + 1)

@@ -31,6 +31,10 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.kernels.dwconv1d\n"
             "import repro_torch.configs, repro_torch.configs.tiny\n"
             "import repro_torch.models.registry, repro_torch.models.ssm\n"
+            "import repro_torch.training, repro_torch.optim, "
+            "repro_torch.checkpoint, repro_torch.data, repro_torch.runtime, "
+            "repro_torch.launch.train, repro_torch.launch.serve, "
+            "repro_torch.training.trainer\n"
             "sys.path.insert(0, sys.argv[1]); import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
@@ -98,6 +102,35 @@ def test_cuda_without_a_card_raises():
                                  shape=SHAPES["train_4k"]))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_reference({"w": table})
+
+
+def _state_helpers():
+    from repro_torch.configs.tiny import tiny_of
+    from repro_torch.core.border_spec import BorderSpec
+    from repro_torch.core.streaming import strip_plans
+    from repro_torch.models import attention, ssm, transformer
+    mc = tiny_of("hymba_1_5b")
+    st = transformer.make_stages(mc)[0]
+    return {
+        "init_cache": lambda **kw: attention.init_cache(1, 4, 2, 16, **kw),
+        "stage_cache_init": lambda **kw: transformer.stage_cache_init(
+            mc, st, 1, 8, **kw),
+        "cache_init": lambda **kw: transformer.cache_init(mc, 1, 8, **kw),
+        "mamba_state_init": lambda **kw: ssm.mamba_state_init(mc, 1, **kw),
+        "strip_plans": lambda **kw: strip_plans(
+            16, 8, 3, BorderSpec("mirror"), 4, dtype="float32", **kw)}
+
+
+@pytest.mark.parametrize("name", ["init_cache", "stage_cache_init",
+                                  "cache_init", "mamba_state_init",
+                                  "strip_plans"])
+def test_state_helpers_take_no_default_device(name):
+    """A caller who forgets the device gets a TypeError, not state on the
+    host."""
+    make = _state_helpers()[name]
+    with pytest.raises(TypeError, match="device"):
+        make()
+    assert make(device="cpu") is not None
 
 
 def test_kernel_wrapper_routes_by_device_only():
