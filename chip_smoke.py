@@ -94,7 +94,7 @@ Phases, in order; any failure exits non-zero:
                 BK+1, 300, S+7} with BK the dtype's key tile as the
                 built library reports it (``tile_keys``), H/KV 32/8, 8/8
                 and 4/1, hd 16 / 64 / 80 /
-                128, B = 3. float32 within
+                128 / 256, B = 3. float32 within
                 rtol=atol=3e-4; bfloat16 within 3e-2 (p is rounded to
                 bfloat16 before the PV product).
   8. dwconv1d — the causal depthwise conv kernel against its plain version
@@ -147,7 +147,10 @@ Phases, in order; any failure exits non-zero:
                 (median, p90), tokens/s, cache bytes and a profile of one
                 decode step.
  11. timing   — both new kernels at their path's shapes (``swattn`` also
-                at the serving prefill's [4,6144], bf16), first held
+                at the serving prefill's [4,6144], bf16, and at phase
+                13's prefill shapes in both dtypes: [2,4096,32/4,128]
+                W 0, [2,6144,32/8,128] W 4096, [2,4096,8/4,256] W 1024
+                and W 0), first held
                 against their plain versions there (``swattn`` float32
                 within 3e-4, bfloat16 within rtol=atol=1e-2 and relative
                 L2 1e-2; ``dwconv1d`` bit-exact), then timed with CUDA
@@ -155,7 +158,7 @@ Phases, in order; any failure exits non-zero:
                 yardstick the port never calls (SDPA with a band mask and
                 GQA, float32 with TF32 off; ``F.conv1d`` with groups=C on
                 a pre-padded input). The bfloat16 ``swattn`` must beat
-                SDPA.
+                SDPA at every shape.
  12. LM training — ``make_train_step`` / ``train_loop`` of h2o-danube-1.8b,
                 the config's gate off (plain attention, as the reference
                 trains; the kernels refuse a gradient). (a) 2 layers at full
@@ -180,9 +183,40 @@ Phases, in order; any failure exits non-zero:
                 setup of (a)). (e) ``python -m repro_torch.launch.train
                 --arch h2o_danube_1_8b --tiny --steps 3`` exits 0 (a
                 subprocess beside (a) and (b)).
+ 13. LM kinds — the moe kind, M-RoPE and hd 256 at full width, weights
+                drawn in bf16 from seeded generators with the kernel
+                gate on; the experts' weights scaled to their own
+                fan-in (at the spec's std their output is about 1e-6
+                and no check could see them). (a) ``_serve_model``'s
+                checks and controls (plus one: the top-k weights not
+                renormalised) for qwen3-moe-30b-a3b (4 of 48 layers,
+                2 x 2048 + 16 steps) and mixtral-8x7b (4 of 32 layers,
+                2 x 6144 + 32 steps: past its 4096 window) at the
+                capacity factor E / k, where nothing drops. (b)
+                qwen3-moe-30b-a3b as published: 48 layers, capacity
+                factor 1.25, 61.1 GB of bf16 weights (init peak under
+                70 GB); the gated 2 x 4096 prefill's last logits
+                against the plain one (relative L2 within
+                ``LM_TOL``; the attention zeroed must fail it)
+                with the routing choices that differ between the two
+                counted per layer; 32 greedy steps (median, p90,
+                tokens/s beside the step's bytes bound), the drops, the
+                cache bytes, peak memory, a profile of one step. (c)
+                gemma3-4b as published through ``_serve_model``
+                (2 x 4096 + 32: 34 ``swattn`` launches at hd 256 per
+                prefill, local W 1024 and global). (d) qwen2-vl-7b
+                ([1,4096,3584] float32 embeddings, M-RoPE) and
+                codeqwen1.5-7b at 2 layers: ``train_forward`` with the
+                gate on against off, float32 (TF32 off) and bf16, the
+                attention zeroed as the control. (e) a moe train step,
+                qwen3-moe-30b-a3b at 1 layer, float32 [2, 256], two
+                microbatches, on the card against the CPU (loss, aux,
+                gradients and parameters within 1e-5; controls: the aux
+                dropped from the total, one microbatch only); no kernel
+                launch. Each part runs; a failure is raised at the end.
 
 Every main path (serving, the streaming and xla engines, the ring, LM,
-mamba, LM serving) runs
+mamba, LM serving, LM kinds) runs
 with the three launch counts set to 0 just before it and read just after.
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -239,6 +273,16 @@ MAIN_TOL = {"float32": (3e-4, 3e-4), "bfloat16": (1e-2, 1e-2)}
 # labels unshifted and 1.0 with one microbatch of two; 0.1 sits about
 # 4.6x from the sound reading and from the nearer fault.
 TRAIN_F32_TOL = 1e-5
+# Phase 13's experts at EXPERT_GAIN x the std the stage's dense MLP would
+# get (``Smoke._scale_experts``). Read on an H100 (dev runs): at 4 layers
+# 0.6 holds qwen3-moe's decode 0.0095 past its forward, its
+# unrenormalised-weights control at 0.076; 0.4 leaves that control at
+# 0.019, under LM_TOL, and 1.0 makes the bf16 routes diverge (qwen3's
+# decode 0.15 past its forward, mixtral's 0.32). At 48 layers 1.0 keeps
+# qwen3's gated prefill 0.013 from the plain one, 1.7 reads 0.128, and
+# the experts at their own fan-in (6.9) 1.10, every token's top 8
+# differing by layer 20.
+EXPERT_GAIN = 0.6
 TRAIN_REMAT_TOL = 1e-6
 TRAIN_BF16_TOL = 0.1
 
@@ -1393,7 +1437,7 @@ class Smoke:
             for dt in ("float32", "bfloat16"):
                 bk = SW.tile_keys(getattr(torch, dt))
                 for H, KV in ((32, 8), (8, 8), (4, 1)):
-                    for hd in (16, 64, 80, 128):
+                    for hd in (16, 64, 80, 128, 256):
                         for S in (1, 63, 64, 65, 127, 128, 129, 191,
                                   192, 193, 1000):
                             q = torch.from_numpy(rng.standard_normal(
@@ -1741,12 +1785,14 @@ class Smoke:
                 (min(gap), max(gap)) if gap else None)
 
     def _serving_controls(self, bundle, params, prompt, fed, oracle, truth,
-                          steps: int) -> None:
+                          steps: int, faults=None) -> None:
         """The decode check must fail a decode with the cache write skipped
-        (``write_cache`` returns its input) and one with the ring slot off
-        by one, fed the sound run's tokens for ``steps`` steps."""
+        (``write_cache`` returns its input), one with the ring slot off
+        by one, and one under each of ``faults`` ({label: (module,
+        attribute, replacement)}), fed the sound run's tokens for
+        ``steps`` steps."""
         from repro_torch.models import attention
-        real_write, real_slot = attention.write_cache, attention.ring_slot
+        real_slot = attention.ring_slot
 
         def skipped(cache, *args, **kw):
             return cache
@@ -1756,21 +1802,22 @@ class Smoke:
                 return p
             return sinks + (real_slot(p, cache_len, sinks) - sinks + 1) % (
                 cache_len - sinks)
-        faults = {"cache write skipped": ("write_cache", skipped),
-                  "ring slot off by one": ("ring_slot", off_by_one)}
-        real = {"write_cache": real_write, "ring_slot": real_slot}
+        faults = {"cache write skipped": (attention, "write_cache", skipped),
+                  "ring slot off by one": (attention, "ring_slot",
+                                           off_by_one), **(faults or {})}
         P = prompt.shape[1]
         M = bundle.cfg.model.num_meta_tokens
         name = bundle.cfg.model.name
         passed = []
         with saved_counts():
-            for label, (attr, fault) in faults.items():
-                setattr(attention, attr, fault)
+            for label, (module, attr, fault) in faults.items():
+                real = getattr(module, attr)
+                setattr(module, attr, fault)
                 try:
                     rows, *_, caches, _ = self._serve(
                         bundle, params, prompt, steps, feed=fed[:, :steps])
                 finally:
-                    setattr(attention, attr, real[attr])
+                    setattr(module, attr, real)
                 worst, worst_l2, _, fails, _ = self._decode_check(
                     rows, oracle[:steps + 1], truth[:steps + 1])
                 bad = self._ring_layout(bundle, caches, P + M + steps - 1)
@@ -1793,23 +1840,28 @@ class Smoke:
         return sum(t.numel() * t.element_size() for t in tree_leaves(caches))
 
     def _serve_model(self, arch: str, batch: int, prompt_len: int,
-                     steps: int, seed: int, extra=None):
+                     steps: int, seed: int, extra=None, faults=None,
+                     **fields):
         """One model through prefill and greedy decode at full width in
         bfloat16 (weights drawn in bfloat16 from a seeded generator), held
-        against the teacher-forced forward, with the controls. ``extra``
-        runs more checks on the same weights and run."""
+        against the teacher-forced forward, with the controls (``faults``:
+        more of them, as ``_serving_controls`` takes them). ``extra``
+        runs more checks on the same weights and run; ``fields`` replace
+        the config's (a depth cut, a capacity factor). A moe model's
+        experts are scaled by ``_scale_experts``."""
         torch = self.torch
         bundle = self._bundle(arch, batch, prompt_len + steps,
-                              use_pallas_attn=True)
+                              use_pallas_attn=True, **fields)
         mc = bundle.cfg.model
         gen = torch.Generator(device="cuda").manual_seed(seed)
         params = bundle.init_params(gen, torch.bfloat16)
+        self._scale_experts(params)
         prompt = torch.randint(0, mc.vocab_size, (batch, prompt_len),
                                generator=gen, device="cuda")
         M = mc.num_meta_tokens
         gated = 0 if M else mc.num_layers
         # the plain prefill (kernel gate off) against the kernel prefill
-        plain = self._bundle(arch, batch, prompt_len + steps)
+        plain = self._bundle(arch, batch, prompt_len + steps, **fields)
         with saved_counts():
             plain_last, plain_caches = plain.prefill(params,
                                                      {"inputs": prompt})
@@ -1824,8 +1876,8 @@ class Smoke:
                                  f"launches in prefill, expected {gated}")
         oracle = self._oracle(bundle, params, prompt, fed)
         truth = self._oracle(self._bundle(arch, batch, prompt_len + steps,
-                                          dtype="float32",
-                                          use_pallas_attn=True),
+                                          **{**fields, "dtype": "float32",
+                                             "use_pallas_attn": True}),
                              params, prompt, fed)
         worst, worst_l2, excluded, fails, gap = self._decode_check(
             rows, oracle, truth)
@@ -1836,7 +1888,8 @@ class Smoke:
         ms_sorted = sorted(ms)
         med = ms_sorted[len(ms) // 2]
         p90 = ms_sorted[min(len(ms) - 1, int(0.9 * len(ms)))]
-        self.say(f"LM serving {mc.name}: {batch} x {prompt_len} prompt "
+        self.say(f"LM serving {mc.name} ({mc.num_layers} layers): {batch} x "
+                 f"{prompt_len} prompt "
                  f"(+{M} meta), {steps} greedy steps, bf16; prefill "
                  f"{prefill_ms!r} ms (the second call), "
                  f"{launches} swattn launches per prefill, 0 per step; "
@@ -1856,8 +1909,9 @@ class Smoke:
                      lambda: bundle.decode_step(params, tok, caches, end))
         del caches
         self._serving_controls(bundle, params, prompt, fed, oracle, truth,
-                               min(steps, 8))
-        out = {"prefill_ms": prefill_ms, "step_ms_median": med,
+                               min(steps, 8), faults)
+        out = {"layers": mc.num_layers, "prefill_ms": prefill_ms,
+               "step_ms_median": med,
                "step_ms_p90": p90, "tokens_per_s": batch / (med * 1e-3),
                "worst_rel_l2": worst_l2, "worst_excess": worst,
                "bf16_vs_float32_forward": gap,
@@ -2276,6 +2330,415 @@ class Smoke:
         self.say(f"LM training parts took (s): {took!r}")
         return out
 
+    # -- phase 13: LM kinds ---------------------------------------------------
+
+    def _scale_experts(self, params) -> None:
+        """Draw the experts as the stage's dense MLP would be drawn, times
+        ``EXPERT_GAIN``: each of ``wi``, ``wg``, ``wo`` of a moe stage is
+        multiplied, in place, by EXPERT_GAIN · sqrt(E), taking the experts
+        out of the spec's lecun fan-in (every leading dim: the stage's
+        layers, the experts and the input, as the reference draws them).
+        At the spec's std qwen3-moe's expert outputs are about 1e-6
+        against embeddings of 0.02, and no check could see the MoE path."""
+        import math
+        for name, sp in params.items():
+            if name.startswith("stage_") and "moe" in sp:
+                for leaf in ("wi", "wg", "wo"):
+                    t = sp["moe"][leaf]            # [layers, E, in, out]
+                    t.mul_(EXPERT_GAIN * math.sqrt(t.shape[1]))
+
+    def _free(self, label: str) -> None:
+        """Drop what earlier work left cached and say what stays
+        allocated."""
+        import gc
+        gc.collect()
+        self.torch.cuda.empty_cache()
+        self.say(f"LM kinds {label}: {self.torch.cuda.memory_allocated()} B "
+                 "allocated")
+
+    def _no_drops(self, arch: str) -> dict:
+        """The capacity factor E / k: no assignment drops, so a decode
+        step's routing group (the batch) and the teacher-forced forward's
+        (a row) differ only in size."""
+        from repro_torch.configs.base import get_model_config
+        mc = get_model_config(arch)
+        return {"capacity_factor": mc.num_experts / mc.num_experts_per_tok}
+
+    def _unrenormalised(self):
+        """A fault for the MoE serving controls: the top-k weights left as
+        the softmax gave them (not renormalised over the k)."""
+        torch = self.torch
+        from repro_torch.models import moe
+        real = moe.route
+
+        def route(x, router_w, k):
+            w, idx, aux = real(x, router_w, k)
+            probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+            return w * probs.gather(-1, idx).sum(-1, keepdim=True), idx, aux
+        return {"top-k weights not renormalised": (moe, "route", route)}
+
+    def moe_serving(self, qwen3=(2, 2048, 16), mixtral=(2, 6144, 32),
+                    layers: int = 4):
+        """(a) qwen3-moe-30b-a3b and mixtral-8x7b at full width, ``layers``
+        layers, through ``_serve_model`` at the capacity factor E / k."""
+        out = {}
+        for arch, shape, seed in (("qwen3_moe_30b_a3b", qwen3, 11),
+                                  ("mixtral_8x7b", mixtral, 12)):
+            out[arch] = self._serve_model(
+                arch, *shape, seed=seed, faults=self._unrenormalised(),
+                num_layers=layers, **self._no_drops(arch))
+            self._free(f"(a) after {arch}")
+        return out
+
+    def qwen3_published(self, batch: int = 2, prompt_len: int = 4096,
+                        steps: int = 32, seed: int = 13):
+        """(b) qwen3-moe-30b-a3b as published (48 layers, capacity factor
+        1.25) served whole: bf16 weights drawn in bf16 (the init's peak
+        must stay under 70 GB), the gated prefill against the plain one
+        (relative L2 within ``LM_TOL``; the attention zeroed must fail
+        it), greedy decode, drops, the decode step's byte bound."""
+        import statistics
+        torch = self.torch
+        from repro_torch.models import moe, transformer
+        from repro_torch.models.module import tree_leaves
+        arch = "qwen3_moe_30b_a3b"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bundle = self._bundle(arch, batch, prompt_len + steps,
+                              use_pallas_attn=True)
+        mc = bundle.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = bundle.init_params(gen, torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        self._scale_experts(params)
+        weights = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+        self.say(f"LM kinds (b) {mc.name}: {mc.num_layers} layers, "
+                 f"{sum(t.numel() for t in tree_leaves(params))} parameters, "
+                 f"{weights} B of bf16 weights drawn in {init_s!r} s, peak "
+                 f"allocated during init {init_peak} B (limit 70e9)")
+        if not init_peak < 70e9:
+            raise AssertionError(f"qwen3 init peak {init_peak} B")
+        prompt = torch.randint(0, mc.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        plain = self._bundle(arch, batch, prompt_len + steps)
+        # the routing of the plain and the gated prefill (the warm-up),
+        # layer by layer, to count the choices that bf16 rounding flips
+        real_route = moe.route
+        routes = {"plain": [], "gated": []}
+
+        def recording(key):
+            def route(x, router_w, k):
+                w, idx, aux = real_route(x, router_w, k)
+                routes[key].append(idx.sort(dim=-1).values)
+                return w, idx, aux
+            return route
+        try:
+            moe.route = recording("plain")
+            with saved_counts():
+                plain_last, plain_caches = plain.prefill(params,
+                                                         {"inputs": prompt})
+            del plain_caches
+            moe.route = recording("gated")
+            bundle.prefill(params, {"inputs": prompt})  # warm-up
+        finally:
+            moe.route = real_route
+        flips = [int((a != b).any(-1).sum())
+                 for a, b in zip(routes["plain"], routes["gated"])]
+        last_flips = [int((a[:, -1] != b[:, -1]).any(-1).sum())
+                      for a, b in zip(routes["plain"], routes["gated"])]
+        del routes
+        rows, fed, prefill_ms, ms, caches, launches = self._serve(
+            bundle, params, prompt, steps)
+        if launches != mc.num_layers:
+            raise AssertionError(f"{mc.name}: {launches} swattn launches in "
+                                 f"prefill, expected {mc.num_layers}")
+        g, r = rows[0].float(), plain_last.float()
+        rel = float((g - r).norm() / r.norm())
+        self.say(f"LM kinds (b) {mc.name} prefill, kernel gate on vs off: "
+                 f"relative L2 {rel!r} (limit {LM_TOL['bfloat16']}); tokens "
+                 f"whose top-{mc.num_experts_per_tok} set differs between "
+                 f"the two routes, per layer, of {batch * prompt_len}: "
+                 f"{flips} (at the last position, of {batch}: "
+                 f"{last_flips})")
+        if not (bool(torch.isfinite(rows).all())
+                and rel <= LM_TOL["bfloat16"]):
+            raise AssertionError(f"{mc.name}: gated prefill relative L2 {rel} "
+                                 f"over {LM_TOL['bfloat16']}, or non-finite "
+                                 "logits")
+        # the control: the gate check must fail a prefill whose attention
+        # output is zeroed
+        real = transformer.swattn_cuda
+        transformer.swattn_cuda = (
+            lambda q, k, v, *, window, scale: torch.zeros_like(q))
+        try:
+            with saved_counts():
+                bad, bad_caches = bundle.prefill(params, {"inputs": prompt})
+        finally:
+            transformer.swattn_cuda = real
+        del bad_caches
+        bad_rel = float((bad.float() - plain_last.float()).norm()
+                        / plain_last.float().norm())
+        self.say(f"LM kinds (b) control, attention zeroed: relative L2 "
+                 f"{bad_rel!r} against the plain prefill (limit "
+                 f"{LM_TOL['bfloat16']})")
+        if not bad_rel > LM_TOL["bfloat16"]:
+            raise AssertionError("qwen3: the gate check passes a prefill with "
+                                 "the attention zeroed")
+        # the share of assignments the prefill drops, per layer
+        real_dispatch = moe.dispatch_indices
+        drops = []
+
+        def counting(top_i, num_experts, cap, T):
+            slot, keep = real_dispatch(top_i, num_experts, cap, T)
+            drops.append((int((~keep).sum()), keep.numel(), cap))
+            return slot, keep
+        moe.dispatch_indices = counting
+        try:
+            with saved_counts():
+                _, drop_caches = bundle.prefill(params, {"inputs": prompt})
+        finally:
+            moe.dispatch_indices = real_dispatch
+        del drop_caches
+        dropped = sum(d for d, _, _ in drops)
+        assigned = sum(n for _, n, _ in drops)
+        med = statistics.median(ms)
+        p90 = sorted(ms)[min(len(ms) - 1, int(0.9 * len(ms)))]
+        cache_b = self._cache_bytes(caches)
+        # a decode step reads every weight but the embedding table (one row
+        # a token) and the whole cache: the reference's expert products
+        # run over all E experts' weights
+        step_bytes = (weights - params["embed"]["table"].numel() * 2
+                      + cache_b)
+        bound_ms = step_bytes / self.hbm_bw * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        self.say(f"LM kinds (b) {mc.name} as published: {batch} x "
+                 f"{prompt_len} prompt, {steps} greedy steps, capacity "
+                 f"factor {mc.capacity_factor}; prefill {prefill_ms!r} ms "
+                 f"(the second call), {launches} swattn launches per prefill; "
+                 f"decode step median {med!r} ms, p90 {p90!r} ms, "
+                 f"{batch / (med * 1e-3)!r} tokens/s; a step reads "
+                 f"{step_bytes} B (weights but the embedding table, and the "
+                 f"cache): bound {bound_ms!r} ms at {self.hbm_bw:.3g} B/s; "
+                 f"cache {cache_b} B; peak allocated {peak} B; the prefill "
+                 f"drops {dropped} of {assigned} assignments "
+                 f"({dropped / assigned!r}; per layer "
+                 f"{[d for d, _, _ in drops]}, capacity {drops[0][2]})")
+        end = prompt_len + steps
+        tok = rows[-1].argmax(-1)[:, None]
+        self.profile(f"LM kinds (b) {mc.name} decode step",
+                     lambda: bundle.decode_step(params, tok, caches, end))
+        del params, caches, rows, plain_last, bad
+        self._free("(b) after qwen3 as published")
+        return {"layers": mc.num_layers, "init_s": init_s,
+                "init_peak_bytes": init_peak, "weight_bytes": weights,
+                "prefill_ms": prefill_ms, "gate_rel_l2": rel,
+                "route_flips": flips, "last_route_flips": last_flips,
+                "control_rel_l2": bad_rel, "step_ms_median": med,
+                "step_ms_p90": p90, "tokens_per_s": batch / (med * 1e-3),
+                "step_bytes": step_bytes, "step_bound_ms": bound_ms,
+                "cache_bytes": cache_b, "peak_bytes": peak,
+                "dropped": dropped, "assignments": assigned}
+
+    def kinds_forward(self, arch: str, layers: int = 2, seq: int = 4096,
+                      seed: int = 14):
+        """(d) ``train_forward`` at full width and ``layers`` layers, the
+        kernel gate on against off, float32 (TF32 off: max |Δ| within
+        ``LM_TOL`` of max |logit|) and bf16 (relative L2 within
+        ``LM_TOL``); the attention zeroed must fail each. Returns (the
+        errors, the swattn launches)."""
+        torch = self.torch
+        from repro_torch.models import transformer
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        base = self._bundle(arch, 1, seq, num_layers=layers)
+        mc = base.cfg.model
+        params = base.init_params(gen, torch.bfloat16)
+        if mc.embeddings_in:
+            # at the embedding table's std (0.02), as a token's row would
+            # be: at unit std the inputs drown the attention's output
+            inputs = 0.02 * torch.randn((1, seq, mc.d_model), generator=gen,
+                                        device="cuda")
+        else:
+            inputs = torch.randint(0, mc.vocab_size, (1, seq),
+                                   generator=gen, device="cuda")
+        real = transformer.swattn_cuda
+        out, launches = {}, 0
+        for dt in ("float32", "bfloat16"):
+            logits = {}
+            for flag in (False, True):
+                b = self._bundle(arch, 1, seq, num_layers=layers, dtype=dt,
+                                 use_pallas_attn=flag)
+                before = read_counts()["swattn"]
+                logits[flag], _ = b.train_forward(params, {"inputs": inputs})
+                added = read_counts()["swattn"] - before
+                if added != (layers if flag else 0):
+                    raise AssertionError(f"{mc.name} {dt} gate {flag}: "
+                                         f"{added} swattn launches")
+                launches += added
+            transformer.swattn_cuda = (
+                lambda q, k, v, *, window, scale: torch.zeros_like(q))
+            try:
+                with saved_counts():
+                    bad, _ = b.train_forward(params, {"inputs": inputs})
+            finally:
+                transformer.swattn_cuda = real
+            r = logits[False].float()
+            errs = {}
+            for name, got in (("kernel", logits[True]), ("attention zeroed",
+                                                         bad)):
+                g = got.float()
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"{mc.name} {dt}: non-finite")
+                errs[name] = (float((g - r).abs().max() / r.abs().max())
+                              if dt == "float32"
+                              else float((g - r).norm() / r.norm()))
+            rule = ("max |Δ| / max |logit|" if dt == "float32"
+                    else "relative L2")
+            self.say(f"LM kinds (d) {mc.name} {layers} layers, [1,{seq}] "
+                     f"{'embeddings' if mc.embeddings_in else 'tokens'}, "
+                     f"{dt}: kernel gate on vs off {rule} "
+                     f"{errs['kernel']!r}, control (attention zeroed) "
+                     f"{errs['attention zeroed']!r} (limit {LM_TOL[dt]})")
+            if not errs["kernel"] <= LM_TOL[dt]:
+                raise AssertionError(f"{mc.name} {dt}: kernel and plain "
+                                     f"logits disagree beyond {LM_TOL[dt]}")
+            if not errs["attention zeroed"] > LM_TOL[dt]:
+                raise AssertionError(f"{mc.name} {dt}: the check passes the "
+                                     "attention zeroed")
+            out[dt] = errs
+            del logits, bad, r
+        del params
+        self._free(f"(d) after {mc.name}")
+        return out, launches
+
+    def moe_train_parity(self, arch: str = "qwen3_moe_30b_a3b",
+                         layers: int = 1, seq: int = 256, batch: int = 2,
+                         microbatch: int = 1):
+        """(e) one float32 ``moe`` train step on the card against the same
+        step on the CPU (phase 12 (a)'s limits, the aux loss held to the
+        loss's), with two controls that must fail it: the aux loss dropped
+        from the total, and one microbatch only."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.configs.base import get_model_config
+        from repro_torch.data import make_train_batch
+        from repro_torch.models import moe, registry
+        from repro_torch.models.module import tree_map
+        mc = dataclasses.replace(get_model_config(arch), num_layers=layers,
+                                 dtype="float32")
+        rc = self._train_rc(mc, seq, batch, microbatch)
+        start = registry.build(rc, device="cuda").init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        self._scale_experts(start)
+        start = tree_map(lambda t: t.cpu(), start)
+        reset_counts()
+        cpu_m, cpu_p, cpu_g, cpu_ms = self._one_step(rc, start, "cpu")
+        card_m, card_p, card_g, card_ms = self._one_step(rc, start, "cuda")
+        launches = read_counts()
+        if launches != {"filter2d_halo": 0, "swattn": 0, "dwconv1d": 0}:
+            raise AssertionError(f"moe training: kernel launches {launches}")
+
+        def rel(a, b):
+            return abs(a - b) / abs(b)
+        checks = {"loss": rel(card_m["loss"], cpu_m["loss"]),
+                  "aux": rel(card_m["aux_loss"], cpu_m["aux_loss"]),
+                  "gradients": self._tree_rel(card_g, cpu_g),
+                  "parameters": self._tree_rel(card_p, cpu_p)}
+        self.say(f"LM kinds (e) {mc.name} {layers} layer float32 train step, "
+                 f"[{batch},{seq}] microbatch {microbatch}: loss card "
+                 f"{card_m['loss']!r} cpu {cpu_m['loss']!r}, aux card "
+                 f"{card_m['aux_loss']!r} cpu {cpu_m['aux_loss']!r}; "
+                 f"relative {checks!r} (limit {TRAIN_F32_TOL}); step "
+                 f"{card_ms!r} ms card, {cpu_ms!r} ms cpu; no kernel launch")
+        if not all(v <= TRAIN_F32_TOL for v in checks.values()):
+            raise AssertionError(f"moe training parity beyond "
+                                 f"{TRAIN_F32_TOL}: {checks}")
+        real = moe.moe_block
+
+        def no_aux(*a, **kw):
+            y, aux = real(*a, **kw)
+            return y, aux * 0
+        b0 = make_train_batch(rc, 0, "cuda")
+        controls = {}
+        moe.moe_block = no_aux
+        try:
+            m, p_, g, _ = self._one_step(rc, start, "cuda")
+        finally:
+            moe.moe_block = real
+        controls["aux dropped from the total"] = max(
+            rel(m["loss"], cpu_m["loss"]), self._tree_rel(g, cpu_g))
+        m, p_, g, _ = self._one_step(
+            self._train_rc(mc, seq, microbatch, microbatch), start, "cuda",
+            {k: v[:microbatch] for k, v in b0.items()})
+        controls["one microbatch only"] = max(
+            rel(m["loss"], cpu_m["loss"]), self._tree_rel(g, cpu_g))
+        self.say(f"LM kinds (e) controls: worst of loss and gradients "
+                 f"relative {controls!r} (limit {TRAIN_F32_TOL})")
+        passed = [n for n, v in controls.items() if not v > TRAIN_F32_TOL]
+        if passed:
+            raise AssertionError(f"moe training: the parity check passes "
+                                 f"{passed}")
+        del start, cpu_p, cpu_g, card_p, card_g, p_, g
+        self._free("(e) after the train step")
+        return {**checks, "controls": controls, "card_ms": card_ms,
+                "cpu_ms": cpu_ms}
+
+    def lm_kinds_phase(self):
+        """Phase 13: the moe kind, gemma3 (swattn at hd 256), qwen2-vl
+        (M-RoPE) and codeqwen at full width on the card. Returns (per-part
+        results, the swattn launches of the phase's main path)."""
+        from repro_torch.configs.base import get_model_config
+        self._free("start")
+        reset_counts()
+        out, took, failed = {}, {}, []
+        fwd = {}
+
+        def part(key, name, run):
+            """Run one part; a failure is reported and raised after every
+            part has run."""
+            t0 = time.perf_counter()
+            try:
+                out[name] = run()
+            except Exception as exc:          # raised below
+                import traceback
+                traceback.print_exc()
+                failed.append(f"({key}) {name}: {exc}")
+                self._free(f"({key}) after a failure")
+            took[key] = time.perf_counter() - t0
+        part("a", "moe_serving", self.moe_serving)
+        part("b", "qwen3_published", self.qwen3_published)
+
+        def gemma3():
+            r = self._serve_model("gemma3_4b", 2, 4096, 32, seed=15)
+            self._free("(c) after gemma3-4b")
+            return r
+        part("c", "gemma3", gemma3)
+        for arch in ("qwen2_vl_7b", "codeqwen15_7b"):
+            part("d", arch, lambda a=arch: fwd.setdefault(
+                a, self.kinds_forward(a))[0])
+        fwd_launches = sum(n for _, n in fwd.values())
+        launches = read_counts()
+        # two gated prefills (warm-up, served) per layer of each served
+        # model, one gated forward per dtype and layer in (d)
+        if not failed:
+            served = [out["moe_serving"][a]["layers"] for a in
+                      ("qwen3_moe_30b_a3b", "mixtral_8x7b")] + [
+                out["qwen3_published"]["layers"], out["gemma3"]["layers"]]
+            want = 2 * sum(served) + fwd_launches
+            if served[2:] != [get_model_config(a).num_layers for a in (
+                    "qwen3_moe_30b_a3b", "gemma3_4b")] \
+                    or fwd_launches != 2 * 2 * 2 or launches != {
+                        "filter2d_halo": 0, "swattn": want, "dwconv1d": 0}:
+                failed.append(f"counts {launches}, expected {want} swattn "
+                              f"(layers {served}, (d) {fwd_launches})")
+        part("e", "moe_training", self.moe_train_parity)
+        self.say(f"LM kinds parts took (s): {took!r}")
+        if failed:
+            raise AssertionError("LM kinds phase: " + "; ".join(failed))
+        return out, launches["swattn"]
+
     # -- phase 11 ------------------------------------------------------------
 
     def _row(self, name, shape, dtype, ms, plain_ms, lib_ms, bytes_moved,
@@ -2329,8 +2792,9 @@ class Smoke:
                 ms = self._time(kern, 5, warmup=1)
                 plain_ms = self._time(plain, 2, warmup=1)
                 pos = torch.arange(S, device="cuda")
-                band = ((pos[None, :] <= pos[:, None])
-                        & (pos[:, None] - pos[None, :] < window))
+                band = pos[None, :] <= pos[:, None]
+                if window > 0:
+                    band = band & (pos[:, None] - pos[None, :] < window)
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
                 def lib():             # TF32 is off (main)
@@ -2348,10 +2812,11 @@ class Smoke:
                 rows[dt]["max_abs_err"] = err
                 rows[dt]["route"] = SWATTN_ROUTES[dt]
                 del q, k, v
-        sw = rows[dtypes[0]]
-        if dtypes[0] == "bfloat16" and not sw["ms"] < sw["library_ms"]:
-            raise AssertionError(f"swattn bf16 {sw['ms']} ms does not beat "
-                                 f"SDPA's {sw['library_ms']} ms")
+        sw = rows.get("bfloat16")
+        if sw is not None and not sw["ms"] < sw["library_ms"]:
+            raise AssertionError(f"swattn bf16 {sw['shape']} {sw['ms']} ms "
+                                 f"does not beat SDPA's {sw['library_ms']} "
+                                 "ms")
         return rows
 
     def dwconv_timing(self, B=2, S=4096, C=3200, k=4):
@@ -2496,6 +2961,15 @@ def main() -> int:
     sw_rows = smoke.swattn_timing()
     # the serving prefill's shape: h2o-danube, 4 prompts of 6144 tokens
     sw_prefill = smoke.swattn_timing(B=4, S=6144, dtypes=("bfloat16",))
+    # phase 13's prefill shapes: qwen3-moe (full attention, hd 128),
+    # mixtral (window 4096, hd 128), gemma3 (hd 256, local and global)
+    sw_kinds = {name: smoke.swattn_timing(B=2, S=S, H=H, KV=KV, hd=hd,
+                                          window=W)
+                for name, (S, H, KV, hd, W) in {
+                    "qwen3-moe": (4096, 32, 4, 128, 0),
+                    "mixtral": (6144, 32, 8, 128, 4096),
+                    "gemma3 local": (4096, 8, 4, 256, 1024),
+                    "gemma3 global": (4096, 8, 4, 256, 0)}.items()}
     dw_row = smoke.dwconv_timing()
     for dt, ms in fwd_ms.items():
         share = layers * sw_rows[dt]["ms"] / ms[True]
@@ -2507,6 +2981,9 @@ def main() -> int:
     t0 = time.perf_counter()
     training = smoke.train_phase()
     smoke.say(f"LM training phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kinds, kinds_sw = smoke.lm_kinds_phase()
+    smoke.say(f"LM kinds phase took {time.perf_counter() - t0:.1f} s")
 
     main_row = rows["w5f32"]
     sw = sw_rows["bfloat16"]
@@ -2524,19 +3001,22 @@ def main() -> int:
         "sharded": sharded,
         "card": card}, {
         "name": "swattn", "route": "cuda", "source": SWATTN_SOURCE,
-        "replaces": SWATTN_REPLACES, "launches": sw_launches + serve_sw,
+        "replaces": SWATTN_REPLACES,
+        "launches": sw_launches + serve_sw + kinds_sw,
         "launches_lm_forward": sw_launches, "launches_lm_serving": serve_sw,
+        "launches_lm_kinds": kinds_sw,
         "launches_lm_training": training["full_width"]["launches_per_step"],
         "lm_training": training,
-        "max_abs_err": max(sw_err, sw_rows["bfloat16"]["max_abs_err"],
-                           sw_prefill["bfloat16"]["max_abs_err"],
-                           sw_rows["float32"]["max_abs_err"]),
+        "max_abs_err": max([sw_err] + [
+            r["max_abs_err"] for rows_ in [sw_rows, sw_prefill]
+            + list(sw_kinds.values()) for r in rows_.values()]),
         "ms": sw["ms"], "plain_ms": sw["plain_ms"],
         "bound_ms": sw["bound_ms"], "bound_by": sw["bound_by"],
         "library_ms": sw["library_ms"], "shape": sw["shape"],
         "dtype": sw["dtype"], "routes": SWATTN_ROUTES,
         "float32": sw_rows["float32"],
         "prefill_shape": sw_prefill["bfloat16"], "lm_serving": serving_lm,
+        "lm_kinds_shapes": sw_kinds, "lm_kinds": kinds,
         "card": card}, {
         "name": "dwconv1d", "route": "cuda", "source": DWCONV_SOURCE,
         "replaces": DWCONV_REPLACES, "launches": dw_launches,

@@ -208,12 +208,18 @@ class RunConfig:
 # Registry
 # ---------------------------------------------------------------------------
 
-# the architectures whose config files the port carries (the reference
-# has ten; the others come with the slices that run them)
+# the architectures whose config files the port carries, in the
+# reference's order (it has ten; xlstm-350m and whisper-large-v3 come with
+# the slice that runs their layer kinds)
 ARCH_IDS = [
+    "qwen2_vl_7b",
+    "gemma3_4b",
     "h2o_danube_1_8b",
     "yi_6b",
+    "codeqwen15_7b",
     "hymba_1_5b",
+    "mixtral_8x7b",
+    "qwen3_moe_30b_a3b",
 ]
 
 

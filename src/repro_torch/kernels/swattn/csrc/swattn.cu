@@ -42,7 +42,9 @@
 //    owns 4 query rows, 2 score columns of the 32-key tile and hd / 16
 //    output columns, so each row's max and sum reduce over 16 lanes with
 //    shuffles. Tiles sit in shared memory as float32, rows padded by one
-//    word against bank conflicts.
+//    word against bank conflicts. At hd 256 (gemma3) that is 102,784 bytes
+//    of shared memory (opt-in, two blocks an SM) and 16 output columns,
+//    64 accumulators, per thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -222,6 +224,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
     case 64: return launch<64>(q, k, v, o, B, S, H, KV, window, scale, st);
     case 80: return launch<80>(q, k, v, o, B, S, H, KV, window, scale, st);
     case 128: return launch<128>(q, k, v, o, B, S, H, KV, window, scale, st);
+    case 256: return launch<256>(q, k, v, o, B, S, H, KV, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,8 +16,8 @@
 // Design:
 //  1. Tensor cores. S = Q K^T is wgmma.mma_async m64n64k16 bf16 -> f32,
 //     both operands from shared memory; hd 80 is five k-steps of 16 (the
-//     head dims 16/64/80/128 are 1/4/5/8). O += P V is m64n{hd}k16 with P
-//     in registers: the m64nNk16 accumulator layout is the A-fragment
+//     head dims 16/64/80/128/256 are 1/4/5/8/16). O += P V is m64n{hd}k16
+//     with P in registers: the m64nNk16 accumulator layout is the A-fragment
 //     layout, so the softmax's p is packed to bf16 pairs where it lies and
 //     never goes through shared memory. V is the B operand in MN-major
 //     (transposed) form, as it sits in memory.
@@ -53,6 +53,15 @@
 //     fits and BK 96 or 128 do not (they spill; chip_smoke.py prints
 //     ptxas's registers and spills). hd 128 uses BQ 128: at BQ 192 ptxas
 //     serialises its wgmma for lack of registers.
+//  8. hd 256 (gemma3): BQ 64, one consumer warpgroup. O is m64n256k16,
+//     128 float accumulators a thread, beside the 32 scores and 16 packed
+//     p of the pipelined loop. At BQ 128 the nine warps cap a thread at
+//     168 registers (an SM quadrant holds three of them and 64K / 4
+//     registers), so it spilled 1,336 bytes and ptxas serialised its
+//     wgmma; five warps leave 255 (ptxas uses 221, no spill). Shared
+//     memory: a 32 KB Q tile and three stages of 32 KB K and V tiles,
+//     224 KB of the 227 KB a block may have. On an H100: 0.301 against
+//     0.484 ms at BQ 128 for [2,4096,8/4,256] W 1024 (PERF.md §6).
 //
 // Rounding, kept from the reference: float32 scores, the scale applied
 // after the dot (folded with log2 e into the exponent's FMA); the finite
@@ -85,7 +94,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Geometry {
-  static constexpr int BQ = HD <= 80 ? 192 : 128;  // query rows per block
+  // query rows per block
+  static constexpr int BQ = HD <= 80 ? 192 : (HD <= 128 ? 128 : 64);
   static constexpr int NCONSUMER = BQ * 2;          // a warpgroup per 64 rows
   static constexpr int NT = NCONSUMER + 32;         // and the producer warp
   static constexpr int KS = HD / BOX;               // boxes = k-steps of QK^T
@@ -94,6 +104,8 @@ struct Geometry {
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static_assert(BAR_OFF + (2 * STAGES + 1) * 8 + 1024 <= 232448,
+                "the block's shared memory exceeds the 227 KB opt-in");
   static constexpr int ALLOC = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
 };
 
@@ -263,13 +275,74 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 16) wgmma_rs_n16(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else if constexpr (N == 80) wgmma_rs_n80(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
 }
 
 // S = Q K^T for one warpgroup's 64 rows: one k-step per 16-column box
@@ -550,6 +623,7 @@ int swattn_bf16_launch(const void* q, const void* k, const void* v, void* o,
     case 64: return launch<64>(q, k, v, o, B, S, H, KV, window, scale, st);
     case 80: return launch<80>(q, k, v, o, B, S, H, KV, window, scale, st);
     case 128: return launch<128>(q, k, v, o, B, S, H, KV, window, scale, st);
+    case 256: return launch<256>(q, k, v, o, B, S, H, KV, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

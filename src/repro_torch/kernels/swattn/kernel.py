@@ -30,7 +30,7 @@ from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.swattn import _build
 from repro_torch.kernels.swattn.ref import swattn_ref
 
-HEAD_DIMS = (16, 64, 80, 128)              # the instantiations in csrc/
+HEAD_DIMS = (16, 64, 80, 128, 256)         # the instantiations in csrc/
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -89,31 +89,54 @@ def _fan_in(shape: Tuple[int, ...]) -> int:
     return max(1, math.prod(shape[:-1]))
 
 
-def init_leaf(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
-    """One parameter on the generator's device."""
+# A leaf whose float32 draw is larger than this is drawn a block of rows
+# (along axis 0) at a time, each block cast into the output as it comes:
+# qwen3-moe-30b-a3b's expert leaves ([48, 128, 2048, 768], 38.7 GB as
+# float32) would otherwise need two float32 temporaries of that size
+# before the cast. 2 GiB keeps every leaf of h2o-danube-1.8b and
+# hymba-1.5b (the largest 1.7 GB) drawn whole, value for value as before.
+WHOLE_DRAW_BYTES = 2 << 30
+
+
+def init_leaf(spec: ParamSpec, generator: torch.Generator,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One parameter on the generator's device, in ``dtype`` if it is
+    given and the spec's dtype is floating (else the spec's dtype)."""
     dev = generator.device
+    out_dtype = (dtype if dtype is not None and spec.dtype.is_floating_point
+                 else spec.dtype)
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
+        return torch.zeros(spec.shape, dtype=out_dtype, device=dev)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
+        return torch.ones(spec.shape, dtype=out_dtype, device=dev)
     std = {"embed": 0.02 * spec.scale, "normal": spec.scale,
            "small": 1e-2 * spec.scale,
            "lecun": spec.scale / math.sqrt(_fan_in(spec.shape))}.get(spec.init)
     if std is None:
         raise ValueError(f"unknown init {spec.init!r}")
-    x = torch.randn(spec.shape, generator=generator, device=dev,
-                    dtype=torch.float32)
-    return (x * std).to(spec.dtype)
+    n = math.prod(spec.shape)
+    if 4 * n <= WHOLE_DRAW_BYTES:
+        x = torch.randn(spec.shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return (x * std).to(out_dtype)
+    out = torch.empty(spec.shape, dtype=out_dtype, device=dev)
+    rows = max(1, WHOLE_DRAW_BYTES // (4 * (n // spec.shape[0])))
+    for r0 in range(0, spec.shape[0], rows):
+        x = torch.randn((min(rows, spec.shape[0] - r0),) + spec.shape[1:],
+                        generator=generator, device=dev, dtype=torch.float32)
+        out[r0:r0 + rows].copy_(x.mul_(std))
+        del x
+    return out
 
 
 def init_params(specs, generator: torch.Generator, dtype: Any = None):
     """Materialise a ParamSpec tree on ``generator.device``, the leaves
-    drawn in sorted path order. ``dtype`` casts floating leaves."""
+    drawn in sorted path order. ``dtype`` is the dtype of the floating
+    leaves (each drawn in float32 and cast, block by block for a large
+    leaf, so no float32 copy of a whole large leaf is made)."""
     out: Dict[str, Any] = {}
     for path, spec in sorted(tree_paths(specs).items()):
-        leaf = init_leaf(spec, generator)
-        if dtype is not None and leaf.is_floating_point():
-            leaf = leaf.to(dtype)
+        leaf = init_leaf(spec, generator, dtype)
         d = out
         for seg in path[:-1]:
             d = d.setdefault(seg, {})

@@ -10,8 +10,9 @@ reference's ``models/registry.py``.
   decode_step(params, inp, caches, cur) -> (logits, caches)
   cache_init(batch, seq_len)           -> empty caches
 
-for the decoder-LM families whose layer kinds are ported (``dense`` and
-``hymba``; hymba-style meta tokens included). ``cache_init`` is the
+for the decoder-LM families whose layer kinds are ported (``dense``,
+``moe`` and ``hymba``; hymba-style meta tokens and qwen2-vl's M-RoPE on
+text positions included). ``cache_init`` is the
 concrete twin of the reference's ``cache_abstract``. The abstract cache
 and its logical axes, ``input_specs`` and the other families wait for
 later slices. The reference has no generation loop, and
@@ -84,19 +85,16 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
             inputs, positions = _with_meta(params, x, positions)
         return inputs, positions
 
-    def _no_aux():
-        # the dense and hymba kinds add no auxiliary loss (moe would)
-        return torch.zeros((), dtype=torch.float32, device=device)
-
     def train_forward(params, batch, remat_policy: str = "none"):
         """The cache-less forward: [B,S] tokens (or [B,S,D] embeddings)
-        in ``batch['inputs']`` -> ([B,S,V] logits, aux loss 0)."""
+        in ``batch['inputs']`` -> ([B,S,V] logits, the aux loss summed
+        over layers: moe's load-balance loss, 0 for the other kinds)."""
         inputs, positions = _prompt(params, batch)
-        logits, _ = tfm.forward(params, inputs, positions, mc,
-                                remat_policy=remat_policy)
+        logits, _, aux = tfm.forward(params, inputs, positions, mc,
+                                     remat_policy=remat_policy)
         if M:
             logits = logits[:, M:]
-        return logits, _no_aux()
+        return logits, aux
 
     def loss_fn(params, batch, remat_policy: str = "none",
                 loss_chunk: int = 2048, z_loss: float = 0.0,
@@ -107,8 +105,8 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         hidden states dropped first. Returns (loss + aux_weight · aux,
         (aux, the count of labels))."""
         inputs, positions = _prompt(params, batch)
-        hidden, _ = tfm.forward(params, inputs, positions, mc,
-                                remat_policy=remat_policy, logits=False)
+        hidden, _, aux = tfm.forward(params, inputs, positions, mc,
+                                     remat_policy=remat_policy, logits=False)
         if M:
             hidden = hidden[:, M:]
         if mc.tie_embeddings:
@@ -119,7 +117,6 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         loss, denom = chunked_ce_from_hidden(
             hidden, head_w, labels, chunk=loss_chunk, z_loss=z_loss,
             transpose_head=tr)
-        aux = _no_aux()
         return loss + aux_weight * aux, (aux, denom)
 
     def cache_init(batch: int, seq_len: int):
@@ -134,8 +131,8 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         to the vocabulary (the reference's stream-out discipline)."""
         inputs, positions = _prompt(params, batch)
         caches = cache_init(inputs.shape[0], rc.shape.seq_len)
-        hidden, caches = tfm.forward(params, inputs, positions, mc,
-                                     caches=caches, cur=0, logits=False)
+        hidden, caches, _ = tfm.forward(params, inputs, positions, mc,
+                                        caches=caches, cur=0, logits=False)
         last = hidden[:, -1]
         logits = (unembed(last, params["embed"]) if mc.tie_embeddings
                   else lm_head(last, params["head"]))
@@ -150,8 +147,8 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         inp = torch.as_tensor(inp, device=device)
         positions = torch.full((inp.shape[0], 1), cur, dtype=torch.int32,
                                device=device)
-        logits, caches = tfm.forward(params, inp, positions, mc,
-                                     caches=caches, cur=cur)
+        logits, caches, _ = tfm.forward(params, inp, positions, mc,
+                                        caches=caches, cur=cur)
         return logits[:, -1], caches
 
     return ModelBundle(cfg=rc, specs=specs, device=device,

@@ -10,9 +10,11 @@ layer under the reference's remat policy (``_remat``: plain
 ``torch.utils.checkpoint`` for ``jax.checkpoint``, selective checkpointing
 for its dots policies). Each stage owns a cache of the
 length its window needs (a local stage's ring holds only the live window).
-This slice runs the ``dense`` kind (attention + gated MLP) and the
-``hymba`` kind (attention ∥ mamba, then the MLP), with or without caches;
-the other kinds (moe, mamba, mlstm, slstm) wait for later slices.
+The port runs the ``dense`` kind (attention + gated MLP), the ``moe``
+kind (attention + the MoE block, whose Switch aux loss ``forward`` sums
+over layers) and the ``hymba`` kind (attention ∥ mamba, then the MLP),
+with or without caches, and M-RoPE on text positions (qwen2-vl); the
+recurrent kinds (mamba, mlstm, slstm) wait for a later slice.
 
 The kernel gate (``cfg.use_pallas_attn``: no sinks, no softcap, an int
 window) sends attention through the CUDA ``swattn`` kernel. The
@@ -43,6 +45,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.swattn import swattn_cuda
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rope
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed, embed_specs, head_specs,
@@ -50,7 +53,7 @@ from repro_torch.models.layers import (embed, embed_specs, head_specs,
                                        rms_norm_specs, unembed)
 from repro_torch.models.module import p, stack_specs
 
-NOT_PORTED = ("moe", "mamba", "mlstm", "slstm")
+NOT_PORTED = ("mamba", "mlstm", "slstm")
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +126,7 @@ def make_stages(cfg: ModelConfig) -> List[Stage]:
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"layer kind {kind!r} is not ported yet (ROADMAP queue 1); the port "
-        "runs 'dense' and 'hymba'")
+        f"runs {sorted(BLOCKS)}")
 
 
 def layer_specs(cfg: ModelConfig, kind: str):
@@ -137,6 +140,12 @@ def layer_specs(cfg: ModelConfig, kind: str):
                                 cfg.resolved_head_dim(), cfg.use_qk_norm),
         "ln2": rms_norm_specs(cfg.d_model),
     }
+    if kind == "moe":
+        # the flag changes only the logical axis names (expert-TP or EP)
+        expert_tp = cfg.num_experts < 16 and not cfg.moe_force_ep
+        specs["moe"] = moe_mod.moe_specs(cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
+                                         cfg.num_experts, expert_tp)
+        return specs
     if kind == "hymba":
         specs["mamba"] = ssm_mod.mamba_specs(
             cfg.d_model, expand=cfg.ssm_expand, heads=cfg.mamba_heads,
@@ -172,8 +181,8 @@ def cache_dtype(cfg: ModelConfig) -> torch.dtype:
 def stage_cache_init(cfg: ModelConfig, st: Stage, batch: int, seq_len: int,
                      *, device):
     """A stage's streaming state, each leaf stacked over the stage's
-    layers on axis 0: the KV cache (``dense``), or ``{'attn': KV cache,
-    'mamba': conv and ssm state}`` (``hymba``)."""
+    layers on axis 0: the KV cache (``dense``, ``moe``), or ``{'attn': KV
+    cache, 'mamba': conv and ssm state}`` (``hymba``)."""
     if st.kind not in BLOCKS:
         raise _not_ported(st.kind)
     cl = st.cache_len(seq_len)
@@ -241,16 +250,37 @@ def _attention_part(lp, x, cos_sin, q_pos, cfg: ModelConfig, window,
     return attn.out_project(o, lp["attn"])
 
 
-def dense_block(lp, x, ctx, cfg: ModelConfig, cache=None) -> torch.Tensor:
+# Every block returns (x', aux): its auxiliary loss (a float32 0-d tensor
+# for moe, 0.0 for the kinds that have none), which ``forward`` sums.
+
+
+def dense_block(lp, x, ctx, cfg: ModelConfig, cache=None):
     """Attention + gated MLP, pre-norm residual."""
     x = x + _attention_part(lp, x, ctx["cos_sin"], ctx["q_pos"], cfg,
                             ctx["window"], cache, ctx["cur"],
                             cfg.attn_logit_softcap, ctx["sinks"])
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp(h, lp["mlp"])
+    return x + mlp(h, lp["mlp"]), 0.0
 
 
-def hymba_block(lp, x, ctx, cfg: ModelConfig, cache=None) -> torch.Tensor:
+def moe_block(lp, x, ctx, cfg: ModelConfig, cache=None):
+    """Attention + the MoE block, pre-norm residual. A decode step (one
+    query per row) routes the whole batch as one group ([1, B, D]), as
+    the reference does; otherwise each row is its own group."""
+    x = x + _attention_part(lp, x, ctx["cos_sin"], ctx["q_pos"], cfg,
+                            ctx["window"], cache, ctx["cur"],
+                            cfg.attn_logit_softcap, ctx["sinks"])
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    B, S, D = h.shape
+    if S == 1:
+        h = h.reshape(1, B, D)
+    y, aux = moe_mod.moe_block(h, lp["moe"], num_experts=cfg.num_experts,
+                               k=cfg.num_experts_per_tok,
+                               capacity_factor=cfg.capacity_factor)
+    return x + y.reshape(B, S, D), aux
+
+
+def hymba_block(lp, x, ctx, cfg: ModelConfig, cache=None):
     """Attention ∥ mamba on the same normed input (the mean of the two
     paths), then the gated MLP. The mamba state streams through
     ``cache['mamba']``, updated in place."""
@@ -266,10 +296,10 @@ def hymba_block(lp, x, ctx, cfg: ModelConfig, cache=None) -> torch.Tensor:
         cache["mamba"]["ssm"].copy_(state["ssm"])
     x = x + 0.5 * (a + m)
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp(h2, lp["mlp"])
+    return x + mlp(h2, lp["mlp"]), 0.0
 
 
-BLOCKS = {"dense": dense_block, "hymba": hymba_block}
+BLOCKS = {"dense": dense_block, "moe": moe_block, "hymba": hymba_block}
 
 
 # ---------------------------------------------------------------------------
@@ -278,10 +308,12 @@ BLOCKS = {"dense": dense_block, "hymba": hymba_block}
 
 
 def _positions_cos_sin(cfg: ModelConfig, positions: torch.Tensor):
+    hd = cfg.resolved_head_dim()
     if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
-    return rope.rope_cos_sin(positions, cfg.resolved_head_dim(),
-                             cfg.rope_theta)
+        # text positions: three equal (t, h, w) streams
+        return rope.mrope_cos_sin(rope.text_mrope_positions(positions), hd,
+                                  cfg.rope_theta, cfg.mrope_sections)
+    return rope.rope_cos_sin(positions, hd, cfg.rope_theta)
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -301,7 +333,8 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
     ``remat_policy`` (cache-less only, as in the reference): what backward
     recomputes of each layer (:func:`_remat`). Returns (logits [B,S,V],
     or the final hidden states [B,S,D] with ``logits=False``; the caches,
-    written in place, or None).
+    written in place, or None; the aux loss summed over layers, a float32
+    0-d tensor, 0 where no layer has one).
     """
     dtype = model_dtype(cfg)
     if inputs.ndim == 2:
@@ -311,6 +344,7 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     cos_sin = _positions_cos_sin(cfg, positions)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, st in enumerate(make_stages(cfg)):
         if st.kind not in BLOCKS:
             raise _not_ported(st.kind)
@@ -324,15 +358,17 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
         if caches is None:
             run = _remat(block, remat_policy)
             for lp in layer_params:
-                x = run(lp, x, ctx, cfg)
+                x, aux = run(lp, x, ctx, cfg)
+                aux_total = aux_total + aux
         else:
             for layer, lp in enumerate(layer_params):
-                x = block(lp, x, ctx, cfg, _layer(caches[i], layer))
+                x, aux = block(lp, x, ctx, cfg, _layer(caches[i], layer))
+                aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits:
         x = (unembed(x, params["embed"]) if cfg.tie_embeddings
              else lm_head(x, params["head"]))
-    return x, caches
+    return x, caches, aux_total
 
 
 def hidden_forward(params, inputs, positions, cfg, **kw):
@@ -369,7 +405,9 @@ def _remat(block, policy: str):
     products (``aten.mm``, ``bmm``, ``addmm``) and recomputes the rest,
     ``'dots_with_no_batch'`` those of ``mm`` and ``addmm`` only (its
     ``checkpoint_dots`` and ``checkpoint_dots_with_no_batch_dims``).
-    The blocks draw no random numbers, so no RNG state is kept."""
+    The block's (x', aux) pass through the checkpoint as they are, so a
+    moe layer's aux loss keeps its gradient. The blocks draw no random
+    numbers, so no RNG state is kept."""
     if policy == "none":
         return block
     if policy == "full":

@@ -28,8 +28,9 @@ def make_grad_fn(bundle, rc: RunConfig) -> Callable:
     """``grad_fn(params, batch) -> (loss, aux)``: the mean loss and aux
     loss over the microbatches of ``batch`` (``rc.train.microbatch`` rows
     each; 0 takes the batch whole), their mean gradients left in each
-    parameter's ``.grad`` (float32, like the parameters). The parameters
-    need a gradient only inside the call."""
+    parameter's ``.grad`` (float32, like the parameters; zeros for a
+    parameter the loss does not read). The parameters need a gradient
+    only inside the call."""
     tc = rc.train
 
     def grad_fn(params, batch):
@@ -56,6 +57,11 @@ def make_grad_fn(bundle, rc: RunConfig) -> Callable:
         finally:
             for p_ in leaves:
                 p_.requires_grad_(False)
+        for p_ in leaves:
+            if p_.grad is None:
+                # a leaf the loss does not read (the embedding table of an
+                # embeddings-in config): a zero gradient, as jax.grad gives
+                p_.grad = torch.zeros_like(p_)
         if n > 1:
             torch._foreach_mul_([p_.grad for p_ in leaves], 1.0 / n)
             return loss_sum * (1.0 / n), aux_sum * (1.0 / n)

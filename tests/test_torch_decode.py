@@ -2,8 +2,11 @@
 state: the KV cache writes (contiguous, ring, sink slots, int8 values),
 decode attention, the mamba streaming state, the cache trees, and
 ``prefill`` / ``decode_step`` of tiny h2o-danube (window 8: the prompt of
-24 takes the ring's eviction write), yi-6b (full attention) and hymba
-(meta-token sinks, mamba state). Parameters and caches are carried across
+24 takes the ring's eviction write), yi-6b (full attention), hymba
+(meta-token sinks, mamba state), mixtral and qwen3-moe (the moe kind; a
+decode step routes the batch as one group), gemma3 (local and global
+stages, embedding scale, tied head), qwen2-vl (embeddings in, M-RoPE)
+and codeqwen (MHA). Parameters and caches are carried across
 with ``repro_torch.convert``; inputs are drawn with numpy.
 
 Tolerances: cache writes are copies and int8 quantisation divides in
@@ -41,7 +44,8 @@ from repro_torch.convert import (caches_from_reference, caches_to_numpy,
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, registry, ssm, transformer
 
-ARCHS = ["h2o_danube_1_8b", "yi_6b", "hymba_1_5b"]
+ARCHS = ["h2o_danube_1_8b", "yi_6b", "hymba_1_5b", "mixtral_8x7b",
+         "qwen3_moe_30b_a3b", "gemma3_4b", "qwen2_vl_7b", "codeqwen15_7b"]
 S = 24                                    # the prompt (tests/test_consistency)
 LAYER_TOL = 1e-5
 PREFILL_TOL, DECODE_TOL = 3e-4, 5e-4
@@ -310,13 +314,32 @@ def _bundles(arch, **fields):
     return rb, rparams, b, params
 
 
+def _inputs(rng, mc, n: int) -> np.ndarray:
+    """Two streams of ``n`` inputs: tokens, or float32 embeddings [2, n,
+    D] for the stub-frontend configs (``embeddings_in``)."""
+    if mc.embeddings_in:
+        return rng.standard_normal((2, n, mc.d_model)).astype(np.float32)
+    return rng.integers(0, 255, (2, n)).astype(np.int32)
+
+
+def _no_drops(arch) -> dict:
+    """For the moe configs, the capacity factor E / k, at which no
+    assignment drops: a decode step routes the batch as one group and the
+    teacher-forced forward each row as one, and the reference's drops
+    depend on the group's size."""
+    mc = tiny_of(arch)
+    if mc.family != "moe":
+        return {}
+    return {"capacity_factor": mc.num_experts / mc.num_experts_per_tok}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_reference(arch, rng):
     """Prefill, then three decode steps, each against the reference's on
     the same parameters, logits and caches after every call."""
     rb, rparams, b, params = _bundles(arch)
     M = b.cfg.model.num_meta_tokens
-    toks = rng.integers(0, 255, (2, S + 3)).astype(np.int32)
+    toks = _inputs(rng, b.cfg.model, S + 3)
     rlast, rcaches = rb.prefill(rparams, {"inputs": jnp.asarray(toks[:, :S])})
     last, caches = b.prefill(params, {"inputs": torch.from_numpy(toks[:, :S])})
     np.testing.assert_allclose(last.numpy(), np.asarray(rlast),
@@ -342,7 +365,7 @@ def test_caches_carried_from_the_reference(arch, rng):
     by convert.caches_from_reference."""
     rb, rparams, b, params = _bundles(arch)
     M = b.cfg.model.num_meta_tokens
-    toks = rng.integers(0, 255, (2, S + 1)).astype(np.int32)
+    toks = _inputs(rng, b.cfg.model, S + 1)
     _, rcaches = rb.prefill(rparams, {"inputs": jnp.asarray(toks[:, :S])})
     caches = caches_from_reference(jax.tree.map(np.asarray, rcaches),
                                    device="cpu")
@@ -359,23 +382,28 @@ def test_caches_carried_from_the_reference(arch, rng):
 def test_greedy_decode_equals_teacher_forcing(arch, rng):
     """Eight greedy steps (the reference's test_multi_token_greedy_decode):
     each step's logits equal the teacher-forced forward over the prompt
-    and the generated tokens, and so do its tokens."""
-    rb, rparams, b, params = _bundles(arch)
-    M = b.cfg.model.num_meta_tokens
-    prompt = torch.from_numpy(rng.integers(0, 255, (2, 8)).astype(np.int32))
+    and the generated tokens, and so do its tokens. An embeddings-in
+    config is fed the next of a drawn sequence of embeddings in place of
+    its argmax. The moe configs at the capacity factor E / k."""
+    rb, rparams, b, params = _bundles(arch, **_no_drops(arch))
+    mc = b.cfg.model
+    M = mc.num_meta_tokens
+    feed = torch.from_numpy(_inputs(rng, mc, 15))
+    prompt = feed[:, :8]
     last, caches = b.prefill(params, {"inputs": prompt})
-    toks, logits = [last.argmax(-1)], [last]
+    logits, fed = [last], []
     for i in range(7):
-        step, caches = b.decode_step(params, toks[-1][:, None], caches,
-                                     8 + M + i)
+        nxt = (feed[:, 8 + i:9 + i] if mc.embeddings_in
+               else logits[-1].argmax(-1)[:, None])
+        fed.append(nxt)
+        step, caches = b.decode_step(params, nxt, caches, 8 + M + i)
         logits.append(step)
-        toks.append(step.argmax(-1))
-    seq = torch.cat([prompt] + [t[:, None] for t in toks[:-1]], dim=1)
+    seq = torch.cat([prompt] + fed, dim=1)
     oracle, _ = b.train_forward(params, {"inputs": seq})
-    for i, (t, lg) in enumerate(zip(toks, logits)):
+    for i, lg in enumerate(logits):
         np.testing.assert_allclose(lg.numpy(), oracle[:, 7 + i].numpy(),
                                    rtol=DECODE_TOL, atol=DECODE_TOL)
-        assert torch.equal(t, oracle[:, 7 + i].argmax(-1)), i
+        assert torch.equal(lg.argmax(-1), oracle[:, 7 + i].argmax(-1)), i
     # and the reference's forward over the same sequence
     rlogits, _ = rb.train_forward(rparams, {"inputs": jnp.asarray(seq.numpy())})
     np.testing.assert_allclose(oracle.numpy(), np.asarray(rlogits),
@@ -397,7 +425,7 @@ def test_prefill_kernel_gate(arch, rng, monkeypatch):
     monkeypatch.setattr(transformer, "swattn_cuda", counting)
     rb, rparams, b, params = _bundles(arch, use_pallas_attn=True)
     mc = b.cfg.model
-    toks = rng.integers(0, 255, (2, S + 1)).astype(np.int32)
+    toks = _inputs(rng, mc, S + 1)
     rlast, rcaches = rb.prefill(rparams, {"inputs": jnp.asarray(toks[:, :S])})
     last, caches = b.prefill(params, {"inputs": torch.from_numpy(toks[:, :S])})
     want = 0 if mc.num_meta_tokens else mc.num_layers

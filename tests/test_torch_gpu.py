@@ -346,7 +346,7 @@ def _to(tree, device):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [16, 64, 80, 128])
+@pytest.mark.parametrize("hd", [16, 64, 80, 128, 256])
 @pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (4, 1), (32, 8), (8, 8)])
 def test_swattn_kernel_matches_plain_version(cuda, H, KV, hd, dtype, rng):
     """The edge sweep of the kernel's tile geometry: S on both sides of
@@ -468,7 +468,9 @@ def test_mamba_block_on_the_card_matches_the_cpu(cuda, use_kernel, rng):
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
-@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "yi_6b", "hymba_1_5b"])
+@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "yi_6b", "hymba_1_5b",
+                                  "mixtral_8x7b", "qwen3_moe_30b_a3b",
+                                  "gemma3_4b", "codeqwen15_7b"])
 def test_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch, use_kernel,
                                                       rng):
     """Tiny prefill (24 tokens: h2o-danube's ring of 8 takes the eviction
@@ -513,6 +515,47 @@ def test_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch, use_kernel,
                 torch.testing.assert_close(other, leaf, rtol=5e-4, atol=5e-4)
             else:
                 assert torch.equal(other, leaf), key
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["drops", "last_expert_overfull", "decode"])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, case, dtype, rng):
+    """``moe_block`` on the card against the CPU (which
+    tests/test_torch_moe.py holds against the reference): at the published
+    capacity with drops, with the last expert overfilled (the sentinel
+    slot's last write must win on the card as on the CPU), and the decode
+    grouping ([1, B, D]). float32 within rtol=atol=1e-5 (TF32 off),
+    bfloat16 within 3e-2; two calls on the card are bit-equal (the
+    dispatch and the combine use no atomics)."""
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, D, F, E, k = {"drops": (2, 96, 32, 48, 8, 2),
+                        "last_expert_overfull": (2, 24, 32, 48, 4, 2),
+                        "decode": (1, 6, 32, 48, 16, 8)}[case]
+    g = torch.Generator().manual_seed(9)
+    params = {"router": torch.randn((D, E), generator=g),
+              "wi": torch.randn((E, D, F), generator=g) / D ** 0.5,
+              "wg": torch.randn((E, D, F), generator=g) / D ** 0.5,
+              "wo": torch.randn((E, F, D), generator=g) / F ** 0.5}
+    x = torch.from_numpy(rng.standard_normal((B, S, D)).astype(np.float32))
+    if case == "last_expert_overfull":
+        params["router"] = torch.zeros((D, E))
+        params["router"][:, E - 1], params["router"][:, 0] = 4.0, 1.0
+        x = x.abs()
+    cf = 1.0 if case == "last_expert_overfull" else 1.25
+    dt = getattr(torch, dtype)
+    want, want_aux = moe.moe_block(x.to(dt), params, num_experts=E, k=k,
+                                   capacity_factor=cf)
+    on_card = {n: t.to(cuda) for n, t in params.items()}
+    got, aux = moe.moe_block(x.to(cuda, dt), on_card, num_experts=E, k=k,
+                             capacity_factor=cf)
+    again, _ = moe.moe_block(x.to(cuda, dt), on_card, num_experts=E, k=k,
+                             capacity_factor=cf)
+    assert torch.equal(got, again)
+    tol = {"float32": 1e-5, "bfloat16": 3e-2}[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)
 
 
 def _flat(tree, prefix=()):

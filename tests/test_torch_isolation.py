@@ -31,6 +31,11 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.kernels.dwconv1d\n"
             "import repro_torch.configs, repro_torch.configs.tiny\n"
             "import repro_torch.models.registry, repro_torch.models.ssm\n"
+            "import repro_torch.models.moe, repro_torch.models.rope\n"
+            "import repro_torch.configs.mixtral_8x7b, "
+            "repro_torch.configs.qwen3_moe_30b_a3b, "
+            "repro_torch.configs.gemma3_4b, repro_torch.configs.qwen2_vl_7b, "
+            "repro_torch.configs.codeqwen15_7b\n"
             "import repro_torch.training, repro_torch.optim, "
             "repro_torch.checkpoint, repro_torch.data, repro_torch.runtime, "
             "repro_torch.launch.train, repro_torch.launch.serve, "

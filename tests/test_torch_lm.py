@@ -11,7 +11,8 @@ kernel-vs-plain model tolerance, tests/test_pallas_in_model.py). bfloat16
 logits within rtol=atol=5e-2: both packages round every layer's
 activations to bfloat16, in different places (XLA keeps float32 inside
 its fusions), and over 4 layers the logits (|logit| < 8, where one
-bfloat16 step is 2^-5) drift by one or two steps.
+bfloat16 step is 2^-5) drift by one or two steps. The moe kind's aux
+loss within relative 1e-5 (float32) and 1e-3 (bfloat16).
 """
 import dataclasses
 
@@ -37,20 +38,30 @@ from repro_torch.kernels.dwconv1d import kernel as DW
 from repro_torch.kernels.swattn import kernel as SW
 from repro_torch.models import module, registry, ssm, transformer
 
-LM_ARCHS = ["h2o_danube_1_8b", "yi_6b"]
-ARCHS = LM_ARCHS + ["hymba_1_5b"]
+# the dense and moe decoders (token inputs, no meta tokens); qwen2-vl takes
+# embeddings (tests/test_torch_kinds.py)
+NEW_ARCHS = ["mixtral_8x7b", "qwen3_moe_30b_a3b", "gemma3_4b",
+             "codeqwen15_7b"]
+LM_ARCHS = ["h2o_danube_1_8b", "yi_6b"] + NEW_ARCHS
+ARCHS = LM_ARCHS + ["hymba_1_5b", "qwen2_vl_7b"]
 TOL = {"float32": 3e-4, "bfloat16": 5e-2}
+# the moe aux loss, relative: float32 1e-5 (the routers' float32 softmaxes
+# over the same hidden states); bfloat16 1e-3, the router reading hidden
+# states that the two packages round to bfloat16 in different places (a
+# CPU run reads up to 6e-5)
+AUX_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 
 
 def _forwards(mc_fields: dict, arch: str, rng, S: int = 64):
     """(port logits, reference logits) as float32 numpy for the tiny
-    config of ``arch`` with ``mc_fields`` replaced."""
+    config of ``arch`` with ``mc_fields`` replaced; the two aux losses
+    agree (0 in both for the kinds without one)."""
     rmc = dataclasses.replace(r_tiny_of(arch), **mc_fields)
     sh = dataclasses.replace(R_SHAPES["train_4k"], seq_len=S, global_batch=2)
     rb = r_registry.build(RRunConfig(model=rmc, shape=sh, mesh=SINGLE_POD))
     rparams = rb.init_params(jax.random.key(7))
     toks = rng.integers(0, 255, (2, S)).astype(np.int32)
-    ref, _ = rb.train_forward(rparams, {"inputs": jnp.asarray(toks)})
+    ref, raux = rb.train_forward(rparams, {"inputs": jnp.asarray(toks)})
     mc = dataclasses.replace(tiny_of(arch), **mc_fields)
     b = registry.build(RunConfig(model=mc, shape=SHAPES["train_4k"]),
                        device="cpu")
@@ -58,7 +69,10 @@ def _forwards(mc_fields: dict, arch: str, rng, S: int = 64):
                                    device="cpu")
     got, aux = b.train_forward(params, {"inputs": torch.from_numpy(toks)})
     assert got.dtype == transformer.model_dtype(mc)
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    np.testing.assert_allclose(float(aux), float(raux),
+                               rtol=AUX_TOL[mc.dtype])
+    assert (float(aux) == 0.0) == (mc.family != "moe")
     return got.float().numpy(), np.asarray(ref.astype(jnp.float32))
 
 
@@ -150,13 +164,22 @@ def test_init_params_is_seeded_and_follows_the_specs():
 
 
 def test_unported_family_and_kind_raise():
-    mc = dataclasses.replace(tiny_of("yi_6b"), family="moe", num_experts=4,
-                             num_experts_per_tok=2)
-    with pytest.raises(NotImplementedError, match="moe"):
+    """The recurrent kinds (mamba, mlstm, slstm) and their configs wait
+    for a later slice; moe and M-RoPE no longer raise."""
+    mc = dataclasses.replace(tiny_of("yi_6b"), family="ssm", slstm_every=2)
+    with pytest.raises(NotImplementedError, match="mlstm"):
         registry.build(RunConfig(model=mc, shape=SHAPES["train_4k"]),
                        device="cpu")
-    with pytest.raises(ValueError, match="not ported|no config"):
-        get_model_config("mixtral_8x7b")
+    mc = dataclasses.replace(tiny_of("yi_6b"),
+                             stage_override=(("mamba", 0, 4),))
+    with pytest.raises(NotImplementedError, match="mamba"):
+        transformer.model_specs(mc)
+    for arch in ("xlstm_350m", "whisper_large_v3"):
+        with pytest.raises(ValueError, match="no config"):
+            get_model_config(arch)
+    for arch in NEW_ARCHS + ["qwen2_vl_7b"]:
+        registry.build(RunConfig(model=tiny_of(arch),
+                                 shape=SHAPES["train_4k"]), device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -10,8 +10,10 @@ Tolerances (float32 on both sides): losses within relative 1e-5;
 gradients, parameters and the AdamW moments within relative L2 1e-4 (the
 same operations summed in other orders: the CPU reads 5e-7 on the
 gradients of one loss, 2e-5 on hymba's dt_bias, the worst leaf). The
-loss's own values and gradients within rtol=atol=1e-5. Data bit-equal.
-One jitted reference per arch and step configuration is reused.
+loss's own values and gradients within rtol=atol=1e-5. The moe kind's aux
+loss (Switch load balance, in the total with weight 0.01) within relative
+1e-5, as the loss. Data bit-equal. One jitted reference per arch and step
+configuration is reused.
 """
 import dataclasses
 import functools
@@ -56,8 +58,10 @@ from repro_torch.training import loss as t_loss
 from repro_torch.training.step import make_grad_fn, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["h2o_danube_1_8b", "yi_6b", "hymba_1_5b"]
+ARCHS = ["h2o_danube_1_8b", "yi_6b", "hymba_1_5b", "mixtral_8x7b",
+         "qwen3_moe_30b_a3b", "gemma3_4b", "qwen2_vl_7b", "codeqwen15_7b"]
 POLICIES = ["none", "full", "dots", "dots_with_no_batch"]
+MOE_ARCHS = ("mixtral_8x7b", "qwen3_moe_30b_a3b")
 S, B, CHUNK = 32, 4, 16
 LOSS_TOL = 1e-5
 L2_TOL = 1e-4
@@ -115,7 +119,8 @@ def _ref_value_and_grad(arch, tied=False):
         lambda p, b: rb.loss_fn(p, b, loss_chunk=CHUNK), has_aux=True))
     (loss, (aux, denom)), grads = f(_ref_params(arch, tied),
                                     r_make_train_batch(rrc, 0))
-    return float(loss), float(denom), jax.tree.map(np.asarray, grads)
+    return (float(loss), float(denom), jax.tree.map(np.asarray, grads),
+            float(aux))
 
 
 # -- the loss ----------------------------------------------------------------
@@ -183,6 +188,8 @@ def test_chunked_ce_matches_reference(tied, z_loss, S_, chunk, rng):
 
 
 def _port_loss_and_grads(arch, policy, tied=False):
+    """(loss, label count, gradients as numpy, aux loss) of the port's
+    loss_fn on the reference's parameters and batch 0."""
     _, rc = _rc(arch, tie_embeddings=tied)
     b = registry.build(rc, device="cpu")
     params = params_from_reference(_ref_params(arch, tied), device="cpu")
@@ -191,9 +198,12 @@ def _port_loss_and_grads(arch, policy, tied=False):
     loss, (aux, denom) = b.loss_fn(params, make_train_batch(rc, 0, "cpu"),
                                    remat_policy=policy, loss_chunk=CHUNK)
     loss.backward()
-    assert float(aux) == 0.0
-    grads = jax.tree.map(lambda t: t.grad.numpy(), params)
-    return float(loss), float(denom), grads
+    assert (float(aux) == 0.0) == (rc.model.family != "moe")
+    # a leaf the loss does not read (qwen2-vl's embedding table: its
+    # inputs are embeddings) has no .grad; jax.grad gives it zeros
+    grads = jax.tree.map(lambda t: np.zeros(t.shape, np.float32)
+                         if t.grad is None else t.grad.numpy(), params)
+    return float(loss), float(denom), grads, float(aux)
 
 
 @pytest.mark.parametrize("policy", POLICIES)
@@ -201,10 +211,11 @@ def _port_loss_and_grads(arch, policy, tied=False):
 def test_loss_fn_and_grads_match_reference(arch, policy):
     """Every remat policy against the reference's jitted value_and_grad
     (its policies change what backward keeps, not the values)."""
-    r_val, r_den, r_g = _ref_value_and_grad(arch)
-    val, den, g = _port_loss_and_grads(arch, policy)
+    r_val, r_den, r_g, r_aux = _ref_value_and_grad(arch)
+    val, den, g, aux = _port_loss_and_grads(arch, policy)
     assert den == r_den == B * S
     np.testing.assert_allclose(val, r_val, rtol=LOSS_TOL)
+    np.testing.assert_allclose(aux, r_aux, rtol=LOSS_TOL)
     assert _tree_rel_l2(g, r_g) <= L2_TOL
     for path, leaf in jax.tree_util.tree_leaves_with_path(g):
         ref = functools.reduce(lambda t, k: t[k.key], path, r_g)
@@ -212,8 +223,8 @@ def test_loss_fn_and_grads_match_reference(arch, policy):
 
 
 def test_loss_fn_tied_head_matches_reference():
-    r_val, _, r_g = _ref_value_and_grad("h2o_danube_1_8b", tied=True)
-    val, _, g = _port_loss_and_grads("h2o_danube_1_8b", "none", tied=True)
+    r_val, _, r_g, _ = _ref_value_and_grad("h2o_danube_1_8b", tied=True)
+    val, _, g, _ = _port_loss_and_grads("h2o_danube_1_8b", "none", tied=True)
     assert "head" not in g
     np.testing.assert_allclose(val, r_val, rtol=LOSS_TOL)
     assert _tree_rel_l2(g, r_g) <= L2_TOL
@@ -255,7 +266,7 @@ def test_meta_tokens_are_dropped_before_the_loss():
     """hymba's meta tokens prepend M positions; the loss counts S labels."""
     _, rc = _rc("hymba_1_5b")
     assert rc.model.num_meta_tokens == 4
-    _, den, g = _port_loss_and_grads("hymba_1_5b", "none")
+    _, den, g, _ = _port_loss_and_grads("hymba_1_5b", "none")
     assert den == B * S
     assert np.abs(g["meta_tokens"]).sum() > 0
 
@@ -281,7 +292,12 @@ def _ref_steps(arch, microbatch, n=3):
 
 @pytest.mark.parametrize("arch,microbatch", [("h2o_danube_1_8b", 0),
                                              ("h2o_danube_1_8b", 2),
-                                             ("yi_6b", 2)])
+                                             ("yi_6b", 2),
+                                             ("mixtral_8x7b", 2),
+                                             ("qwen3_moe_30b_a3b", 0),
+                                             ("gemma3_4b", 0),
+                                             ("qwen2_vl_7b", 2),
+                                             ("codeqwen15_7b", 0)])
 def test_train_step_matches_reference(arch, microbatch):
     r_metrics, (r_params, r_opt) = _ref_steps(arch, microbatch)
     _, rc = _rc(arch, microbatch=microbatch)
@@ -296,7 +312,9 @@ def test_train_step_matches_reference(arch, microbatch):
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(m[k]), rm[k], rtol=LOSS_TOL,
                                        err_msg=k)
-        assert float(m["aux_loss"]) == rm["aux_loss"] == 0.0
+        np.testing.assert_allclose(float(m["aux_loss"]), rm["aux_loss"],
+                                   rtol=LOSS_TOL, err_msg="aux_loss")
+        assert (rm["aux_loss"] == 0.0) == (arch not in MOE_ARCHS)
     assert all(not x.requires_grad for x in tree_leaves(params))
     got_opt = opt_state_to_numpy(opt)
     assert int(got_opt.step) == int(r_opt.step) == 3
