@@ -214,9 +214,42 @@ Phases, in order; any failure exits non-zero:
                 gradients and parameters within 1e-5; controls: the aux
                 dropped from the total, one microbatch only); no kernel
                 launch. Each part runs; a failure is raised at the end.
+ 14. LM recurrent — the recurrent kinds and the encoder-decoder, which
+                launch no kernel (the reference runs their convs and
+                attention plain): the three counts must stay 0. (a)
+                xlstm-350m as published (21 mLSTM, 3 sLSTM layers), bf16
+                weights drawn on the card, the convs scaled to their taps'
+                fan-in (``_conv_at_own_fan_in``: at the spec's std the
+                mLSTM's memory cannot move the logits), 4 x 2048 prompt
+                + 64 greedy
+                steps, every row held by ``_decode_check`` to the
+                teacher-forced forward; controls that must fail: the
+                mLSTM memory reset to its init every step, the sLSTM
+                state reset every step; init time and peak, prefill ms,
+                step median and p90, tokens/s, state bytes, launches a
+                step and a sLSTM time step, the sLSTM scans' share of
+                the prefill, a profiled 1 x 256 prefill, the step's bytes
+                bound (weights, the [B, 4, 512, 512] float32 memories
+                read and written). (b) whisper-large-v3 as published, 4
+                streams of 1500 frame embeddings (the stubbed
+                frontend's output), a 4-token prompt + 64 steps, each row
+                held to ``train_forward``; the encoder once a request;
+                controls: the cross K/V zeroed, rolled by one batch row;
+                the encoder and the cross K/V timed apart, the step's
+                bytes bound, a step profile. (c) float32 card against
+                the CPU: xlstm at 8 layers 1 x 512 + 16; whisper at
+                2 + 2 layers, 64 frames, a 12-token prompt decoded to
+                position 460 (past the 448 learned positions and ring
+                slots); the mamba kind (``stage_override``) at hymba-1.5b
+                widths 2 x 256 + 8: logits and every cache leaf within
+                1e-3 of their max. (d) one float32 train step of each
+                (xlstm 8 layers [2, 256]; whisper 2 + 2 layers, 256
+                frames, 64 tokens), two microbatches, card against CPU
+                within 1e-5 (phase 12 (a)). Each part runs; a failure is
+                raised at the end.
 
 Every main path (serving, the streaming and xla engines, the ring, LM,
-mamba, LM serving, LM kinds) runs
+mamba, LM serving, LM kinds, LM recurrent) runs
 with the three launch counts set to 0 just before it and read just after.
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -793,18 +826,13 @@ class Smoke:
                  f"geometry {geo}")
         return row
 
-    def profile(self, label: str, fn, top: int = 8, warm: bool = False
-                ) -> None:
-        """One warm call of ``fn`` under ``torch.profiler`` (``warm``: the
-        caller has run it already, so no call precedes it): the device's
-        busy and idle share of the call's wall time, and the kernels that
-        took the most device time. Its launches are not the main
-        path's."""
+    def _profiled(self, fn):
+        """One call of ``fn`` under ``torch.profiler``: ([(device ms,
+        launches, name)] of each device operation, the call's wall ms).
+        Its launches are not the main path's."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         with saved_counts():
-            if not warm:
-                fn()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -821,6 +849,19 @@ class Smoke:
                 us = getattr(e, "self_cuda_time_total", 0)
             if us > 0:
                 rows.append((us / 1e3, e.count, e.key))
+        return rows, wall_ms
+
+    def profile(self, label: str, fn, top: int = 8, warm: bool = False
+                ) -> None:
+        """One warm call of ``fn`` under ``torch.profiler`` (``warm``: the
+        caller has run it already, so no call precedes it): the device's
+        busy and idle share of the call's wall time, and the kernels that
+        took the most device time. Its launches are not the main
+        path's."""
+        if not warm:
+            with saved_counts():
+                fn()
+        rows, wall_ms = self._profiled(fn)
         if not rows:
             self.say(f"profile {label}: the profiler saw no device time "
                      f"(wall {wall_ms!r} ms)")
@@ -1670,10 +1711,13 @@ class Smoke:
         return registry.build(RunConfig(model=mc, shape=shape),
                               device="cuda")
 
-    def _serve(self, bundle, params, prompt, steps: int, feed=None):
+    def _serve(self, bundle, params, prompt, steps: int, feed=None,
+               key: str = "inputs", more=None):
         """``prefill`` of ``prompt`` [B,P], then ``steps`` greedy
         ``decode_step`` calls (or the tokens of ``feed`` [B,steps], teacher
-        forced). Returns the logits of each row that made a token (the
+        forced). The prompt is the prefill batch's ``key``, beside the
+        entries of ``more`` (whisper: ``dec_tokens`` beside ``frames``).
+        Returns the logits of each row that made a token (the
         prefill's last, then each step's: [steps + 1, B, V]), the tokens
         fed [B, steps], the prefill's and each step's host ms (each call
         synchronised), the caches, and the swattn launches of the
@@ -1683,7 +1727,7 @@ class Smoke:
         before = sw.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        last, caches = bundle.prefill(params, {"inputs": prompt})
+        last, caches = bundle.prefill(params, {key: prompt, **(more or {})})
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         prefill_launches = sw.launches - before
@@ -1706,14 +1750,17 @@ class Smoke:
         return (torch.stack(rows), torch.stack(fed, dim=1), prefill_ms, ms,
                 caches, prefill_launches)
 
-    def _oracle(self, bundle, params, prompt, fed):
-        """The teacher-forced ``train_forward`` over prompt + fed tokens:
-        the logits at the rows ``_serve`` made tokens from, [steps+1,B,V].
-        A check, so its launches are not the main path's."""
+    def _oracle(self, bundle, params, prompt, fed, key: str = "inputs",
+                more=None):
+        """The teacher-forced ``train_forward`` over prompt + fed tokens
+        (the batch's ``key``, beside ``more``): the logits at the rows
+        ``_serve`` made tokens from, [steps+1,B,V]. A check, so its
+        launches are not the main path's."""
         P = prompt.shape[1]
         with saved_counts():
             logits, _ = bundle.train_forward(
-                params, {"inputs": self.torch.cat([prompt, fed], dim=1)})
+                params, {key: self.torch.cat([prompt, fed], dim=1),
+                         **(more or {})})
             out = logits[:, P - 1:].transpose(0, 1).contiguous()
         del logits
         return out
@@ -1790,7 +1837,7 @@ class Smoke:
         (``write_cache`` returns its input), one with the ring slot off
         by one, and one under each of ``faults`` ({label: (module,
         attribute, replacement)}), fed the sound run's tokens for
-        ``steps`` steps."""
+        ``steps`` steps: the logits rules or the caches' slot layout."""
         from repro_torch.models import attention
         real_slot = attention.ring_slot
 
@@ -1805,35 +1852,8 @@ class Smoke:
         faults = {"cache write skipped": (attention, "write_cache", skipped),
                   "ring slot off by one": (attention, "ring_slot",
                                            off_by_one), **(faults or {})}
-        P = prompt.shape[1]
-        M = bundle.cfg.model.num_meta_tokens
-        name = bundle.cfg.model.name
-        passed = []
-        with saved_counts():
-            for label, (module, attr, fault) in faults.items():
-                real = getattr(module, attr)
-                setattr(module, attr, fault)
-                try:
-                    rows, *_, caches, _ = self._serve(
-                        bundle, params, prompt, steps, feed=fed[:, :steps])
-                finally:
-                    setattr(module, attr, real)
-                worst, worst_l2, _, fails, _ = self._decode_check(
-                    rows, oracle[:steps + 1], truth[:steps + 1])
-                bad = self._ring_layout(bundle, caches, P + M + steps - 1)
-                self.say(f"LM serving {name} control, {label}: worst "
-                         f"error {worst!r} (limit {LM_TOL['bfloat16']}), "
-                         f"relative L2 to the forward {worst_l2!r}, "
-                         f"{len(fails)} of "
-                         f"{steps + 1} rows fail the logits rules, stages "
-                         f"off the slot layout (stage, layers) {bad}")
-                if not fails and not bad:
-                    passed.append(label)
-                del caches, rows
-        if passed:
-            raise AssertionError(f"LM serving {name}: the decode check "
-                                 f"passes a decode with the "
-                                 f"{' / '.join(passed)}")
+        self._controls("LM serving", bundle, params, prompt, fed, oracle,
+                       truth, steps, faults, ring=True)
 
     def _cache_bytes(self, caches) -> int:
         from repro_torch.models.module import tree_leaves
@@ -1885,9 +1905,7 @@ class Smoke:
         if fails or bad:
             raise AssertionError(f"LM serving {mc.name}: {fails[:3]}, stages "
                                  f"off the slot layout {bad}")
-        ms_sorted = sorted(ms)
-        med = ms_sorted[len(ms) // 2]
-        p90 = ms_sorted[min(len(ms) - 1, int(0.9 * len(ms)))]
+        med, p90 = self._steps_summary(ms)
         self.say(f"LM serving {mc.name} ({mc.num_layers} layers): {batch} x "
                  f"{prompt_len} prompt "
                  f"(+{M} meta), {steps} greedy steps, bf16; prefill "
@@ -2347,14 +2365,29 @@ class Smoke:
                     t = sp["moe"][leaf]            # [layers, E, in, out]
                     t.mul_(EXPERT_GAIN * math.sqrt(t.shape[1]))
 
-    def _free(self, label: str) -> None:
+    def _free(self, label: str, phase: str = "LM kinds") -> None:
         """Drop what earlier work left cached and say what stays
         allocated."""
         import gc
         gc.collect()
         self.torch.cuda.empty_cache()
-        self.say(f"LM kinds {label}: {self.torch.cuda.memory_allocated()} B "
+        self.say(f"{phase} {label}: {self.torch.cuda.memory_allocated()} B "
                  "allocated")
+
+    def _run_part(self, phase: str, key: str, name: str, run, out: dict,
+                  took: dict, failed: list) -> None:
+        """Run one part of a phase into ``out[name]``; a failure is
+        reported into ``failed`` (the phase raises it after every part has
+        run) and what it left on the card is freed."""
+        t0 = time.perf_counter()
+        try:
+            out[name] = run()
+        except Exception as exc:          # raised by the phase
+            import traceback
+            traceback.print_exc()
+            failed.append(f"({key}) {name}: {exc}")
+            self._free(f"({key}) after a failure", phase)
+        took[key] = time.perf_counter() - t0
 
     def _no_drops(self, arch: str) -> dict:
         """The capacity factor E / k: no assignment drops, so a decode
@@ -2696,17 +2729,7 @@ class Smoke:
         fwd = {}
 
         def part(key, name, run):
-            """Run one part; a failure is reported and raised after every
-            part has run."""
-            t0 = time.perf_counter()
-            try:
-                out[name] = run()
-            except Exception as exc:          # raised below
-                import traceback
-                traceback.print_exc()
-                failed.append(f"({key}) {name}: {exc}")
-                self._free(f"({key}) after a failure")
-            took[key] = time.perf_counter() - t0
+            self._run_part("LM kinds", key, name, run, out, took, failed)
         part("a", "moe_serving", self.moe_serving)
         part("b", "qwen3_published", self.qwen3_published)
 
@@ -2738,6 +2761,520 @@ class Smoke:
         if failed:
             raise AssertionError("LM kinds phase: " + "; ".join(failed))
         return out, launches["swattn"]
+
+    # -- phase 14: LM recurrent kinds and enc-dec ----------------------------
+
+    def _launch_count(self, fn):
+        """One call of ``fn`` under ``torch.profiler``: (the device
+        operations it launched, their device ms, the call's wall ms)."""
+        rows, wall_ms = self._profiled(fn)
+        return (sum(n for _, n, _ in rows), sum(ms for ms, _, _ in rows),
+                wall_ms)
+
+    def _controls(self, phase: str, bundle, params, prompt, fed, oracle,
+                  truth, steps: int, faults: dict, key: str = "inputs",
+                  more=None, ring: bool = False) -> dict:
+        """The decode check must fail a decode under each of ``faults``
+        ({label: (module, attribute, replacement)}), fed the sound run's
+        tokens for ``steps`` steps: the logits rules, or with ``ring`` the
+        caches' slot layout (``_ring_layout``). Returns each control's
+        worst error."""
+        name = bundle.cfg.model.name
+        P = prompt.shape[1]
+        M = bundle.cfg.model.num_meta_tokens
+        out, passed = {}, []
+        with saved_counts():
+            for label, (module, attr, fault) in faults.items():
+                real = getattr(module, attr)
+                setattr(module, attr, fault)
+                try:
+                    rows, *_, caches, _ = self._serve(
+                        bundle, params, prompt, steps, feed=fed[:, :steps],
+                        key=key, more=more)
+                finally:
+                    setattr(module, attr, real)
+                worst, worst_l2, _, fails, _ = self._decode_check(
+                    rows, oracle[:steps + 1], truth[:steps + 1])
+                bad = (self._ring_layout(bundle, caches, P + M + steps - 1)
+                       if ring else [])
+                self.say(f"{phase} {name} control, {label}: worst "
+                         f"error {worst!r} (limit {LM_TOL['bfloat16']}), "
+                         f"relative L2 to the forward {worst_l2!r}, "
+                         f"{len(fails)} of {steps + 1} rows fail the logits "
+                         "rules" + (f", stages off the slot layout (stage, "
+                                    f"layers) {bad}" if ring else ""))
+                out[label] = worst
+                if not fails and not bad:
+                    passed.append(label)
+                del caches, rows
+        if passed:
+            raise AssertionError(f"{phase} {name}: the decode check passes "
+                                 f"a decode with the {' / '.join(passed)}")
+        return out
+
+    def _conv_at_own_fan_in(self, params) -> None:
+        """Scale each xLSTM block's depthwise conv ([layers, C, k] in a
+        stage) to its own fan-in, the k taps: the spec's lecun std takes
+        every leading dim (layers x channels), 1/sqrt(7 x 2048) for the
+        first mLSTM stage, and the conv's output is then about 0.02: the
+        mLSTM's q and k vanish, its block output is set by the norm's
+        eps, and resetting the memory every step moves xlstm-350m's
+        logits by 0.3% (a CPU reading at 8 layers), under any limit. At
+        the taps' fan-in the same reset moves them by 80%."""
+        import math
+        for name, sp in params.items():
+            for kind in ("mlstm", "slstm"):
+                if name.startswith("stage_") and kind in sp:
+                    w = sp[kind]["conv"]["w"]
+                    w.mul_(math.sqrt(w.shape[0] * w.shape[1] / w.shape[2]))
+
+    def _steps_summary(self, ms) -> tuple:
+        """(median, p90) of the steps' ms."""
+        ms_sorted = sorted(ms)
+        return (ms_sorted[len(ms) // 2],
+                ms_sorted[min(len(ms) - 1, int(0.9 * len(ms)))])
+
+    def xlstm_published(self, batch: int = 4, prompt_len: int = 2048,
+                        steps: int = 64, seed: int = 21):
+        """(a) xlstm-350m as published (24 layers: 21 mLSTM, 3 sLSTM),
+        bf16 weights drawn on the card: prefill and greedy decode, each
+        row held to the teacher-forced forward (``_decode_check``), the
+        mLSTM memory and the sLSTM state reset every step as controls;
+        the sLSTM loop's launches per time step and its share of the
+        prefill, the decode step's launches and bytes bound."""
+        torch = self.torch
+        from repro_torch.models import xlstm
+        from repro_torch.models.module import tree_leaves
+        arch = "xlstm_350m"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bundle = self._bundle(arch, batch, prompt_len + steps)
+        mc = bundle.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = bundle.init_params(gen, torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        self._conv_at_own_fan_in(params)
+        weights = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+        prompt = torch.randint(0, mc.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        # the warm-up prefill, with each sLSTM scan timed (synchronised)
+        real_scan = xlstm.slstm_scan
+        loop_ms = []
+
+        def timed_scan(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_scan(*a, **kw)
+            torch.cuda.synchronize()
+            loop_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+        xlstm.slstm_scan = timed_scan
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            bundle.prefill(params, {"inputs": prompt})
+            torch.cuda.synchronize()
+            warm_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            xlstm.slstm_scan = real_scan
+        rows, fed, prefill_ms, ms, caches, _ = self._serve(
+            bundle, params, prompt, steps)
+        oracle = self._oracle(bundle, params, prompt, fed)
+        truth = self._oracle(self._bundle(arch, batch, prompt_len + steps,
+                                          dtype="float32"),
+                             params, prompt, fed)
+        worst, worst_l2, excluded, fails, gap = self._decode_check(
+            rows, oracle, truth)
+        if fails:
+            raise AssertionError(f"LM recurrent {mc.name}: {fails[:3]}")
+        state_b = self._cache_bytes(caches)
+        # a step reads every weight (the tied head reads the whole table)
+        # and reads and writes every state (the [B, 4, 512, 512] float32
+        # mLSTM memories)
+        step_bytes = weights + 2 * state_b
+        bound_ms = step_bytes / self.hbm_bw * 1e3
+        med, p90 = self._steps_summary(ms)
+        end = prompt_len + steps
+        tok = rows[-1].argmax(-1)[:, None]
+        step_launches, step_busy, step_wall = self._launch_count(
+            lambda: bundle.decode_step(params, tok, caches, end))
+        # launches per sLSTM time step: two scans at the published width,
+        # 16 and 48 steps, of the first sLSTM layer's weights
+        sp = params["stage_1"]["slstm"]
+        g = torch.randn((batch, 48, 4 * mc.d_model), generator=gen,
+                        device="cuda", dtype=torch.bfloat16)
+        n16, _, _ = self._launch_count(lambda: xlstm.slstm_scan(
+            g[:, :16], sp["r"][0], sp["b"][0], mc.num_heads))
+        n48, busy48, wall48 = self._launch_count(lambda: xlstm.slstm_scan(
+            g, sp["r"][0], sp["b"][0], mc.num_heads))
+        per_step = (n48 - n16) / 32
+        loop_share = sum(loop_ms) / warm_ms
+        from repro_torch.models import transformer
+        kinds = [st.kind for st in transformer.make_stages(mc)
+                 for _ in range(st.count)]
+        self.say(f"LM recurrent (a) {mc.name} as published ({mc.num_layers} "
+                 f"layers: {kinds.count('mlstm')} mLSTM, "
+                 f"{kinds.count('slstm')} sLSTM): {weights} B of bf16 weights "
+                 f"drawn in {init_s!r} s, init peak {init_peak} B; {batch} x "
+                 f"{prompt_len} prompt, {steps} greedy steps: prefill "
+                 f"{prefill_ms!r} ms (the second call); decode step median "
+                 f"{med!r} ms, p90 {p90!r} ms, {batch / (med * 1e-3)!r} "
+                 f"tokens/s; state {state_b} B; a step launches "
+                 f"{step_launches} device operations ({step_busy!r} ms busy "
+                 f"of {step_wall!r} ms profiled) and reads {step_bytes} B "
+                 f"(weights, and every state read and written): bound "
+                 f"{bound_ms!r} ms at {self.hbm_bw:.3g} B/s; against teacher "
+                 f"forcing: worst relative L2 {worst_l2!r}, worst excess "
+                 f"{worst!r} (limit {LM_TOL['bfloat16']}; the bf16 forward "
+                 f"sits {gap[0]!r}..{gap[1]!r} from float32), {excluded} of "
+                 f"{rows.shape[0] * batch} rows excluded by the margin rule")
+        self.say(f"LM recurrent (a) {mc.name} sLSTM loop: {per_step!r} "
+                 f"launches per time step ({n16} in 16 steps, {n48} in 48); "
+                 f"the warm-up prefill ({warm_ms!r} ms) spent {sum(loop_ms)!r}"
+                 f" ms in its {len(loop_ms)} sLSTM scans ({loop_share!r} of "
+                 f"it); in a 48-step scan the device is busy {busy48!r} of "
+                 f"{wall48!r} ms")
+        self.profile(f"LM recurrent (a) {mc.name} prefill 1 x 256",
+                     lambda: bundle.prefill(params,
+                                            {"inputs": prompt[:1, :256]}))
+        del caches
+        real_step = xlstm._mlstm_step
+        faults = {
+            "mLSTM memory reset every step": (
+                xlstm, "_mlstm_step",
+                lambda q, k, v, i_g, f_g, state: real_step(
+                    q, k, v, i_g, f_g, xlstm._mlstm_zero(*q.shape, q.device))),
+            "sLSTM state reset every step": (
+                xlstm, "slstm_scan",
+                lambda g_, r, b, heads, state=None: real_scan(
+                    g_, r, b, heads, None if g_.shape[1] == 1 else state))}
+        controls = self._controls("LM recurrent", bundle, params, prompt,
+                                  fed, oracle, truth, min(steps, 8), faults)
+        peak = torch.cuda.max_memory_allocated()
+        del params, oracle, truth, rows
+        self._free("(a) after xlstm-350m", "LM recurrent")
+        return {"layers": mc.num_layers, "init_s": init_s,
+                "init_peak_bytes": init_peak, "weight_bytes": weights,
+                "prefill_ms": prefill_ms, "step_ms_median": med,
+                "step_ms_p90": p90, "tokens_per_s": batch / (med * 1e-3),
+                "state_bytes": state_b, "step_launches": step_launches,
+                "step_bytes": step_bytes, "step_bound_ms": bound_ms,
+                "slstm_launches_per_step": per_step,
+                "slstm_prefill_share": loop_share,
+                "slstm_loop_busy_share": busy48 / wall48,
+                "worst_rel_l2": worst_l2, "worst_excess": worst,
+                "bf16_vs_float32_forward": gap, "excluded_rows": excluded,
+                "controls": controls, "peak_bytes": peak}
+
+    def _stream_frames(self, gen, batch: int, n: int, d: int):
+        """[batch, n, d] float32 frame embeddings: each stream's own
+        offset (a vector per stream, as each recording has its own mean
+        features) plus noise per frame. Random attention weighs the
+        frames almost evenly, so without the offset every stream's cross
+        attention would read nearly the same mean, and a decode reading
+        another stream's cross cache could not be told apart."""
+        torch = self.torch
+        return (torch.randn((batch, 1, d), generator=gen, device="cuda")
+                + torch.randn((batch, n, d), generator=gen, device="cuda"))
+
+    def whisper_published(self, batch: int = 4, frames: int = 1500,
+                          prompt_len: int = 4, steps: int = 64,
+                          seed: int = 22):
+        """(b) whisper-large-v3 as published (32 + 32 layers, d 1280),
+        bf16 weights drawn on the card: ``frames`` frame embeddings a
+        stream (the 30-s window after the stubbed conv frontend), a
+        ``prompt_len``-token decoder prompt and greedy decode, each row
+        held to ``train_forward`` over prompt + fed tokens; the encoder
+        runs once a request; controls: the cross K/V zeroed, and rolled
+        by one batch row."""
+        torch = self.torch
+        from repro_torch.models import whisper
+        from repro_torch.models.module import tree_leaves
+        arch = "whisper_large_v3"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bundle = self._bundle(arch, batch, frames)
+        mc = bundle.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = bundle.init_params(gen, torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        weights = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+        enc_weights = sum(t.numel() * t.element_size() for t in tree_leaves(
+            [params["encoder"], params["enc_ln"]]))
+        more = {"frames": self._stream_frames(gen, batch, frames,
+                                              mc.d_model)}
+        prompt = torch.randint(0, mc.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        bundle.prefill(params, {"dec_tokens": prompt, **more})  # warm-up
+        # the encoder's runs in the served run: rows encoded per stream
+        real_encode = whisper.encode
+        encoded = []
+
+        def counting(params_, frames_, *a, **kw):
+            encoded.append(frames_.shape[0])
+            return real_encode(params_, frames_, *a, **kw)
+        whisper.encode = counting
+        try:
+            rows, fed, prefill_ms, ms, caches, _ = self._serve(
+                bundle, params, prompt, steps, key="dec_tokens", more=more)
+        finally:
+            whisper.encode = real_encode
+        runs_per_request = sum(encoded) / batch
+        if runs_per_request != 1:
+            raise AssertionError(f"{mc.name}: the encoder ran "
+                                 f"{runs_per_request} times a request")
+        # the prefill's parts: the encoder, then the cross K/V
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        enc = whisper.encode(params, more["frames"], mc)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        whisper.cross_kv(params, enc, mc)
+        torch.cuda.synchronize()
+        xkv_ms = (time.perf_counter() - t) * 1e3
+        del enc
+        oracle = self._oracle(bundle, params, prompt, fed, key="dec_tokens",
+                              more=more)
+        truth = self._oracle(self._bundle(arch, batch, frames,
+                                          dtype="float32"),
+                             params, prompt, fed, key="dec_tokens", more=more)
+        worst, worst_l2, excluded, fails, gap = self._decode_check(
+            rows, oracle, truth)
+        pos = caches["self"]["pos"]
+        want = torch.full_like(pos[0], -1)
+        want[:prompt_len + steps] = torch.arange(prompt_len + steps,
+                                                 device="cuda")
+        bad_layers = int((pos != want[None]).any(dim=1).sum())
+        if fails or bad_layers:
+            raise AssertionError(f"LM recurrent {mc.name}: {fails[:3]}, "
+                                 f"{bad_layers} layers off the ring layout")
+        cross_b = self._cache_bytes(caches["cross"])
+        self_b = self._cache_bytes(caches["self"])
+        # a step reads the decoder's weights (the tied head the whole
+        # table), the cross cache and the self ring
+        step_bytes = weights - enc_weights + cross_b + self_b
+        bound_ms = step_bytes / self.hbm_bw * 1e3
+        med, p90 = self._steps_summary(ms)
+        end = prompt_len + steps
+        tok = rows[-1].argmax(-1)[:, None]
+        step_launches, step_busy, step_wall = self._launch_count(
+            lambda: bundle.decode_step(params, tok, caches, end))
+        self.say(f"LM recurrent (b) {mc.name} as published "
+                 f"({mc.encoder_layers} + {mc.num_layers} layers): {weights} "
+                 f"B of bf16 weights drawn in {init_s!r} s, init peak "
+                 f"{init_peak} B; {batch} streams of {frames} frames, a "
+                 f"{prompt_len}-token prompt, {steps} greedy steps: prefill "
+                 f"{prefill_ms!r} ms (the second call; the encoder "
+                 f"{enc_ms!r} ms, the cross K/V {xkv_ms!r} ms), the encoder "
+                 f"ran {runs_per_request!r} times a request; decode step "
+                 f"median {med!r} ms, p90 {p90!r} ms, "
+                 f"{batch / (med * 1e-3)!r} tokens/s; cross cache {cross_b} "
+                 f"B, self rings {self_b} B; a step launches {step_launches} "
+                 f"device operations ({step_busy!r} ms busy of "
+                 f"{step_wall!r} ms profiled) and reads {step_bytes} B "
+                 f"(the decoder's weights, the cross cache, the rings): "
+                 f"bound {bound_ms!r} ms; against teacher forcing: worst "
+                 f"relative L2 {worst_l2!r}, worst excess {worst!r} (limit "
+                 f"{LM_TOL['bfloat16']}; the bf16 forward sits "
+                 f"{gap[0]!r}..{gap[1]!r} from float32), {excluded} of "
+                 f"{rows.shape[0] * batch} rows excluded by the margin rule; "
+                 f"every ring on its slot layout")
+        self.profile(f"LM recurrent (b) {mc.name} decode step",
+                     lambda: bundle.decode_step(params, tok, caches, end + 1))
+        del caches
+        real_xkv = whisper.cross_kv
+        faults = {
+            "cross K/V zeroed": (
+                whisper, "cross_kv", lambda p_, e, c: {
+                    k: torch.zeros_like(v)
+                    for k, v in real_xkv(p_, e, c).items()}),
+            "cross K/V rolled by one batch row": (
+                whisper, "cross_kv", lambda p_, e, c: {
+                    k: v.roll(1, dims=1)
+                    for k, v in real_xkv(p_, e, c).items()})}
+        controls = self._controls("LM recurrent", bundle, params, prompt,
+                                  fed, oracle, truth, min(steps, 8), faults,
+                                  key="dec_tokens", more=more)
+        peak = torch.cuda.max_memory_allocated()
+        del params, oracle, truth, rows, more
+        self._free("(b) after whisper-large-v3", "LM recurrent")
+        return {"layers": [mc.encoder_layers, mc.num_layers],
+                "init_s": init_s, "init_peak_bytes": init_peak,
+                "weight_bytes": weights, "prefill_ms": prefill_ms,
+                "encoder_ms": enc_ms, "cross_kv_ms": xkv_ms,
+                "encoder_runs_per_request": runs_per_request,
+                "step_ms_median": med, "step_ms_p90": p90,
+                "tokens_per_s": batch / (med * 1e-3),
+                "cross_cache_bytes": cross_b, "self_cache_bytes": self_b,
+                "step_launches": step_launches, "step_bytes": step_bytes,
+                "step_bound_ms": bound_ms, "worst_rel_l2": worst_l2,
+                "worst_excess": worst, "bf16_vs_float32_forward": gap,
+                "excluded_rows": excluded, "controls": controls,
+                "peak_bytes": peak}
+
+    def _card_vs_cpu(self, label: str, arch: str, batch: int,
+                     prompt_len: int, steps: int, seed: int, frames: int = 0,
+                     **fields) -> dict:
+        """float32 (TF32 off) prefill and ``steps`` greedy decode steps on
+        the card, and the same calls on the CPU fed the card's tokens
+        from the same weights: every row's logits within ``LM_TOL``
+        (float32) of the CPU's max |logit|, and every cache leaf within
+        the same share of its own max (positions exactly)."""
+        torch = self.torch
+        from repro_torch.models import registry
+        from repro_torch.models.module import tree_leaves, tree_map
+        card = self._bundle(arch, batch, prompt_len + steps, dtype="float32",
+                            **fields)
+        cpu = registry.build(card.cfg, device="cpu")
+        mc = card.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = card.init_params(gen)
+        self._conv_at_own_fan_in(params)
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        prompt = torch.randint(0, mc.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        key, more = "inputs", {}
+        if frames:
+            key = "dec_tokens"
+            more = {"frames": self._stream_frames(gen, batch, frames,
+                                                  mc.d_model)}
+        rows, fed, _, ms, caches, _ = self._serve(card, params, prompt, steps,
+                                                  key=key, more=more)
+        last, cpu_caches = cpu.prefill(cpu_params, {
+            key: prompt.cpu(), **{k: v.cpu() for k, v in more.items()}})
+        cpu_rows = [last]
+        for i in range(steps):
+            step, cpu_caches = cpu.decode_step(cpu_params, fed[:, i:i + 1].cpu(),
+                                               cpu_caches, prompt_len + i)
+            cpu_rows.append(step)
+        worst = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                    for g, w in zip(rows, cpu_rows))
+        cache_worst, pos_equal = 0.0, True
+        for g, w in zip(tree_leaves(caches), tree_leaves(cpu_caches),
+                        strict=True):
+            g = g.cpu()
+            if w.is_floating_point():
+                scale = float(w.abs().max()) or 1.0
+                cache_worst = max(cache_worst,
+                                  float((g.float() - w.float()).abs().max())
+                                  / scale)
+            else:
+                pos_equal = pos_equal and bool(torch.equal(g, w))
+        self.say(f"LM recurrent (c) {label}: float32 {batch} x {prompt_len} "
+                 f"+ {steps} steps, card against the CPU: worst max |Δ| / "
+                 f"max |logit| {worst!r}, worst cache leaf {cache_worst!r} "
+                 f"(limit {LM_TOL['float32']}), positions "
+                 f"{'equal' if pos_equal else 'DIFFER'}; card step median "
+                 f"{self._steps_summary(ms)[0]!r} ms")
+        if not (worst <= LM_TOL["float32"]
+                and cache_worst <= LM_TOL["float32"] and pos_equal):
+            raise AssertionError(f"LM recurrent (c) {label}: card and CPU "
+                                 f"differ ({worst}, {cache_worst}, "
+                                 f"{pos_equal})")
+        del params, caches, rows
+        return {"logits": worst, "caches": cache_worst}
+
+    def recurrent_float32(self):
+        """(c) card against CPU in float32 at cut depth: xlstm-350m at 8 of
+        24 layers (7 mLSTM, 1 sLSTM), whisper-large-v3 at 2 + 2 layers
+        decoded past its 448 learned positions (a 12-token prompt to
+        position 460), and the mamba kind as a stage of its own at
+        hymba-1.5b's widths."""
+        out = {"xlstm-350m": self._card_vs_cpu(
+            "xlstm-350m 8 layers", "xlstm_350m", 1, 512, 16, seed=23,
+            num_layers=8)}
+        out["whisper-large-v3"] = self._card_vs_cpu(
+            "whisper-large-v3 2 + 2 layers, 64 frames, to position 460",
+            "whisper_large_v3", 1, 12, 449, seed=24, frames=64,
+            num_layers=2, encoder_layers=2)
+        out["mamba"] = self._card_vs_cpu(
+            "mamba kind at hymba-1.5b widths, 2 layers", "hymba_1_5b", 2,
+            256, 8, seed=25, stage_override=(("mamba", 0, 2),),
+            num_layers=2, num_meta_tokens=0)
+        self._free("(c) after the float32 runs", "LM recurrent")
+        return out
+
+    def recurrent_train_parity(self):
+        """(d) one float32 train step of each on the card against the same
+        step on the CPU, two microbatches (every batch key sliced):
+        xlstm-350m at 8 layers [2, 256]; whisper-large-v3 at 2 + 2 layers,
+        256 frames, 64 decoder tokens. Loss, clipped gradients and
+        updated parameters within ``TRAIN_F32_TOL`` (phase 12 (a))."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.configs.base import get_model_config
+        from repro_torch.data import make_train_batch
+        from repro_torch.models import registry
+        from repro_torch.models.module import tree_map
+        out = {}
+        for arch, fields, tokens in (
+                ("xlstm_350m", {"num_layers": 8}, 0),
+                ("whisper_large_v3", {"num_layers": 2, "encoder_layers": 2},
+                 64)):
+            mc = dataclasses.replace(get_model_config(arch), dtype="float32",
+                                     **fields)
+            rc = self._train_rc(mc, 256, 2, 1)
+            start = tree_map(lambda t: t.cpu(), registry.build(
+                rc, device="cuda").init_params(
+                    torch.Generator(device="cuda").manual_seed(0)))
+            batch = make_train_batch(rc, 0, "cpu")
+            if tokens:
+                batch["dec_tokens"] = batch["dec_tokens"][:, :tokens]
+                batch["labels"] = batch["labels"][:, :tokens]
+            cpu_m, cpu_p, cpu_g, cpu_ms = self._one_step(rc, start, "cpu",
+                                                         batch)
+            card_m, card_p, card_g, card_ms = self._one_step(
+                rc, start, "cuda", {k: v.cuda() for k, v in batch.items()})
+            checks = {"loss": abs(card_m["loss"] - cpu_m["loss"])
+                      / abs(cpu_m["loss"]),
+                      "gradients": self._tree_rel(card_g, cpu_g),
+                      "parameters": self._tree_rel(card_p, cpu_p)}
+            self.say(f"LM recurrent (d) {mc.name} float32 train step "
+                     f"({fields}), [2, 256], two microbatches: loss card "
+                     f"{card_m['loss']!r} cpu {cpu_m['loss']!r}; relative "
+                     f"{checks!r} (limit {TRAIN_F32_TOL}); step {card_ms!r} "
+                     f"ms card, {cpu_ms!r} ms cpu")
+            if not all(v <= TRAIN_F32_TOL for v in checks.values()):
+                raise AssertionError(f"LM recurrent (d) {mc.name}: train "
+                                     f"step parity beyond {TRAIN_F32_TOL}: "
+                                     f"{checks}")
+            out[mc.name] = {**checks, "card_ms": card_ms, "cpu_ms": cpu_ms}
+            del start, cpu_p, cpu_g, card_p, card_g
+        self._free("(d) after the train steps", "LM recurrent")
+        return out
+
+    def recurrent_phase(self):
+        """Phase 14: the recurrent kinds (xlstm-350m, the mamba kind) and
+        the encoder-decoder (whisper-large-v3) on the card. None of them
+        launches a kernel (the reference runs their convs and attention
+        plain): the counts must stay 0. Returns (per-part results, the
+        counts)."""
+        self._free("start", "LM recurrent")
+        reset_counts()
+        out, took, failed = {}, {}, []
+        for key, name, run in (("a", "xlstm_published", self.xlstm_published),
+                               ("b", "whisper_published",
+                                self.whisper_published),
+                               ("c", "float32_card_vs_cpu",
+                                self.recurrent_float32),
+                               ("d", "train_step_card_vs_cpu",
+                                self.recurrent_train_parity)):
+            self._run_part("LM recurrent", key, name, run, out, took, failed)
+        launches = read_counts()
+        if any(launches.values()):
+            failed.append(f"kernel launches {launches}, expected none")
+        self.say(f"LM recurrent parts took (s): {took!r}; kernel launches "
+                 f"{launches}")
+        if failed:
+            raise AssertionError("LM recurrent phase: " + "; ".join(failed))
+        return out, launches
 
     # -- phase 11 ------------------------------------------------------------
 
@@ -2984,6 +3521,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kinds, kinds_sw = smoke.lm_kinds_phase()
     smoke.say(f"LM kinds phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    recurrent, rec_launches = smoke.recurrent_phase()
+    smoke.say(f"LM recurrent phase took {time.perf_counter() - t0:.1f} s")
 
     main_row = rows["w5f32"]
     sw = sw_rows["bfloat16"]
@@ -2999,6 +3539,7 @@ def main() -> int:
         "executors": {"max_abs_err": exec_errs, "serving": exec_served,
                       "timing": exec_rows},
         "sharded": sharded,
+        "launches_lm_recurrent": rec_launches["filter2d_halo"],
         "card": card}, {
         "name": "swattn", "route": "cuda", "source": SWATTN_SOURCE,
         "replaces": SWATTN_REPLACES,
@@ -3017,6 +3558,8 @@ def main() -> int:
         "float32": sw_rows["float32"],
         "prefill_shape": sw_prefill["bfloat16"], "lm_serving": serving_lm,
         "lm_kinds_shapes": sw_kinds, "lm_kinds": kinds,
+        "launches_lm_recurrent": rec_launches["swattn"],
+        "lm_recurrent": recurrent,
         "card": card}, {
         "name": "dwconv1d", "route": "cuda", "source": DWCONV_SOURCE,
         "replaces": DWCONV_REPLACES, "launches": dw_launches,
@@ -3025,6 +3568,7 @@ def main() -> int:
         "bound_by": dw_row["bound_by"], "library_ms": dw_row["library_ms"],
         "shape": dw_row["shape"], "dtype": dw_row["dtype"],
         "launches_lm_training": training["full_width"]["launches_per_step"],
+        "launches_lm_recurrent": rec_launches["dwconv1d"],
         "card": card}]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

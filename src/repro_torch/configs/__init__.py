@@ -1,8 +1,9 @@
-from repro_torch.configs.base import (ARCH_IDS, SHAPES, ModelConfig,
-                                      RunConfig, ShapeConfig, TrainConfig,
-                                      get_model_config)
+from repro_torch.configs.base import (ARCH_IDS, PAPER_ARCH, SHAPES,
+                                      ModelConfig, RunConfig, ShapeConfig,
+                                      TrainConfig, get_model_config,
+                                      supported_shapes)
 
 __all__ = [
-    "ARCH_IDS", "SHAPES", "ModelConfig", "RunConfig", "ShapeConfig",
-    "TrainConfig", "get_model_config",
+    "ARCH_IDS", "PAPER_ARCH", "SHAPES", "ModelConfig", "RunConfig",
+    "ShapeConfig", "TrainConfig", "get_model_config", "supported_shapes",
 ]

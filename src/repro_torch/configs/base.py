@@ -4,12 +4,14 @@ The port's copy of the reference's ``configs/base.py``, without the TPU
 mesh. Every architecture in ``src/repro_torch/configs/<id>.py`` exports
 ``CONFIG``, a ``ModelConfig``; the fields, defaults and parameter counts
 are the reference's. Shapes (the assigned input-shape sets) are global
-and keyed by name.
+and keyed by name; ``supported_shapes`` says which of them an arch runs.
+The reference's ``resolve`` binds a mesh too and waits for the port's
+sharding slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Sequence, Tuple
 
 # ---------------------------------------------------------------------------
 # Shapes (assigned): seq_len x global_batch cells.
@@ -208,27 +210,44 @@ class RunConfig:
 # Registry
 # ---------------------------------------------------------------------------
 
-# the architectures whose config files the port carries, in the
-# reference's order (it has ten; xlstm-350m and whisper-large-v3 come with
-# the slice that runs their layer kinds)
 ARCH_IDS = [
     "qwen2_vl_7b",
     "gemma3_4b",
     "h2o_danube_1_8b",
     "yi_6b",
     "codeqwen15_7b",
+    "xlstm_350m",
     "hymba_1_5b",
     "mixtral_8x7b",
     "qwen3_moe_30b_a3b",
+    "whisper_large_v3",
 ]
+
+PAPER_ARCH = "spatial_filter_hd"
 
 
 def get_model_config(arch: str) -> ModelConfig:
     import importlib
 
     arch = arch.replace("-", "_").replace(".", "_")
-    if arch not in ARCH_IDS:
-        raise ValueError(f"no config {arch!r} in the port yet; it carries "
-                         f"{ARCH_IDS}")
+    if arch not in ARCH_IDS and arch != PAPER_ARCH:
+        raise ValueError(f"no config {arch!r}; the port carries {ARCH_IDS} "
+                         f"and {PAPER_ARCH!r}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG
+
+
+def supported_shapes(model: ModelConfig) -> Sequence[str]:
+    """Which assigned shapes run for this arch (the reference's rule: no
+    LM shape for the filter config; long_500k only where attention is
+    sub-quadratic: SSM / hybrid, or a sliding window outside enc-dec)."""
+    if model.family == "filter":
+        return ()
+    shapes = ["train_4k", "prefill_32k"]
+    # enc-dec has a decode step (cross-KV of seq_len); encoder-only would not.
+    shapes.append("decode_32k")
+    subquad = (model.family in ("ssm", "hybrid")
+               or (model.attn_window > 0 and model.family not in ("encdec",)))
+    if subquad:
+        shapes.append("long_500k")
+    return tuple(shapes)

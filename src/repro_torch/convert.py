@@ -94,8 +94,11 @@ def params_from_reference(tree: Dict[str, Any], device="cuda"
     ``tree``: nested dicts of numpy arrays as the reference's
     ``init_params`` returns them (``jax.tree.map(np.asarray, params)``):
     a whole LM (``embed``, ``stage_<i>`` with each leaf stacked over the
-    stage's layers on axis 0, ``final_norm``, ``head``, ``meta_tokens``)
-    or one block's params (a mamba block's ``in_proj``, ``conv``, …). The
+    stage's layers on axis 0, ``final_norm``, ``head``, ``meta_tokens``;
+    xlstm's ``mlstm`` / ``slstm`` stages), whisper (``embed``,
+    ``dec_pos``, ``encoder`` and ``decoder`` stacked over their layers,
+    ``enc_ln``, ``dec_ln``) or one block's params (a mamba block's
+    ``in_proj``, ``conv``, …). The
     port keeps the same names, layouts and dtypes, so the result is the
     same tree of tensors on ``device`` (the card unless the caller passes
     ``device='cpu'``).
@@ -108,7 +111,10 @@ def caches_from_reference(caches: List[Any], device="cuda") -> List[Any]:
     ``tfm.cache_init``, as numpy): a list per stage of dicts — ``k``,
     ``v`` ([layers, B, L, KV, hd]), ``pos`` ([layers, L] int32), and
     ``k_scale`` / ``v_scale`` for int8 KV; nested ``{'attn', 'mamba'}``
-    for hymba, the mamba state as ``conv`` and ``ssm``. Same names,
+    for hymba, the mamba state as ``conv`` and ``ssm`` (also the mamba
+    kind's whole stage cache); xlstm's ``{conv, mlstm: (C, n, m)}`` and
+    ``{conv, slstm: (c, n, h, m)}``, tuples kept; or whisper's
+    ``{'self': stacked ring caches, 'cross': {k, v}}``. Same names,
     layouts and dtypes, on ``device`` (the card unless the caller passes
     ``device='cpu'``)."""
     return _tree_to_torch(caches, resolve_device(device))

@@ -3,6 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch <id> [--tiny] \
       [--steps N] [--ckpt-dir DIR] [--seq S] [--batch B] [--device cpu]
 
+Every arch of ``configs.ARCH_IDS`` trains: the decoder LMs on tokens (or
+embeddings), whisper on frame embeddings, decoder tokens and labels.
 ``--tiny`` swaps in the reduced same-family config (sequence 128, batch
 8 unless given); without it the full config and its shape apply. The
 run is on the card unless ``--device cpu``. ``--mesh`` and

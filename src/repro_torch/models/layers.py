@@ -24,6 +24,21 @@ def rms_norm(x: torch.Tensor, params, eps: float = 1e-6) -> torch.Tensor:
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def layer_norm_specs(d: int):
+    return {"scale": p((d,), ("embed",), init="ones"),
+            "bias": p((d,), ("embed",), init="zeros")}
+
+
+def layer_norm(x: torch.Tensor, params, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 with the biased variance (``jnp.var``'s ddof
+    0, not ``torch.var``'s default correction of 1)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
 # -- gated MLP (SwiGLU) -------------------------------------------------------
 
 def mlp_specs(d: int, f: int):
@@ -38,6 +53,24 @@ def mlp(x: torch.Tensor, params, act=F.silu) -> torch.Tensor:
     h = x @ params["wi"].to(x.dtype)
     g = x @ params["wg"].to(x.dtype)
     return (act(g) * h) @ params["wo"].to(x.dtype)
+
+
+def mlp2_specs(d: int, f: int):
+    """Ungated 2-matrix MLP with biases (whisper's GELU MLP)."""
+    return {"wi": p((d, f), ("embed", "mlp")),
+            "bi": p((f,), ("mlp",), init="zeros"),
+            "wo": p((f, d), ("mlp", "embed")),
+            "bo": p((d,), ("embed",), init="zeros")}
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation; F.gelu's is erf
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp2(x: torch.Tensor, params, act=_gelu_tanh) -> torch.Tensor:
+    h = act(x @ params["wi"].to(x.dtype) + params["bi"].to(x.dtype))
+    return h @ params["wo"].to(x.dtype) + params["bo"].to(x.dtype)
 
 
 # -- embedding ----------------------------------------------------------------

@@ -10,13 +10,18 @@ reference's ``models/registry.py``.
   decode_step(params, inp, caches, cur) -> (logits, caches)
   cache_init(batch, seq_len)           -> empty caches
 
-for the decoder-LM families whose layer kinds are ported (``dense``,
-``moe`` and ``hymba``; hymba-style meta tokens and qwen2-vl's M-RoPE on
-text positions included). ``cache_init`` is the
-concrete twin of the reference's ``cache_abstract``. The abstract cache
-and its logical axes, ``input_specs`` and the other families wait for
-later slices. The reference has no generation loop, and
-neither has the port: a caller runs ``decode_step`` once per token.
+for every family of the reference's model registry: the decoder LMs
+(``dense``, ``moe``, ``ssm`` — xLSTM's mLSTM and sLSTM —, ``hybrid`` and
+``vlm``; hymba-style meta tokens and qwen2-vl's M-RoPE on text positions
+included) and the whisper encoder-decoder (``encdec``: batches of
+``frames``, ``dec_tokens`` and ``labels``; caches ``{'self', 'cross'}``).
+The spatial-filter config (``filter``) is no model: ``build`` refuses it,
+as the reference does, and ``repro_torch.core`` serves it.
+``cache_init`` is the concrete twin of the reference's
+``cache_abstract``. The abstract cache and its logical axes and
+``input_specs`` wait for the sharding slice. The reference has no
+generation loop, and neither has the port: a caller runs
+``decode_step`` once per token.
 """
 from __future__ import annotations
 
@@ -30,8 +35,9 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import module as mod
 from repro_torch.models import transformer as tfm
+from repro_torch.models import whisper as whisper_mod
 from repro_torch.models.layers import embed, lm_head, unembed
-from repro_torch.training.loss import chunked_ce_from_hidden
+from repro_torch.training.loss import ce_loss, chunked_ce_from_hidden
 
 META = "meta_tokens"
 
@@ -49,12 +55,7 @@ class ModelBundle:
     cache_init: Callable        # (batch, seq_len) -> caches
 
 
-def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
-    mc = rc.model
-    specs = tfm.model_specs(mc)
-    M = mc.num_meta_tokens
-    dt = tfm.model_dtype(mc)
-
+def _init_params(specs, device: torch.device) -> Callable:
     def init_params(generator: torch.Generator,
                     dtype: torch.dtype = torch.float32):
         """Random parameters from ``generator`` (on the bundle's device)."""
@@ -62,6 +63,15 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
             raise ValueError(f"generator on {generator.device}, bundle on "
                              f"{device}")
         return mod.init_params(specs, generator, dtype)
+    return init_params
+
+
+def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
+    mc = rc.model
+    specs = tfm.model_specs(mc)
+    M = mc.num_meta_tokens
+    dt = tfm.model_dtype(mc)
+    init_params = _init_params(specs, device)
 
     def _with_meta(params, x, positions):
         """Prepend learnable meta tokens (hymba); shift positions by M."""
@@ -157,10 +167,95 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
                        decode_step=decode_step, cache_init=cache_init)
 
 
+# ---------------------------------------------------------------------------
+# Whisper (enc-dec)
+# ---------------------------------------------------------------------------
+
+
+def _whisper_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
+    mc = rc.model
+    specs = whisper_mod.model_specs(mc)
+
+    def _positions(B: int, T: int):
+        return torch.arange(T, dtype=torch.int32,
+                            device=device)[None].expand(B, T)
+
+    def train_forward(params, batch, remat_policy: str = "none"):
+        """The cache-less forward: ``batch['frames']`` [B,S_enc,D] through
+        the encoder, ``batch['dec_tokens']`` [B,T] through the decoder.
+        Returns ([B,T,V] logits, a float32 0-d zero: no aux loss)."""
+        frames = torch.as_tensor(batch["frames"], device=device)
+        tokens = torch.as_tensor(batch["dec_tokens"], device=device)
+        enc = whisper_mod.encode(params, frames, mc,
+                                 remat_policy=remat_policy)
+        xkv = whisper_mod.cross_kv(params, enc, mc)
+        B, T = tokens.shape
+        logits, _ = whisper_mod.decode(params, tokens, _positions(B, T), xkv,
+                                       mc, remat_policy=remat_policy)
+        return logits, torch.zeros((), dtype=torch.float32, device=device)
+
+    def loss_fn(params, batch, remat_policy: str = "none",
+                loss_chunk: int = 2048, z_loss: float = 0.0,
+                aux_weight: float = 0.01):
+        """Mean CE of ``batch['labels']`` [B,T] over the whole logit plane
+        (``ce_loss``, as the reference; ``loss_chunk`` and ``aux_weight``
+        are the LM bundle's arguments, unused here). Returns (loss, (0,
+        the count of labels))."""
+        logits, aux = train_forward(params, batch, remat_policy=remat_policy)
+        labels = torch.as_tensor(batch["labels"], device=device)
+        loss, denom = ce_loss(logits, labels, z_loss)
+        return loss, (aux, denom)
+
+    def cache_init(batch: int, seq_len: int):
+        """Empty caches: the decoder's self rings and a zero cross cache
+        for ``seq_len`` encoder frames."""
+        return {"self": whisper_mod.self_cache_init(mc, batch, device=device),
+                "cross": whisper_mod.cross_cache_init(mc, batch, seq_len,
+                                                      device=device)}
+
+    def prefill(params, batch):
+        """Encode ``batch['frames']`` once, build the cross K/V, and run
+        the decoder prompt ``batch['dec_tokens']`` [B,T0] into fresh self
+        caches. Returns ([B,V] logits of the prompt's last position,
+        {'self', 'cross'})."""
+        frames = torch.as_tensor(batch["frames"], device=device)
+        sot = torch.as_tensor(batch["dec_tokens"], device=device)
+        enc = whisper_mod.encode(params, frames, mc)
+        xkv = whisper_mod.cross_kv(params, enc, mc)
+        B, T0 = sot.shape
+        self_c = whisper_mod.self_cache_init(mc, B, device=device)
+        logits, self_c = whisper_mod.decode(params, sot, _positions(B, T0),
+                                            xkv, mc, self_caches=self_c,
+                                            cur=0)
+        return logits[:, -1], {"self": self_c, "cross": xkv}
+
+    def decode_step(params, inp, caches, cur: int):
+        """One token per stream: ``inp`` [B,1] at absolute position
+        ``cur`` (a Python int), against the cross cache; the self rings
+        are written in place. Returns ([B,V] logits, caches)."""
+        cur = operator.index(cur)
+        inp = torch.as_tensor(inp, device=device)
+        positions = torch.full((inp.shape[0], 1), cur, dtype=torch.int32,
+                               device=device)
+        logits, _ = whisper_mod.decode(params, inp, positions,
+                                       caches["cross"], mc,
+                                       self_caches=caches["self"], cur=cur)
+        return logits[:, -1], caches
+
+    return ModelBundle(cfg=rc, specs=specs, device=device,
+                       init_params=_init_params(specs, device),
+                       train_forward=train_forward, loss_fn=loss_fn,
+                       prefill=prefill, decode_step=decode_step,
+                       cache_init=cache_init)
+
+
 def build(rc: RunConfig, device="cuda") -> ModelBundle:
     """The bundle of ``rc``'s model on ``device`` (the card unless the
     caller passes ``device='cpu'``; no card raises)."""
+    if rc.model.family == "filter":
+        raise ValueError("the spatial-filter config is served by "
+                         "repro_torch.core, see examples/video_pipeline.py")
     dev = resolve_device(device)
-    if rc.model.family in ("dense", "moe", "ssm", "hybrid", "vlm"):
-        return _lm_bundle(rc, dev)
-    raise NotImplementedError(f"family {rc.model.family!r} is not ported")
+    if rc.model.family == "encdec":
+        return _whisper_bundle(rc, dev)
+    return _lm_bundle(rc, dev)

@@ -1,6 +1,6 @@
 """Rotary position embeddings, standard RoPE and Qwen2-VL's M-RoPE, as in
 the reference's ``models/rope.py``: float32 angles and rotation, cast
-back.
+back; and whisper's fixed sinusoidal embeddings.
 
 M-RoPE splits the head_dim/2 frequency channels into (t, h, w) sections
 and rotates each section by its own positional stream; text tokens carry
@@ -63,3 +63,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     y1 = x1 * c - x2 * s
     y2 = x2 * c + x1 * s
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def sinusoidal_embedding(length: int, d: int, dtype=torch.float32, *,
+                         device) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings [length, d]: ``[sin, cos]``
+    halves, channel i at the rate 10000^(-i / (d/2 - 1))."""
+    half = d // 2
+    scale = torch.exp(-torch.log(torch.tensor(10000.0)).to(device)
+                      * torch.arange(half, dtype=torch.float32, device=device)
+                      / (half - 1))
+    pos = (torch.arange(length, dtype=torch.float32, device=device)[:, None]
+           * scale[None, :])
+    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1).to(dtype)

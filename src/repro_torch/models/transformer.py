@@ -10,11 +10,12 @@ layer under the reference's remat policy (``_remat``: plain
 ``torch.utils.checkpoint`` for ``jax.checkpoint``, selective checkpointing
 for its dots policies). Each stage owns a cache of the
 length its window needs (a local stage's ring holds only the live window).
-The port runs the ``dense`` kind (attention + gated MLP), the ``moe``
-kind (attention + the MoE block, whose Switch aux loss ``forward`` sums
-over layers) and the ``hymba`` kind (attention ∥ mamba, then the MLP),
-with or without caches, and M-RoPE on text positions (qwen2-vl); the
-recurrent kinds (mamba, mlstm, slstm) wait for a later slice.
+The port runs every kind of the reference, with or without caches: the
+``dense`` kind (attention + gated MLP), the ``moe`` kind (attention + the
+MoE block, whose Switch aux loss ``forward`` sums over layers), the
+``hymba`` kind (attention ∥ mamba, then the MLP), and the recurrent kinds
+with no attention: ``mamba`` (a pre-norm mamba block), ``mlstm`` and
+``slstm`` (xLSTM's blocks); and M-RoPE on text positions (qwen2-vl).
 
 The kernel gate (``cfg.use_pallas_attn``: no sinks, no softcap, an int
 window) sends attention through the CUDA ``swattn`` kernel. The
@@ -29,7 +30,9 @@ gradient, as the reference's does.
 The caches are written in place: ``forward`` stores each layer's new keys
 and state into its slice of the stage's stacked tensors and returns the
 same tree (the reference returns a new tree; a copy here would rewrite
-the whole cache on every decode step).
+the whole cache on every decode step). A recurrent layer's state (the
+conv's last inputs, the ssm carry, xLSTM's memory tuples) is computed
+whole and copied into its slice.
 """
 from __future__ import annotations
 
@@ -48,13 +51,14 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rope
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (embed, embed_specs, head_specs,
                                        lm_head, mlp, mlp_specs, rms_norm,
                                        rms_norm_specs, unembed)
 from repro_torch.models.module import p, stack_specs
 
-NOT_PORTED = ("mamba", "mlstm", "slstm")
-
+# the reference's layer kinds the port does not run yet: none
+NOT_PORTED: tuple = ()
 
 # ---------------------------------------------------------------------------
 # Stage partition
@@ -123,17 +127,25 @@ def make_stages(cfg: ModelConfig) -> List[Stage]:
 # ---------------------------------------------------------------------------
 
 
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"layer kind {kind!r} is not ported yet (ROADMAP queue 1); the port "
-        f"runs {sorted(BLOCKS)}")
-
-
 def layer_specs(cfg: ModelConfig, kind: str):
     if kind not in BLOCKS:
-        if kind in NOT_PORTED:
-            raise _not_ported(kind)
         raise ValueError(kind)
+    if kind == "mamba":
+        return {"ln1": rms_norm_specs(cfg.d_model),
+                "mamba": ssm_mod.mamba_specs(
+                    cfg.d_model, expand=cfg.ssm_expand,
+                    heads=cfg.mamba_heads or 8, state=cfg.ssm_state,
+                    conv_width=cfg.ssm_conv_width)}
+    if kind == "mlstm":
+        return {"ln1": rms_norm_specs(cfg.d_model),
+                "mlstm": xlstm_mod.mlstm_specs(
+                    cfg.d_model, heads=cfg.num_heads,
+                    conv_width=cfg.ssm_conv_width)}
+    if kind == "slstm":
+        return {"ln1": rms_norm_specs(cfg.d_model),
+                "slstm": xlstm_mod.slstm_specs(
+                    cfg.d_model, heads=cfg.num_heads,
+                    conv_width=cfg.ssm_conv_width)}
     specs = {
         "ln1": rms_norm_specs(cfg.d_model),
         "attn": attn.attn_specs(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -181,10 +193,17 @@ def cache_dtype(cfg: ModelConfig) -> torch.dtype:
 def stage_cache_init(cfg: ModelConfig, st: Stage, batch: int, seq_len: int,
                      *, device):
     """A stage's streaming state, each leaf stacked over the stage's
-    layers on axis 0: the KV cache (``dense``, ``moe``), or ``{'attn': KV
-    cache, 'mamba': conv and ssm state}`` (``hymba``)."""
+    layers on axis 0: the KV cache (``dense``, ``moe``), ``{'attn': KV
+    cache, 'mamba': conv and ssm state}`` (``hymba``), the mamba state
+    (``mamba``), or ``{'conv', 'mlstm': (C, n, m)}`` / ``{'conv', 'slstm':
+    (c, n, h, m)}`` (``mlstm`` / ``slstm``)."""
     if st.kind not in BLOCKS:
-        raise _not_ported(st.kind)
+        raise ValueError(st.kind)
+    recurrent = {"mamba": ssm_mod.mamba_state_init,
+                 "mlstm": xlstm_mod.mlstm_state_init,
+                 "slstm": xlstm_mod.slstm_state_init}.get(st.kind)
+    if recurrent is not None:
+        return _stack(recurrent(cfg, batch, device=device), st.count)
     cl = st.cache_len(seq_len)
     if st.window > 0 and cfg.num_meta_tokens:
         # reserved sink slots: meta tokens never evicted by the ring
@@ -208,7 +227,24 @@ def cache_init(cfg: ModelConfig, batch: int, seq_len: int, *, device):
 def _stack(tree, n: int):
     if isinstance(tree, dict):
         return {k: _stack(v, n) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_stack(v, n) for v in tree)
     return tree[None].repeat((n,) + (1,) * tree.ndim)
+
+
+def _store(cache, state) -> None:
+    """Copy a layer's new streaming ``state`` into its cache slice (a
+    matching tree of views; nothing to do without a cache)."""
+    if cache is None:
+        return
+    if isinstance(cache, dict):
+        for k, v in cache.items():
+            _store(v, state[k])
+    elif isinstance(cache, tuple):
+        for c, s_ in zip(cache, state, strict=True):
+            _store(c, s_)
+    else:
+        cache.copy_(state)
 
 
 # ---------------------------------------------------------------------------
@@ -288,18 +324,43 @@ def hymba_block(lp, x, ctx, cfg: ModelConfig, cache=None):
                         ctx["window"], None if cache is None
                         else cache["attn"], ctx["cur"], 0.0, ctx["sinks"])
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    m, state = ssm_mod.mamba_block(
-        h, lp["mamba"], cfg, state_in=None if cache is None
-        else cache["mamba"])
-    if cache is not None:
-        cache["mamba"]["conv"].copy_(state["conv"])
-        cache["mamba"]["ssm"].copy_(state["ssm"])
+    cm = None if cache is None else cache["mamba"]
+    m, state = ssm_mod.mamba_block(h, lp["mamba"], cfg, state_in=cm)
+    _store(cm, state)
     x = x + 0.5 * (a + m)
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp(h2, lp["mlp"]), 0.0
 
 
-BLOCKS = {"dense": dense_block, "moe": moe_block, "hymba": hymba_block}
+def mamba_block(lp, x, ctx, cfg: ModelConfig, cache=None):
+    """A pre-norm mamba block (the plain conv, as in the reference); its
+    state streams through ``cache``, updated in place."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    y, state = ssm_mod.mamba_block(h, lp["mamba"], cfg, state_in=cache)
+    _store(cache, state)
+    return x + y, 0.0
+
+
+def mlstm_block(lp, x, ctx, cfg: ModelConfig, cache=None):
+    """A pre-norm mLSTM block; conv state and memory stream through
+    ``cache``, updated in place."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    y, state = xlstm_mod.mlstm_block(h, lp["mlstm"], cfg, state_in=cache)
+    _store(cache, state)
+    return x + y, 0.0
+
+
+def slstm_block(lp, x, ctx, cfg: ModelConfig, cache=None):
+    """A pre-norm sLSTM block; conv state and (c, n, h, m) stream through
+    ``cache``, updated in place."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    y, state = xlstm_mod.slstm_block(h, lp["slstm"], cfg, state_in=cache)
+    _store(cache, state)
+    return x + y, 0.0
+
+
+BLOCKS = {"dense": dense_block, "moe": moe_block, "hymba": hymba_block,
+          "mamba": mamba_block, "mlstm": mlstm_block, "slstm": slstm_block}
 
 
 # ---------------------------------------------------------------------------
@@ -346,8 +407,6 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
     cos_sin = _positions_cos_sin(cfg, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, st in enumerate(make_stages(cfg)):
-        if st.kind not in BLOCKS:
-            raise _not_ported(st.kind)
         block = BLOCKS[st.kind]
         sp = params[f"stage_{i}"]
         ctx = {"cos_sin": cos_sin, "q_pos": positions, "window": st.window,
@@ -380,6 +439,8 @@ def _layer(tree, i: int):
     a cache's layer land in the stacked tensors)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_layer(v, i) for v in tree)
     return tree[i]
 
 

@@ -562,15 +562,80 @@ def _flat(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _flat(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat(v, prefix + (i,))
     else:
         yield prefix, tree
+
+
+# the recurrent kinds and the encoder-decoder: (arch, fields replaced)
+RECURRENT = {"xlstm": ("xlstm_350m", {}),
+             "mamba": ("hymba_1_5b", {"stage_override": (("mamba", 0, 2),),
+                                      "num_layers": 2,
+                                      "num_meta_tokens": 0}),
+             "whisper": ("whisper_large_v3", {})}
+
+
+@pytest.mark.parametrize("model", sorted(RECURRENT))
+def test_recurrent_and_encdec_serving_on_the_card_match_the_cpu(cuda, model,
+                                                                rng):
+    """Tiny prefill and 20 decode steps of the tiny xlstm (mLSTM and sLSTM
+    states), a mamba stack and whisper (its ring of 16 slots wraps, its
+    positions pass the 16 learned ones) on the card against the same
+    calls on the CPU (which tests/test_torch_xlstm.py and
+    tests/test_torch_whisper.py hold against the reference): float32,
+    TF32 off; logits within rtol=atol=3e-4 after prefill and 5e-4 after
+    each step, every cache leaf within 5e-4 (positions exactly); no
+    kernel launched."""
+    import dataclasses
+    from repro_torch.configs.base import SHAPES, RunConfig
+    from repro_torch.configs.tiny import tiny_of
+    from repro_torch.kernels.dwconv1d import kernel as DW
+    from repro_torch.kernels.swattn import kernel as SW
+    from repro_torch.models import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch, fields = RECURRENT[model]
+    mc = dataclasses.replace(tiny_of(arch), **fields)
+    rc = RunConfig(model=mc, shape=dataclasses.replace(
+        SHAPES["prefill_32k"], seq_len=48, global_batch=2))
+    cpu = registry.build(rc, device="cpu")
+    card = registry.build(rc, device=cuda)
+    params = cpu.init_params(torch.Generator().manual_seed(7))
+    on_card = _to(params, cuda)
+    P = 4 if model == "whisper" else 24
+    toks = torch.from_numpy(rng.integers(0, 255, (2, P + 20)))
+    batch = {"inputs": toks[:, :P]}
+    if model == "whisper":
+        batch = {"frames": torch.from_numpy(rng.standard_normal(
+            (2, 48, mc.d_model)).astype(np.float32)),
+            "dec_tokens": toks[:, :P]}
+    before = SW.swattn.launches, DW.dwconv1d.launches
+    want, want_c = cpu.prefill(params, batch)
+    got, got_c = card.prefill(on_card, batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-4, atol=3e-4)
+    for i in range(20):
+        want, _ = cpu.decode_step(params, toks[:, P + i:P + i + 1], want_c,
+                                  P + i)
+        got, _ = card.decode_step(on_card, toks[:, P + i:P + i + 1], got_c,
+                                  P + i)
+        torch.testing.assert_close(got.cpu(), want, rtol=5e-4, atol=5e-4)
+    assert (SW.swattn.launches, DW.dwconv1d.launches) == before
+    got_leaves = dict(_flat(got_c))
+    for key, leaf in _flat(want_c):
+        other = got_leaves[key].cpu()
+        if leaf.is_floating_point():
+            torch.testing.assert_close(other, leaf, rtol=5e-4, atol=5e-4)
+        else:
+            assert torch.equal(other, leaf), key
 
 
 # -- the training slice: a step on the card, the kernels' refusal -----------
 
 
 @pytest.mark.parametrize("microbatch", [0, 2])
-@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "hymba_1_5b"])
+@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "hymba_1_5b",
+                                  "xlstm_350m", "whisper_large_v3"])
 def test_train_step_on_the_card_matches_the_cpu(cuda, arch, microbatch):
     """Two float32 train steps (TF32 off) on the card against the same
     steps on the CPU (which tests/test_torch_train.py holds against the

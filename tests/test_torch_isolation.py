@@ -35,7 +35,11 @@ def test_import_leaves_jax_and_reference_out():
             "import repro_torch.configs.mixtral_8x7b, "
             "repro_torch.configs.qwen3_moe_30b_a3b, "
             "repro_torch.configs.gemma3_4b, repro_torch.configs.qwen2_vl_7b, "
-            "repro_torch.configs.codeqwen15_7b\n"
+            "repro_torch.configs.codeqwen15_7b, "
+            "repro_torch.configs.xlstm_350m, "
+            "repro_torch.configs.whisper_large_v3, "
+            "repro_torch.configs.spatial_filter_hd\n"
+            "import repro_torch.models.xlstm, repro_torch.models.whisper\n"
             "import repro_torch.training, repro_torch.optim, "
             "repro_torch.checkpoint, repro_torch.data, repro_torch.runtime, "
             "repro_torch.launch.train, repro_torch.launch.serve, "
@@ -113,10 +117,15 @@ def _state_helpers():
     from repro_torch.configs.tiny import tiny_of
     from repro_torch.core.border_spec import BorderSpec
     from repro_torch.core.streaming import strip_plans
-    from repro_torch.models import attention, ssm, transformer
+    from repro_torch.models import attention, ssm, transformer, whisper, xlstm
     mc = tiny_of("hymba_1_5b")
     st = transformer.make_stages(mc)[0]
+    xmc = tiny_of("xlstm_350m")
     return {
+        "mlstm_state_init": lambda **kw: xlstm.mlstm_state_init(xmc, 1, **kw),
+        "slstm_state_init": lambda **kw: xlstm.slstm_state_init(xmc, 1, **kw),
+        "self_cache_init": lambda **kw: whisper.self_cache_init(
+            tiny_of("whisper_large_v3"), 1, **kw),
         "init_cache": lambda **kw: attention.init_cache(1, 4, 2, 16, **kw),
         "stage_cache_init": lambda **kw: transformer.stage_cache_init(
             mc, st, 1, 8, **kw),
@@ -128,7 +137,8 @@ def _state_helpers():
 
 @pytest.mark.parametrize("name", ["init_cache", "stage_cache_init",
                                   "cache_init", "mamba_state_init",
-                                  "strip_plans"])
+                                  "strip_plans", "mlstm_state_init",
+                                  "slstm_state_init", "self_cache_init"])
 def test_state_helpers_take_no_default_device(name):
     """A caller who forgets the device gets a TypeError, not state on the
     host."""

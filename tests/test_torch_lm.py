@@ -164,19 +164,37 @@ def test_init_params_is_seeded_and_follows_the_specs():
 
 
 def test_unported_family_and_kind_raise():
-    """The recurrent kinds (mamba, mlstm, slstm) and their configs wait
-    for a later slice; moe and M-RoPE no longer raise."""
+    """Every kind and config of the reference builds: the recurrent kinds
+    (mamba, mlstm, slstm) and xlstm-350m / whisper-large-v3 since the
+    tenth slice; the spatial-filter config is no model, and ``build``
+    refuses it with the reference's ValueError (before it asks for a
+    device)."""
+    assert transformer.NOT_PORTED == ()
     mc = dataclasses.replace(tiny_of("yi_6b"), family="ssm", slstm_every=2)
-    with pytest.raises(NotImplementedError, match="mlstm"):
-        registry.build(RunConfig(model=mc, shape=SHAPES["train_4k"]),
+    b = registry.build(RunConfig(model=mc, shape=SHAPES["train_4k"]),
                        device="cpu")
-    mc = dataclasses.replace(tiny_of("yi_6b"),
+    assert {st.kind for st in transformer.make_stages(mc)} == {"mlstm",
+                                                               "slstm"}
+    assert "stage_1" in b.specs
+    mc = dataclasses.replace(tiny_of("hymba_1_5b"),
                              stage_override=(("mamba", 0, 4),))
-    with pytest.raises(NotImplementedError, match="mamba"):
-        transformer.model_specs(mc)
+    assert set(transformer.model_specs(mc)["stage_0"]) == {"ln1", "mamba"}
     for arch in ("xlstm_350m", "whisper_large_v3"):
-        with pytest.raises(ValueError, match="no config"):
-            get_model_config(arch)
+        assert dataclasses.asdict(get_model_config(arch)) == \
+            dataclasses.asdict(r_get_model_config(arch))
+        registry.build(RunConfig(model=tiny_of(arch),
+                                 shape=SHAPES["train_4k"]), device="cpu")
+    spatial = get_model_config("spatial_filter_hd")
+    assert dataclasses.asdict(spatial) == \
+        dataclasses.asdict(r_get_model_config("spatial_filter_hd"))
+    with pytest.raises(ValueError, match="repro_torch.core"):
+        registry.build(RunConfig(model=spatial, shape=SHAPES["train_4k"]))
+    with pytest.raises(ValueError, match="repro.core"):
+        r_registry.build(RRunConfig(model=r_get_model_config(
+            "spatial_filter_hd"), shape=R_SHAPES["train_4k"],
+            mesh=SINGLE_POD))
+    with pytest.raises(ValueError, match="no config"):
+        get_model_config("llama_9000")
     for arch in NEW_ARCHS + ["qwen2_vl_7b"]:
         registry.build(RunConfig(model=tiny_of(arch),
                                  shape=SHAPES["train_4k"]), device="cpu")
