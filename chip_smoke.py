@@ -247,9 +247,37 @@ Phases, in order; any failure exits non-zero:
                 frames, 64 tokens), two microbatches, card against CPU
                 within 1e-5 (phase 12 (a)). Each part runs; a failure is
                 raised at the end.
+ 15. mesh     — the explicit-collective training paths of
+                ``training/dp_shardmap.py`` and ``training/pipeline.py``
+                on ``DeviceMesh``es of the card's entries (one-controller
+                collectives; no kernel launches, the counts stay 0). (a)
+                The int8-EF data-parallel step on (pod 2, data 2, model
+                1): float32 at 2 layers full width, [4, 2048], against the
+                single-device ``make_train_step`` (loss within 1e-5,
+                updated parameters within ``DP_PARAM_TOL``) and against
+                the reduction written out plainly (clipped gradients and
+                new residuals within ``DP_F32_TOL``); controls that must
+                fail: the pod reduction skipped, the data mean taken as a
+                sum. Then h2o-danube-1.8b as published, bf16 compute on
+                float32 master weights, AdamW state and residuals, 4 x
+                2048 (one row a rank), 3 steps on one batch (the
+                default schedule): losses finite and falling; step ms, peak memory, the bytes
+                each reduction carries. (b) The GPipe schedule over the
+                decoder stack, 4 stages x 6 layers at full width, M 8
+                microbatches of 1 x 1024, bf16: forward and gradients
+                against the unpipelined stack within relative L2 4e-2
+                (float32 at 1 layer a stage: 1e-5); fwd + bwd ms of both,
+                the bubble share 3/11; a ppermute by two stages must fail.
+                (c) (a)'s published run and (b) again on distinct cards
+                where there are several, else one line says so. (d)
+                ``python -m repro_torch.launch.train --arch
+                h2o_danube_1_8b --tiny --mesh 1x1x1 --grad-compression
+                int8_ef --steps 3`` exits 0 with a finite loss (a
+                subprocess beside (a)-(c)). Each part runs; a failure is
+                raised at the end.
 
 Every main path (serving, the streaming and xla engines, the ring, LM,
-mamba, LM serving, LM kinds, LM recurrent) runs
+mamba, LM serving, LM kinds, LM recurrent, the mesh paths) runs
 with the three launch counts set to 0 just before it and read just after.
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -318,6 +346,17 @@ TRAIN_F32_TOL = 1e-5
 EXPERT_GAIN = 0.6
 TRAIN_REMAT_TOL = 1e-6
 TRAIN_BF16_TOL = 0.1
+# Phase 15 (a), float32: the int8-EF step's updated parameters against the
+# single-device step, absolute (the first AdamW step moves a weight by
+# about lr · sign(g)); its clipped gradients and new residuals against the
+# plain reduction on the same card, relative L2: the two runs' float32
+# gradients differ in their last bits (the embedding's scattered add runs
+# on atomics), so an int8 value may flip at a halfway point, each flip one
+# quantisation step of its leaf.
+DP_PARAM_TOL = 1e-4
+DP_F32_TOL = 1e-2
+# Phase 15 (b): the pipeline against the unpipelined stack, relative L2.
+PIPE_TOL = {"bfloat16": 4e-2, "float32": 1e-5}
 
 
 def counters():
@@ -3276,6 +3315,450 @@ class Smoke:
             raise AssertionError("LM recurrent phase: " + "; ".join(failed))
         return out, launches
 
+    # -- phase 15: the mesh training paths ----------------------------------
+
+    def _mesh_of(self, shape, axes, devices=None):
+        """A ``DeviceMesh`` of ``shape`` over ``devices`` (default: every
+        entry the first card)."""
+        import math
+        from repro_torch.sharding.mesh import make_mesh
+        return make_mesh(shape, axes, devices or
+                         ["cuda:0"] * math.prod(shape))
+
+    def _plain_dp(self, bundle, rc, params, batch, err, n_pod: int,
+                  n_data: int):
+        """The reference's compressed reduction written out plainly on one
+        device, for the DP step to be held against: each rank's gradients
+        on its rows, their float32 mean over 'data', each pod's int8 of
+        g + err at its own scale, the int32 sum dequantised by the larger
+        scale over the pod count, clipped. Returns (clipped gradients, the
+        mean loss, the new residuals)."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.models.module import tree_leaves
+        from repro_torch.optim import clip_by_global_norm
+        from repro_torch.training import make_grad_fn
+        rc1 = rc.replace(train=dataclasses.replace(rc.train, microbatch=0))
+        grad_fn = make_grad_fn(bundle, rc1)
+        leaves = tree_leaves(params)
+        rows = next(iter(batch.values())).shape[0] // (n_pod * n_data)
+        means, losses = [], []
+        for p in range(n_pod):
+            acc = None
+            for d in range(n_data):
+                r = p * n_data + d
+                loss, _ = grad_fn(params, {k: v[r * rows:(r + 1) * rows]
+                                           for k, v in batch.items()})
+                losses.append(loss)
+                g = [x.grad for x in leaves]
+                for x in leaves:
+                    x.grad = None
+                acc = g if acc is None else [a.add_(b) for a, b in
+                                             zip(acc, g)]
+            means.append([a / n_data for a in acc])
+        out, new_e = [], []
+        for i, e in enumerate(tree_leaves(err)):
+            gf = [means[p][i] + e[p] for p in range(n_pod)]
+            scales = [torch.clamp(x.abs().max(), min=1e-12) / 127.0
+                      for x in gf]
+            qs = [torch.clamp(torch.round(x / s), -127, 127)
+                  for x, s in zip(gf, scales)]
+            new_e.append(torch.stack([
+                (x.double() - q.double() * s.double()).float()
+                for x, q, s in zip(gf, qs, scales)]))
+            total = sum(q.to(torch.int32) for q in qs)
+            out.append(total.float() * torch.stack(scales).max() / n_pod)
+            for p in range(n_pod):
+                means[p][i] = None
+        out, _ = clip_by_global_norm(out, rc.train.grad_clip)
+        return out, float(torch.stack(losses).mean()), new_e
+
+    def dp_parity(self, mc, seq: int = 2048, batch: int = 4):
+        """(a) float32, the (pod 2, data 2, model 1) mesh of one card's
+        entries: the int8-EF step against the single-device
+        ``make_train_step`` on the same weights and batch (loss, updated
+        parameters) and against the plain reduction (clipped gradients,
+        new residuals); two controls that must fail."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.data import make_train_batch
+        from repro_torch.models import registry
+        from repro_torch.models.module import tree_leaves, tree_map
+        from repro_torch.optim import adamw_init
+        from repro_torch.sharding import collectives
+        from repro_torch.training import dp_shardmap, make_train_step
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("DP parity: TF32 must be off")
+        rc = self._train_rc(mc, seq, batch, 0)
+        mesh = self._mesh_of((2, 2, 1), ("pod", "data", "model"))
+        bundle = registry.build(rc, device="cuda")
+        start = bundle.init_params(
+            torch.Generator(device="cuda").manual_seed(2))
+        b0 = make_train_batch(rc, 0, "cuda")
+
+        def copy():
+            return tree_map(lambda t: t.clone(), start)
+        p1, _, m1 = make_train_step(bundle, rc)(copy(), adamw_init(start), b0)
+        p1 = tree_leaves(p1)
+        plain_g, plain_loss, plain_e = self._plain_dp(
+            bundle, rc, copy(), b0, dp_shardmap.init_error_feedback(
+                start, mesh), 2, 2)
+
+        def run():
+            params = copy()
+            err = dp_shardmap.init_error_feedback(params, mesh)
+            params, _, err, m = dp_shardmap.make_compressed_dp_step(
+                bundle, rc, mesh)(params, adamw_init(params), err, b0)
+            leaves = tree_leaves(params)
+            return {"loss_rel": abs(float(m["loss"]) - float(m1["loss"]))
+                    / abs(float(m1["loss"])),
+                    "params_max_abs": max(float((a - b).abs().max())
+                                          for a, b in zip(leaves, p1)),
+                    "grads_rel_l2": self._tree_rel(
+                        [x.grad for x in leaves], plain_g),
+                    "residuals_rel_l2": self._tree_rel(tree_leaves(err),
+                                                       plain_e),
+                    "plain_loss_rel": abs(float(m["loss"]) - plain_loss)
+                    / abs(plain_loss)}
+
+        def holds(r):
+            return (r["loss_rel"] <= TRAIN_F32_TOL
+                    and r["params_max_abs"] <= DP_PARAM_TOL
+                    and r["grads_rel_l2"] <= DP_F32_TOL
+                    and r["residuals_rel_l2"] <= DP_F32_TOL)
+        sound = run()
+        self.say(f"mesh (a) float32 int8-EF step, {mc.name} "
+                 f"{mc.num_layers} layers full width, [{batch},{seq}] on "
+                 f"(pod 2, data 2, model 1) of one card: {sound!r} (limits: "
+                 f"loss {TRAIN_F32_TOL} against the single-device step, "
+                 f"parameters {DP_PARAM_TOL} absolute; gradients and "
+                 f"residuals {DP_F32_TOL} against the plain reduction)")
+        if not holds(sound):
+            raise AssertionError("mesh (a): the int8-EF step differs")
+        reduce_over_pod, pmean = dp_shardmap.reduce_over_pod, \
+            dp_shardmap.pmean
+
+        def skipped(g, e):          # each pod keeps its own gradient
+            out, new_e, q, acc = reduce_over_pod(g, e)
+            return g, new_e, q, acc
+
+        def summed(v, axis):        # the data mean taken as a sum
+            return (collectives.psum(v, axis) if axis == "data"
+                    else pmean(v, axis))
+        controls = {}
+        for name, attr, fake in (("pod reduction skipped", "reduce_over_pod",
+                                  skipped),
+                                 ("data mean taken as a sum", "pmean",
+                                  summed)):
+            setattr(dp_shardmap, attr, fake)
+            try:
+                controls[name] = run()
+            finally:
+                setattr(dp_shardmap, attr, {"reduce_over_pod":
+                                            reduce_over_pod,
+                                            "pmean": pmean}[attr])
+            self.say(f"mesh (a) control, {name}: {controls[name]!r}")
+            if holds(controls[name]):
+                raise AssertionError(f"mesh (a): the check passes a step "
+                                     f"with the {name}")
+        return {"sound": sound, "controls": controls}
+
+    def dp_full_width(self, mc, seq: int = 2048, batch: int = 4,
+                      steps: int = 3, devices=None):
+        """(a) the published config, bf16 compute on float32 master weights,
+        AdamW state and residuals, ``steps`` int8-EF steps on the (pod 2,
+        data 2, model 1) mesh, one row a rank, all on batch 0: losses
+        finite and falling, no kernel launch; step ms, peak memory, the
+        bytes each reduction carries. One batch: on fresh batches of
+        uniform random tokens three steps leave the loss at ln V + 1/2
+        within the batches' spread (10.872, 10.889, 10.866 on an H100 at
+        the launcher's schedule), so only the batch a step trains on
+        shows that it descends."""
+        import math
+        import statistics
+        torch = self.torch
+        from repro_torch.data import make_train_batch
+        from repro_torch.models import registry
+        from repro_torch.models.module import tree_leaves
+        from repro_torch.optim import adamw_init
+        from repro_torch.training import dp_shardmap, make_train_step
+        # TrainConfig's schedule (warm-up over 100 steps: 3e-6, 6e-6, 9e-6).
+        # On one batch an H100 read 10.872, 9.608, 11.008 at the
+        # launcher's 3e-4 from step 1 and 10.872, 9.965, 10.476 with the
+        # rate ramped over 10 steps: the second sign-like AdamW step
+        # overshoots
+        rc = self._train_rc(mc, seq, batch, 0)
+        mesh = self._mesh_of((2, 2, 1), ("pod", "data", "model"), devices)
+        dev = mesh.devices.flat[0]
+        bundle = registry.build(rc, device=dev)
+        params = bundle.init_params(torch.Generator(device=dev).manual_seed(3))
+        leaves = tree_leaves(params)
+        n = sum(x.numel() for x in leaves)
+        opt = adamw_init(params)
+        err = dp_shardmap.init_error_feedback(params, mesh)
+        step = dp_shardmap.make_compressed_dp_step(bundle, rc, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, ms = [], []
+        b = make_train_batch(rc, 0, dev)
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, err, m = step(params, opt, err, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        # per step: each rank's float32 gradient into its pod's data mean;
+        # each pod's int8 values and one float32 scale a leaf into the sum
+        data_bytes = 4 * n * mesh.size
+        pod_bytes = 2 * (n + 4 * len(leaves))
+        med = statistics.median(ms)
+        self.say(f"mesh (a) {mc.name} int8-EF on {mesh}: {n} parameters, "
+                 f"[{batch},{seq}] one row a rank, {mc.dtype} compute; "
+                 f"losses {losses!r}; step ms {ms!r}, median {med!r} "
+                 f"({batch * seq / (med * 1e-3)!r} tokens/s); peak allocated "
+                 f"{peak} B; per step {data_bytes} B of float32 gradients "
+                 f"into the data means, {pod_bytes} B of int8 and scales "
+                 f"over 'pod' (on one card's entries no byte moves); kernel "
+                 f"launches {launches}")
+        del params, opt, err, leaves
+        # beside it, the uncompressed single-device step from the same
+        # weights on the same batch (a reading, not a check)
+        params = bundle.init_params(torch.Generator(device=dev).manual_seed(3))
+        opt = adamw_init(params)
+        single = make_train_step(bundle, rc)
+        plain_losses = []
+        for _ in range(steps):
+            params, opt, m = single(params, opt, b)
+            plain_losses.append(float(m["loss"]))
+        del params, opt
+        self.say(f"mesh (a) the single-device step, uncompressed, on the "
+                 f"same weights and batch: losses {plain_losses!r}")
+        if any(launches.values()):
+            raise AssertionError(f"mesh (a): kernel launches {launches}")
+        if not (all(math.isfinite(x) for x in losses)
+                and all(a > b for a, b in zip(losses, losses[1:]))):
+            raise AssertionError(f"mesh (a): losses {losses} do not fall")
+        return {"step_ms": ms, "median_step_ms": med, "losses": losses,
+                "single_device_losses": plain_losses,
+                "tokens_per_s": batch * seq / (med * 1e-3),
+                "peak_allocated_bytes": peak, "parameters": n,
+                "data_bytes_per_step": data_bytes,
+                "pod_bytes_per_step": pod_bytes, "launches": launches,
+                "mesh": repr(mesh)}
+
+    def _stage_fn(self, mc, per_stage: int, positions):
+        """One pipeline stage of the decoder stack: ``per_stage`` dense
+        layers (plain attention, remat 'full') over hidden states."""
+        from repro_torch.models import transformer as tfm
+        st = tfm.make_stages(mc)[0]
+        ctx = {"cos_sin": tfm._positions_cos_sin(mc, positions),
+               "q_pos": positions, "window": st.window, "cur": None,
+               "sinks": 0}
+        run = tfm._remat(tfm.dense_block, "full")
+
+        def stage(p, h):
+            for lp in tfm._unstack(p, per_stage):
+                h, _ = run(lp, h, ctx, mc)
+            return h
+        return stage
+
+    def pipeline_part(self, arch: str, stages: int = 4, per_stage: int = 6,
+                      M: int = 8, mb: int = 1, seq: int = 1024,
+                      dtype: str = "bfloat16", devices=None, timed=True):
+        """(b) the GPipe schedule over the decoder stack of ``arch``:
+        ``stages`` x ``per_stage`` layers at full width, M microbatches of
+        mb x seq, on a 'stage' mesh; the forward and the gradients against
+        the unpipelined stack on the same device, and (timed) both fwd +
+        bwd times, the bubble share and a ppermute-by-two control."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.configs.base import get_model_config
+        from repro_torch.models import module
+        from repro_torch.models import transformer as tfm
+        from repro_torch.models.module import tree_leaves, tree_map
+        from repro_torch.training import pipeline
+        mc = dataclasses.replace(get_model_config(arch),
+                                 num_layers=stages * per_stage, dtype=dtype,
+                                 use_pallas_attn=False)
+        mesh = self._mesh_of((stages,), ("stage",), devices)
+        dev = mesh.devices.flat[0]
+        gen = torch.Generator(device=dev).manual_seed(4)
+        jdt = getattr(torch, dtype)
+        st0 = module.init_params(tfm.model_specs(mc)["stage_0"], gen, jdt)
+        params = tree_map(lambda a: a.reshape(
+            (stages, per_stage) + a.shape[1:]).requires_grad_(True), st0)
+        x = torch.randn((M, mb, seq, mc.d_model), generator=gen,
+                        device=dev).to(jdt)
+        y = torch.randn((M, mb, seq, mc.d_model), generator=gen,
+                        device=dev).to(jdt)
+        positions = torch.arange(seq, device=dev)[None].expand(mb, seq)
+        stage = self._stage_fn(mc, per_stage, positions)
+
+        def loss_fn(o, t):
+            return (o.float() - t.float()).square().mean()
+
+        def flat():
+            # each stage's slice taken once, as the pipeline takes it
+            per = pipeline.stage_slices(params, stages)
+            outs = []
+            for m in range(M):
+                h = x[m]
+                for s in range(stages):
+                    h = stage(per[s], h)
+                outs.append(h)
+            return torch.stack(outs)
+
+        leaves = tree_leaves(params)
+
+        def flat_step():
+            return torch.autograd.grad(loss_fn(flat(), y), leaves)
+
+        def pipe_step():
+            return torch.autograd.grad(pipeline.pipeline_loss_fn(
+                stage, loss_fn, mesh)(params, x, y), leaves)
+
+        def rel(a, b):
+            return float((a.float() - b.float()).norm() / b.float().norm())
+        with torch.no_grad():
+            want = flat()
+            got = pipeline.pipeline_apply(stage, params, x, mesh)
+        fwd_rel = rel(got, want)
+        g_want, g_got = flat_step(), pipe_step()
+        g_rel = self._tree_rel(list(g_got), list(g_want))
+        tol = PIPE_TOL[dtype]
+        out = {"forward_rel_l2": fwd_rel, "grads_rel_l2": g_rel,
+               "bubble_share": (stages - 1) / (M + stages - 1)}
+        self.say(f"mesh (b) GPipe {mc.name}, {stages} stages x {per_stage} "
+                 f"layers, M {M} of [{mb},{seq}], {dtype}, on {mesh}: "
+                 f"forward relative L2 {fwd_rel!r}, gradients {g_rel!r} "
+                 f"against the unpipelined stack (limit {tol})")
+        if not (fwd_rel <= tol and g_rel <= tol):
+            raise AssertionError("mesh (b): the pipeline differs from the "
+                                 "stack")
+        if timed:
+            ms = {"pipeline": [], "stack": []}
+            fns = {"pipeline": pipe_step, "stack": flat_step}
+            for name in ("pipeline", "stack", "stack", "pipeline"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[name]()
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+            ms = {k: sum(v) / len(v) for k, v in ms.items()}
+            orig = pipeline.ppermute
+
+            def by_two(v, axis, perm):
+                n = v.mesh.shape[axis]
+                return orig(v, axis, [(i, i + 2) for i in range(n - 2)])
+            pipeline.ppermute = by_two
+            try:
+                with torch.no_grad():
+                    ctrl = rel(pipeline.pipeline_apply(stage, params, x,
+                                                       mesh), want)
+            finally:
+                pipeline.ppermute = orig
+            out.update({"ms": ms, "overhead": ms["pipeline"] / ms["stack"],
+                        "control_ppermute_by_two_rel_l2": ctrl})
+            self.say(f"mesh (b) fwd + bwd ms (the mean of two, in turns "
+                     f"after one of each): pipeline {ms['pipeline']!r}, "
+                     f"the stack {ms['stack']!r} (x{out['overhead']!r}; the "
+                     f"stages run one after another on one card: the "
+                     f"schedule's overhead, bubble share {stages - 1}/"
+                     f"{M + stages - 1}); control, a ppermute by two stages: "
+                     f"forward relative L2 {ctrl!r}")
+            if not ctrl > tol:
+                raise AssertionError("mesh (b): the check passes a ppermute "
+                                     "by two stages")
+        del params, st0, x, y, want, got, g_want, g_got
+        return out
+
+    def _start_mesh_launcher(self):
+        """(d) the launcher's int8-EF path on the card, a subprocess."""
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "h2o_danube_1_8b", "--tiny", "--mesh", "1x1x1",
+               "--grad-compression", "int8_ef", "--steps", "3"]
+        return (subprocess.Popen(cmd, env=env, cwd=ROOT, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE),
+                cmd, time.perf_counter())
+
+    def mesh_phase(self, arch: str = "h2o_danube_1_8b",
+                   parity=(2, 2048), full=(2048, 4, 3),
+                   pipe=(4, 6, 8, 1, 1024)):
+        """Phase 15: the explicit-collective training paths on meshes of
+        the card's entries: (a) the int8-EF data-parallel step, (b) the
+        GPipe pipeline, (c) both again on distinct cards where there are
+        several, (d) the launcher. ``parity`` is (layers, sequence) of
+        (a)'s float32 check, ``full`` (sequence, batch, steps) of its
+        published run, ``pipe`` (stages, layers a stage, M, mb, sequence).
+        Returns the readings."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.configs.base import get_model_config
+        published = get_model_config(arch)
+        self._free("start", "mesh")
+        reset_counts()
+        out, took, failed = {}, {}, []
+        proc, cmd, t_launch = self._start_mesh_launcher()
+        try:
+            parts = [
+                ("a", "dp_float32", lambda: self.dp_parity(
+                    dataclasses.replace(published, num_layers=parity[0],
+                                        dtype="float32"), seq=parity[1])),
+                ("a", "dp_published", lambda: self.dp_full_width(
+                    published, *full)),
+                ("b", "pipeline_bf16", lambda: self.pipeline_part(
+                    arch, *pipe)),
+                ("b", "pipeline_float32", lambda: self.pipeline_part(
+                    arch, pipe[0], 1, *pipe[2:], dtype="float32",
+                    timed=False))]
+            n_cards = torch.cuda.device_count()
+            if n_cards > 1:
+                cards = [f"cuda:{i % n_cards}" for i in range(4)]
+                parts += [
+                    ("c", "dp_published_cards", lambda: self.dp_full_width(
+                        published, *full, devices=cards)),
+                    ("c", "pipeline_bf16_cards", lambda: self.pipeline_part(
+                        arch, *pipe, devices=cards[:pipe[0]]))]
+            else:
+                self.say("mesh (c): one card present; the meshes of "
+                         "distinct cards are not run")
+            for key, name, run in parts:
+                self._run_part("mesh", f"{key} {name}", name, run, out,
+                               took, failed)
+            o, e = proc.communicate(timeout=300)
+            last = (o.strip().splitlines() or [""])[-1]
+            self.say(f"mesh (d) {' '.join(cmd[1:])}: exit {proc.returncode} "
+                     f"{time.perf_counter() - t_launch:.1f} s after its "
+                     f"start: {last}")
+            import math
+            try:
+                ok = (proc.returncode == 0 and last.startswith(
+                    "[train/int8_ef] step 2 loss ")
+                    and math.isfinite(float(last.split(" loss ")[1])))
+            except ValueError:
+                ok = False
+            if not ok:
+                failed.append(f"(d) launcher: {e[-2000:]}")
+            out["launcher_last_line"] = last
+        finally:
+            if proc.poll() is None:           # a failure above: stop it
+                proc.kill()
+                proc.wait()
+        launches = read_counts()
+        if any(launches.values()):
+            failed.append(f"kernel launches {launches}, expected none")
+        self.say(f"mesh parts took (s): {took!r}; kernel launches "
+                 f"{launches}")
+        if failed:
+            raise AssertionError("mesh phase: " + "; ".join(failed))
+        return out, launches
+
     # -- phase 11 ------------------------------------------------------------
 
     def _row(self, name, shape, dtype, ms, plain_ms, lib_ms, bytes_moved,
@@ -3524,6 +4007,9 @@ def main() -> int:
     t0 = time.perf_counter()
     recurrent, rec_launches = smoke.recurrent_phase()
     smoke.say(f"LM recurrent phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh, mesh_launches = smoke.mesh_phase()
+    smoke.say(f"mesh phase took {time.perf_counter() - t0:.1f} s")
 
     main_row = rows["w5f32"]
     sw = sw_rows["bfloat16"]
@@ -3540,6 +4026,7 @@ def main() -> int:
                       "timing": exec_rows},
         "sharded": sharded,
         "launches_lm_recurrent": rec_launches["filter2d_halo"],
+        "launches_mesh_training": mesh_launches["filter2d_halo"],
         "card": card}, {
         "name": "swattn", "route": "cuda", "source": SWATTN_SOURCE,
         "replaces": SWATTN_REPLACES,
@@ -3560,6 +4047,8 @@ def main() -> int:
         "lm_kinds_shapes": sw_kinds, "lm_kinds": kinds,
         "launches_lm_recurrent": rec_launches["swattn"],
         "lm_recurrent": recurrent,
+        "launches_mesh_training": mesh_launches["swattn"],
+        "mesh_training": mesh,
         "card": card}, {
         "name": "dwconv1d", "route": "cuda", "source": DWCONV_SOURCE,
         "replaces": DWCONV_REPLACES, "launches": dw_launches,
@@ -3569,6 +4058,7 @@ def main() -> int:
         "shape": dw_row["shape"], "dtype": dw_row["dtype"],
         "launches_lm_training": training["full_width"]["launches_per_step"],
         "launches_lm_recurrent": rec_launches["dwconv1d"],
+        "launches_mesh_training": mesh_launches["dwconv1d"],
         "card": card}]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@ optimiser state's named tuple included) are ``#i``. numpy has no
 bfloat16: a bfloat16 leaf is widened to float32 (exact) and its dtype
 recorded, and restores as bfloat16. ``restore_checkpoint`` puts each
 leaf on the device of the template's leaf in its place. The reference's
-resharding restore (``shardings=``) waits for the port's sharding slice.
+resharding restore (``shardings=``) is the SPMD half of the sharding
+port, not ported yet.
 """
 from __future__ import annotations
 

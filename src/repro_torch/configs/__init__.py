@@ -1,9 +1,11 @@
-from repro_torch.configs.base import (ARCH_IDS, PAPER_ARCH, SHAPES,
-                                      ModelConfig, RunConfig, ShapeConfig,
-                                      TrainConfig, get_model_config,
+from repro_torch.configs.base import (ARCH_IDS, MULTI_POD, PAPER_ARCH, SHAPES,
+                                      SINGLE_POD, MeshConfig, ModelConfig,
+                                      RunConfig, ShapeConfig, TrainConfig,
+                                      get_model_config, resolve,
                                       supported_shapes)
 
 __all__ = [
-    "ARCH_IDS", "PAPER_ARCH", "SHAPES", "ModelConfig", "RunConfig",
-    "ShapeConfig", "TrainConfig", "get_model_config", "supported_shapes",
+    "ARCH_IDS", "MULTI_POD", "PAPER_ARCH", "SHAPES", "SINGLE_POD",
+    "MeshConfig", "ModelConfig", "RunConfig", "ShapeConfig", "TrainConfig",
+    "get_model_config", "resolve", "supported_shapes",
 ]

@@ -1,17 +1,20 @@
-"""Config system: model / shape / train dataclasses and the registry.
+"""Config system: model / shape / mesh / train dataclasses and the
+registry.
 
-The port's copy of the reference's ``configs/base.py``, without the TPU
-mesh. Every architecture in ``src/repro_torch/configs/<id>.py`` exports
-``CONFIG``, a ``ModelConfig``; the fields, defaults and parameter counts
-are the reference's. Shapes (the assigned input-shape sets) are global
-and keyed by name; ``supported_shapes`` says which of them an arch runs.
-The reference's ``resolve`` binds a mesh too and waits for the port's
-sharding slice.
+The port's copy of the reference's ``configs/base.py``. Every
+architecture in ``src/repro_torch/configs/<id>.py`` exports ``CONFIG``, a
+``ModelConfig``; the fields, defaults and parameter counts are the
+reference's. Shapes (the assigned input-shape sets) are global and keyed
+by name; ``supported_shapes`` says which of them an arch runs.
+``resolve(arch, shape)`` returns a fully-bound ``RunConfig``. A
+``MeshConfig`` describes the production mesh (shape and axis names); the
+devices of a mesh the port runs on are a ``sharding.mesh.DeviceMesh``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+import math
+from typing import Any, Sequence, Tuple
 
 # ---------------------------------------------------------------------------
 # Shapes (assigned): seq_len x global_batch cells.
@@ -165,6 +168,31 @@ def _xlstm_layer_params(cfg: ModelConfig) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Mesh / parallelism config
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axis_names
+
+    def num_devices(self) -> int:
+        return math.prod(self.shape)
+
+    def dp_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axis_names if a in ("pod", "data"))
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+
+# ---------------------------------------------------------------------------
 # Train config
 # ---------------------------------------------------------------------------
 
@@ -195,12 +223,19 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """A model bound to a shape and a train config. The reference's mesh,
-    sharding profile and ``use_pallas`` switch wait for the sharded
-    slice of the port."""
+    """A model bound to a shape, a mesh and a train config, with the
+    reference's fields. The reference's ``mesh`` has no default; the
+    port's defaults to ``SINGLE_POD``, the mesh ``resolve`` binds unless
+    ``multi_pod``, so that a ``RunConfig(model=, shape=)`` of one device
+    still builds. ``sharding_profile`` names a profile of
+    ``sharding.rules``. The reference's ``use_pallas`` is not carried: it
+    picks the Pallas path of its dry run, and the port's kernels are
+    picked by each call's device."""
     model: ModelConfig
     shape: ShapeConfig
+    mesh: MeshConfig = SINGLE_POD
     train: TrainConfig = TrainConfig()
+    sharding_profile: str = "default"  # see sharding/rules.py
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)
@@ -251,3 +286,20 @@ def supported_shapes(model: ModelConfig) -> Sequence[str]:
     if subquad:
         shapes.append("long_500k")
     return tuple(shapes)
+
+
+def resolve(arch: str, shape: str, multi_pod: bool = False,
+            **overrides: Any) -> RunConfig:
+    """``RunConfig`` of ``arch`` at the assigned ``shape`` on the
+    production mesh (``MULTI_POD`` where ``multi_pod``), with
+    ``overrides`` replaced. An unsupported shape raises ``ValueError``."""
+    model = get_model_config(arch)
+    if shape not in supported_shapes(model):
+        raise ValueError(
+            f"shape {shape!r} not supported for arch {arch!r} "
+            f"(supported: {supported_shapes(model)})")
+    mesh = MULTI_POD if multi_pod else SINGLE_POD
+    rc = RunConfig(model=model, shape=SHAPES[shape], mesh=mesh)
+    if overrides:
+        rc = rc.replace(**overrides)
+    return rc

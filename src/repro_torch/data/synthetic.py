@@ -6,8 +6,8 @@ materialise exactly its shard of any batch without coordination: the
 pipeline has no state beyond the step number (restart at step N
 reproduces batch N). ``make_train_batch`` builds the batch on the host
 and hands it to the device through pinned memory. The reference's mesh
-and sharding arguments (each host building only its rows) wait for the
-port's sharding slice.
+and sharding arguments (each host building only its rows) belong to the
+SPMD half of the sharding port, not ported yet.
 """
 from __future__ import annotations
 

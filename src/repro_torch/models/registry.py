@@ -19,7 +19,8 @@ The spatial-filter config (``filter``) is no model: ``build`` refuses it,
 as the reference does, and ``repro_torch.core`` serves it.
 ``cache_init`` is the concrete twin of the reference's
 ``cache_abstract``. The abstract cache and its logical axes and
-``input_specs`` wait for the sharding slice. The reference has no
+``input_specs`` belong to the SPMD half of the sharding port, not
+ported yet. The reference has no
 generation loop, and neither has the port: a caller runs
 ``decode_step`` once per token.
 """

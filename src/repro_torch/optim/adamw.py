@@ -6,8 +6,8 @@ reference's, so the two packages read each other's checkpoints: ``step``
 is a 0-d int32 tensor kept on the host (the schedule reads it with no
 device sync), ``m`` and ``v`` float32 trees shaped like the parameters.
 The update runs in place, leaf by leaf (each leaf's temporaries freed
-before the next). ``adamw_abstract`` and ``opt_state_axes`` wait for the
-port's sharding slice.
+before the next). ``adamw_abstract`` and ``opt_state_axes`` belong to the
+SPMD half of the sharding port, not ported yet.
 """
 from __future__ import annotations
 

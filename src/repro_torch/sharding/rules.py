@@ -1,0 +1,228 @@
+"""Logical-axis -> mesh-axis sharding rules (MaxText-style), as in the
+reference's ``sharding/rules.py``: the same rules, profiles and
+resolution against concrete shapes.
+
+A profile maps logical axis names (used in ParamSpec.axes and activation
+constraints) to mesh axis names. Rules are resolved against concrete
+shapes: a mapping is silently dropped when the dim is not divisible by
+the mesh axis size (recorded in ``dropped`` for diagnostics) — this is
+what lets one model definition serve every (arch x shape x mesh) cell.
+
+Profiles:
+  train   — TP over 'model' (heads or kv-seq per arch), DP over pod+data,
+            FSDP ('data') on the weight 'embed'/'vocab' dims.
+  decode  — KV cache sharded over sequence ('model', flash-decode style);
+            batch over pod+data when divisible, else sequence over data too.
+
+What is carried is the shape logic: ``pspec`` and ``spec_tree_pspecs``.
+Placing a tensor by its spec on a mesh (the reference's ``sharding``,
+``spec_tree_shardings`` and ``constrain`` with a mesh) needs the SPMD
+half of the port — how a weight sharded by a ``PartitionSpec`` is held
+and who runs its gathers — and raises ``NotImplementedError`` until then.
+Without a mesh they do what the reference's do: ``None`` and ``x``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+from repro_torch.models import module as mod
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+
+_SPMD = ("placing tensors by a PartitionSpec on a mesh is the SPMD half "
+         "of the sharding port (train_loop(mesh=), the elastic restore), "
+         "not ported yet")
+
+
+class PartitionSpec(tuple):
+    """A tuple of mesh axes per dim (``None``, a name, or a tuple of
+    names), as ``jax.sharding.PartitionSpec``: its ``tuple()`` equals the
+    reference's."""
+
+    def __new__(cls, *entries: MeshAxes):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+# Weight dims
+W_RULES = {
+    "vocab": "model",
+    "embed": "data",        # FSDP shard of the non-TP weight dim
+    "mlp": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "experts": "model",
+    "expert_mlp": None,
+    "ssm_inner": "model",
+    "ssm_state": None,
+    "conv": None,
+    "layers": None,
+    "stage": None,
+}
+
+# Activation dims
+A_RULES = {
+    "act_batch": ("pod", "data"),
+    "act_seq": None,
+    "act_kv_seq": None,      # 'model' in kv_seq attention / decode profiles
+    "act_embed": None,
+    "act_heads": "model",
+    "act_mlp": "model",
+    "act_vocab": "model",
+    "act_experts": "model",
+    "act_ssm": "model",      # mamba/xlstm inner dim
+    "cache_seq": "model",    # decode: sequence-sharded KV cache
+}
+
+
+@dataclasses.dataclass
+class ShardingCtx:
+    """Resolves logical axes to PartitionSpecs for one mesh: anything
+    with ``axis_names`` and a name -> size ``shape`` (a ``DeviceMesh``),
+    or ``None``."""
+
+    mesh: Optional[object]
+    rules: Dict[str, MeshAxes]
+    dropped: list = dataclasses.field(default_factory=list)
+
+    # -- resolution ---------------------------------------------------------
+    def _axis_size(self, names: MeshAxes) -> int:
+        if names is None or self.mesh is None:
+            return 1
+        if isinstance(names, str):
+            names = (names,)
+        size = 1
+        for n in names:
+            size *= dict(self.mesh.shape).get(n, 1)
+        return size
+
+    def _mesh_axes(self, logical: Optional[str]) -> MeshAxes:
+        if logical is None:
+            return None
+        axes = self.rules.get(logical)
+        if axes is None or self.mesh is None:
+            return None
+        if isinstance(axes, str):
+            axes = (axes,)
+        present = tuple(a for a in axes if a in self.mesh.axis_names)
+        if not present:
+            return None
+        return present if len(present) > 1 else present[0]
+
+    def pspec(self, shape: Sequence[int],
+              axes: Sequence[Optional[str]]) -> PartitionSpec:
+        entries = []
+        used = set()
+        for dim, logical in zip(shape, axes):
+            m = self._mesh_axes(logical)
+            if m is None:
+                entries.append(None)
+                continue
+            key = (m,) if isinstance(m, str) else tuple(m)
+            if used & set(key):  # a mesh axis may appear once per spec
+                entries.append(None)
+                continue
+            if dim % self._axis_size(m) != 0:
+                self.dropped.append((tuple(shape), logical, m))
+                entries.append(None)
+                continue
+            entries.append(m)
+            used |= set(key)
+        while entries and entries[-1] is None:
+            entries.pop()
+        return PartitionSpec(*entries)
+
+    def sharding(self, shape, axes):
+        """``None`` without a mesh, as the reference's; with one, the SPMD
+        half (not ported) raises."""
+        if self.mesh is None:
+            return None
+        raise NotImplementedError(_SPMD)
+
+    # -- application --------------------------------------------------------
+    def constrain(self, x, *axes: Optional[str]):
+        """``x`` without a mesh, as the reference's; with one, the SPMD half
+        (not ported) raises."""
+        if self.mesh is None:
+            return x
+        raise NotImplementedError(_SPMD)
+
+    def spec_tree_shardings(self, specs):
+        """A tree of ``None`` for a ParamSpec tree without a mesh; with
+        one, the SPMD half (not ported) raises."""
+        return mod.map_specs(lambda s: self.sharding(s.shape, s.axes), specs)
+
+    def spec_tree_pspecs(self, specs):
+        return mod.map_specs(lambda s: self.pspec(s.shape, s.axes), specs)
+
+
+def make_rules(profile: str = "train",
+               overrides: Sequence[Tuple[str, MeshAxes]] = ()
+               ) -> Dict[str, MeshAxes]:
+    rules = dict(W_RULES)
+    rules.update(A_RULES)
+    if profile == "decode":
+        rules["act_kv_seq"] = "model"
+        rules["act_heads"] = None        # flash-decode: heads replicated
+        rules["act_mlp"] = "model"
+    elif profile == "dp_only":
+        # small-model regime: TP of a 350M model over 16 ranks moves more
+        # activation bytes than it saves compute. Fold 'model' into the
+        # batch: 256-way DP, weights replicated, the only collective left
+        # is the gradient all-reduce (params << activations here).
+        for k in ("embed", "mlp", "heads", "kv_heads", "ssm_inner",
+                  "vocab", "experts"):
+            rules[k] = None
+        rules["act_batch"] = ("pod", "data", "model")
+        for k in ("act_heads", "act_mlp", "act_vocab", "act_ssm",
+                  "act_experts"):
+            rules[k] = None
+    elif profile == "zero1":
+        # ZeRO-1: weights replicated over 'data'; only the optimizer
+        # moments stay data-sharded (they take the FSDP rules).
+        rules["embed"] = None
+    elif profile == "train_sp":
+        # sequence parallelism: residual stream sharded over 'model' on seq
+        # between the TP blocks (Megatron SP).
+        rules["act_seq"] = "model"
+    elif profile == "kv_seq":
+        # context parallelism: scores sharded over the KV-sequence dim,
+        # for any head count; weights keep their TP sharding.
+        rules["act_kv_seq"] = "model"
+        rules["act_heads"] = None
+    elif profile != "train":
+        raise ValueError(profile)
+    for k, v in overrides:
+        rules[k] = v
+    return rules
+
+
+# Overrides for the (data, expert, model) MoE mesh: TP spans both sub-axes
+# for dense ops; experts shard over 'expert'.
+EP_OVERRIDES = (
+    ("experts", "expert"),
+    ("expert_mlp", "model"),
+    ("mlp", ("expert", "model")),
+    ("heads", ("expert", "model")),
+    ("kv_heads", ("expert", "model")),
+    ("vocab", ("expert", "model")),
+    ("act_heads", ("expert", "model")),
+    ("act_mlp", ("expert", "model")),
+    ("act_vocab", ("expert", "model")),
+    ("act_experts", "expert"),
+    ("act_ssm", ("expert", "model")),
+    ("cache_seq", ("expert", "model")),
+)
+
+
+def make_ctx(mesh, profile: str = "train",
+             overrides: Sequence[Tuple[str, MeshAxes]] = ()) -> ShardingCtx:
+    return ShardingCtx(mesh=mesh, rules=make_rules(profile, overrides))
+
+
+def null_ctx() -> ShardingCtx:
+    return ShardingCtx(mesh=None, rules=make_rules("train"))

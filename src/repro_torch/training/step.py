@@ -11,7 +11,7 @@ differs is inside one backward (the library's reduction orders, and the
 embedding's scattered add, which on the card accumulates by atomics):
 float32 gradients agree with the reference's to relative L2 1e-4 after
 three steps (tests/test_torch_train.py). The sharded step (``shd``)
-waits for the port's sharding slice.
+is the SPMD half of the sharding port, not ported yet.
 """
 from __future__ import annotations
 

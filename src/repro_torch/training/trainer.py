@@ -7,7 +7,10 @@ loop's job is what a cluster supervisor needs: deterministic data
 (stateless in step), atomic checkpoints, resume, and health signals.
 Each step is synchronised before it is timed, so the watchdog sees the
 device's time, not the time to queue the step. The reference's mesh
-(sharded parameters and batches) waits for the port's sharding slice.
+(parameters sharded by ``sharding.rules``, batches over the data axes,
+collectives inserted by XLA) is the SPMD half of the sharding port and
+is refused; the explicit data-parallel step with int8 error feedback is
+``training/dp_shardmap.py``.
 """
 from __future__ import annotations
 
@@ -48,8 +51,11 @@ def train_loop(rc: RunConfig, *, num_steps: int, device="cuda",
     ``params`` (a tree on ``device``, updated in place unless a
     checkpoint replaces it)."""
     if mesh is not None:
-        raise NotImplementedError("a mesh waits for the port's sharding "
-                                  "slice; train_loop runs on one device")
+        raise NotImplementedError(
+            "train_loop(mesh=) is the SPMD half of the sharding port (a "
+            "weight sharded by a PartitionSpec, its gathers), not ported "
+            "yet; train_loop runs on one device. The int8-EF data-parallel "
+            "step runs with --grad-compression int8_ef")
     bundle = registry.build(rc, device=device)
     dev = bundle.device
     if params is None:

@@ -5,7 +5,13 @@ tolerances: integers bit-exact; float32 within rtol=atol=3e-4 (the
 reference suite's kernel tolerance, tests/test_halo_engine.py); bfloat16
 within 3e-2 (tests/test_kernels.py), with normalised coefficients as the
 reference's own bfloat16 tests use — the reference accumulates bfloat16
-at bfloat16, the port's kernel path in float32."""
+at bfloat16, the port's kernel path in float32.
+
+``reference_init_params`` draws the reference's parameters with the same
+values in every process (see its docstring)."""
+import zlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -63,3 +69,37 @@ def assert_match(got: torch.Tensor, ref, dtype: str, what: str = ""):
     else:
         np.testing.assert_allclose(g, ref, rtol=TOL[dtype], atol=TOL[dtype],
                                    err_msg=what)
+
+
+def reference_init_params(specs, key, dtype=None):
+    """The reference's ``init_params`` (src/repro/models/module.py:81-94):
+    the leaves in sorted path order, each drawn by the reference's own
+    ``init_leaf`` and cast to ``dtype`` where floating, but each keyed by
+    ``zlib.crc32`` of its path where the reference folds in ``hash()`` of
+    it. ``hash`` of a string changes with ``PYTHONHASHSEED``, so the
+    reference's own draw gives other weights in every process; this one
+    gives the reference's distributions, the same in every process. A
+    bundle's ``init_params(key)`` is ``reference_init_params(rb.specs,
+    key, jnp.float32)``. Pure in ``key``, so it can be jitted."""
+    from repro.models import module as r_module
+    out = {}
+    for path, spec in sorted(r_module.tree_paths(specs).items()):
+        sub = jax.random.fold_in(
+            key, zlib.crc32("/".join(path).encode()) % (2 ** 31))
+        leaf = r_module.init_leaf(spec, sub)
+        if dtype is not None and jnp.issubdtype(leaf.dtype, jnp.floating):
+            leaf = leaf.astype(dtype)
+        d = out
+        for seg in path[:-1]:
+            d = d.setdefault(seg, {})
+        d[path[-1]] = leaf
+    return out
+
+
+def reference_bundle_params(rb, key, jit: bool = False):
+    """``rb.init_params(key)`` of a reference bundle through
+    ``reference_init_params`` (float32, as the bundle's default), jitted
+    where ``jit`` (eager init compiles once per leaf)."""
+    def draw(k):
+        return reference_init_params(rb.specs, k, jnp.float32)
+    return jax.jit(draw)(key) if jit else draw(key)

@@ -44,6 +44,8 @@ from repro_torch.optim import AdamWState, adamw_init
 from repro_torch.runtime import PreemptionGuard, StepWatchdog
 from repro_torch.training.trainer import train_loop
 
+from _torch_parity import reference_bundle_params, reference_init_params
+
 
 def _tree(rng):
     return {"w": torch.from_numpy(rng.standard_normal((4, 5))
@@ -250,7 +252,8 @@ def test_trainer_logs_and_flags_stragglers(tmp_path, monkeypatch):
 
 
 def test_trainer_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    """``train_loop(mesh=)`` is the SPMD half of the sharding port."""
+    with pytest.raises(NotImplementedError, match="SPMD half"):
         train_loop(_tiny_rc(), num_steps=1, device="cpu", mesh=object())
 
 
@@ -262,11 +265,22 @@ def test_watchdog_flags_stragglers():
     assert wd.ema < 1.5                      # straggler didn't poison EMA
 
 
-def test_trainer_resumes_the_references_checkpoint(tmp_path):
+def test_trainer_resumes_the_references_checkpoint(tmp_path, monkeypatch):
     """The reference's train_loop writes step 2; the port's train_loop
     resumes from a copy of that directory, one step per call. Its losses
     at steps 3 and 4 are those of the reference's own step, jitted,
-    continuing from the same checkpoint on the same batches."""
+    continuing from the same checkpoint on the same batches. The
+    reference's loop draws its weights through its bundle, here
+    ``reference_bundle_params`` (the same weights in every process)."""
+    build = r_registry.build
+
+    def build_with_fixed_draw(rc):
+        rb = build(rc)
+        return dataclasses.replace(
+            rb, init_params=lambda key, dtype=jnp.float32:
+            reference_init_params(rb.specs, key, dtype))
+
+    monkeypatch.setattr(r_registry, "build", build_with_fixed_draw)
     rrc = RRunConfig(
         model=r_tiny_of("yi_6b"),
         shape=dataclasses.replace(R_SHAPES["train_4k"], seq_len=16,
@@ -280,8 +294,8 @@ def test_trainer_resumes_the_references_checkpoint(tmp_path):
     assert r_latest_step(str(ref_dir)) == 2
     shutil.copytree(ref_dir, port_dir)
 
-    rb = r_registry.build(rrc)
-    params = rb.init_params(jax.random.key(0))
+    rb = build(rrc)
+    params = reference_bundle_params(rb, jax.random.key(0))
     state, _ = r_restore(str(ref_dir), {"params": params,
                                         "opt": r_adamw_init(params)})
     params, opt = state["params"], state["opt"]

@@ -33,7 +33,6 @@ from repro.configs.base import SINGLE_POD
 from repro.configs.tiny import tiny_of as r_tiny_of
 from repro.models import attention as r_attn
 from repro.models import layers as r_layers
-from repro.models import module as r_module
 from repro.models import registry as r_registry
 from repro.models import ssm as r_ssm
 from repro.models import transformer as r_tfm
@@ -43,6 +42,8 @@ from repro_torch.convert import (caches_from_reference, caches_to_numpy,
                                  params_from_reference)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, registry, ssm, transformer
+
+from _torch_parity import reference_bundle_params, reference_init_params
 
 ARCHS = ["h2o_danube_1_8b", "yi_6b", "hymba_1_5b", "mixtral_8x7b",
          "qwen3_moe_30b_a3b", "gemma3_4b", "qwen2_vl_7b", "codeqwen15_7b"]
@@ -200,7 +201,7 @@ def _mamba(seed=3):
     rspecs = r_ssm.mamba_specs(rmc.d_model, expand=rmc.ssm_expand,
                                heads=rmc.mamba_heads, state=rmc.ssm_state,
                                conv_width=rmc.ssm_conv_width)
-    rparams = r_module.init_params(rspecs, jax.random.key(seed))
+    rparams = reference_init_params(rspecs, jax.random.key(seed))
     return rmc, mc, rparams, params_from_reference(
         jax.tree.map(np.asarray, rparams), device="cpu")
 
@@ -288,7 +289,7 @@ def _ref_params(arch):
     rb = r_registry.build(RRunConfig(model=r_tiny_of(arch),
                                      shape=R_SHAPES["prefill_32k"],
                                      mesh=SINGLE_POD))
-    return jax.jit(rb.init_params)(jax.random.key(1))
+    return reference_bundle_params(rb, jax.random.key(1), jit=True)
 
 
 @functools.lru_cache(maxsize=None)

@@ -719,3 +719,141 @@ def test_kernels_refuse_a_gradient_on_the_card(cuda, rng):
         dwconv1d_cuda(x, w, b)
     assert (SW.swattn.launches, DW.dwconv1d.launches) == (before[0] + 1,
                                                           before[1] + 1)
+
+
+@pytest.mark.parametrize("axes", [("pod", "data", "model"),
+                                  ("data", "model")])
+def test_int8_ef_dp_step_on_the_card_matches_the_cpu(cuda, axes,
+                                                     monkeypatch):
+    """Two float32 int8-EF data-parallel steps (TF32 off) on a mesh of
+    four ``cuda:0`` entries against the same steps, in turns, on four
+    CPU entries (which tests/test_torch_dp.py holds against the
+    reference's own 4-device step): the loss within relative 1e-5; the
+    clipped gradients, the parameters and the residuals within relative
+    L2 1e-4 wherever the two runs quantise alike. The two devices'
+    float32 gradients differ in their last bits, so an int8 value may
+    differ by one where the CPU's ``(g + err) / scale`` lies within
+    ``HALF_TOL`` of a halfway point; such elements (a quantisation step
+    apart from then on) are left out, and only they."""
+    import dataclasses
+    from repro_torch.configs.base import SHAPES, RunConfig, TrainConfig
+    from repro_torch.configs.tiny import tiny_of
+    from repro_torch.data import make_train_batch
+    from repro_torch.models import registry
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.mesh import make_mesh
+    from repro_torch.training import dp_shardmap
+    HALF_TOL = 1e-3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = (2, 2, 1) if len(axes) == 3 else (2, 2)
+    rc = RunConfig(model=tiny_of("yi_6b"), shape=dataclasses.replace(
+        SHAPES["train_4k"], seq_len=64, global_batch=8),
+        train=TrainConfig(warmup_steps=2))
+    params0 = registry.build(rc, device="cpu").init_params(
+        torch.Generator().manual_seed(6))
+    seen = []                           # (q, (g + err) / scale) per call
+    compress = dp_shardmap.int8_ef_compress
+
+    def recording(g, e, fma=False):
+        q, scale, new_e = compress(g, e, fma=fma)
+        seen.append((q.cpu().numpy(), ((g.float() + e) / scale).cpu().numpy()))
+        return q, scale, new_e
+
+    monkeypatch.setattr(dp_shardmap, "int8_ef_compress", recording)
+    runs = {}
+    for dev in ("cpu", "cuda:0"):
+        mesh = make_mesh(shape, axes, [dev] * 4)
+        params = _copy(params0, dev)
+        runs[dev] = [params, adamw_init(params),
+                     dp_shardmap.init_error_feedback(params, mesh),
+                     dp_shardmap.make_compressed_dp_step(
+                         registry.build(rc, device=dev), rc, mesh)]
+
+    def rel(a, b, keep):
+        num = sum(float(np.square((x - y)[k]).sum())
+                  for x, y, k in zip(a, b, keep))
+        den = sum(float(np.square(y[k]).sum()) for y, k in zip(b, keep))
+        return (num / den) ** .5 if den else num ** .5
+    flipped = None
+    for i in range(2):
+        out = {}
+        for dev, (params, opt, err, step) in runs.items():
+            del seen[:]
+            params, opt, err, m = step(params, opt, err,
+                                       make_train_batch(rc, i, dev))
+            runs[dev][:3] = params, opt, err
+            leaves = tree_leaves(params)
+            out[dev] = (float(m["loss"]), list(seen),
+                        [p.detach().cpu().numpy() for p in leaves],
+                        [p.grad.cpu().numpy() for p in leaves],
+                        [e.cpu().numpy() for e in tree_leaves(err)])
+        (lw, sw, pw, gw, ew), (lg, sg, pg, gg, eg) = out["cpu"], \
+            out["cuda:0"]
+        assert lg == pytest.approx(lw, rel=1e-5)
+        assert len(sg) == len(sw) == (2 * len(pw) if len(axes) == 3 else 0)
+        if flipped is None:
+            flipped = [np.zeros(p.shape, bool) for p in pw]
+        for j in range(len(sw) // 2):
+            qw = np.stack([sw[2 * j][0], sw[2 * j + 1][0]])
+            qg = np.stack([sg[2 * j][0], sg[2 * j + 1][0]])
+            u = np.stack([sw[2 * j][1], sw[2 * j + 1][1]])
+            new = (qw != qg) & ~flipped[j][None]
+            halfway = np.abs(np.abs(u - np.trunc(u)) - 0.5) <= HALF_TOL
+            assert not (new & ~halfway).any(), (i, j)
+            flipped[j] |= new.any(0)
+        keep = [~f for f in flipped]
+        assert sum(int(f.sum()) for f in flipped) <= 16
+        assert rel(gg, gw, keep) <= 1e-4
+        assert rel(pg, pw, keep) <= 1e-4
+        assert rel(eg, ew, [np.broadcast_to(k, e.shape)
+                            for k, e in zip(keep, ew)]) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpipe_on_the_card_matches_the_cpu(cuda, dtype):
+    """The GPipe schedule over 4 ``cuda:0`` stage entries (tiny h2o-danube
+    layers, M 8) against the same schedule on the CPU: the loss and the
+    gradients within relative 1e-5 (float32, TF32 off) or 3e-2
+    (bfloat16)."""
+    import dataclasses
+    from repro_torch.configs.tiny import tiny_of
+    from repro_torch.models import module
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.sharding.mesh import make_mesh
+    from repro_torch.training.pipeline import pipeline_loss_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc = dataclasses.replace(tiny_of("h2o_danube_1_8b"), num_layers=4,
+                             dtype=dtype)
+    jdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(7)
+    st0 = module.init_params(tfm.model_specs(mc)["stage_0"], gen, jdt)
+    x = torch.randn((8, 1, 32, mc.d_model), generator=gen).to(jdt)
+    y = torch.randn((8, 1, 32, mc.d_model), generator=gen).to(jdt)
+
+    def run(dev):
+        params = tree_map(lambda a: a.to(dev, copy=True).reshape(
+            (4, 1) + a.shape[1:]).requires_grad_(True), st0)
+        positions = torch.arange(32, device=dev)[None]
+        ctx = {"cos_sin": tfm._positions_cos_sin(mc, positions),
+               "q_pos": positions, "window": tfm.make_stages(mc)[0].window,
+               "cur": None, "sinks": 0}
+
+        def stage(p, h):
+            for lp in tfm._unstack(p, 1):
+                h, _ = tfm.dense_block(lp, h, ctx, mc)
+            return h
+        mesh = make_mesh((4,), ("stage",), [dev] * 4)
+        loss = pipeline_loss_fn(stage, lambda o, t: (
+            o.float() - t.float()).square().mean(), mesh)(
+                params, x.to(dev), y.to(dev))
+        leaves = tree_leaves(params)
+        return [float(loss)] + [g.float().cpu() for g in
+                                torch.autograd.grad(loss, leaves)]
+
+    tol = {"float32": 1e-5, "bfloat16": 3e-2}[dtype]
+    want, got = run("cpu"), run("cuda:0")
+    assert got[0] == pytest.approx(want[0], rel=tol)
+    for g, w in zip(got[1:], want[1:]):
+        assert float((g - w).norm() / w.norm()) <= tol

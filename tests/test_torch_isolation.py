@@ -44,6 +44,10 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.checkpoint, repro_torch.data, repro_torch.runtime, "
             "repro_torch.launch.train, repro_torch.launch.serve, "
             "repro_torch.training.trainer\n"
+            "import repro_torch.sharding, repro_torch.sharding.rules, "
+            "repro_torch.sharding.mesh, repro_torch.sharding.collectives, "
+            "repro_torch.training.dp_shardmap, "
+            "repro_torch.training.pipeline, repro_torch.launch.mesh\n"
             "sys.path.insert(0, sys.argv[1]); import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"

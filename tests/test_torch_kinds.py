@@ -38,7 +38,8 @@ from repro_torch.kernels.swattn import swattn_cuda
 from repro_torch.models import module, moe, registry, transformer
 from repro_torch.models.module import tree_leaves
 
-from _torch_parity import to_jax, to_torch
+from _torch_parity import (reference_bundle_params, to_jax,
+                           to_torch)
 
 NEW_ARCHS = ["mixtral_8x7b", "qwen3_moe_30b_a3b", "gemma3_4b",
              "qwen2_vl_7b", "codeqwen15_7b"]
@@ -78,7 +79,7 @@ def _ref(arch, **fields):
     rmc = dataclasses.replace(r_tiny_of(arch), **fields)
     sh = dataclasses.replace(R_SHAPES["train_4k"], seq_len=S, global_batch=B)
     rb = r_registry.build(RRunConfig(model=rmc, shape=sh, mesh=SINGLE_POD))
-    rparams = jax.jit(rb.init_params)(jax.random.key(21))
+    rparams = reference_bundle_params(rb, jax.random.key(21), jit=True)
     return rb, rparams
 
 

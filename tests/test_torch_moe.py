@@ -21,11 +21,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro.models import module as r_module
 from repro.models import moe as r_moe
 from repro.models import rope as r_rope
 from repro_torch.convert import params_from_reference
 from repro_torch.models import moe, rope
+
+from _torch_parity import reference_init_params
 
 IDX_TOL = 1e-6
 BLOCK_TOL = 1e-5
@@ -126,7 +127,7 @@ def _block_params(rng, E, router):
     equal columns ('tied'), or one that sends every (non-negative) token
     first to expert E - 1 and second to expert 0 ('last')."""
     specs = r_moe.moe_specs(D, F, E, expert_tp=E < 16)
-    rparams = dict(jax.tree.map(np.asarray, r_module.init_params(
+    rparams = dict(jax.tree.map(np.asarray, reference_init_params(
         specs, jax.random.key(int(rng.integers(1 << 30))))))
     if router == "last":
         w = np.zeros((D, E), np.float32)

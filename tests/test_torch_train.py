@@ -57,6 +57,8 @@ from repro_torch.optim import adamw_init
 from repro_torch.training import loss as t_loss
 from repro_torch.training.step import make_grad_fn, make_train_step
 
+from _torch_parity import reference_bundle_params
+
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["h2o_danube_1_8b", "yi_6b", "hymba_1_5b", "mixtral_8x7b",
          "qwen3_moe_30b_a3b", "gemma3_4b", "qwen2_vl_7b", "codeqwen15_7b"]
@@ -106,7 +108,8 @@ def _rc(arch, *, microbatch=0, **mc_fields):
 def _ref_params(arch, tied=False):
     rrc, _ = _rc(arch, tie_embeddings=tied)
     rb = r_registry.build(rrc)
-    return jax.tree.map(np.asarray, rb.init_params(jax.random.key(11)))
+    return jax.tree.map(np.asarray,
+                        reference_bundle_params(rb, jax.random.key(11)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -455,9 +458,18 @@ def test_launcher_trains_tiny_on_the_cpu(tmp_path):
 @pytest.mark.parametrize("flags", [["--mesh", "1x1"],
                                    ["--grad-compression", "int8_ef"]])
 def test_launcher_refuses_what_waits_for_sharding(flags, capsys):
+    """``--mesh`` alone goes to ``train_loop(mesh=)``, the SPMD half of the
+    sharding port, which refuses it and says so; ``int8_ef`` without a
+    mesh is an error, as the reference's ``assert`` is (the int8-EF path
+    itself: tests/test_torch_dp.py)."""
     from repro_torch.launch import train
+    argv = ["--arch", "yi_6b", "--tiny", "--steps", "1", "--device", "cpu",
+            *flags]
+    if "--mesh" in flags:
+        with pytest.raises(NotImplementedError, match="SPMD half"):
+            train.main(argv)
+        return
     with pytest.raises(SystemExit) as exc:
-        train.main(["--arch", "yi_6b", "--tiny", "--steps", "1",
-                    "--device", "cpu", *flags])
+        train.main(argv)
     assert exc.value.code != 0
-    assert "sharding slice" in capsys.readouterr().err
+    assert "int8_ef needs --mesh" in capsys.readouterr().err

@@ -61,6 +61,8 @@ from repro_torch.models import layers, module, registry, rope, whisper
 from repro_torch.optim import adamw_init
 from repro_torch.training.step import make_train_step
 
+from _torch_parity import reference_bundle_params, reference_init_params
+
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "whisper_large_v3"
 LAYER_TOL, BF16_TOL = 1e-5, 3e-2
@@ -127,8 +129,8 @@ def test_layer_norm_matches_reference(dtype, rng):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mlp2_matches_reference(dtype, rng):
     """The tanh GELU (jax.nn.gelu's default), with both biases."""
-    rparams = r_module.init_params(r_layers.mlp2_specs(32, 64),
-                                   jax.random.key(2))
+    rparams = reference_init_params(r_layers.mlp2_specs(32, 64),
+                                    jax.random.key(2))
     rparams = {k: v + 0.1 for k, v in rparams.items()}    # non-zero biases
     params = params_from_reference(jax.tree.map(np.asarray, rparams),
                                    device="cpu")
@@ -203,7 +205,7 @@ def _bundles(dtype: str = "float32"):
         model=dataclasses.replace(r_tiny_of(ARCH), dtype=dtype),
         shape=dataclasses.replace(R_SHAPES["prefill_32k"], **sh),
         mesh=SINGLE_POD))
-    rparams = jax.jit(rb.init_params)(jax.random.key(1))
+    rparams = reference_bundle_params(rb, jax.random.key(1), jit=True)
     rb = types.SimpleNamespace(prefill=jax.jit(rb.prefill),
                                decode_step=jax.jit(rb.decode_step),
                                train_forward=jax.jit(rb.train_forward))
@@ -376,7 +378,8 @@ def _train_rcs(microbatch: int = 0):
 @functools.lru_cache(maxsize=None)
 def _ref_params():
     rb = r_registry.build(_train_rcs()[0])
-    return jax.tree.map(np.asarray, rb.init_params(jax.random.key(11)))
+    return jax.tree.map(np.asarray,
+                        reference_bundle_params(rb, jax.random.key(11)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -52,6 +52,8 @@ from repro_torch.convert import (caches_from_reference, caches_to_numpy,
                                  params_from_reference)
 from repro_torch.models import module, registry, transformer, xlstm
 
+from _torch_parity import reference_bundle_params, reference_init_params
+
 LAYER_TOL = 1e-5
 BF16_TOL = 3e-2
 PREFILL_TOL, DECODE_TOL = 3e-4, 5e-4
@@ -298,7 +300,7 @@ def _block(kind: str, dtype: str, S: int, rng, with_state: bool, seed=3):
     rmc = dataclasses.replace(r_tiny_of("xlstm_350m"), dtype=dtype)
     mc = dataclasses.replace(tiny_of("xlstm_350m"), dtype=dtype)
     spec_fn = {"mlstm": r_xlstm.mlstm_specs, "slstm": r_xlstm.slstm_specs}
-    rparams = r_module.init_params(
+    rparams = reference_init_params(
         spec_fn[kind](rmc.d_model, heads=rmc.num_heads,
                       conv_width=rmc.ssm_conv_width), jax.random.key(seed))
     # open the mLSTM gates a little (pre-activations of order one): at the
@@ -392,7 +394,7 @@ def _bundles(model: str, dtype: str = "float32"):
         model=dataclasses.replace(r_tiny_of(arch), **fields),
         shape=dataclasses.replace(R_SHAPES["prefill_32k"], **sh),
         mesh=SINGLE_POD))
-    rparams = jax.jit(rb.init_params)(jax.random.key(1))
+    rparams = reference_bundle_params(rb, jax.random.key(1), jit=True)
     rb = types.SimpleNamespace(prefill=jax.jit(rb.prefill),
                                decode_step=jax.jit(rb.decode_step),
                                train_forward=jax.jit(rb.train_forward))
@@ -524,7 +526,8 @@ def _ref_value_and_grad(model: str):
     from repro.data import make_train_batch as r_make_train_batch
     rrc, _ = _train_rcs(model)
     rb = r_registry.build(rrc)
-    params = jax.tree.map(np.asarray, rb.init_params(jax.random.key(11)))
+    params = jax.tree.map(np.asarray,
+                          reference_bundle_params(rb, jax.random.key(11)))
     f = jax.jit(jax.value_and_grad(
         lambda p_, b_: rb.loss_fn(p_, b_, loss_chunk=CHUNK), has_aux=True))
     (loss, (_, denom)), grads = f(params, r_make_train_batch(rrc, 0))
