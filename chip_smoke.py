@@ -275,9 +275,36 @@ Phases, in order; any failure exits non-zero:
                 int8_ef --steps 3`` exits 0 with a finite loss (a
                 subprocess beside (a)-(c)). Each part runs; a failure is
                 raised at the end.
+ 16. SPMD     — ``train_loop(mesh=)``: the weights and AdamW's moments
+                placed by the train profile's ``PartitionSpec``s
+                (``sharding/placement.py``), each data-parallel rank on
+                gathered weights (``training/spmd.py``), on (data 2,
+                model 2) of four ``cuda:0`` entries (no kernel launches).
+                (a) float32 at 2 layers full width, [4, 2048], 3 steps,
+                against ``train_loop`` on one device (loss and grad norm
+                within 1e-5 every step, parameters within
+                ``DP_PARAM_TOL``); controls that must fail: the data
+                reduction taken as a sum, the clip norm counting
+                replicated blocks, the blocks gathered in reversed
+                'model' order. Then h2o-danube-1.8b as published, bf16
+                compute on float32 master weights, 4 x 2048, 3 steps:
+                step ms, tokens/s, peak memory and the bytes a step
+                gathers and reduce-scatters (between cards and within
+                one), losses within ``SPMD_BF16_TOL`` of one device's.
+                (b) The elastic restart at 2 layers: 3 steps on (data 2)
+                with a checkpoint, 2 resumed on (data 2, model 2),
+                against 5 uninterrupted steps on one device; the step-3
+                checkpoint restored onto a one-entry mesh, exactly; save
+                and restore ms. (c) (a)'s float32 run and (b) on distinct
+                cards where there are several, else one line says so.
+                (d) ``python -m repro_torch.launch.train --arch
+                h2o_danube_1_8b --tiny --mesh 1x1 --steps 3`` exits 0
+                with a finite loss (a subprocess). Each part runs; a
+                failure is raised at the end.
 
 Every main path (serving, the streaming and xla engines, the ring, LM,
-mamba, LM serving, LM kinds, LM recurrent, the mesh paths) runs
+mamba, LM serving, LM kinds, LM recurrent, the mesh paths, the SPMD
+path) runs
 with the three launch counts set to 0 just before it and read just after.
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -355,6 +382,10 @@ TRAIN_BF16_TOL = 0.1
 # quantisation step of its leaf.
 DP_PARAM_TOL = 1e-4
 DP_F32_TOL = 1e-2
+# phase 16 (a): a bf16 mesh run's loss against the single-device bf16
+# run's, step for step (the same weights and batches; the ranks' rows
+# reduced in another order)
+SPMD_BF16_TOL = 0.05
 # Phase 15 (b): the pipeline against the unpipelined stack, relative L2.
 PIPE_TOL = {"bfloat16": 4e-2, "float32": 1e-5}
 
@@ -3759,6 +3790,366 @@ class Smoke:
             raise AssertionError("mesh phase: " + "; ".join(failed))
         return out, launches
 
+    # -- phase 16: the SPMD mesh path ------------------------------------------
+
+    def _train_run(self, rc, steps: int, mesh=None, **kw):
+        """``train_loop(rc, mesh=mesh)`` (one device, the card, without a
+        mesh) for ``steps`` steps, every step recorded: its metrics as
+        floats, its wall ms (the mesh's cards synchronised before and
+        after) and, on a mesh, its traffic. Returns (report, the steps'
+        records, the parameter tree the last step returned)."""
+        torch = self.torch
+        from repro_torch.training import trainer
+        cards = (mesh.distinct_devices() if mesh is not None
+                 else [torch.device("cuda:0")])
+        hist, last = [], {}
+        names = ("make_spmd_train_step", "make_train_step")
+        orig = {n: getattr(trainer, n) for n in names}
+
+        def recorded(factory):
+            def make(*a, **k):
+                step = factory(*a, **k)
+
+                def run(params, opt, batch):
+                    for c in cards:
+                        torch.cuda.synchronize(c)
+                    t0 = time.perf_counter()
+                    out = step(params, opt, batch)
+                    for c in cards:
+                        torch.cuda.synchronize(c)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    rec = {k: float(v) for k, v in out[2].items()}
+                    rec["ms"] = ms
+                    traffic = getattr(step, "traffic", None)
+                    if traffic:
+                        rec["traffic"] = {k: {"moved": t.moved,
+                                              "local": t.local}
+                                          for k, t in traffic.items()}
+                    hist.append(rec)
+                    last["params"] = out[0]
+                    return out
+                return run
+            return make
+        for n in names:
+            setattr(trainer, n, recorded(orig[n]))
+        try:
+            rep = trainer.train_loop(rc, num_steps=steps, device="cuda",
+                                     mesh=mesh, log_every=0,
+                                     log_fn=lambda *a: None, **kw)
+        finally:
+            for n in names:
+                setattr(trainer, n, orig[n])
+        return rep, hist, last.get("params")
+
+    def _logical(self, params):
+        """A parameter tree's leaves, gathered to the first card."""
+        from repro_torch.models.module import tree_leaves
+        from repro_torch.sharding.placement import gather
+        return [gather(x, "cuda:0") for x in tree_leaves(params)]
+
+    def _spmd_against(self, got, want) -> dict:
+        """A mesh run against the single-device run: the worst step's loss
+        and grad norm relative differences, the parameters' max |diff|."""
+        (_, gh, gp), (_, wh, wp) = got, want
+        rel = {k: max(abs(g[k] - w[k]) / abs(w[k]) for g, w in
+                      zip(gh, wh, strict=True))
+               for k in ("loss", "grad_norm")}
+        rel["params_max_abs"] = max(
+            float((a.float() - b.float()).abs().max())
+            for a, b in zip(self._logical(gp), self._logical(wp),
+                            strict=True))
+        return rel
+
+    @staticmethod
+    def _spmd_holds(r) -> bool:
+        return (r["loss"] <= TRAIN_F32_TOL and r["grad_norm"] <= TRAIN_F32_TOL
+                and r["params_max_abs"] <= DP_PARAM_TOL)
+
+    def spmd_parity(self, mc, seq: int = 2048, batch: int = 4,
+                    steps: int = 3, devices=None, controls: bool = True):
+        """(a) float32 at cut depth, full width: ``train_loop(mesh=)`` on
+        (data 2, model 2) against ``train_loop`` on one device, the same
+        seed and batches; three controls that must fail."""
+        torch = self.torch
+        from repro_torch.sharding import placement
+        from repro_torch.training import spmd
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("SPMD parity: TF32 must be off")
+        rc = self._train_rc(mc, seq, batch, 0)
+        mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        single = self._train_run(rc, steps)
+        sound = self._train_run(rc, steps, mesh=mesh)
+        r = self._spmd_against(sound, single)
+        traffic = sound[1][-1]["traffic"]
+        self.say(f"SPMD (a) float32 train_loop(mesh=), {mc.name} "
+                 f"{mc.num_layers} layers full width, [{batch},{seq}] on "
+                 f"{mesh}: {r!r} against train_loop on one device (limits: "
+                 f"loss and grad norm {TRAIN_F32_TOL} relative, every step; "
+                 f"parameters {DP_PARAM_TOL} absolute after {steps} steps); "
+                 f"losses {[h['loss'] for h in sound[1]]!r}, single "
+                 f"{[h['loss'] for h in single[1]]!r}; traffic a step "
+                 f"{traffic!r}")
+        if not self._spmd_holds(r):
+            raise AssertionError(f"SPMD (a): the mesh run differs: {r}")
+        out = {"sound": r, "traffic": traffic, "mesh": repr(mesh)}
+        if not controls:
+            return out
+
+        def summed(count, total):         # the data reduction as a sum
+            return torch.ones_like(count)
+
+        def every_coordinate(leaves, units):
+            # each coordinate's block counted, replicated ones each time
+            sq = []
+            for x, us in zip(leaves, units):
+                g = torch.empty(x.shape, dtype=torch.float32,
+                                device=us[0].device)
+                for (dev, key), u in zip(x.owned_keys(), us):
+                    g[... if key is None else x.sharding.key_index(
+                        key, x.shape)].copy_(u)
+                for c in x.mesh.coords():
+                    sq.append(g[x.sharding.index(c, x.shape)].float()
+                              .square().sum())
+            return torch.stack(sq).sum().sqrt()
+
+        def reversed_model(st, device, traffic=None, at=None, copy=False):
+            # every block placed at its mirror along 'model'
+            device = torch.device(device)
+            m = st.mesh
+            i = m.axis_names.index("model")
+            n = m.devices.shape[i]
+            out = torch.empty(st.shape, dtype=st.dtype, device=device)
+            for c in m.coords():
+                mirror = c[:i] + (n - 1 - c[i],) + c[i + 1:]
+                out[st.sharding.index(mirror, st.shape)].copy_(st.block(c))
+            return out
+
+        ctrl = {}
+        for name, obj, attr, fake in (
+                ("data reduction taken as a sum", spmd, "rank_weight",
+                 summed),
+                ("clip norm counting replicated blocks", spmd, "grad_norm",
+                 every_coordinate),
+                ("blocks gathered in reversed model order",
+                 placement.ShardedTensor, "gather", reversed_model)):
+            keep = getattr(obj, attr)
+            setattr(obj, attr, fake)
+            try:
+                ctrl[name] = self._spmd_against(
+                    self._train_run(rc, steps, mesh=mesh), single)
+            finally:
+                setattr(obj, attr, keep)
+            self.say(f"SPMD (a) control, {name}: {ctrl[name]!r}")
+            if self._spmd_holds(ctrl[name]):
+                raise AssertionError(f"SPMD (a): the check passes a run "
+                                     f"with the {name}")
+        out["controls"] = ctrl
+        return out
+
+    def spmd_full_width(self, mc, seq: int = 2048, batch: int = 4,
+                        steps: int = 3, devices=None):
+        """(a) the published config, bf16 compute on float32 master
+        weights, ``train_loop(mesh=)`` on (data 2, model 2): step ms,
+        tokens/s, peak memory, the bytes each step gathers and
+        reduce-scatters; losses finite and within ``SPMD_BF16_TOL`` of
+        ``train_loop`` on one device, step for step."""
+        import math
+        import statistics
+        torch = self.torch
+        from repro_torch.models.module import tree_leaves
+        rc = self._train_rc(mc, seq, batch, 0)
+        mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        self._free("before (a) published", "SPMD")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rep, hist, params = self._train_run(rc, steps, mesh=mesh)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n = sum(x.numel() for x in tree_leaves(params))
+        del params, rep
+        self._free("after the mesh run", "SPMD")
+        torch.cuda.reset_peak_memory_stats()
+        _, single, p1 = self._train_run(rc, steps)
+        single_peak = torch.cuda.max_memory_allocated()
+        del p1
+        ms = [h["ms"] for h in hist]
+        med = statistics.median(ms)
+        losses = [h["loss"] for h in hist]
+        plain = [h["loss"] for h in single]
+        self.say(f"SPMD (a) {mc.name} train_loop(mesh=) on {mesh}: {n} "
+                 f"parameters, [{batch},{seq}], {mc.dtype} compute; losses "
+                 f"{losses!r} (one device {plain!r}); step ms {ms!r}, median "
+                 f"{med!r} ({batch * seq / (med * 1e-3)!r} tokens/s; one "
+                 f"device {statistics.median(h['ms'] for h in single)!r} "
+                 f"ms); peak allocated {peak} B (one device {single_peak} "
+                 f"B); traffic a step {hist[-1]['traffic']!r}; kernel "
+                 f"launches {launches}")
+        if any(launches.values()):
+            raise AssertionError(f"SPMD (a): kernel launches {launches}")
+        if not (all(math.isfinite(x) for x in losses) and all(
+                abs(a - b) <= SPMD_BF16_TOL for a, b in zip(losses, plain))):
+            raise AssertionError(f"SPMD (a): bf16 losses {losses} against "
+                                 f"one device's {plain}")
+        return {"step_ms": ms, "median_step_ms": med, "losses": losses,
+                "single_device_losses": plain,
+                "single_device_step_ms": [h["ms"] for h in single],
+                "tokens_per_s": batch * seq / (med * 1e-3),
+                "peak_allocated_bytes": peak,
+                "single_device_peak_bytes": single_peak, "parameters": n,
+                "traffic": hist[-1]["traffic"], "launches": launches,
+                "mesh": repr(mesh)}
+
+    def spmd_elastic(self, mc, seq: int = 2048, batch: int = 4,
+                     devices=None):
+        """(b) float32 at cut depth: 3 steps on (data 2) with a checkpoint,
+        2 more resumed on (data 2, model 2), against 5 uninterrupted steps
+        on one device; the step-3 checkpoint restored onto a one-entry
+        mesh; save and restore ms."""
+        import shutil
+        import tempfile
+        torch = self.torch
+        from repro_torch.checkpoint import store
+        from repro_torch.models import registry
+        from repro_torch.optim import adamw_init
+        from repro_torch.sharding.rules import make_ctx
+        rc = self._train_rc(mc, seq, batch, 0)
+        d2 = self._mesh_of((2,), ("data",), devices)
+        d2m2 = self._mesh_of((2, 2), ("data", "model"), devices)
+        one = self._mesh_of((1,), ("data",), devices)
+        ck = tempfile.mkdtemp(prefix="spmd_elastic_")
+        saves = []
+        write = store.save_checkpoint
+
+        def timed_write(*a, **k):
+            t0 = time.perf_counter()
+            out = write(*a, **k)
+            saves.append((time.perf_counter() - t0) * 1e3)
+            return out
+        store.save_checkpoint = timed_write
+        try:
+            _, h1, p3 = self._train_run(rc, 3, mesh=d2, ckpt_dir=ck,
+                                        ckpt_every=3)
+            after3 = [x.clone() for x in self._logical(p3)]
+            del p3
+            r2, h2, p5 = self._train_run(rc, 2, mesh=d2m2, ckpt_dir=ck,
+                                         ckpt_every=50)
+        finally:
+            store.save_checkpoint = write
+        _, h0, w5 = self._train_run(rc, 5)
+        worst = max(float((a - b).abs().max()) for a, b in zip(
+            self._logical(p5), self._logical(w5), strict=True))
+        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(h1 + h2, h0, strict=True))
+        del p5, w5
+        bundle = registry.build(rc, device="cuda:0")
+        ctx = make_ctx(one, "train")
+        sh = ctx.spec_tree_shardings(bundle.specs)
+        params = bundle.init_params(
+            torch.Generator(device="cuda:0").manual_seed(9))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, step = store.restore_checkpoint(
+            ck, {"params": params, "opt": adamw_init(params)}, step=3,
+            shardings={"params": sh, "opt": None})
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        restored = self._logical(state["params"])
+        exact = all(bool(a.equal(b)) for a, b in zip(restored, after3,
+                                                     strict=True))
+        del state, params, restored, after3
+        shutil.rmtree(ck, ignore_errors=True)
+        r = {"resumed_from": r2.resumed_from, "params_max_abs": worst,
+             "loss_rel": loss_rel, "one_entry_restore_exact": exact,
+             "save_ms": saves, "restore_ms": restore_ms, "step": step}
+        self.say(f"SPMD (b) elastic restart, {mc.name} {mc.num_layers} "
+                 f"layers float32 [{batch},{seq}]: 3 steps on {d2}, 2 on "
+                 f"{d2m2}: {r!r} (limits: resumed_from 3, parameters "
+                 f"{DP_PARAM_TOL} and losses {TRAIN_F32_TOL} against 5 "
+                 f"steps on one device, the one-entry restore exact)")
+        if not (r2.resumed_from == 3 and worst <= DP_PARAM_TOL
+                and loss_rel <= TRAIN_F32_TOL and exact and step == 3):
+            raise AssertionError(f"SPMD (b): {r}")
+        return r
+
+    def _start_spmd_launcher(self):
+        """(d) the launcher's ``--mesh`` path on the card, a subprocess."""
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "h2o_danube_1_8b", "--tiny", "--mesh", "1x1", "--steps", "3"]
+        return (subprocess.Popen(cmd, env=env, cwd=ROOT, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE),
+                cmd, time.perf_counter())
+
+    def spmd_phase(self, arch: str = "h2o_danube_1_8b", parity=(2, 2048),
+                   full=(2048, 4, 3)):
+        """Phase 16: ``train_loop(mesh=)``, the weights and AdamW's moments
+        sharded by the train profile, on meshes of the card's entries: (a)
+        float32 parity at ``parity`` (layers, sequence) with three
+        controls, and the published config at ``full`` (sequence, batch,
+        steps); (b) the elastic restart; (c) (a) and (b) on distinct cards
+        where there are several; (d) the launcher. Returns the
+        readings."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.configs.base import get_model_config
+        published = get_model_config(arch)
+        cut = dataclasses.replace(published, num_layers=parity[0],
+                                  dtype="float32")
+        self._free("start", "SPMD")
+        reset_counts()
+        out, took, failed = {}, {}, []
+        proc, cmd, t_launch = self._start_spmd_launcher()
+        try:
+            parts = [
+                ("a", "float32", lambda: self.spmd_parity(cut,
+                                                          seq=parity[1])),
+                ("a", "published", lambda: self.spmd_full_width(
+                    published, *full)),
+                ("b", "elastic", lambda: self.spmd_elastic(
+                    cut, seq=parity[1]))]
+            n_cards = torch.cuda.device_count()
+            if n_cards > 1:
+                cards = [f"cuda:{i % n_cards}" for i in range(4)]
+                parts += [
+                    ("c", "float32_cards", lambda: self.spmd_parity(
+                        cut, seq=parity[1], devices=cards, controls=False)),
+                    ("c", "elastic_cards", lambda: self.spmd_elastic(
+                        cut, seq=parity[1], devices=cards))]
+            else:
+                self.say("SPMD (c): one card present; the meshes of "
+                         "distinct cards are not run")
+            for key, name, run in parts:
+                self._run_part("SPMD", f"{key} {name}", name, run, out,
+                               took, failed)
+            o, e = proc.communicate(timeout=300)
+            last = (o.strip().splitlines() or [""])[-1]
+            self.say(f"SPMD (d) {' '.join(cmd[1:])}: exit {proc.returncode} "
+                     f"{time.perf_counter() - t_launch:.1f} s after its "
+                     f"start: {last}")
+            import math
+            try:
+                ok = (proc.returncode == 0 and last.startswith(
+                    "[train] done: 3 steps, final loss ") and math.isfinite(
+                        float(last.split("final loss ")[1].split(",")[0])))
+            except ValueError:
+                ok = False
+            if not ok:
+                failed.append(f"(d) launcher: {e[-2000:]}")
+            out["launcher_last_line"] = last
+        finally:
+            if proc.poll() is None:           # a failure above: stop it
+                proc.kill()
+                proc.wait()
+        launches = read_counts()
+        if any(launches.values()):
+            failed.append(f"kernel launches {launches}, expected none")
+        self.say(f"SPMD parts took (s): {took!r}; kernel launches "
+                 f"{launches}")
+        if failed:
+            raise AssertionError("SPMD phase: " + "; ".join(failed))
+        return out, launches
+
     # -- phase 11 ------------------------------------------------------------
 
     def _row(self, name, shape, dtype, ms, plain_ms, lib_ms, bytes_moved,
@@ -4010,6 +4401,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh, mesh_launches = smoke.mesh_phase()
     smoke.say(f"mesh phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    spmd, spmd_launches = smoke.spmd_phase()
+    smoke.say(f"SPMD phase took {time.perf_counter() - t0:.1f} s")
 
     main_row = rows["w5f32"]
     sw = sw_rows["bfloat16"]
@@ -4027,6 +4421,7 @@ def main() -> int:
         "sharded": sharded,
         "launches_lm_recurrent": rec_launches["filter2d_halo"],
         "launches_mesh_training": mesh_launches["filter2d_halo"],
+        "launches_spmd_training": spmd_launches["filter2d_halo"],
         "card": card}, {
         "name": "swattn", "route": "cuda", "source": SWATTN_SOURCE,
         "replaces": SWATTN_REPLACES,
@@ -4049,6 +4444,8 @@ def main() -> int:
         "lm_recurrent": recurrent,
         "launches_mesh_training": mesh_launches["swattn"],
         "mesh_training": mesh,
+        "launches_spmd_training": spmd_launches["swattn"],
+        "spmd_training": spmd,
         "card": card}, {
         "name": "dwconv1d", "route": "cuda", "source": DWCONV_SOURCE,
         "replaces": DWCONV_REPLACES, "launches": dw_launches,
@@ -4059,6 +4456,7 @@ def main() -> int:
         "launches_lm_training": training["full_width"]["launches_per_step"],
         "launches_lm_recurrent": rec_launches["dwconv1d"],
         "launches_mesh_training": mesh_launches["dwconv1d"],
+        "launches_spmd_training": spmd_launches["dwconv1d"],
         "card": card}]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

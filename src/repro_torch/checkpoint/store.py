@@ -10,10 +10,20 @@ Layout:  <dir>/step_<N>/
 Keys join the tree's path with ``::``; list and tuple entries (the
 optimiser state's named tuple included) are ``#i``. numpy has no
 bfloat16: a bfloat16 leaf is widened to float32 (exact) and its dtype
-recorded, and restores as bfloat16. ``restore_checkpoint`` puts each
-leaf on the device of the template's leaf in its place. The reference's
-resharding restore (``shardings=``) is the SPMD half of the sharding
-port, not ported yet.
+recorded, and restores as bfloat16.
+
+Leaves are stored as logical (unsharded) arrays: a sharded leaf
+(``sharding.placement.ShardedTensor``) is gathered to the host first.
+``restore_checkpoint`` puts each leaf on the device of the template's
+leaf in its place, or, given ``shardings``, places it by the
+``NamedSharding`` in its place: that is the elastic restart (the
+checkpoint has no memory of the mesh that wrote it). The reference's
+trainer computes such a tree and never passes it (its
+``trainer.py:49-54``), and its ``restore_checkpoint`` pairs flat leaves
+with flat shardings (``store.py:112-117``), which with ``{'params': …,
+'opt': None}`` would pair the optimiser's leaves (they sort first) with
+the parameters' shardings. Here ``shardings`` is a tree shaped like the
+template, walked with it.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.module import tree_map
+from repro_torch.sharding.placement import NamedSharding, ShardedTensor
 
 SEP = "::"
 
@@ -63,6 +74,8 @@ def _unflatten_into(template, flat: Dict[str, Any], prefix=()):
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """(array, dtype name): bfloat16 widened to float32, named
     ``bfloat16``."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.gather("cpu")
     if not torch.is_tensor(leaf):
         arr = np.asarray(leaf)
         return arr, str(arr.dtype)
@@ -105,11 +118,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, template, *, step: Optional[int] = None
-                       ) -> Tuple[Any, int]:
-    """Restore into the structure of ``template`` (a tree of tensors):
-    each leaf as a tensor of its recorded dtype on the device of the
-    template's leaf. Returns (tree, step)."""
+def restore_checkpoint(ckpt_dir: str, template, *, step: Optional[int] = None,
+                       shardings=None) -> Tuple[Any, int]:
+    """Restore into the structure of ``template`` (a tree of tensors or
+    ``ShardedTensor``s): each leaf as a tensor of its recorded dtype on
+    the device of the template's leaf (a sharded template leaf: placed as
+    it is). ``shardings``, a tree shaped like ``template``, places a leaf
+    by the ``NamedSharding`` in its place; a ``None`` there (a leaf or a
+    whole subtree) keeps the template's placement. Returns (tree,
+    step)."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -123,10 +140,27 @@ def restore_checkpoint(ckpt_dir: str, template, *, step: Optional[int] = None
             t = t.to(torch.bfloat16)
         flat[key] = t
     tree = _unflatten_into(template, flat)
+    return _place(tree, template, shardings), step
 
-    def place(t, like):
-        return t.to(like.device) if torch.is_tensor(like) else t
-    return tree_map(place, tree, template), step
+
+def _place(tree, template, shardings):
+    """Each leaf of ``tree`` by its sharding, else as its template leaf."""
+    if isinstance(shardings, NamedSharding):
+        return shardings.shard(tree)
+    if shardings is None:
+        def place(t, like):
+            if isinstance(like, ShardedTensor):
+                return like.sharding.shard(t)
+            return t.to(like.device) if torch.is_tensor(like) else t
+        return tree_map(place, tree, template)
+    if isinstance(tree, dict):
+        return {k: _place(v, template[k], shardings[k])
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        seq = [_place(v, t, s) for v, t, s in zip(tree, template, shardings)]
+        return type(tree)(*seq) if hasattr(tree, "_fields") \
+            else type(tree)(seq)
+    raise ValueError(f"shardings {shardings!r} for the leaf {tree!r}")
 
 
 class AsyncCheckpointer:
@@ -134,11 +168,11 @@ class AsyncCheckpointer:
 
     ``save`` snapshots to host memory synchronously and publishes on the
     worker thread, so the train loop never blocks on the filesystem.
-    The snapshot is a copy of every leaf: the port's parameters and
-    optimiser state are updated in place, and a CPU tensor's ``numpy()``
-    shares its memory, so without the copy the next step would tear the
-    checkpoint being written. ``wait()`` drains (called before exit and
-    by the preemption handler)."""
+    The snapshot is a copy of every leaf (a sharded leaf gathered): the
+    port's parameters and optimiser state are updated in place, and a CPU
+    tensor's ``numpy()`` shares its memory, so without the copy the next
+    step would tear the checkpoint being written. ``wait()`` drains
+    (called before exit and by the preemption handler)."""
 
     def __init__(self, ckpt_dir: str):
         self.ckpt_dir = ckpt_dir
@@ -147,9 +181,14 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree, metadata=None):
         self.wait()
-        host_tree = tree_map(
-            lambda x: x.detach().to("cpu", copy=True)
-            if torch.is_tensor(x) else np.array(x), tree)
+
+        def snapshot(x):
+            if isinstance(x, ShardedTensor):
+                return x.gather("cpu", copy=True)
+            if torch.is_tensor(x):
+                return x.detach().to("cpu", copy=True)
+            return np.array(x)
+        host_tree = tree_map(snapshot, tree)
 
         def work():
             save_checkpoint(self.ckpt_dir, step, host_tree,

@@ -5,9 +5,12 @@ Tokens are a counter-mode hash of (seed, step, position) — any host can
 materialise exactly its shard of any batch without coordination: the
 pipeline has no state beyond the step number (restart at step N
 reproduces batch N). ``make_train_batch`` builds the batch on the host
-and hands it to the device through pinned memory. The reference's mesh
-and sharding arguments (each host building only its rows) belong to the
-SPMD half of the sharding port, not ported yet.
+and hands it to the device through pinned memory, or, given a mesh and
+its batch shardings, places it: each coordinate gets the rows
+``jax.device_put`` of the same global batch gives it (pod-major over
+('pod', 'data'), ``placement.NamedSharding``). One process drives every
+coordinate, so the global batch is built once on the host, where the
+reference's hosts each build only their rows.
 """
 from __future__ import annotations
 
@@ -83,11 +86,14 @@ def video_stream(h: int, w: int, c: int = 1, seed: int = 0):
         i += 1
 
 
-def make_train_batch(rc: RunConfig, step: int, device
-                     ) -> Dict[str, torch.Tensor]:
+def make_train_batch(rc: RunConfig, step: int, device, mesh=None,
+                     batch_sharding=None) -> Dict[str, torch.Tensor]:
     """The global batch for ``step`` on ``device``: tokens and labels, or
     for stub-frontend configs (``embeddings_in``) float32 embeddings and
-    labels, or for enc-dec configs frames, decoder tokens and labels."""
+    labels, or for enc-dec configs frames, decoder tokens and labels.
+    With ``mesh`` and ``batch_sharding`` (a ``NamedSharding``, or a dict of
+    them by key) each array is placed by its sharding instead
+    (``ShardedTensor``s; ``device`` is then unused)."""
     mc, sh = rc.model, rc.shape
     if mc.family == "encdec":
         # frames + decoder tokens
@@ -111,5 +117,13 @@ def make_train_batch(rc: RunConfig, step: int, device
         toks = SyntheticTokens(mc.vocab_size, sh.seq_len, sh.global_batch,
                                rc.train.seed)
         batch_np = toks.batch_np(step)
+    if mesh is not None and batch_sharding is not None:
+        out = {}
+        for k, v in batch_np.items():
+            sharding = (batch_sharding[k] if isinstance(batch_sharding, dict)
+                        else batch_sharding)
+            first = sharding.mesh.devices.flat[0]
+            out[k] = sharding.shard(to_device(v, first))
+        return out
     dev = resolve_device(device)
     return {k: to_device(v, dev) for k, v in batch_np.items()}

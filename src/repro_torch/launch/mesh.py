@@ -5,7 +5,8 @@ The reference's ``jax.make_mesh`` takes the devices of its runtime; here
 each function takes them explicitly (a ``DeviceMesh`` entry is any
 ``torch.device``, and may repeat), uses the first ``prod(shape)`` and
 raises where fewer are given. None of them fills a mesh by repeating a
-card on its own.
+card on its own. ``["meta"] * 512`` gives the production meshes with no
+device behind them: the dry run's (``launch/dryrun.py``).
 """
 from __future__ import annotations
 

@@ -16,9 +16,10 @@ pure data-parallel step with int8 error feedback over 'pod'
 (``training/dp_shardmap.py``) runs on a mesh of ``cuda:0`` …
 ``cuda:n-1`` (n the mesh's size; a card that is not there raises), or of
 n CPU entries with ``--device cpu``. ``int8_ef`` without ``--mesh`` is
-an error, as the reference's ``assert`` is. ``--mesh`` alone goes to
-``train_loop(mesh=)``, which needs the SPMD half of the sharding port and
-is refused.
+an error, as the reference's ``assert`` is. ``--mesh`` alone runs
+``train_loop(mesh=)`` on the same mesh: the weights and AdamW's moments
+sharded by the train profile, each data-parallel rank on gathered
+weights (``training/spmd.py``).
 """
 from __future__ import annotations
 

@@ -169,6 +169,25 @@ def init_cache(batch: int, cache_len: int, num_kv: int, head_dim: int,
     return out
 
 
+def cache_abstract(batch: int, cache_len: int, num_kv: int, head_dim: int,
+                   dtype: torch.dtype = torch.bfloat16):
+    """``init_cache``'s tree on ``meta`` tensors (shapes and dtypes)."""
+    return init_cache(batch, cache_len, num_kv, head_dim, dtype,
+                      device="meta")
+
+
+def cache_axes(quantized: bool = False):
+    """Logical axes of the cache leaves (sequence-sharded in the decode
+    profile)."""
+    ax = {"k": ("act_batch", "cache_seq", None, None),
+          "v": ("act_batch", "cache_seq", None, None),
+          "pos": ("cache_seq",)}
+    if quantized:
+        ax["k_scale"] = ("act_batch", "cache_seq", None)
+        ax["v_scale"] = ("act_batch", "cache_seq", None)
+    return ax
+
+
 def ring_slot(p: int, cache_len: int, sinks: int = 0) -> int:
     """The slot of absolute position ``p``: position p < M lives at slot p
     (a permanent sink slot), p >= M at M + (p − M) % (L − M). M = 0 gives

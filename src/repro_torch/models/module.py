@@ -144,6 +144,23 @@ def init_params(specs, generator: torch.Generator, dtype: Any = None):
     return out
 
 
+def abstract_params(specs, dtype: Any = None):
+    """The parameters as ``meta`` tensors (shapes and dtypes only, no
+    storage), as the reference's ``ShapeDtypeStruct`` tree: each leaf in
+    ``dtype`` where given, else its spec's dtype."""
+    def mk(s: ParamSpec):
+        return torch.empty(s.shape, dtype=dtype if dtype is not None
+                           else s.dtype, device="meta")
+    return map_specs(mk, specs)
+
+
+def param_bytes(specs, bytes_per_el: int = 4) -> int:
+    total = 0
+    for spec in tree_paths(specs).values():
+        total += math.prod(spec.shape) * bytes_per_el
+    return total
+
+
 def count_params(specs) -> int:
     return sum(math.prod(s.shape) for s in tree_paths(specs).values())
 

@@ -9,6 +9,9 @@ reference's ``models/registry.py``.
   prefill(params, batch)               -> (last_logits, caches)
   decode_step(params, inp, caches, cur) -> (logits, caches)
   cache_init(batch, seq_len)           -> empty caches
+  cache_abstract(batch, seq_len)       -> the same on ``meta`` tensors
+  cache_axes()                         -> the caches' logical axes
+  input_specs(kind)                    -> a batch of ``meta`` tensors
 
 for every family of the reference's model registry: the decoder LMs
 (``dense``, ``moe``, ``ssm`` — xLSTM's mLSTM and sLSTM —, ``hybrid`` and
@@ -17,10 +20,11 @@ included) and the whisper encoder-decoder (``encdec``: batches of
 ``frames``, ``dec_tokens`` and ``labels``; caches ``{'self', 'cross'}``).
 The spatial-filter config (``filter``) is no model: ``build`` refuses it,
 as the reference does, and ``repro_torch.core`` serves it.
-``cache_init`` is the concrete twin of the reference's
-``cache_abstract``. The abstract cache and its logical axes and
-``input_specs`` belong to the SPMD half of the sharding port, not
-ported yet. The reference has no
+``cache_abstract`` and ``input_specs`` are the reference's
+``ShapeDtypeStruct`` trees as ``meta`` tensors (shapes and dtypes, no
+storage: the dry run's inputs, ``launch/dryrun.py``); ``cache_axes``
+gives the logical axes the decode profile shards the caches by. The
+reference has no
 generation loop, and neither has the port: a caller runs
 ``decode_step`` once per token.
 """
@@ -54,6 +58,13 @@ class ModelBundle:
     prefill: Callable           # (params, batch) -> (last logits, caches)
     decode_step: Callable       # (params, inp, caches, cur) -> (logits, caches)
     cache_init: Callable        # (batch, seq_len) -> caches
+    cache_abstract: Callable    # (batch, seq_len) -> meta caches
+    cache_axes: Callable        # () -> the caches' logical axes
+    input_specs: Callable       # (kind) -> {name: meta tensor}
+
+
+def _meta(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _init_params(specs, device: torch.device) -> Callable:
@@ -162,10 +173,33 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
                                         caches=caches, cur=cur)
         return logits[:, -1], caches
 
+    def cache_abstract(batch: int, seq_len: int):
+        return tfm.cache_init(mc, batch, seq_len + M, device="meta")
+
+    def input_specs(kind: str):
+        """The batch of a ``kind`` ('train', 'prefill', 'decode') cell at
+        ``rc.shape``, as ``meta`` tensors."""
+        B, S = rc.shape.global_batch, rc.shape.seq_len
+        if mc.embeddings_in:
+            tok, one = _meta((B, S, mc.d_model), dt), _meta((B, 1, mc.d_model),
+                                                          dt)
+        else:
+            tok, one = _meta((B, S), torch.int32), _meta((B, 1), torch.int32)
+        if kind == "train":
+            return {"inputs": tok, "labels": _meta((B, S), torch.int32)}
+        if kind == "prefill":
+            return {"inputs": tok}
+        if kind == "decode":
+            return {"inputs": one}
+        raise ValueError(kind)
+
     return ModelBundle(cfg=rc, specs=specs, device=device,
                        init_params=init_params, train_forward=train_forward,
                        loss_fn=loss_fn, prefill=prefill,
-                       decode_step=decode_step, cache_init=cache_init)
+                       decode_step=decode_step, cache_init=cache_init,
+                       cache_abstract=cache_abstract,
+                       cache_axes=lambda: tfm.cache_logical_axes(mc),
+                       input_specs=input_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -243,20 +277,52 @@ def _whisper_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
                                        self_caches=caches["self"], cur=cur)
         return logits[:, -1], caches
 
+    def cache_abstract(batch: int, seq_len: int):
+        return {"self": whisper_mod.self_cache_init(mc, batch, device="meta"),
+                "cross": whisper_mod.xkv_abstract(mc, batch, seq_len)}
+
+    def cache_axes():
+        kv = {"k": (None, "act_batch", "cache_seq", None, None),
+              "v": (None, "act_batch", "cache_seq", None, None),
+              "pos": (None, "cache_seq")}
+        xkv = {"k": (None, "act_batch", "cache_seq", None, None),
+               "v": (None, "act_batch", "cache_seq", None, None)}
+        return {"self": kv, "cross": xkv}
+
+    def input_specs(kind: str):
+        """The batch of a ``kind`` cell at ``rc.shape`` (``seq_len``
+        encoder frames; ``max_target_positions`` decoder tokens to train,
+        an 8-token prompt to prefill), as ``meta`` tensors."""
+        B, S = rc.shape.global_batch, rc.shape.seq_len
+        frames = _meta((B, S, mc.d_model), tfm.model_dtype(mc))
+        T = mc.max_target_positions
+        if kind == "train":
+            return {"frames": frames,
+                    "dec_tokens": _meta((B, T), torch.int32),
+                    "labels": _meta((B, T), torch.int32)}
+        if kind == "prefill":
+            return {"frames": frames, "dec_tokens": _meta((B, 8), torch.int32)}
+        if kind == "decode":
+            return {"inputs": _meta((B, 1), torch.int32)}
+        raise ValueError(kind)
+
     return ModelBundle(cfg=rc, specs=specs, device=device,
                        init_params=_init_params(specs, device),
                        train_forward=train_forward, loss_fn=loss_fn,
                        prefill=prefill, decode_step=decode_step,
-                       cache_init=cache_init)
+                       cache_init=cache_init, cache_abstract=cache_abstract,
+                       cache_axes=cache_axes, input_specs=input_specs)
 
 
 def build(rc: RunConfig, device="cuda") -> ModelBundle:
     """The bundle of ``rc``'s model on ``device`` (the card unless the
-    caller passes ``device='cpu'``; no card raises)."""
+    caller passes ``device='cpu'``; no card raises; ``'meta'``: shapes
+    only, for the dry run)."""
     if rc.model.family == "filter":
         raise ValueError("the spatial-filter config is served by "
                          "repro_torch.core, see examples/video_pipeline.py")
-    dev = resolve_device(device)
+    dev = (torch.device("meta") if torch.device(device).type == "meta"
+           else resolve_device(device))
     if rc.model.family == "encdec":
         return _whisper_bundle(rc, dev)
     return _lm_bundle(rc, dev)

@@ -180,6 +180,11 @@ def _conv_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def mamba_state_abstract(cfg, batch: int):
+    """``mamba_state_init`` on ``meta`` tensors."""
+    return mamba_state_init(cfg, batch, device="meta")
+
+
 def mamba_state_init(cfg, batch: int, *, device):
     """A zero streaming state: the conv's last k-1 inputs and the ssm
     carry."""

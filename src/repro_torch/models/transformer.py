@@ -219,9 +219,42 @@ def stage_cache_init(cfg: ModelConfig, st: Stage, batch: int, seq_len: int,
 
 
 def cache_init(cfg: ModelConfig, batch: int, seq_len: int, *, device):
-    """One stacked cache tree per stage (``seq_len`` counts meta tokens)."""
+    """One stacked cache tree per stage (``seq_len`` counts meta tokens).
+    ``device='meta'`` gives the reference's abstract caches (shapes and
+    dtypes, no storage)."""
     return [stage_cache_init(cfg, st, batch, seq_len, device=device)
             for st in make_stages(cfg)]
+
+
+def cache_logical_axes(cfg: ModelConfig):
+    """Logical-axis trees matching ``cache_init`` (for decode
+    shardings), as the reference's."""
+    out = []
+    for st in make_stages(cfg):
+        kv = {"k": (None, "act_batch", "cache_seq", None, None),
+              "v": (None, "act_batch", "cache_seq", None, None),
+              "pos": (None, "cache_seq")}
+        if cfg.kv_cache_dtype == "int8":
+            kv["k_scale"] = (None, "act_batch", "cache_seq", None)
+            kv["v_scale"] = (None, "act_batch", "cache_seq", None)
+        mamba = {"conv": (None, "act_batch", None, "act_ssm"),
+                 "ssm": (None, "act_batch", None, None, None)}
+        if st.kind in ("dense", "moe"):
+            out.append(kv)
+        elif st.kind == "hymba":
+            out.append({"attn": kv, "mamba": mamba})
+        elif st.kind == "mamba":
+            out.append(mamba)
+        elif st.kind == "mlstm":
+            out.append({"conv": (None, "act_batch", None, "act_ssm"),
+                        "mlstm": ((None, "act_batch", None, None, None),
+                                  (None, "act_batch", None, None),
+                                  (None, "act_batch", None))})
+        elif st.kind == "slstm":
+            out.append({"conv": (None, "act_batch", None, None),
+                        "slstm": tuple((None, "act_batch", None)
+                                       for _ in range(4))})
+    return out
 
 
 def _stack(tree, n: int):

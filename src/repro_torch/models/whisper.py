@@ -200,7 +200,8 @@ def decode(params, tokens: torch.Tensor, positions: torch.Tensor, xkv,
 
 def self_cache_init(cfg: ModelConfig, batch: int, *, device):
     """Empty decoder self-attention ring caches, one per layer stacked on
-    axis 0: ``max_target_positions`` slots each."""
+    axis 0: ``max_target_positions`` slots each (``device='meta'``: the
+    reference's abstract form)."""
     c = attn.init_cache(batch, cfg.max_target_positions, cfg.num_kv_heads,
                         cfg.resolved_head_dim(), tfm.model_dtype(cfg),
                         device=device)
@@ -208,10 +209,16 @@ def self_cache_init(cfg: ModelConfig, batch: int, *, device):
 
 
 def cross_cache_init(cfg: ModelConfig, batch: int, s_enc: int, *, device):
-    """An empty cross cache ({'k', 'v'} [L, B, s_enc, KV, hd] zeros): the
-    concrete twin of the reference's ``xkv_abstract``."""
+    """An empty cross cache ({'k', 'v'} [L, B, s_enc, KV, hd] zeros);
+    ``xkv_abstract`` is its ``meta`` form."""
     sh = (cfg.num_layers, batch, s_enc, cfg.num_kv_heads,
           cfg.resolved_head_dim())
     dt = tfm.model_dtype(cfg)
     return {"k": torch.zeros(sh, dtype=dt, device=device),
             "v": torch.zeros(sh, dtype=dt, device=device)}
+
+
+def xkv_abstract(cfg: ModelConfig, batch: int, s_enc: int):
+    """The cross cache of ``s_enc`` encoder frames on ``meta`` tensors, as
+    the reference's ``xkv_abstract``."""
+    return cross_cache_init(cfg, batch, s_enc, device="meta")

@@ -250,6 +250,11 @@ def mlstm_state_init(cfg, batch: int, *, device):
     }
 
 
+def mlstm_state_abstract(cfg, batch: int):
+    """``mlstm_state_init`` on ``meta`` tensors."""
+    return mlstm_state_init(cfg, batch, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
@@ -347,3 +352,8 @@ def slstm_state_init(cfg, batch: int, *, device):
                             dtype=_model_dtype(cfg), device=device),
         "slstm": _slstm_zero(batch, d, device),
     }
+
+
+def slstm_state_abstract(cfg, batch: int):
+    """``slstm_state_init`` on ``meta`` tensors."""
+    return slstm_state_init(cfg, batch, device="meta")

@@ -6,8 +6,12 @@ reference's, so the two packages read each other's checkpoints: ``step``
 is a 0-d int32 tensor kept on the host (the schedule reads it with no
 device sync), ``m`` and ``v`` float32 trees shaped like the parameters.
 The update runs in place, leaf by leaf (each leaf's temporaries freed
-before the next). ``adamw_abstract`` and ``opt_state_axes`` belong to the
-SPMD half of the sharding port, not ported yet.
+before the next). On sharded parameters (``sharding.placement``)
+``adamw_init`` gives moments of the same placement, and the mesh step
+(``training/spmd.py``) updates each distinct block once
+(``owned_units``) and copies it to its replicas. ``adamw_abstract``
+gives the state on ``meta`` tensors, for the dry run, and
+``opt_state_axes`` its logical axes, as the reference's.
 """
 from __future__ import annotations
 
@@ -16,7 +20,9 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.models import module as mod
 from repro_torch.models.module import tree_leaves, tree_map
+from repro_torch.sharding.placement import ShardedTensor
 
 
 class AdamWState(NamedTuple):
@@ -26,10 +32,30 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params) -> AdamWState:
+    """Zero moments in float32, placed as the parameters (a sharded leaf
+    gives sharded moments); the step on the host."""
     def zeros(p):
+        if isinstance(p, ShardedTensor):
+            return p.map_units(lambda t: torch.zeros_like(
+                t, dtype=torch.float32))
         return torch.zeros_like(p, dtype=torch.float32)
     return AdamWState(step=torch.zeros((), dtype=torch.int32),
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
+
+
+def adamw_abstract(specs, dtype: torch.dtype = torch.float32) -> AdamWState:
+    """The state of a ParamSpec tree on ``meta`` tensors (shapes and dtypes
+    only), as the reference's ``adamw_abstract``."""
+    ab = mod.abstract_params(specs, dtype)
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      m=ab, v=mod.abstract_params(specs, dtype))
+
+
+def opt_state_axes(specs) -> AdamWState:
+    """Logical axes of the state tree: the parameters' for m and v, none
+    for the step."""
+    ax = mod.map_specs(lambda s: s.axes, specs)
+    return AdamWState(step=(), m=ax, v=ax)
 
 
 @torch.no_grad()

@@ -16,11 +16,22 @@ Nothing here calls ``torch.distributed``: NCCL cannot put two ranks on
 one card, and a machine with one card runs a mesh of repeated entries.
 A reduction is taken in order along the axis on the group's first entry
 (``((v0 + v1) + v2) ...``), then handed to every member of the group.
+
+``all_gather`` and ``reduce_scatter`` over named axes are ``jax.lax``'s
+``all_gather(tiled=True)`` and ``psum_scatter(tiled=True)``: what XLA
+inserts around a weight sharded by a ``PartitionSpec``. Each adds the
+bytes it carries to a ``Traffic``: ``moved`` between distinct devices
+(a copy), ``local`` between entries of one device (no copy: the same
+storage, or a view of it). Where the parts of a gather are adjacent views
+of one tensor on one device, the result is a view of that tensor, not a
+new one.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Tuple
+import dataclasses
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.sharding.mesh import Coord, DeviceMesh
@@ -106,3 +117,106 @@ def ppermute(v: MeshValue, axis: str,
             out[c] = torch.zeros_like(v[c])
     return MeshValue(v.mesh, out)
 
+
+
+@dataclasses.dataclass
+class Traffic:
+    """Bytes carried by collectives: ``moved`` between distinct devices,
+    ``local`` between entries of one device (no copy)."""
+    moved: int = 0
+    local: int = 0
+
+    def add(self, nbytes: int, src: torch.device, dst: torch.device) -> None:
+        if src == dst:
+            self.local += int(nbytes)
+        else:
+            self.moved += int(nbytes)
+
+
+def _axes(axes: Union[str, Sequence[str]]) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _group_of(mesh: DeviceMesh, coord: Coord, axes: Tuple[str, ...]
+              ) -> Tuple[int, list]:
+    """``coord``'s index in its group over ``axes`` (row-major over the
+    axes in the order given, as ``jax.lax.axis_index`` of a tuple), and
+    the group's coordinates in that order."""
+    idx = [mesh.axis_names.index(a) for a in axes]
+    sizes = [mesh.devices.shape[i] for i in idx]
+    group = []
+    for pos in np.ndindex(*sizes):
+        c = list(coord)
+        for i, k in zip(idx, pos):
+            c[i] = k
+        group.append(tuple(c))
+    return group.index(tuple(coord)), group
+
+
+def cat_views(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+    """``torch.cat(parts, dim)``, or a view where the parts are adjacent
+    views of one tensor's storage along ``dim`` (no copy) and none needs a
+    gradient."""
+    p0 = parts[0]
+    if (len(parts) > 1 and p0.device.type != "meta"
+            and not any(p.requires_grad for p in parts)):
+        st = p0.stride()
+        step = p0.shape[dim] * st[dim]
+        if all(p.device == p0.device and p.dtype == p0.dtype
+               and p.stride() == st
+               and p.untyped_storage().data_ptr()
+               == p0.untyped_storage().data_ptr()
+               and p.shape == p0.shape
+               and p.storage_offset() == p0.storage_offset() + i * step
+               for i, p in enumerate(parts)):
+            shape = list(p0.shape)
+            shape[dim] *= len(parts)
+            return p0.as_strided(shape, st, p0.storage_offset())
+    return torch.cat(list(parts), dim=dim) if len(parts) > 1 else p0
+
+
+def all_gather(v: MeshValue, axes, dim: int,
+               traffic: Optional[Traffic] = None) -> MeshValue:
+    """At each coordinate, the values of its group over ``axes``
+    concatenated along ``dim`` in group order (``jax.lax.all_gather(x,
+    axes, axis=dim, tiled=True)``). Differentiable: its transpose is
+    ``reduce_scatter``."""
+    axes = _axes(axes)
+    out = {}
+    for c in v.mesh.coords():
+        dev = v.mesh.device(c)
+        me, group = _group_of(v.mesh, c, axes)
+        parts = []
+        for i, g in enumerate(group):
+            if traffic is not None and i != me:
+                traffic.add(v[g].nbytes, v.mesh.device(g), dev)
+            parts.append(v[g].to(dev))
+        out[c] = cat_views(parts, dim)
+    return MeshValue(v.mesh, out)
+
+
+def reduce_scatter(v: MeshValue, axes, dim: int,
+                   traffic: Optional[Traffic] = None) -> MeshValue:
+    """At each coordinate, its block along ``dim`` of the sum over its
+    group over ``axes``: the group's k-th member gets the k-th of n equal
+    blocks (``jax.lax.psum_scatter(x, axes, scatter_dimension=dim,
+    tiled=True)``). The sum is taken in group order on the receiving
+    coordinate's device. Differentiable: its transpose is ``all_gather``."""
+    axes = _axes(axes)
+    out = {}
+    for c in v.mesh.coords():
+        dev = v.mesh.device(c)
+        me, group = _group_of(v.mesh, c, axes)
+        n = v[c].shape[dim] // len(group)
+        if n * len(group) != v[c].shape[dim]:
+            raise ValueError(f"dim {dim} of {tuple(v[c].shape)} does not "
+                             f"split over {axes} ({len(group)})")
+        acc = None
+        for g in group:
+            part = v[g].narrow(dim, me * n, n)
+            if traffic is not None and g != c:
+                traffic.add(part.nbytes, v.mesh.device(g), dev)
+            part = part.to(dev)
+            acc = part if acc is None else acc + part
+        out[c] = acc
+    return MeshValue(v.mesh, out)

@@ -7,7 +7,8 @@ tests a mesh on one host, and the row-sharded filter ring
 (``core/distributed.py::Mesh``, one axis) works the same way. A
 coordinate's values then live on the one card, and a move between two
 such entries is no copy. An entry that names a card that is not there
-raises; the entries are all CUDA or all CPU.
+raises; the entries are all CUDA, all CPU, or all ``meta`` (shapes only:
+the dry run's production meshes, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,10 @@ Coord = Tuple[int, ...]
 
 
 def mesh_device(device) -> torch.device:
-    """``device`` as a mesh entry: a card that is there, or the CPU."""
+    """``device`` as a mesh entry: a card that is there, the CPU, or
+    ``meta``."""
+    if torch.device(device).type == "meta":
+        return torch.device("meta")
     dev = resolve_device(device)
     if dev.type == "cpu":
         return torch.device("cpu")       # 'cpu:0' is the one CPU device
@@ -50,7 +54,8 @@ class DeviceMesh:
         if arr.size == 0:
             raise ValueError("a mesh needs at least one device")
         if len({d.type for d in arr.flat}) > 1:
-            raise ValueError("mesh entries must be all CUDA or all CPU")
+            raise ValueError("mesh entries must be all CUDA, all CPU or "
+                             "all meta")
         self.devices = arr
         self.axis_names = axis_names
 

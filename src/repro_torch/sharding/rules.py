@@ -14,12 +14,16 @@ Profiles:
   decode  — KV cache sharded over sequence ('model', flash-decode style);
             batch over pod+data when divisible, else sequence over data too.
 
-What is carried is the shape logic: ``pspec`` and ``spec_tree_pspecs``.
-Placing a tensor by its spec on a mesh (the reference's ``sharding``,
-``spec_tree_shardings`` and ``constrain`` with a mesh) needs the SPMD
-half of the port — how a weight sharded by a ``PartitionSpec`` is held
-and who runs its gathers — and raises ``NotImplementedError`` until then.
-Without a mesh they do what the reference's do: ``None`` and ``x``.
+With a mesh, ``sharding`` gives a ``placement.NamedSharding`` (a
+weight or batch held as blocks, one per mesh coordinate) and
+``spec_tree_shardings`` the tree of them; without one, ``None``, as the
+reference's. ``constrain`` is the reference's activation constraint, a
+hint to XLA's partitioner. Torch has none: the port's mesh step
+(``training/spmd.py``) gathers the weights onto each data-parallel rank's
+device and runs the single-device body there with ``shd=None``, as the
+reference's own ``dp_shardmap.py:43`` runs each rank's body. So
+``constrain`` with a mesh raises, rather than pass an activation through
+unconstrained under a name that says otherwise.
 """
 from __future__ import annotations
 
@@ -30,9 +34,11 @@ from repro_torch.models import module as mod
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
-_SPMD = ("placing tensors by a PartitionSpec on a mesh is the SPMD half "
-         "of the sharding port (train_loop(mesh=), the elastic restore), "
-         "not ported yet")
+_CONSTRAIN = ("an activation constraint on a mesh (with_sharding_constraint) "
+              "has no counterpart in the port: its mesh step "
+              "(training/spmd.py) runs each data-parallel rank's body on "
+              "gathered weights with shd=None, as the reference's "
+              "dp_shardmap.py does")
 
 
 class PartitionSpec(tuple):
@@ -137,23 +143,24 @@ class ShardingCtx:
         return PartitionSpec(*entries)
 
     def sharding(self, shape, axes):
-        """``None`` without a mesh, as the reference's; with one, the SPMD
-        half (not ported) raises."""
+        """``None`` without a mesh, as the reference's; with one, the
+        ``NamedSharding`` of ``pspec(shape, axes)``."""
         if self.mesh is None:
             return None
-        raise NotImplementedError(_SPMD)
+        from repro_torch.sharding.placement import NamedSharding
+        return NamedSharding(self.mesh, self.pspec(shape, axes))
 
     # -- application --------------------------------------------------------
     def constrain(self, x, *axes: Optional[str]):
-        """``x`` without a mesh, as the reference's; with one, the SPMD half
-        (not ported) raises."""
+        """``x`` without a mesh, as the reference's; with one it raises (see
+        the module note)."""
         if self.mesh is None:
             return x
-        raise NotImplementedError(_SPMD)
+        raise NotImplementedError(_CONSTRAIN)
 
     def spec_tree_shardings(self, specs):
-        """A tree of ``None`` for a ParamSpec tree without a mesh; with
-        one, the SPMD half (not ported) raises."""
+        """The ``NamedSharding`` tree of a ParamSpec tree (a tree of
+        ``None`` without a mesh)."""
         return mod.map_specs(lambda s: self.sharding(s.shape, s.axes), specs)
 
     def spec_tree_pspecs(self, specs):

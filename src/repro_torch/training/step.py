@@ -10,8 +10,10 @@ tree, then scales), without its extra float32 gradient tree. What
 differs is inside one backward (the library's reduction orders, and the
 embedding's scattered add, which on the card accumulates by atomics):
 float32 gradients agree with the reference's to relative L2 1e-4 after
-three steps (tests/test_torch_train.py). The sharded step (``shd``)
-is the SPMD half of the sharding port, not ported yet.
+three steps (tests/test_torch_train.py). The step on a mesh (the
+reference's ``shd``) is ``training/spmd.py``: each data-parallel rank
+runs this body (``loss_fn``, one backward a microbatch) on gathered
+weights.
 """
 from __future__ import annotations
 

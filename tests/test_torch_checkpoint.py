@@ -252,8 +252,9 @@ def test_trainer_logs_and_flags_stragglers(tmp_path, monkeypatch):
 
 
 def test_trainer_refuses_a_mesh():
-    """``train_loop(mesh=)`` is the SPMD half of the sharding port."""
-    with pytest.raises(NotImplementedError, match="SPMD half"):
+    """``train_loop(mesh=)`` takes a ``DeviceMesh`` (its runs against the
+    reference's: tests/test_torch_spmd.py) and refuses anything else."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         train_loop(_tiny_rc(), num_steps=1, device="cpu", mesh=object())
 
 

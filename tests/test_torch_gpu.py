@@ -857,3 +857,89 @@ def test_gpipe_on_the_card_matches_the_cpu(cuda, dtype):
     assert got[0] == pytest.approx(want[0], rel=tol)
     for g, w in zip(got[1:], want[1:]):
         assert float((g - w).norm() / w.norm()) <= tol
+
+
+def _spmd_rc():
+    import dataclasses
+    from repro_torch.configs.base import SHAPES, RunConfig, TrainConfig
+    from repro_torch.configs.tiny import tiny_of
+    return RunConfig(model=tiny_of("yi_6b"), shape=dataclasses.replace(
+        SHAPES["train_4k"], seq_len=64, global_batch=8),
+        train=TrainConfig(warmup_steps=2, remat_policy="none"))
+
+
+def _checkpoint(d, step):
+    import json
+    import os
+    path = os.path.join(d, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        man = json.load(f)
+    return {k: np.load(os.path.join(path, v["file"]))
+            for k, v in man["leaves"].items()}
+
+
+def _same_spmd_run(got, want, got_dir, want_dir, step):
+    for k in ("loss", "grad_norm"):
+        assert abs(got.final_metrics[k] - want.final_metrics[k]) <= 1e-5 * \
+            abs(want.final_metrics[k]), k
+    g, w = _checkpoint(got_dir, step), _checkpoint(want_dir, step)
+    assert sorted(g) == sorted(w)
+    for k in w:
+        np.testing.assert_allclose(g[k], w[k], rtol=0, atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("shape,axes", [((2, 2), ("data", "model")),
+                                        ((2, 2, 1), ("pod", "data", "model"))])
+def test_train_loop_on_a_mesh_on_the_card_matches_the_cpu(cuda, shape, axes,
+                                                          tmp_path):
+    """Three float32 steps of ``train_loop(mesh=)`` (TF32 off) on a mesh of
+    four ``cuda:0`` entries against the same run on four CPU entries
+    (which tests/test_torch_spmd.py holds against the reference's own
+    mesh run): loss and grad norm within relative 1e-5, every parameter
+    and moment within 1e-4 absolute (the step-3 checkpoints)."""
+    from repro_torch.models import registry
+    from repro_torch.models.module import tree_map
+    from repro_torch.sharding.mesh import make_mesh
+    from repro_torch.training.trainer import train_loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rc = _spmd_rc()
+    params0 = registry.build(rc, device="cpu").init_params(
+        torch.Generator().manual_seed(6))
+    reps = {}
+    for dev in ("cpu", "cuda:0"):
+        reps[dev] = train_loop(
+            rc, num_steps=3, mesh=make_mesh(shape, axes, [dev] * 4),
+            params=tree_map(lambda t: t.clone(), params0), log_every=0,
+            ckpt_dir=str(tmp_path / dev[:3]), ckpt_every=3)
+    _same_spmd_run(reps["cuda:0"], reps["cpu"], tmp_path / "cud",
+                   tmp_path / "cpu", 3)
+
+
+def test_elastic_restart_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """3 float32 steps on (data 2) with a checkpoint, 2 more resumed on
+    (data 2, model 2), on ``cuda:0`` entries and on CPU entries (the
+    CPU's held against the reference's two-phase run by
+    tests/test_torch_elastic.py): ``resumed_from`` 3 on both, the step-5
+    checkpoints within 1e-4, loss and grad norm within relative 1e-5."""
+    from repro_torch.models import registry
+    from repro_torch.models.module import tree_map
+    from repro_torch.sharding.mesh import make_mesh
+    from repro_torch.training.trainer import train_loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rc = _spmd_rc()
+    params0 = registry.build(rc, device="cpu").init_params(
+        torch.Generator().manual_seed(7))
+    reps = {}
+    for dev in ("cpu", "cuda:0"):
+        d = str(tmp_path / dev[:3])
+        train_loop(rc, num_steps=3, mesh=make_mesh((2,), ("data",),
+                                                   [dev] * 2),
+                   params=tree_map(lambda t: t.clone(), params0),
+                   log_every=0, ckpt_dir=d, ckpt_every=3)
+        reps[dev] = train_loop(
+            rc, num_steps=2, mesh=make_mesh((2, 2), ("data", "model"),
+                                            [dev] * 4),
+            log_every=0, ckpt_dir=d, ckpt_every=50)
+        assert reps[dev].resumed_from == 3
+    _same_spmd_run(reps["cuda:0"], reps["cpu"], tmp_path / "cud",
+                   tmp_path / "cpu", 5)

@@ -48,6 +48,8 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.sharding.mesh, repro_torch.sharding.collectives, "
             "repro_torch.training.dp_shardmap, "
             "repro_torch.training.pipeline, repro_torch.launch.mesh\n"
+            "import repro_torch.sharding.placement, "
+            "repro_torch.training.spmd, repro_torch.launch.dryrun\n"
             "sys.path.insert(0, sys.argv[1]); import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"

@@ -32,6 +32,7 @@ from repro_torch.models import registry
 from repro_torch.models.module import tree_paths
 from repro_torch.sharding import mesh as smesh
 from repro_torch.sharding import rules
+from repro_torch.sharding.placement import NamedSharding
 from repro_torch.sharding.rules import PartitionSpec
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -202,18 +203,23 @@ def test_without_a_mesh_as_the_reference():
 
 
 def test_placement_on_a_mesh_is_refused():
-    """With a mesh, placing by a spec is the SPMD half: it raises and
-    names it, and never returns something that looks like a placement."""
+    """With a mesh, only the activation constraint is refused (it names
+    the mesh step that stands in for it); placing by a spec gives a
+    ``NamedSharding`` of the reference's ``pspec``, never something that
+    only looks like one (placements against the reference's own:
+    tests/test_torch_placement.py)."""
     ctx = rules.make_ctx(_mesh("dm"), "train")
-    with pytest.raises(NotImplementedError, match="SPMD"):
-        ctx.sharding((4, 4), ("embed", "mlp"))
-    with pytest.raises(NotImplementedError, match="SPMD"):
+    s = ctx.sharding((4, 4), ("embed", "mlp"))
+    assert isinstance(s, NamedSharding) and s.mesh is ctx.mesh
+    assert tuple(s.spec) == tuple(ctx.pspec((4, 4), ("embed", "mlp")))
+    with pytest.raises(NotImplementedError, match="training/spmd.py"):
         ctx.constrain(torch.ones(4, 4), "act_batch", None)
     specs = {"w": registry.build(RunConfig(model=tiny_of("yi_6b"),
                                            shape=SHAPES["train_4k"]),
                                  device="cpu").specs["embed"]}
-    with pytest.raises(NotImplementedError, match="SPMD"):
-        ctx.spec_tree_shardings(specs)
+    tree = ctx.spec_tree_shardings(specs)
+    assert all(isinstance(v, NamedSharding)
+               for v in tree_paths(tree).values())
 
 
 def test_partition_spec_is_a_tuple():

@@ -458,16 +458,18 @@ def test_launcher_trains_tiny_on_the_cpu(tmp_path):
 @pytest.mark.parametrize("flags", [["--mesh", "1x1"],
                                    ["--grad-compression", "int8_ef"]])
 def test_launcher_refuses_what_waits_for_sharding(flags, capsys):
-    """``--mesh`` alone goes to ``train_loop(mesh=)``, the SPMD half of the
-    sharding port, which refuses it and says so; ``int8_ef`` without a
-    mesh is an error, as the reference's ``assert`` is (the int8-EF path
-    itself: tests/test_torch_dp.py)."""
+    """``--mesh`` alone goes to ``train_loop(mesh=)``, which no longer
+    waits for the SPMD half of the sharding port: it trains (against the
+    reference: tests/test_torch_spmd.py); ``int8_ef`` without a mesh is
+    an error, as the reference's ``assert`` is (the int8-EF path itself:
+    tests/test_torch_dp.py)."""
     from repro_torch.launch import train
     argv = ["--arch", "yi_6b", "--tiny", "--steps", "1", "--device", "cpu",
             *flags]
     if "--mesh" in flags:
-        with pytest.raises(NotImplementedError, match="SPMD half"):
-            train.main(argv)
+        train.main(argv)
+        assert capsys.readouterr().out.strip().splitlines()[-1].startswith(
+            "[train] done: 1 steps, final loss ")
         return
     with pytest.raises(SystemExit) as exc:
         train.main(argv)
