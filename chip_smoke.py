@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero:
                 ``swattn``, ``dwconv1d``) from ``src/`` into ``build/``
                 (one ``nvcc`` per source, all started together) and
                 summarises ``-Xptxas -v`` per kernel: registers, shared
-                memory, spills (the full reports stay in ``build/``).
+                memory, spills (the full reports stay in ``build/``); a
+                float32 ``swattn`` instantiation that spills is a failure.
   3. kernel   — holds the kernel against its plain torch version
                 (``filter2d_halo_ref``) on the card: 6 border policies
                 (non-zero constant), 4 forms + separable, w ∈ {3, 5, 7},
@@ -90,11 +91,13 @@ Phases, in order; any failure exits non-zero:
                 (``swattn_ref``) on the card, swept over the edges of its
                 tile geometry: float32 (the CUDA-core kernel) and bfloat16
                 (the tensor-core kernel), S ∈ {1, 63, 64, 65, 127, 128,
-                129, 191, 192, 193, 1000}, window ∈ {0, 1, BK−1, BK,
-                BK+1, 300, S+7} with BK the dtype's key tile as the
-                built library reports it (``tile_keys``), H/KV 32/8, 8/8
-                and 4/1, hd 16 / 64 / 80 /
-                128 / 256, B = 3. float32 within
+                129, 191, 192, 193, 1000}, for float32 also S on both
+                sides of one and two of its BQ-row blocks
+                (``tile_queries``) and, at hd 16 and 256, S 1001, window
+                ∈ {0, 1, BK−1, BK, BK+1, 300, S+7} with BK the dtype's
+                key tile as the built library reports it
+                (``tile_keys``), H/KV 32/8, 8/8 and 4/1, hd 16 / 64 / 80
+                / 128 / 256, B = 3. float32 within
                 rtol=atol=3e-4; bfloat16 within 3e-2 (p is rounded to
                 bfloat16 before the PV product).
   8. dwconv1d — the causal depthwise conv kernel against its plain version
@@ -305,7 +308,9 @@ Phases, in order; any failure exits non-zero:
 Every main path (serving, the streaming and xla engines, the ring, LM,
 mamba, LM serving, LM kinds, LM recurrent, the mesh paths, the SPMD
 path) runs
-with the three launch counts set to 0 just before it and read just after.
+with the three launch counts set to 0 just before it and read just after;
+``swattn``'s launches are also counted by dtype, and the summary gives
+the float32 kernel's on each path (``launches_float32``).
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -333,12 +338,15 @@ SERVING_KERNELS = ("filter2d_halo<f32,f32,f32,w5,fold>",
                    "filter2d_halo<f32,f32,f32,w3,fold>",
                    "filter2d_halo<i8,i32,i8,w3,fold>")
 REPLACES = "src/repro/kernels/filter2d/kernel.py:349"
-SWATTN_SOURCE = "src/repro_torch/kernels/swattn/csrc/swattn_bf16.cu"
+# the kernel per dtype: bfloat16, then float32
+SWATTN_SOURCE = ("src/repro_torch/kernels/swattn/csrc/swattn_bf16.cu, "
+                 "src/repro_torch/kernels/swattn/csrc/swattn.cu")
 # the swattn kernel per dtype: bfloat16 on the tensor cores, float32 on the
 # CUDA cores (the reference's float32 dot is not TF32)
 SWATTN_ROUTES = {
     "bfloat16": "tensor-core wgmma (csrc/swattn_bf16.cu)",
-    "float32": "cuda-core (csrc/swattn.cu)"}
+    "float32": "cuda-core register-tiled FFMA, cp.async ring "
+               "(csrc/swattn.cu)"}
 SWATTN_REPLACES = "src/repro/kernels/swattn/kernel.py:76"
 DWCONV_SOURCE = "src/repro_torch/kernels/dwconv1d/csrc/dwconv1d.cu"
 DWCONV_REPLACES = "src/repro/kernels/dwconv1d/kernel.py:40"
@@ -403,6 +411,8 @@ def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
     counters()["filter2d_halo"].tma_launches = 0
+    sw = counters()["swattn"]
+    sw.dtype_launches = dict.fromkeys(sw.dtype_launches, 0)
 
 
 def read_counts() -> dict:
@@ -414,6 +424,11 @@ def tma_count() -> int:
     return counters()["filter2d_halo"].tma_launches
 
 
+def f32_count() -> int:
+    """``swattn``'s launches of the float32 kernel."""
+    return counters()["swattn"].dtype_launches["float32"]
+
+
 class saved_counts:
     """Restores every launch count on exit: launches made to compare a
     kernel with its plain version, or to time it, are not the main
@@ -422,11 +437,13 @@ class saved_counts:
     def __enter__(self):
         self.saved = read_counts()
         self.tma = tma_count()
+        self.dtypes = dict(counters()["swattn"].dtype_launches)
 
     def __exit__(self, *exc):
         for name, fn in counters().items():
             fn.launches = self.saved[name]
         counters()["filter2d_halo"].tma_launches = self.tma
+        counters()["swattn"].dtype_launches = self.dtypes
 
 
 def ptxas_summary(text: str):
@@ -491,6 +508,9 @@ class Smoke:
         self.torch = torch
         self.card = card
         self.max_err = {}
+        # the float32 swattn kernel's launches on each main path, read with
+        # the path's counts
+        self.f32 = {}
         # the card's H100 part (``obs/roofline.py``): every bound's constants
         self.hbm_bw = part.hbm_bw
         self.peak_ops = part.peak_ops
@@ -1544,13 +1564,23 @@ class Smoke:
         rng = np.random.default_rng(12)
         errs, n = {}, 0
         B = 3
+        bq = SW.tile_queries(torch.float32)
+        self.say(f"swattn phase: float32 blocks of {bq} queries, key tiles "
+                 f"of {SW.tile_keys(torch.float32)} (bfloat16 "
+                 f"{SW.tile_keys(torch.bfloat16)})")
         with saved_counts():
             for dt in ("float32", "bfloat16"):
                 bk = SW.tile_keys(getattr(torch, dt))
+                lengths = [1, 63, 64, 65, 127, 128, 129, 191, 192, 193,
+                           1000]
+                if dt == "float32":      # one and two query tiles
+                    lengths += [S for S in (bq - 1, bq, bq + 1, 2 * bq - 1,
+                                            2 * bq, 2 * bq + 1)
+                                if S not in lengths]
                 for H, KV in ((32, 8), (8, 8), (4, 1)):
                     for hd in (16, 64, 80, 128, 256):
-                        for S in (1, 63, 64, 65, 127, 128, 129, 191,
-                                  192, 193, 1000):
+                        # no multiple of 4 at the float2 / float4 paths
+                        for S in lengths + [1001] * (hd in (16, 256)):
                             q = torch.from_numpy(rng.standard_normal(
                                 (B, S, H, hd)).astype(np.float32)).cuda()
                             k, v = (torch.from_numpy(rng.standard_normal(
@@ -1680,6 +1710,7 @@ class Smoke:
             fwd_ms[dt] = ms
             del logits, a, r
         launches = read_counts()
+        self.f32["lm_forward"] = f32_count()
         self.profile("LM bf16 forward (kernel attention)",
                      lambda: bundle.train_forward(params, {"inputs": tokens}))
         if launches != {"filter2d_halo": 0, "swattn": 2 * 2 * full.num_layers,
@@ -2089,6 +2120,7 @@ class Smoke:
         out["hymba_float32_worst"] = self._float32_serving(
             "hymba_1_5b", prompt_len=2048, steps=8, seed=5)
         launches = read_counts()
+        self.f32["lm_serving"] = f32_count()
         from repro_torch.configs.base import get_model_config
         # h2o-danube's kernel-gated prefills: bf16 (warm-up, served), int8
         # KV, float32; hymba's meta tokens bar the kernel
@@ -2281,6 +2313,7 @@ class Smoke:
             ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(m["loss"]))
         launches = read_counts()
+        self.f32["lm_training"] = f32_count()
         peak = torch.cuda.max_memory_allocated()
         if launches != {"filter2d_halo": 0, "swattn": 0, "dwconv1d": 0}:
             raise AssertionError(f"LM training: kernel launches {launches}")
@@ -2813,6 +2846,7 @@ class Smoke:
                 a, self.kinds_forward(a))[0])
         fwd_launches = sum(n for _, n in fwd.values())
         launches = read_counts()
+        self.f32["lm_kinds"] = f32_count()
         # two gated prefills (warm-up, served) per layer of each served
         # model, one gated forward per dtype and layer in (d)
         if not failed:
@@ -3338,6 +3372,7 @@ class Smoke:
                                 self.recurrent_train_parity)):
             self._run_part("LM recurrent", key, name, run, out, took, failed)
         launches = read_counts()
+        self.f32["lm_recurrent"] = f32_count()
         if any(launches.values()):
             failed.append(f"kernel launches {launches}, expected none")
         self.say(f"LM recurrent parts took (s): {took!r}; kernel launches "
@@ -3735,7 +3770,7 @@ class Smoke:
         self._free("start", "mesh")
         reset_counts()
         out, took, failed = {}, {}, []
-        proc, cmd, t_launch = self._start_mesh_launcher()
+        proc = None
         try:
             parts = [
                 ("a", "dp_float32", lambda: self.dp_parity(
@@ -3744,10 +3779,7 @@ class Smoke:
                 ("a", "dp_published", lambda: self.dp_full_width(
                     published, *full)),
                 ("b", "pipeline_bf16", lambda: self.pipeline_part(
-                    arch, *pipe)),
-                ("b", "pipeline_float32", lambda: self.pipeline_part(
-                    arch, pipe[0], 1, *pipe[2:], dtype="float32",
-                    timed=False))]
+                    arch, *pipe))]
             n_cards = torch.cuda.device_count()
             if n_cards > 1:
                 cards = [f"cuda:{i % n_cards}" for i in range(4)]
@@ -3762,6 +3794,14 @@ class Smoke:
             for key, name, run in parts:
                 self._run_part("mesh", f"{key} {name}", name, run, out,
                                took, failed)
+            # (d) beside the one light part only: next to the published
+            # runs' 60-odd GB its process can find the card full
+            self._free("before (d)", "mesh")
+            proc, cmd, t_launch = self._start_mesh_launcher()
+            self._run_part("mesh", "b pipeline_float32", "pipeline_float32",
+                           lambda: self.pipeline_part(
+                               arch, pipe[0], 1, *pipe[2:], dtype="float32",
+                               timed=False), out, took, failed)
             o, e = proc.communicate(timeout=300)
             last = (o.strip().splitlines() or [""])[-1]
             self.say(f"mesh (d) {' '.join(cmd[1:])}: exit {proc.returncode} "
@@ -3778,10 +3818,11 @@ class Smoke:
                 failed.append(f"(d) launcher: {e[-2000:]}")
             out["launcher_last_line"] = last
         finally:
-            if proc.poll() is None:           # a failure above: stop it
+            if proc is not None and proc.poll() is None:  # a failure above
                 proc.kill()
                 proc.wait()
         launches = read_counts()
+        self.f32["mesh_training"] = f32_count()
         if any(launches.values()):
             failed.append(f"kernel launches {launches}, expected none")
         self.say(f"mesh parts took (s): {took!r}; kernel launches "
@@ -4099,15 +4140,13 @@ class Smoke:
         self._free("start", "SPMD")
         reset_counts()
         out, took, failed = {}, {}, []
-        proc, cmd, t_launch = self._start_spmd_launcher()
+        proc = None
         try:
             parts = [
                 ("a", "float32", lambda: self.spmd_parity(cut,
                                                           seq=parity[1])),
                 ("a", "published", lambda: self.spmd_full_width(
-                    published, *full)),
-                ("b", "elastic", lambda: self.spmd_elastic(
-                    cut, seq=parity[1]))]
+                    published, *full))]
             n_cards = torch.cuda.device_count()
             if n_cards > 1:
                 cards = [f"cuda:{i % n_cards}" for i in range(4)]
@@ -4122,6 +4161,12 @@ class Smoke:
             for key, name, run in parts:
                 self._run_part("SPMD", f"{key} {name}", name, run, out,
                                took, failed)
+            # (d) beside the lighter (b) only, not the published run
+            self._free("before (d)", "SPMD")
+            proc, cmd, t_launch = self._start_spmd_launcher()
+            self._run_part("SPMD", "b elastic", "elastic",
+                           lambda: self.spmd_elastic(cut, seq=parity[1]),
+                           out, took, failed)
             o, e = proc.communicate(timeout=300)
             last = (o.strip().splitlines() or [""])[-1]
             self.say(f"SPMD (d) {' '.join(cmd[1:])}: exit {proc.returncode} "
@@ -4138,10 +4183,11 @@ class Smoke:
                 failed.append(f"(d) launcher: {e[-2000:]}")
             out["launcher_last_line"] = last
         finally:
-            if proc.poll() is None:           # a failure above: stop it
+            if proc is not None and proc.poll() is None:  # a failure above
                 proc.kill()
                 proc.wait()
         launches = read_counts()
+        self.f32["spmd_training"] = f32_count()
         if any(launches.values()):
             failed.append(f"kernel launches {launches}, expected none")
         self.say(f"SPMD parts took (s): {took!r}; kernel launches "
@@ -4289,6 +4335,16 @@ def ptxas_report(smoke, libs) -> None:
             if spilled:
                 raise AssertionError(f"ptxas: serving kernels spill: "
                                      f"{spilled}")
+        f32 = [(kernel_label(m), r, sp) for m, r, _, sp in kernels
+               if kernel_label(m).startswith("swattn<f32")]
+        if f32:
+            smoke.say(f"ptxas {lib.name} float32 kernel: " + "; ".join(
+                f"{label} {r} registers, {sp} B spilled"
+                for label, r, sp in f32))
+            spilled = [label for label, _, sp in f32 if sp]
+            if spilled:
+                raise AssertionError(f"ptxas: float32 swattn spills: "
+                                     f"{spilled}")
         tc = [(kernel_label(m), r, sp) for m, r, _, sp in kernels
               if "wgmma" in kernel_label(m)]
         if tc:
@@ -4387,6 +4443,7 @@ def main() -> int:
         smoke.say(f"LM {dt}: {layers} swattn launches x "
                   f"{sw_rows[dt]['ms']!r} ms = {share!r} of the kernel "
                   f"forward ({ms[True]!r} ms)")
+    smoke.say(f"swattn float32 launches on each main path: {smoke.f32!r}")
     smoke.say(f"timing phase (swattn, dwconv1d) took "
               f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -4445,7 +4502,7 @@ def main() -> int:
         "launches_mesh_training": mesh_launches["swattn"],
         "mesh_training": mesh,
         "launches_spmd_training": spmd_launches["swattn"],
-        "spmd_training": spmd,
+        "spmd_training": spmd, "launches_float32": smoke.f32,
         "card": card}, {
         "name": "dwconv1d", "route": "cuda", "source": DWCONV_SOURCE,
         "replaces": DWCONV_REPLACES, "launches": dw_launches,

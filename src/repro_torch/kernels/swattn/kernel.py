@@ -9,8 +9,16 @@ shapes):
 
 - bfloat16: ``csrc/swattn_bf16.cu``, on the tensor cores (``wgmma``,
   K/V tiles by TMA into a ring of shared-memory stages);
-- float32: ``csrc/swattn.cu``, on the CUDA cores in float32 (tensor
-  cores in float32 would be TF32, which the reference does not compute).
+- float32: ``csrc/swattn.cu``, on the CUDA cores in float32 FMA (tensor
+  cores in float32 would be TF32, which the reference does not compute),
+  as an SGEMM is built: blocks of 64 queries (:func:`tile_queries`) walk
+  the band in 64-key tiles (:func:`tile_keys`); a thread holds 4 rows x 8
+  scores and 4 rows x hd/8 output columns in registers (x 4 and hd/16 at
+  hd 256, 256 threads), fed by 128-bit shared loads from swizzled or
+  padded tiles; K and V stream in turn through two shared stages by
+  ``cp.async``; the softmax is one FFMA before ``ex2`` a score, masks only
+  the band's edge tiles and rescales O only when a row maximum of the
+  warp moves. Bound by instruction issue and latency around the FFMA.
 
 What differs from the reference kernel's interface, on purpose: the
 kernel takes the model's [B, S, H, hd] layout as it is (the reference
@@ -20,7 +28,8 @@ ragged edge itself, and returns exactly [B, S, H, hd].
 ``swattn`` launches the kernel for a CUDA tensor and runs the plain
 version :func:`swattn_ref` for a CPU tensor, and only then: there is no
 fallback from the card to the plain version. ``swattn.launches`` counts
-kernel launches.
+kernel launches, and ``swattn.dtype_launches`` the same launches by dtype
+name (``"float32"``, ``"bfloat16"``).
 """
 from __future__ import annotations
 
@@ -32,12 +41,23 @@ from repro_torch.kernels.swattn.ref import swattn_ref
 
 HEAD_DIMS = (16, 64, 80, 128, 256)         # the instantiations in csrc/
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+# the launch grid is (H, B, q tiles), and no block holds fewer than 64 rows
+_GRID_YZ = 65535
+_MIN_TILE_QUERIES = 64
 
 
 def tile_keys(dtype: torch.dtype) -> int:
     """Keys per K/V tile of the kernel for ``dtype``, as the built library
     reports it (so windows can be placed on the tile's edges)."""
     return _build.load_library().swattn_tile_keys(_DTYPE_CODE[dtype])
+
+
+def tile_queries(dtype: torch.dtype) -> int:
+    """Query rows per block of the float32 kernel, at every head dim, as
+    the built library reports it (so S can be placed on the tiles'
+    edges); -1 for bfloat16, whose rows depend on the head dim."""
+    return _build.load_library().swattn_tile_queries(_DTYPE_CODE[dtype])
 
 
 def _check(q, k, v, window: int) -> None:
@@ -63,7 +83,7 @@ def _check(q, k, v, window: int) -> None:
         raise ValueError("q, k and v must be on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    if B > 65535 or H > 65535:
+    if B > _GRID_YZ or -(-S // _MIN_TILE_QUERIES) > _GRID_YZ:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the launch grid")
 
 
@@ -89,8 +109,9 @@ def swattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    # TMA reads from 16-byte aligned bases: a view that starts mid-row of
-    # its storage is copied to a fresh allocation first
+    # TMA (bfloat16) and cp.async (float32) read from 16-byte aligned
+    # bases: a view that starts mid-row of its storage is copied to a fresh
+    # allocation first
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -102,7 +123,9 @@ def swattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"swattn launch failed with CUDA error {rc}")
     swattn.launches += 1
+    swattn.dtype_launches[_DTYPE_NAME[q.dtype]] += 1
     return out
 
 
 swattn.launches = 0
+swattn.dtype_launches = dict.fromkeys(_DTYPE_NAME.values(), 0)

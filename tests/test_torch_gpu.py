@@ -351,13 +351,21 @@ def _to(tree, device):
 def test_swattn_kernel_matches_plain_version(cuda, H, KV, hd, dtype, rng):
     """The edge sweep of the kernel's tile geometry: S on both sides of
     one, two and three 64-row warpgroup tiles (a bf16 block holds 128 or
-    192 rows), windows on both sides of one key tile (``tile_keys``), and
+    192 rows) and, for float32, of one and two blocks (``tile_queries``),
+    an S that is no multiple of 4 at hd 16 and 256 (the float2 and float4
+    paths), windows on both sides of one key tile (``tile_keys``), and
     windows of 0 (full causal) and past S."""
     from repro_torch.kernels.swattn import kernel as SW
     dt = getattr(torch, dtype)
     bk = SW.tile_keys(dt)
-    cases = [(S, w) for S in (1, 63, 64, 65, 127, 128, 129, 191, 192,
-                              193, 1000)
+    lengths = [1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 1000]
+    if dtype == "float32":
+        bq = SW.tile_queries(dt)
+        lengths += [S for S in (bq - 1, bq, bq + 1, 2 * bq - 1, 2 * bq,
+                                2 * bq + 1) if S not in lengths]
+    if hd in (16, 256):
+        lengths.append(1001)
+    cases = [(S, w) for S in lengths
              for w in (0, 1, bk - 1, bk, bk + 1, 300, S + 7)]
     for S, window in [(77, 0), (77, 20), (130, 33), (40, 500)] + cases:
         q = torch.from_numpy(rng.standard_normal((3, S, H, hd))
@@ -365,10 +373,31 @@ def test_swattn_kernel_matches_plain_version(cuda, H, KV, hd, dtype, rng):
         k, v = (torch.from_numpy(rng.standard_normal((3, S, KV, hd))
                                  .astype(np.float32)).to(cuda, dt)
                 for _ in range(2))
-        before = SW.swattn.launches
+        before = SW.swattn.launches, SW.swattn.dtype_launches[dtype]
         got = SW.swattn(q, k, v, window=window, scale=hd ** -0.5)
-        assert SW.swattn.launches == before + 1
+        assert (SW.swattn.launches, SW.swattn.dtype_launches[dtype]) == (
+            before[0] + 1, before[1] + 1)
         ref = SW.swattn_ref(q, k, v, window=window, scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        _same(got, ref, dtype)
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 2.5])
+def test_swattn_float32_kernel_takes_any_scale(cuda, scale, rng):
+    """The float32 kernel at a negative scale (it negates its Q tile and
+    uses |scale|), a zero one (uniform weights over the band) and a large
+    one, against the plain version, at two head dims and across tile
+    edges."""
+    from repro_torch.kernels.swattn import kernel as SW
+    dtype, dt = "float32", torch.float32
+    for hd, S, window in ((80, 130, 0), (80, 200, 65), (256, 129, 33)):
+        q = torch.from_numpy(rng.standard_normal((2, S, 4, hd))
+                             .astype(np.float32)).to(cuda, dt)
+        k, v = (torch.from_numpy(rng.standard_normal((2, S, 2, hd))
+                                 .astype(np.float32)).to(cuda, dt)
+                for _ in range(2))
+        got = SW.swattn(q, k, v, window=window, scale=scale)
+        ref = SW.swattn_ref(q, k, v, window=window, scale=scale)
         torch.cuda.synchronize()
         _same(got, ref, dtype)
 

@@ -80,3 +80,43 @@ def test_cpu_wrapper_is_the_plain_version(rng):
     got = K.swattn(q, k, v, window=6, scale=0.25)
     assert K.swattn.launches == before
     assert torch.equal(got, swattn_ref(q, k, v, window=6, scale=0.25))
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_plain_version_matches_oracle_at_negative_and_zero_scale(scale, rng):
+    """The scales the card's float32 kernel takes another route for (a
+    negative one negates its Q tile): the plain version it is held to on
+    the card agrees with the oracle there."""
+    q, k, v = _qkv(rng, 2, 40, 4, 2, 16)
+    for window in (0, 7):
+        got = swattn_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                         window=window, scale=scale)
+        ref = jax_swattn_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             window=window, scale=scale)
+        _close(got, ref, "float32", f"scale {scale} w{window}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_wrapper_counts_no_launch_of_either_dtype(dtype, rng):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dt)
+               for a in _qkv(rng, 1, 12, 2, 1, 16))
+    before = K.swattn.launches, dict(K.swattn.dtype_launches)
+    K.swattn(q, k, v, window=0, scale=0.25)
+    assert sorted(before[1]) == ["bfloat16", "float32"]
+    assert (K.swattn.launches, K.swattn.dtype_launches) == before
+
+
+def test_wrapper_checks_the_launch_grid():
+    """The grid is (H, B, q tiles of at least 64 rows): B and ceil(S / 64)
+    are at most 65535, H is not bounded by it."""
+    def check(B, S, H, KV=1, hd=16):
+        q = torch.empty((B, S, H, hd), device="meta")
+        kv = torch.empty((B, S, KV, hd), device="meta")
+        K._check(q, kv, kv, 0)
+    check(1, 64 * 65535, 1)
+    check(65535, 1, 1)
+    check(1, 1, 70000)
+    for B, S in ((1, 64 * 65535 + 1), (65536, 1)):
+        with pytest.raises(ValueError, match="launch grid"):
+            check(B, S, 1)
