@@ -514,6 +514,10 @@ class Smoke:
         # the card's H100 part (``obs/roofline.py``): every bound's constants
         self.hbm_bw = part.hbm_bw
         self.peak_ops = part.peak_ops
+        # the ms of the runs phase 17 bounds, as the earlier phases timed
+        # them: the bf16 scoring forward, the h2o-danube prefill and its
+        # median decode step, the median train step
+        self.measured = {}
 
     def say(self, msg: str) -> None:
         print(f"[{self.card}] {msg}", flush=True)
@@ -1709,6 +1713,7 @@ class Smoke:
                 self._lm_controls(bundle, params, tokens, r)
             fwd_ms[dt] = ms
             del logits, a, r
+        self.measured["score"] = fwd_ms["bfloat16"][True]
         launches = read_counts()
         self.f32["lm_forward"] = f32_count()
         self.profile("LM bf16 forward (kernel attention)",
@@ -2115,6 +2120,8 @@ class Smoke:
         reset_counts()
         out = {"h2o-danube-1.8b": self._serve_model(
             "h2o_danube_1_8b", *danube, seed=2, extra=self._danube_extra)}
+        self.measured["prefill"] = out["h2o-danube-1.8b"]["prefill_ms"]
+        self.measured["decode"] = out["h2o-danube-1.8b"]["step_ms_median"]
         out["float32_worst"] = self._float32_serving()
         out["hymba-1.5b"] = self._serve_model("hymba_1_5b", *hymba, seed=4)
         out["hymba_float32_worst"] = self._float32_serving(
@@ -2328,6 +2335,7 @@ class Smoke:
             raise AssertionError(f"LM training: step 1 loss {losses[0]} is "
                                  f"not within 0.2 of ln V + 1/2 = {expect}")
         med = statistics.median(ms[1:])
+        self.measured["train"] = med
         tokens = batch * seq
         # model FLOPs per token: 6 per weight of every product (the
         # embedding table is a lookup) plus attention's two products,
@@ -4196,6 +4204,147 @@ class Smoke:
             raise AssertionError("SPMD phase: " + "; ".join(failed))
         return out, launches
 
+    # -- phase 17: the roofline of the single-card cells ----------------------
+
+    def roofline_cells(self, arch: str = "h2o_danube_1_8b", score=(1, 8192),
+                       serve=(4, 6144, 64), train=(4096, 4, 2)):
+        """The runs the earlier phases timed, each with its phase's own
+        ``RunConfig`` at full width: (label, shape name, kind, rc, the
+        weights' dtype where not float32, the measured key)."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.configs.base import SHAPES, RunConfig
+        from repro_torch.configs.base import get_model_config
+        full = get_model_config(arch)
+        B, S = score
+        rc_score = RunConfig(
+            model=dataclasses.replace(full, dtype="bfloat16",
+                                      use_pallas_attn=True),
+            shape=dataclasses.replace(SHAPES["train_4k"], seq_len=S,
+                                      global_batch=B))
+        Bs, P, steps = serve
+        gated = dataclasses.replace(full, use_pallas_attn=True)
+        rc_prefill = RunConfig(model=gated, shape=dataclasses.replace(
+            SHAPES["prefill_32k"], seq_len=P, global_batch=Bs))
+        rc_decode = RunConfig(model=gated, shape=dataclasses.replace(
+            SHAPES["prefill_32k"], seq_len=P + steps, global_batch=Bs))
+        rc_train = self._train_rc(full, *train)
+        return [
+            (f"scoring forward {B} x {S} bf16, kernel (LM phase)",
+             "prefill_32k", "score", rc_score, None, "score"),
+            (f"prefill {Bs} x {P} bf16, kernel (LM serving)", "prefill_32k",
+             "prefill", rc_prefill, torch.bfloat16, "prefill"),
+            (f"decode step {Bs} rows against {P + steps} (LM serving)",
+             "decode_32k", "decode", rc_decode, torch.bfloat16, "decode"),
+            (f"train step {train[1]} x {train[0]}, microbatch {train[2]}, "
+             "remat full (phase 12 (c))", "train_4k", "train", rc_train,
+             None, "train")]
+
+    def roofline_phase(self, arch: str = "h2o_danube_1_8b", cells=None,
+                       cli_timeout: int = 300, train_share=None) -> dict:
+        """Phase 17: ``launch/roofline.py::analyze_cell`` on a 1 x 1 mesh of
+        one ``meta`` entry for each run an earlier phase timed, beside
+        that run's measured ms. Raises where the measured time beats a
+        bound no card can beat (the compute term or the unique bytes over
+        the memory rate above 1.05 x the measured ms: a wrong count); the
+        eager-traffic memory term is a reading, not such a limit. Then the
+        roofline and report commands on a production cell."""
+        from repro_torch.launch import roofline
+        from repro_torch.sharding.mesh import make_mesh
+        mesh = make_mesh((1, 1), ("data", "model"), ["meta"])
+        out, over = {}, []
+        for label, shape, kind, rc, pdt, key in (cells or
+                                                  self.roofline_cells(arch)):
+            t0 = time.perf_counter()
+            rep = roofline.analyze_cell(arch, shape, verbose=False, rc=rc,
+                                        mesh=mesh, kind=kind,
+                                        param_dtype=pdt)
+            took = time.perf_counter() - t0
+            ms = self.measured[key]
+            bound = rep["bound_step_s"] * 1e3
+            hard = {"compute": rep["compute_s"] * 1e3,
+                    "unique bytes": rep["unique_memory_s"] * 1e3}
+            mf_share = (rep["model_flops"] / (ms * 1e-3)
+                        / self.peak_ops["bfloat16"])
+            row = {"label": label, "kind": kind, "measured_ms": ms,
+                   "compute_ms": hard["compute"],
+                   "memory_ms": rep["memory_s"] * 1e3,
+                   "unique_memory_ms": hard["unique bytes"],
+                   "collective_ms": rep["collective_s"] * 1e3,
+                   "bound_ms": bound, "dominant": rep["dominant"],
+                   "bound_over_measured": bound / ms,
+                   "compute_over_measured": hard["compute"] / ms,
+                   "unique_over_measured": hard["unique bytes"] / ms,
+                   "flops": rep["flops_per_device"],
+                   "eager_bytes": rep["bytes_per_device"],
+                   "unique_bytes": rep["unique_bytes_per_device"],
+                   "model_flops": rep["model_flops"],
+                   "model_flops_bf16_share": mf_share,
+                   "peak_ops": rep["peak_ops"], "counts": rep["counts"],
+                   "count_s": took}
+            extra = ""
+            if kind == "train" and train_share is not None:
+                row["phase12_bf16_share"] = train_share
+                extra = (f"; phase 12 (c)'s own share, attention counted: "
+                         f"{train_share!r}")
+            self.say(f"roofline {label}: compute {hard['compute']!r} ms "
+                     f"({rep['flops_per_device']!r} flops at "
+                     f"{rep['peak_ops']:.3g}/s), memory "
+                     f"{row['memory_ms']!r} ms (eager traffic "
+                     f"{rep['bytes_per_device']!r} B; unique "
+                     f"{rep['unique_bytes_per_device']!r} B = "
+                     f"{hard['unique bytes']!r} ms), collective "
+                     f"{row['collective_ms']!r} ms; bound {bound!r} ms "
+                     f"({rep['dominant']}); measured {ms!r} ms; bound / "
+                     f"measured {bound / ms!r}, compute / measured "
+                     f"{hard['compute'] / ms!r}, unique bytes / measured "
+                     f"{hard['unique bytes'] / ms!r}; model FLOPs "
+                     f"{rep['model_flops']!r}, {mf_share!r} of the bf16 "
+                     f"peak{extra}; counted in {took:.1f} s")
+            over += [f"{label}: {name} {v!r} ms > 1.05 x {ms!r} ms"
+                     for name, v in hard.items() if v > 1.05 * ms]
+            out[key] = row
+        if over:
+            raise AssertionError(f"roofline: the measured time beats a "
+                                 f"bound no card can beat: {over}")
+        out["cli"] = self._roofline_cli(cli_timeout)
+        return out
+
+    def _roofline_cli(self, timeout: int) -> dict:
+        """``python -m repro_torch.launch.roofline`` on one production cell
+        and ``python -m repro_torch.launch.report`` on its output, each a
+        subprocess that must exit 0."""
+        import shutil
+        import tempfile
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        tmp = tempfile.mkdtemp(prefix="roofline_")
+        try:
+            path = os.path.join(tmp, "roofline.json")
+            runs = {}
+            for name, cmd in (
+                    ("roofline", [sys.executable, "-m",
+                                  "repro_torch.launch.roofline", "--arch",
+                                  "h2o_danube_1_8b", "--shape", "train_4k",
+                                  "--out", path]),
+                    ("report", [sys.executable, "-m",
+                                "repro_torch.launch.report", "--roofline",
+                                path])):
+                t0 = time.perf_counter()
+                r = subprocess.run(cmd, env=env, cwd=ROOT, text=True,
+                                   capture_output=True, timeout=timeout)
+                took = time.perf_counter() - t0
+                last = (r.stdout.strip().splitlines() or [""])[-1]
+                self.say(f"roofline command {' '.join(cmd[1:])}: exit "
+                         f"{r.returncode} in {took:.1f} s: {last}")
+                if r.returncode != 0 or "FAIL" in r.stdout:
+                    raise AssertionError(f"roofline command {name}: "
+                                         f"{r.stdout[-2000:]}"
+                                         f"{r.stderr[-2000:]}")
+                runs[name] = {"rc": r.returncode, "s": took, "last": last}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return runs
+
     # -- phase 11 ------------------------------------------------------------
 
     def _row(self, name, shape, dtype, ms, plain_ms, lib_ms, bytes_moved,
@@ -4223,9 +4372,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels.swattn import kernel as SW
         gen = torch.Generator(device="cuda").manual_seed(5)
-        pairs = (window * (window + 1) // 2 + (S - window) * window
-                 if 0 < window < S else S * (S + 1) // 2)
-        ops = 4 * hd * pairs * H * B
+        ops = SW.band_flops((B, S, H, hd), window)
         rows = {}
         with saved_counts():
             for dt in dtypes:
@@ -4461,6 +4608,10 @@ def main() -> int:
     t0 = time.perf_counter()
     spmd, spmd_launches = smoke.spmd_phase()
     smoke.say(f"SPMD phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    smoke.roofline_phase(
+        train_share=training["full_width"]["bf16_peak_share"])
+    smoke.say(f"roofline phase took {time.perf_counter() - t0:.1f} s")
 
     main_row = rows["w5f32"]
     sw = sw_rows["bfloat16"]

@@ -30,10 +30,18 @@ version :func:`swattn_ref` for a CPU tensor, and only then: there is no
 fallback from the card to the plain version. ``swattn.launches`` counts
 kernel launches, and ``swattn.dtype_launches`` the same launches by dtype
 name (``"float32"``, ``"bfloat16"``).
+
+A ``meta`` tensor (the dry run and the roofline build models on ``meta``)
+goes through the operator ``repro_torch::swattn_band``, which exists only
+for ``meta``: it returns an empty [B,S,H,hd] in q's dtype, and
+``torch.utils.flop_counter`` counts it as the kernel's banded work,
+:func:`band_flops` (the plain ``attend`` would count full S x S
+products). It launches nothing and counts no launch.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.swattn import _build
@@ -58,6 +66,35 @@ def tile_queries(dtype: torch.dtype) -> int:
     the built library reports it (so S can be placed on the tiles'
     edges); -1 for bfloat16, whose rows depend on the head dim."""
     return _build.load_library().swattn_tile_queries(_DTYPE_CODE[dtype])
+
+
+def band_flops(q_shape, window: int) -> int:
+    """The kernel's operations for q of ``q_shape`` [B,S,H,hd]: QK^T and PV,
+    two per multiply-add, over the (query, key) pairs of the causal band
+    (key j counts for query i iff ``j <= i`` and, for ``window`` > 0,
+    ``i - j < window``) of every head."""
+    B, S, H, hd = q_shape
+    pairs = (window * (window + 1) // 2 + (S - window) * window
+             if 0 < window < S else S * (S + 1) // 2)
+    return 4 * hd * pairs * H * B
+
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("swattn_band(Tensor q, Tensor k, Tensor v, int window, "
+            "float scale) -> Tensor")
+
+
+def _swattn_band_meta(q, k, v, window, scale):
+    return torch.empty_like(q)
+
+
+_LIB.impl("swattn_band", _swattn_band_meta, "Meta")
+
+
+@register_flop_formula(torch.ops.repro_torch.swattn_band)
+def _swattn_band_flops(q_shape, k_shape, v_shape, window, scale, *args,
+                       out_shape=None, **kwargs) -> int:
+    return band_flops(q_shape, window)
 
 
 def _check(q, k, v, window: int) -> None:
@@ -102,6 +139,10 @@ def swattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     refuse_grad("swattn", q, k, v)
     if q.device.type == "cpu":
         return swattn_ref(q, k, v, window=window, scale=scale)
+    if q.device.type == "meta":
+        _check(q, k, v, window)
+        return torch.ops.repro_torch.swattn_band(q, k, v, window,
+                                                 float(scale))
     if q.device.type != "cuda":
         raise ValueError(f"no swattn for device {q.device}")
     _check(q, k, v, window)

@@ -55,7 +55,7 @@ import math
 import os
 import sys
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -188,16 +188,20 @@ def _rows(tree, rows: int, axes=None):
     return tree
 
 
-def build_cell(rc: RunConfig, mesh, kind: str) -> Dict[str, Any]:
+def build_cell(rc: RunConfig, mesh, kind: str,
+               param_dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The cell's arguments with their placements (``args``: (tree,
     shardings) pairs; ``cur``: whether a decode step takes its position),
     and one rank's body (``body()``, to count its flops and reads). kind
-    in {train, prefill, decode}."""
+    in {train, prefill, decode, score}: ``score`` is the cache-less
+    forward of every position with no gradient (``train_forward``).
+    ``param_dtype``: the parameters in that dtype (a model served from
+    bfloat16 weights), else their specs' (float32)."""
     bundle = registry.build(rc, device="meta")
     profile, overrides = _profile(rc, kind)
     ctx = shd_rules.make_ctx(mesh, profile, overrides)
     pshard = ctx.spec_tree_shardings(bundle.specs)
-    params_ab = mod.abstract_params(bundle.specs)
+    params_ab = mod.abstract_params(bundle.specs, param_dtype)
     B, S = rc.shape.global_batch, rc.shape.seq_len
     rows = _rank_rows(B, ctx)
     gathered = logical_bytes(params_ab)
@@ -230,6 +234,13 @@ def build_cell(rc: RunConfig, mesh, kind: str) -> Dict[str, Any]:
         @torch.no_grad()
         def body():
             return bundle.prefill(params_ab, _rows(bspecs, rows))
+    elif kind == "score":
+        bspecs = bundle.input_specs("prefill")
+        args = [(params_ab, pshard), (bspecs, batch_shardings(bspecs, ctx))]
+
+        @torch.no_grad()
+        def body():
+            return bundle.train_forward(params_ab, _rows(bspecs, rows))[0]
     elif kind == "decode":
         caches_ab = bundle.cache_abstract(B, S)
         axes = bundle.cache_axes()
@@ -249,6 +260,23 @@ def build_cell(rc: RunConfig, mesh, kind: str) -> Dict[str, Any]:
         raise ValueError(kind)
     return {"ctx": ctx, "args": args, "cur": cur, "train": kind == "train",
             "gathered_bytes": gathered, "rank_rows": rows, "body": body}
+
+
+def unique_bytes(cell: Dict[str, Any], read, outs) -> Tuple[int, int]:
+    """(argument bytes, output bytes) of one device for a ``build_cell``
+    cell whose body read the tensors of ids ``read`` and returned
+    ``outs``: each argument as placed, read once, and each output written
+    once."""
+    # the train step updates every parameter and moment: all are read
+    args = sum(placed_bytes(t, sh, None if cell["train"] else read)
+               for t, sh in cell["args"])
+    args += 4 * cell["cur"]
+    if cell["train"]:       # the parameters and moments as placed, metrics
+        out_bytes = sum(placed_bytes(t, sh) for t, sh in cell["args"][:2])
+        out_bytes += 5 * 4
+    else:
+        out_bytes = logical_bytes(outs)
+    return args, out_bytes
 
 
 def shape_kind(shape_name: str) -> str:
@@ -276,15 +304,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     with FlopCounterMode(display=False) as fc, _Reads() as reads:
         outs = cell["body"]()
     t_flops = time.time() - t0
-    # the train step updates every parameter and moment: all are read
-    read = None if cell["train"] else reads.ids
-    args = sum(placed_bytes(t, sh, read) for t, sh in cell["args"])
-    args += 4 * cell["cur"]
-    if cell["train"]:       # the parameters and moments as placed, metrics
-        out_bytes = sum(placed_bytes(t, sh) for t, sh in cell["args"][:2])
-        out_bytes += 5 * 4
-    else:
-        out_bytes = logical_bytes(outs)
+    args, out_bytes = unique_bytes(cell, reads.ids, outs)
     return {
         "arch": arch, "shape": shape_name, "kind": kind,
         "mesh": mesh_name(mesh), "devices": mesh.size,

@@ -15,14 +15,30 @@ cores, and the filter's int8/uint8/int16 frames as an int32 × int32 MAC on
 the 64 IMAD lanes of an SM, half the 128 float32 lanes (Hopper
 architecture white paper): 132 SMs × 64 lanes × 2 ops × 1.98 GHz =
 33.5e12 op/s on the SXM5 part.
+
+The links a collective crosses, per GPU and per direction (the rates the
+mesh roofline of ``launch/roofline.py`` divides its collective bytes by):
+
+- ``NVLINK_BW``, 450e9 B/s: NVLink 4 within an 8-GPU HGX H100 node, 18
+  links of 25 GB/s each way (900 GB/s both ways; NVIDIA H100 data sheet,
+  HGX H100 and DGX H100 system descriptions);
+- ``INTER_NODE_BW``, 50e9 B/s: across nodes, one 400 Gb/s NDR InfiniBand
+  port (ConnectX-7) per GPU, the DGX H100 / DGX SuperPOD layout. That it
+  equals the TPU v5e's inter-chip figure (50 GB/s) is a coincidence.
+
+``link_bw(devices)`` picks between them: a mesh of at most
+``NVLINK_DOMAIN`` (8) devices fits one node; a larger one has an axis
+that crosses nodes (both axes of the 16 x 16 production mesh do), and its
+collectives run at the inter-node rate.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Mapping, Optional
 
-__all__ = ["HBM_BW", "PARTS", "PEAK_FLOPS", "PEAK_OPS_PER_S", "Part",
-           "part_of", "predicted_pixel_rate"]
+__all__ = ["HBM_BW", "INTER_NODE_BW", "NVLINK_BW", "NVLINK_DOMAIN", "PARTS",
+           "PEAK_FLOPS", "PEAK_OPS_PER_S", "Part", "link_bw", "part_of",
+           "predicted_pixel_rate"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +67,17 @@ PARTS = {
 HBM_BW = PARTS["sxm5"].hbm_bw
 PEAK_OPS_PER_S = dict(PARTS["sxm5"].peak_ops)
 PEAK_FLOPS = PEAK_OPS_PER_S["float32"]
+
+
+NVLINK_BW = 450e9          # B/s per GPU per direction, NVLink 4 (HGX H100)
+INTER_NODE_BW = 50e9       # B/s per GPU per direction, one 400 Gb/s NDR port
+NVLINK_DOMAIN = 8          # GPUs an HGX H100 node joins by NVLink
+
+
+def link_bw(devices: int) -> float:
+    """The per-GPU link rate a collective over a mesh of ``devices`` runs
+    at: NVLink within one node, the inter-node port past it."""
+    return NVLINK_BW if devices <= NVLINK_DOMAIN else INTER_NODE_BW
 
 
 def part_of(device_name: Optional[str]) -> str:

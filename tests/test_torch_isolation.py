@@ -50,6 +50,7 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.training.pipeline, repro_torch.launch.mesh\n"
             "import repro_torch.sharding.placement, "
             "repro_torch.training.spmd, repro_torch.launch.dryrun\n"
+            "import repro_torch.launch.roofline, repro_torch.launch.report\n"
             "sys.path.insert(0, sys.argv[1]); import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
@@ -188,9 +189,14 @@ def test_lm_kernel_wrappers_route_by_device_only():
     torch.testing.assert_close(DW.dwconv1d(x, w, b), DW.dwconv1d_ref(x, w, b))
     assert (SW.swattn.launches, DW.dwconv1d.launches) == (sw_before,
                                                           dw_before)
-    with pytest.raises(ValueError, match="no swattn for device"):
-        SW.swattn(q.to("meta"), kv.to("meta"), kv.to("meta"), window=3,
-                  scale=0.5)
+    # meta (the dry run and the roofline): an empty output of q's shape
+    # through the counted operator, no launch
+    out = SW.swattn(q.to("meta"), kv.to("meta"), kv.to("meta"), window=3,
+                    scale=0.5)
+    assert out.device.type == "meta" and out.shape == q.shape
+    with pytest.raises(ValueError, match="head dims"):
+        SW.swattn(q[..., :8].to("meta"), kv[..., :8].to("meta"),
+                  kv[..., :8].to("meta"), window=3, scale=0.5)
     with pytest.raises(ValueError, match="no dwconv1d for device"):
         DW.dwconv1d(x.to("meta"), w.to("meta"), b.to("meta"))
     assert (SW.swattn.launches, DW.dwconv1d.launches) == (sw_before,
