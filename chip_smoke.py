@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero:
   1. devices  — the card's name and count, and ``nvidia-smi``'s name and
                 power limit. No card is a failure.
   2. build    — builds the three CUDA kernels (``filter2d_halo``,
-                ``swattn``, ``dwconv1d``) from ``src/`` into ``build/``
-                (one ``nvcc`` per source, all started together) and
+                ``swattn``, ``dwconv1d``) and the filter kernel's trace
+                build (``-DF2D_TRACE``, phase 6e's) from ``src/`` into
+                ``build/`` (one ``nvcc`` per source, all started together) and
                 summarises ``-Xptxas -v`` per kernel: registers, shared
                 memory, spills (the full reports stay in ``build/``); a
                 float32 ``swattn`` instantiation that spills is a failure.
@@ -28,6 +29,13 @@ Phases, in order; any failure exits non-zero:
                 it took (``filter2d_halo.tma_launches``). Integers
                 bit-exact; float32 within rtol=atol=3e-4; bfloat16 within
                 3e-2.
+ 3b. windows  — the generic window (every odd w past 7, the radius a
+                runtime value) at w 9, 11, 13, 15 and 31: every dtype,
+                policy and form (the separable form too), both loaders,
+                integer frames alternating the int32 output and a requant
+                in each rounding, bit for bit against the plain version;
+                and a bank of 48 w13 float32 filters (32,448 B of
+                coefficients), two launches of one output.
   4. serving  — ``FilterServeEngine(batch_size=4, device='cuda')`` serves
                 32 requests drawn from ``build_mix(rng, scale=15)`` (1440x1920
                 float32 w5 mirror for two tenants, 960x1440 float32 w3
@@ -86,6 +94,27 @@ Phases, in order; any failure exits non-zero:
                 TMA launches per case; then device and host-paced ms of
                 each bucket and 8K beside ``'cuda'``, and a profiler
                 breakdown of one 4-shard call of two buckets.
+ 6c. F5       — ``Filter2D(window=9)`` on [4,960,1440] frames through
+                ``'auto'`` (float32, and int8 with a requant), a
+                ``FilterServeEngine`` wave, ``'streaming'`` and
+                ``'sharded'`` (two entries of the card), each against
+                ``'core'`` on the CPU, with the counts set to 0 before and
+                read after (the launches must be 2 + strips + shards +
+                waves); then ``compile()`` refusing the first float32
+                window the ring cannot hold, its message printed.
+ 6d. generic  — the generic window's times at w 9 and 13, float32 and int8
+                with a requant, at [4,960,1440], as phase 5 prints the
+                buckets' (kernel, plain, ``F.conv2d`` for float32, bound).
+ 6e. analysis — the kernel verifier (``repro_torch.analysis``) on the card:
+                the built library's geometry and shared memory equal to
+                the Python twin's for every window the ring runs; the
+                trace build over every kernel launch of the verifier's
+                sweep (each loader the frame takes, the sweep's block
+                counts) and over the serving shapes [4,1440,1920] w5
+                float32 and [4,960,1440] w3 int8 requant on the card's own
+                grid: each log equal to ``schedule_model``'s events, the
+                five passes clean on the card's log, the outputs equal to
+                the plain version's.
 
   7. swattn   — the banded attention kernel against its plain version
                 (``swattn_ref``) on the card, swept over the edges of its
@@ -338,6 +367,8 @@ SERVING_KERNELS = ("filter2d_halo<f32,f32,f32,w5,fold>",
                    "filter2d_halo<f32,f32,f32,w3,fold>",
                    "filter2d_halo<i8,i32,i8,w3,fold>")
 REPLACES = "src/repro/kernels/filter2d/kernel.py:349"
+# the windows past the instantiations that phase 3b holds bit for bit
+LARGE_WINDOWS = (9, 11, 13, 15, 31)
 # the kernel per dtype: bfloat16, then float32
 SWATTN_SOURCE = ("src/repro_torch/kernels/swattn/csrc/swattn_bf16.cu, "
                  "src/repro_torch/kernels/swattn/csrc/swattn.cu")
@@ -545,7 +576,8 @@ class Smoke:
         return x.to(dev), co.to(dev)
 
     def check_case(self, rng, dt, policy, form, w, *, M=3, H=67, W=301,
-                   N=4, rounding=None, x=None, co=None, loader=None):
+                   N=4, rounding=None, x=None, co=None, loader=None,
+                   exact=False):
         import numpy as np
         torch = self.torch
         from repro_torch.core.border_spec import BorderSpec
@@ -587,7 +619,10 @@ class Smoke:
             if not bool(torch.isfinite(g).all()):
                 raise AssertionError(f"{case}: non-finite output")
             err = float((g - r).abs().max())
-            tol = TOL[dt]
+            tol = 0.0 if exact else TOL[dt]
+            if exact and not torch.equal(got, ref):
+                raise AssertionError(f"{case}: not bit for bit (max |err| "
+                                     f"{err})")
             if not torch.allclose(g, r, rtol=tol, atol=tol):
                 raise AssertionError(f"{case}: max |err| {err} over "
                                      f"rtol=atol={tol}")
@@ -662,6 +697,52 @@ class Smoke:
             self.say(f"kernel phase: {dt} max |kernel - plain| = {e!r}")
         self.say(f"kernel phase: {n} cases agree, each through the loader "
                  "it was meant to take")
+
+    # -- phase 3b ------------------------------------------------------------
+
+    def large_window_phase(self, windows=LARGE_WINDOWS):
+        """Every odd window past the instantiations (the generic path) and
+        a bank past the coefficient file, bit for bit against the plain
+        version: every dtype, policy and form, both loaders; integer
+        frames alternate the int32 output and a requant in each rounding.
+        Returns the case count."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.kernels.filter2d import halo
+        from repro_torch.kernels.filter2d import kernel as K
+        rng = np.random.default_rng(26)
+        n = 0
+        for W, loader in ((301, "thread"), (336, "tma")):
+            for dt in ("float32", "bfloat16", "int8", "uint8", "int16"):
+                for policy in POLICIES:
+                    for form in FORMS:
+                        for w in windows:
+                            N = 1 if form == "separable" else 2
+                            rounding = (None if dt in TOL or n % 2
+                                        else ROUNDINGS[(n // 2) % 3])
+                            self.check_case(rng, dt, policy, form, w, M=2,
+                                            N=N, W=W, rounding=rounding,
+                                            loader=loader, exact=True)
+                            n += 1
+        # a bank of 48 w13 float32 filters: 32,448 B of coefficients, two
+        # launches of one output
+        x, co = self._inputs(rng, "float32", 2, 67, 336, 48, 13, "direct")
+        chunks = halo.coeff_chunks(48, halo.ring_geometry(4, 4, 13))
+        with saved_counts():
+            before = K.filter2d_halo.launches
+            self.check_case(rng, "float32", "mirror", "direct", 13, x=x,
+                            co=co, loader="tma", exact=True)
+            added = K.filter2d_halo.launches - before
+        if added != len(chunks) or len(chunks) < 2:
+            raise AssertionError(f"bank of 48: {added} launches for chunks "
+                                 f"{chunks}")
+        n += 1
+        self.say(f"large-window phase: {n} cases at w {list(windows)} "
+                 f"agree bit for bit with the plain version (every dtype, "
+                 f"policy and form, both loaders), and a bank of 48 w13 "
+                 f"float32 filters ({48 * 13 * 13 * 4} B of coefficients) "
+                 f"ran as {added} launches {list(chunks)}")
+        return n
 
     # -- phase 4 -------------------------------------------------------------
 
@@ -1527,6 +1608,252 @@ class Smoke:
         return rows
 
     # -- phase 7 -------------------------------------------------------------
+
+    # -- phase 6c: every odd window on the main paths (F5) -------------------
+
+    def f5_phase(self, frames: int = 4, H: int = 960, W: int = 1440,
+                 w: int = 9):
+        """``Filter2D(window=9)`` on the card's main paths, driven with the
+        counts set to 0 before and read after: ``'auto'`` (float32, and int8
+        with a requant), a ``FilterServeEngine`` wave, ``'streaming'`` and
+        ``'sharded'`` on two entries of the card, each against ``'core'`` on
+        the CPU (integers bit for bit, float32 within 3e-4); then the
+        compile-time refusal of the first float32 window the ring cannot
+        hold. Returns the path's ``filter2d_halo`` launches."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core.border_spec import BorderSpec
+        from repro_torch.core.pipeline import Filter2D
+        from repro_torch.core.requant import RequantSpec
+        from repro_torch.kernels.filter2d import halo
+        from repro_torch.serving.engine import FilterServeEngine
+        rng = np.random.default_rng(9)
+        x = rng.standard_normal((frames, H, W, 1)).astype(np.float32)
+        k = (rng.standard_normal((w, w)) / w).astype(np.float32)
+        xi = rng.integers(-128, 128, (frames, H, W, 1)).astype(np.int8)
+        ki = rng.integers(-8, 9, (w, w)).astype(np.int32)
+        spec = Filter2D(window=w, border=BorderSpec("mirror"))
+        rq = RequantSpec(multiplier=3, shift=6, rounding="nearest",
+                         dtype="int8")
+        ispec = Filter2D(window=w, border=BorderSpec("constant", -3),
+                         dtype="int8", requant=rq.gain_free())
+        xt, kt = torch.from_numpy(x), torch.from_numpy(k)
+        xit, kit = torch.from_numpy(xi), torch.from_numpy(ki)
+        want = spec.compile(x.shape, "core", device="cpu")(xt, kt)
+        wanti = ispec.compile(xi.shape, "core", device="cpu")(xit, kit,
+                                                              gains=rq)
+        auto = spec.compile(x.shape, device="cuda")
+        autoi = ispec.compile(xi.shape, device="cuda")
+        stream = spec.compile(x.shape, "streaming", device="cuda")
+        ring = spec.compile(x.shape, "sharded", mesh=["cuda:0"] * 2)
+        if (auto.execution, autoi.execution) != ("cuda", "cuda"):
+            raise AssertionError(f"F5: auto took {auto.execution!r}")
+        engine = FilterServeEngine(batch_size=frames, device="cuda")
+        try:
+            reset_counts()
+            got = {"auto": auto(xt.cuda(), kt), "auto int8": autoi(
+                xit.cuda(), kit, gains=rq),
+                "streaming": stream(xt.cuda(), kt), "sharded": ring(xt, kt)}
+            handles = [engine.submit(x[i, :, :, 0], k, spec=spec)
+                       for i in range(frames)]
+            if not engine.drain(timeout=600):
+                raise AssertionError("F5: the engine's drain timed out")
+            torch.cuda.synchronize()
+            counts = read_counts()
+            stats = engine.stats()
+        finally:
+            engine.shutdown()
+        served = torch.stack([h.result(timeout=60) for h in handles])
+        waves = stats["waves"]
+        expect = 2 + stream.n_strips + ring.n_shards + waves
+        if counts != {"filter2d_halo": expect, "swattn": 0, "dwconv1d": 0}:
+            raise AssertionError(f"F5: counts {counts}, expected {expect} "
+                                 "filter2d_halo launches")
+        errs = {}
+        for what, y in got.items():
+            ref = wanti if what == "auto int8" else want
+            errs[what] = self._hold(f"F5 w{w} {what}", y.cpu(), ref,
+                                    "int8" if what == "auto int8"
+                                    else "float32")
+        errs["engine"] = self._hold(f"F5 w{w} engine", served, want[..., 0],
+                                    "float32")
+        top = halo.max_ring_window(4, 4)
+        try:
+            Filter2D(window=top + 2).compile((8 * top, 8 * top),
+                                             device="cuda")
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError(f"F5: w={top + 2} compiled")
+        self.say(f"F5: Filter2D(window={w}) on [{frames},{H},{W}] through "
+                 f"'auto' (float32, int8 requant), FilterServeEngine "
+                 f"({waves} wave), 'streaming' ({stream.n_strips} strips) and "
+                 f"'sharded' ({ring.n_shards} shards) equals 'core' (max "
+                 f"|err| {errs!r}); {expect} filter2d_halo launches on that "
+                 f"path")
+        self.say(f"F5: compile(w={top + 2}) refused: {refusal}")
+        return {"launches": expect, "max_abs_err": errs,
+                "refusal": refusal}
+
+    def generic_timing(self, shape=(4, 960, 1440)):
+        """The generic window's kernel at w 9 and 13, float32 and int8 with
+        a requant, as phase 5 times the serving buckets: kernel, plain,
+        ``F.conv2d`` (float32) and the bound."""
+        import types
+        import numpy as np
+        from repro_torch.core.border_spec import BorderSpec
+        from repro_torch.core.pipeline import Filter2D
+        from repro_torch.core.requant import RequantSpec
+        rng = np.random.default_rng(13)
+        rows = {}
+        with saved_counts():
+            for dt in ("float32", "int8"):
+                for w in (9, 13):
+                    if dt == "float32":
+                        frame = rng.standard_normal(shape[1:]).astype(
+                            np.float32)
+                        co = (rng.standard_normal((w, w)) / w).astype(
+                            np.float32)
+                        gains = None
+                        spec = Filter2D(window=w, border=BorderSpec("mirror"))
+                    else:
+                        frame = rng.integers(-128, 128, shape[1:]).astype(
+                            np.int8)
+                        co = rng.integers(-8, 9, (w, w)).astype(np.int32)
+                        gains = RequantSpec(multiplier=3, shift=6,
+                                            rounding="nearest", dtype="int8")
+                        spec = Filter2D(window=w, border=BorderSpec("mirror"),
+                                        dtype="int8",
+                                        requant=gains.gain_free())
+                    t = types.SimpleNamespace(bucket=f"w{w}{dt}", spec=spec,
+                                              frame=frame, coeffs=co,
+                                              gains=gains)
+                    rows[t.bucket] = self._filter_timing(t)
+        return rows
+
+    def analysis_phase(self):
+        """The kernel verifier on the card: the built library's geometry and
+        shared memory against the Python twin for every window the ring
+        runs; then the trace build (``kernels/filter2d/trace.py``) over
+        every kernel launch of the verifier's sweep, under each loader the
+        frame takes and at the sweep's block counts, and over the serving
+        shapes [4,1440,1920] w5 float32 and [4,960,1440] w3 int8 requant on
+        the card's own grid: each log equal to ``schedule_model``'s events
+        (per block, the producer's in order and each item's consumer events
+        as a multiset), all five passes clean on the card's log, and the
+        outputs equal to the plain version's. Returns a summary."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch import analysis
+        from repro_torch.analysis.verify import (cfg_blocks, cfg_key,
+                                                 compile_cfg, launch_plan,
+                                                 planes_of, sweep_configs)
+        from repro_torch.core.border_spec import BorderSpec
+        from repro_torch.core.requant import RequantSpec
+        from repro_torch.kernels.filter2d import halo, trace
+        from repro_torch.kernels.filter2d import kernel as K
+        pairs = ((torch.float32, torch.float32), (torch.bfloat16,
+                 torch.bfloat16), (torch.int8, torch.int32),
+                 (torch.int8, torch.int8), (torch.uint8, torch.uint8),
+                 (torch.int16, torch.int32), (torch.int16, torch.int16))
+        n_geo = 0
+        for sd, od in pairs:
+            s, so = sd.itemsize, od.itemsize
+            for w in range(1, halo.max_ring_window(s, so) + 1, 2):
+                twin = halo.ring_geometry(s, so, w)
+                if K.geometry(sd, od, w) != twin.as_dict():
+                    raise AssertionError(f"geometry {sd}->{od} w{w}: library "
+                                         f"{K.geometry(sd, od, w)} vs twin "
+                                         f"{twin.as_dict()}")
+                for form in ("direct", "separable"):
+                    lib = K.smem_bytes(sd, od, w, form, 3)
+                    tw = halo.ring_smem_bytes(twin, 3, form == "separable")
+                    if lib != tw:
+                        raise AssertionError(f"shared memory {sd}->{od} w{w} "
+                                             f"{form}: {lib} vs {tw}")
+                n_geo += 1
+        self.say(f"analysis: the library's geometry and shared memory equal "
+                 f"the twin's for {n_geo} (dtype, window) pairs")
+        rng = np.random.default_rng(31)
+        runs, events = [], 0
+
+        def run(what, plan, M, dt, N, form, q, loaders, blocks):
+            nonlocal events
+            x = (torch.randn(M, plan.rows.extent, plan.cols.extent)
+                 if dt == "float32" else torch.from_numpy(rng.integers(
+                     -128, 128, (M, plan.rows.extent, plan.cols.extent))
+                     .astype(np.int8)))
+            x = x.cuda()
+            shape = (N, 2, plan.rows.r * 2 + 1) if form == "separable" \
+                else (N, plan.rows.r * 2 + 1, plan.rows.r * 2 + 1)
+            co = (torch.randn(shape) if dt == "float32"
+                  else torch.randint(-8, 9, shape, dtype=torch.int32)).cuda()
+            want = K.filter2d_halo_ref(x, co, plan, q_params=q, form=form)
+            for loader in loaders:
+                if loader == "tma" and K.loader_for(x) != "tma":
+                    continue
+                for b in blocks:
+                    out, log = trace.traced_call(x, co, plan, q_params=q,
+                                                 form=form, loader=loader,
+                                                 blocks=b)
+                    ct = K.kernel_contract(plan, N, form, dt, loader)
+                    dev = analysis.from_device_log(log, contract=ct,
+                                                   plan=plan, M=M)
+                    G = dev.launches[0].blocks
+                    model = analysis.schedule_model(
+                        ct, halo.plan_ring_geometry(plan), plan, M, G)
+                    diff = analysis.schedule_diff(model, dev)
+                    if diff:
+                        raise AssertionError(f"analysis {what} {loader} b{G}: "
+                                             f"the card's log differs from "
+                                             f"the model: {diff}")
+                    rep = analysis.verify_kernel(
+                        plan, num_filters=N, form=form, dtype=dt, M=M,
+                        loader=loader, blocks=G, schedule=lambda *a: dev,
+                        key=f"card/{what}/{loader}/b{G}")
+                    if not rep.clean:
+                        raise AssertionError(rep.render())
+                    if not torch.equal(out, want):
+                        raise AssertionError(f"analysis {what} {loader}: the "
+                                             "trace build's output differs "
+                                             "from the plain version")
+                    events += len(dev.events)
+                    runs.append((what, loader, G, len(dev.events)))
+
+        for cfg in sweep_configs():
+            cf = compile_cfg(cfg, device="cuda")
+            if cf.execution not in K.RING_EXECUTIONS:
+                continue
+            spec = cf.spec
+            form = "separable" if spec.separable else spec.form
+            q = None
+            if spec.requant is not None:
+                q = torch.tensor(cfg["requant"].params(spec.num_filters),
+                                 dtype=torch.int32, device="cuda")
+            run(cfg_key(cfg), launch_plan(cf), planes_of(cf.frame_shape),
+                spec.dtype, spec.num_filters, form, q, ("tma", "thread"),
+                cfg_blocks(cf, cfg))
+        n_sweep = len(runs)
+        rq = RequantSpec(rounding="nearest", dtype="int8")
+        for what, (M, H, W), w, dt, req in (
+                ("serving [4,1440,1920] w5 float32", (4, 1440, 1920), 5,
+                 "float32", None),
+                ("serving [4,960,1440] w3 int8 requant", (4, 960, 1440), 3,
+                 "int8", rq)):
+            plan = halo.make_plan(H, W, w, BorderSpec("mirror"), H, W,
+                                  dtype=dt, requant=req)
+            q = None if req is None else torch.tensor(
+                req.params(1), dtype=torch.int32, device="cuda")
+            run(what, plan, M, dt, 1, "direct", q, ("tma",), (0,))
+        self.say(f"analysis: {len(runs)} trace-build runs ({n_sweep} over the "
+                 f"sweep's kernel launches, {len(runs) - n_sweep} at the "
+                 f"serving shapes on the card's own grid: "
+                 f"{runs[n_sweep:]!r}), {events} events, each log equal to "
+                 f"schedule_model's, all {len(analysis.PASSES)} passes clean "
+                 f"on the card's logs, outputs equal to the plain version")
+        return {"geometry_pairs": n_geo, "trace_runs": len(runs),
+                "sweep_runs": n_sweep, "events": events,
+                "serving": runs[n_sweep:]}
 
     def _agree(self, what: str, got, ref, tol: float,
                rel_l2: float | None = None) -> float:
@@ -4526,19 +4853,25 @@ def main() -> int:
           f"op/s {dict(part.peak_ops)}", flush=True)
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.filter2d import trace
     t0 = time.perf_counter()
     libs = _build.all_libraries()
-    paths = _build.build_all(libs, verbose=True)
+    # the trace build of the filter kernel (phase 6e) builds beside them;
+    # only the analysis phase loads it
+    paths = _build.build_all(libs + [trace.LIBRARY], verbose=True)
     for lib in libs:
         lib.load()
     smoke = Smoke(torch, card, part)
-    ptxas_report(smoke, libs)
+    ptxas_report(smoke, libs + [trace.LIBRARY])
     smoke.say("build: " + ", ".join(str(p.relative_to(ROOT)) for p in paths)
               + f" in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     smoke.kernel_phase()
     smoke.say(f"kernel phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    large_cases = smoke.large_window_phase()
+    smoke.say(f"large-window phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches, tma_launches, templates, picks, served = smoke.serving_phase()
     smoke.say(f"serving phase took {time.perf_counter() - t0:.1f} s")
@@ -4552,6 +4885,13 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded = smoke.sharded_phase(templates)
     smoke.say(f"sharded phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    f5 = smoke.f5_phase()
+    generic_rows = smoke.generic_timing()
+    smoke.say(f"F5 phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    verified = smoke.analysis_phase()
+    smoke.say(f"analysis phase took {time.perf_counter() - t0:.1f} s")
     # the float32 paths below (SDPA, the LM's products) run without TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4627,6 +4967,9 @@ def main() -> int:
         "executors": {"max_abs_err": exec_errs, "serving": exec_served,
                       "timing": exec_rows},
         "sharded": sharded,
+        "launches_f5": f5["launches"], "f5": f5,
+        "large_window_cases": large_cases, "generic": generic_rows,
+        "analysis": verified,
         "launches_lm_recurrent": rec_launches["filter2d_halo"],
         "launches_mesh_training": mesh_launches["filter2d_halo"],
         "launches_spmd_training": spmd_launches["filter2d_halo"],

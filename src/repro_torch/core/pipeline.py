@@ -39,7 +39,8 @@ carries on silently on the CPU.
 ``CompiledFilter.explain()`` is the plan report: what was compiled, why,
 and what it should cost, every byte figure restated from the plan's
 accounting and the roofline stated in the H100's constants
-(``obs/roofline.py``).
+(``obs/roofline.py``). ``CompiledFilter.verify()`` runs the kernel
+verifier (``repro_torch.analysis``) over what the pipeline launches.
 """
 from __future__ import annotations
 
@@ -259,6 +260,7 @@ class CompiledFilter:
         self.mesh = mesh
         self.profile_dump = profile_dump
         self._profiled = False
+        self._verify_report = None     # cached by verify()
         self.vmem_budget = DEFAULT_VMEM_BUDGET
         nd = len(frame_shape)
         self._H, self._W = frame_shape[1:3] if nd == 4 else frame_shape[:2]
@@ -306,6 +308,11 @@ class CompiledFilter:
         if execution in ("core", "xla") and same:
             # the plain versions extend the whole frame by index remaps
             check_min_extent(spec.border, r, self._H, self._W)
+        if execution in K.RING_EXECUTIONS and spec.dtype in K.KERNEL_DTYPES:
+            # the executors that run filter2d_halo: a window whose ring
+            # cannot fit a block is refused here, not at the first call
+            halo.check_ring_fits(w, spec.dtype, spec.requant,
+                                 separable=spec.separable)
 
         gain_free = (spec.requant.gain_free() if spec.requant is not None
                      else None)
@@ -666,16 +673,34 @@ class CompiledFilter:
         roof["part"] = part.name
         return roof
 
-    def explain(self, as_dict: bool = False):
+    def verify(self):
+        """Run the kernel verifier over this pipeline
+        (:func:`repro_torch.analysis.verify`): a
+        :class:`~repro_torch.analysis.report.Report`, clean when every
+        invariant of the ring's schedule holds for each launch the
+        executor makes (the trace alone for ``core`` / ``xla``, which
+        launch no kernel). The result is cached and surfaces in
+        :meth:`explain`."""
+        from repro_torch import analysis  # deferred: analysis sits above us
+        self._verify_report = analysis.verify(self)
+        return self._verify_report
+
+    def explain(self, as_dict: bool = False, verify: bool = False):
         """The plan report: what compiled, why, and what it should cost.
 
         Every byte figure here IS the existing static accounting —
         ``vmem_working_set()`` / ``hbm_bytes_per_pixel()`` /
         ``halo.read_amplification`` — restated, not re-derived, plus the
         two-ceiling roofline prediction (:meth:`_roofline`). The keys are
-        the reference's; ``verify`` stays ``None`` (the port has no static
-        kernel verifier yet). ``as_dict=True`` returns the
+        the reference's, and the byte figures its accounting (the ring's
+        own shared memory and read amplification are in the verifier's
+        stats). ``verify=True`` runs :meth:`verify` first (if not already
+        cached) so the ``verify`` key carries its ``clean``, ``findings``,
+        ``error`` and ``passes``. ``as_dict=True`` returns the
         machine-readable twin."""
+        if verify and self._verify_report is None:
+            self.verify()
+        vr = self._verify_report
         spec, plan = self.spec, self.plan
         eb, ob = self._plan_banks()
         ws = self.vmem_working_set()
@@ -714,7 +739,15 @@ class CompiledFilter:
                 "read_amplification": halo.read_amplification(plan),
             },
             "roofline": self._roofline(),
-            "verify": None,
+            "verify": None if vr is None else {
+                "clean": vr.clean,
+                "findings": [
+                    {"passname": f.passname, "message": f.message,
+                     "ref": f.ref, "count": f.count}
+                    for f in vr.findings],
+                "error": vr.error,
+                "passes": list(vr.passes),
+            },
         }
         if as_dict:
             return d
@@ -769,6 +802,19 @@ class CompiledFilter:
                is not None else "bytes unknown")
             + f"; {r['part']}: {r['peak_flops']:.3g} op/s, "
             f"{r['hbm_bw']:.3g} B/s)")
+        vr = d["verify"]
+        if vr is not None:
+            if vr["error"] is not None:
+                lines.append(f"  verify    TRACE ERROR — {vr['error']}")
+            elif vr["clean"]:
+                lines.append(f"  verify    clean "
+                             f"({len(vr['passes'])} passes)")
+            else:
+                lines.append(f"  verify    {len(vr['findings'])} "
+                             "finding(s):")
+                for f in vr["findings"]:
+                    n = f" x{f['count']}" if f["count"] > 1 else ""
+                    lines.append(f"    [{f['passname']}]{n} {f['message']}")
         return "\n".join(lines)
 
     def _explain_line(self) -> str:

@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 ROOT = Path(__file__).resolve().parents[3]
 # headers every kernel package may include (hopper.cuh: mbarriers, TMA)
@@ -49,13 +49,20 @@ class KernelLibrary:
     ``signatures`` maps each exported C function to its ``argtypes``
     (``c_void_p`` for every pointer and the stream, ``c_int`` for every
     int); each returns the launch's CUDA error code as an int.
+    ``defines`` are extra ``-D`` macros of every unit, and ``only`` names
+    the ``.cu`` files to build when the library takes a subset of
+    ``csrc/`` (a second build of the same sources, as the trace build).
     """
 
     def __init__(self, name: str, csrc: Path,
-                 signatures: Dict[str, Sequence]):
+                 signatures: Dict[str, Sequence],
+                 defines: Sequence[str] = (),
+                 only: Optional[Sequence[str]] = None):
         self.name = name
         self.csrc = Path(csrc)
         self.signatures = dict(signatures)
+        self.defines = tuple(defines)
+        self.only = None if only is None else tuple(only)
         self.build_dir = ROOT / "build" / name
         self.ptxas_log = self.build_dir / "ptxas.log"
         self._lib = None
@@ -63,10 +70,16 @@ class KernelLibrary:
 
     def sources(self):
         """(``.cu`` files, ``.cuh`` headers), sorted."""
-        return sorted(self.csrc.glob("*.cu")), sorted(self.csrc.glob("*.cuh"))
+        cus = sorted(self.csrc.glob("*.cu"))
+        if self.only is not None:
+            cus = [f for f in cus if f.name in self.only]
+        return cus, sorted(self.csrc.glob("*.cuh"))
+
+    def flags(self) -> List[str]:
+        return FLAGS + [f"-D{d}" for d in self.defines]
 
     def _digest(self) -> str:
-        h = hashlib.sha256(" ".join(FLAGS).encode())
+        h = hashlib.sha256(" ".join(self.flags()).encode())
         srcs, hdrs = self.sources()
         for f in srcs + hdrs + sorted(COMMON.glob("*.cuh")):
             h.update(f.name.encode())
@@ -113,7 +126,7 @@ def build_all(libs: Sequence[KernelLibrary],
                 for src in lib.sources()[0]:
                     obj = Path(tmps[lib.name].name) / (src.stem + ".o")
                     jobs.append((lib, src, obj, subprocess.Popen(
-                        [nvcc, *FLAGS, "-I", str(COMMON), *extra, "-c",
+                        [nvcc, *lib.flags(), "-I", str(COMMON), *extra, "-c",
                          str(src), "-o", str(obj)], stdout=subprocess.PIPE,
                         stderr=subprocess.STDOUT, text=True)))
             failed, report = [], {lib.name: [] for lib in todo}

@@ -3,8 +3,8 @@
 
 namespace f2d {
 cudaError_t launch_bf16(const Params& p, int out_dtype, int form, int w,
-                        cudaStream_t s) {
+                        cudaStream_t s, int* info) {
   if (out_dtype != BF16) return cudaErrorInvalidValue;
-  return dispatch<__nv_bfloat16, float, __nv_bfloat16>(p, form, w, s);
+  return dispatch<__nv_bfloat16, float, __nv_bfloat16>(p, form, w, s, info);
 }
 }  // namespace f2d

@@ -3,8 +3,8 @@
 
 namespace f2d {
 cudaError_t launch_f32(const Params& p, int out_dtype, int form, int w,
-                       cudaStream_t s) {
+                       cudaStream_t s, int* info) {
   if (out_dtype != F32) return cudaErrorInvalidValue;
-  return dispatch<float, float, float>(p, form, w, s);
+  return dispatch<float, float, float>(p, form, w, s, info);
 }
 }  // namespace f2d

@@ -3,7 +3,7 @@
 
 namespace f2d {
 cudaError_t launch_i8(const Params& p, int out_dtype, int form, int w,
-                      cudaStream_t s) {
-  return dispatch_int<int8_t>(p, out_dtype, form, w, s);
+                      cudaStream_t s, int* info) {
+  return dispatch_int<int8_t>(p, out_dtype, form, w, s, info);
 }
 }  // namespace f2d

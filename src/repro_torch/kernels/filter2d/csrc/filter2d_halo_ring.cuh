@@ -41,9 +41,10 @@
 //         zeros. TMA needs a 16-byte aligned base and row pitch
 //         (W * sizeof(T) % 16 == 0), and a box's first column must sit on
 //         a 16-byte boundary too (an H100 faults with an illegal
-//         instruction otherwise), so the box starts LEAD = 16 / sizeof(T)
-//         columns left of the tile, not r: each window row keeps the
-//         frame's 16-byte phase in shared memory;
+//         instruction otherwise), so the box starts LEAD columns left of
+//         the tile, not r: r * sizeof(T) rounded up to 16 bytes (at least
+//         16), so each window row keeps the frame's 16-byte phase in
+//         shared memory;
 //       * per-thread (every other frame: odd widths, views that start off
 //         16 bytes): the 32 producer lanes copy the same box element by
 //         element at the storage width, zeros outside the frame.
@@ -71,6 +72,18 @@
 //     accumulators with u. The tree and compress forms keep the last w row
 //     segments in registers and reduce each pixel from them. A bank of N
 //     filters reuses the window in shared memory.
+//     Windows 1, 3, 5 and 7 are instantiated one by one (the serving
+//     path). Every larger odd window takes one generic instantiation per
+//     dtype and form whose radius is a runtime value (W = 0 below): the
+//     same ring, loaders, mux and epilogue, and loops over the taps; the
+//     direct and separable forms slide a C-element register window along
+//     each row, and tree and compress read each pixel's taps from shared
+//     memory (a w*w tree is too large for registers), the tree through a
+//     binary counter of partial sums that keeps the reference's pairing.
+//  4b. A bank whose coefficients exceed the coefficient file is split by
+//     the wrapper into chunks of filters, one launch each, every launch
+//     writing its [:, n0:n1] slice of the one output (Params::n_out is
+//     the output's bank size).
 //  5. Stores straight from registers, one 16-byte streaming store (__stcs:
 //     the output is not read again, the input's halo is) per row segment
 //     when Wo % C == 0 (every serving bucket: Wo is 1920 or 1440, float32
@@ -106,6 +119,14 @@
 //     odd tail carried, compress in groups of 6 then chained; separable
 //     runs the w-tap column pass with v along the width over every window
 //     row, then the w-tap row pass with u.
+//
+// The trace build (-DF2D_TRACE, kernels/filter2d/trace.py) compiles the
+// same code with one addition: the producer and each consumer warp append
+// a record of every ring event (wait, expect, load, mux, read, store,
+// arrive) to a device buffer, numbered by a per-block shared counter. The
+// producer takes its number after its wait returns and a consumer before
+// it arrives, so the numbers order the events as the barriers do.
+// repro_torch.analysis decodes the buffer and checks it.
 #pragma once
 
 #include <cuda.h>
@@ -137,27 +158,48 @@ enum Policy { NEGLECT = 0, CONSTANT = 1, WRAP = 2, DUPLICATE = 3,
 enum Form { FOLD = 0, TREE = 1, COMPRESS = 2, SEPARABLE = 3 };
 enum Rounding { NO_REQUANT = -1, TRUNCATE = 0, NEAREST = 1, NEAREST_EVEN = 2 };
 
+#ifdef F2D_TRACE
+// the trace build's log: REC_INTS ints a record, `count` records written
+// (atomically; records past `cap` are counted and dropped)
+struct Trace {
+  int* rec;
+  int* count;
+  int cap;
+  int launch;   // the launch's index within the call (its bank chunk)
+  int n0;       // the chunk's first filter
+};
+#endif
+
 struct Params {
   const void* planes;      // [M, H, W] storage type T, contiguous
   const void* coeffs;      // [N, w, w] or [N, 2, w] (separable), type A
   const int32_t* qparams;  // [N, 2] (multiplier, shift) or nullptr
-  void* out;               // [M, N, Ho, Wo] type O, contiguous
+  void* out;               // [M, n_out, Ho, Wo] type O, contiguous, at the
+                           // launch's first filter
   int M, H, W, N, Ho, Wo;
+  int w;                   // the window
+  int n_out;               // filters in the output (N, or the whole bank)
   int shift;               // output (y, x) is centre (y + shift, x + shift):
                            // r for neglect, 0 for the same-size policies
   int policy;
   double constant;         // constant(c), already exact in the storage type
   int rounding;
   int tma;                 // 1: windows arrive by TMA; 0: per-thread loads
+  int blocks;              // > 0: the grid (the trace build's runs); else
+                           // as many blocks as fit on the SMs at once
   int tiles, strips;       // column tiles and row strips per plane (host)
   int vec_store;           // 16-byte output stores allowed (host)
+#ifdef F2D_TRACE
+  Trace trace;
+#endif
 };
 
 // The tile geometry for storage bytes s, output bytes so and window w; the
-// same numbers on the host (filter2d_halo_geometry) and in the kernel. A
-// window row in shared memory starts LEAD = 16 / s columns left of the tile
-// (a 16-byte boundary, as TMA needs) and covers the tile's C-column thread
-// segments plus r columns either side.
+// same numbers on the host (filter2d_halo_geometry), in the kernel and in
+// the Python twin (kernels/filter2d/halo.py::ring_geometry). A window row
+// in shared memory starts LEAD columns left of the tile, r * s rounded up
+// to a 16-byte boundary (at least 16 bytes: TMA's box origin rule), and
+// covers the tile's C-column thread segments plus r columns either side.
 struct Geometry {
   int C;      // output columns per consumer thread: 16 bytes of output
   int ROWS;   // output rows per consumer thread
@@ -167,6 +209,9 @@ struct Geometry {
   int G;      // alignment of a thread's segment in shared memory (bytes)
   int PITCH;  // bytes per window row in shared memory = TMA box row
   int STAGE;  // bytes per ring stage (128-byte aligned)
+  int R;      // the window's radius
+  int LEAD;   // box columns left of the tile
+  int BOX_W;  // TMA box columns: PITCH / s
 };
 
 __host__ __device__ constexpr int round_up(int x, int m) {
@@ -179,11 +224,20 @@ __host__ __device__ constexpr Geometry geometry(int s, int so, int w) {
   const int ROWS = C == 16 ? 2 : 4;
   const int TX = TILE_W / C;
   const int SH = (NCONS / TX) * ROWS;
-  const int PITCH = round_up(TILE_W * s + 16 + round_up(r * s, 4), 16);
+  const int lead_bytes = r * s > 16 ? round_up(r * s, 16) : 16;
+  const int PITCH = round_up(TILE_W * s + lead_bytes + round_up(r * s, 4),
+                             16);
   return Geometry{C, ROWS, TX, SH, SH + 2 * r, C * s < 16 ? C * s : 16,
-                  PITCH, round_up((SH + 2 * r) * PITCH, 128)};
+                  PITCH, round_up((SH + 2 * r) * PITCH, 128), r,
+                  lead_bytes / s, PITCH / s};
 }
 
+// a TMA box is at most 256 elements a side
+__host__ __device__ constexpr bool box_fits(const Geometry& g) {
+  return g.BOX_W <= 256 && g.EH <= 256;
+}
+
+// the geometry of an instantiated window W, at compile time
 template <typename T, typename O, int W>
 struct Geo {
   static constexpr Geometry g = geometry(sizeof(T), sizeof(O), W);
@@ -192,14 +246,42 @@ struct Geo {
   static constexpr int C = g.C, ROWS = g.ROWS, TX = g.TX, SH = g.SH;
   static constexpr int EH = g.EH, G = g.G, PITCH = g.PITCH, STAGE = g.STAGE;
   static constexpr int SEG = C + 2 * R;        // a thread's row segment
-  static constexpr int LEAD = 16 / S;          // box columns left of the tile
-  static constexpr int BOX_W = PITCH / S;      // TMA box columns
+  static constexpr int LEAD = g.LEAD;          // box columns left of the tile
+  static constexpr int BOX_W = g.BOX_W;        // TMA box columns
   static constexpr int D = LEAD - R;           // segment start in its words
   static constexpr int FIRST = D * S / 4;      // words a thread loads
   static constexpr int LAST = ((D + SEG) * S + 3) / 4;
-  static_assert(BOX_W <= 256 && EH <= 256, "a TMA box is <= 256 a side");
+  static_assert(box_fits(g), "a TMA box is <= 256 a side");
   static_assert(LEAD >= R && (TILE_W - C) * S + 4 * LAST <= PITCH, "layout");
   static_assert(NCONS % TX == 0 && (C * S) % G == 0, "layout");
+};
+
+// the geometry of the generic window: the radius and what follows from it
+// at run time, the thread blocking (a function of the output type alone)
+// at compile time
+template <typename T, typename O>
+struct DynGeo {
+  static constexpr Geometry g0 = geometry(sizeof(T), sizeof(O), 1);
+  static constexpr int S = sizeof(T);
+  static constexpr int C = g0.C, ROWS = g0.ROWS, TX = g0.TX, SH = g0.SH;
+  static constexpr int G = g0.G;
+  int R, EH, PITCH, STAGE, LEAD, BOX_W;
+  __host__ __device__ explicit DynGeo(int w) {
+    const Geometry g = geometry(sizeof(T), sizeof(O), w);
+    R = g.R; EH = g.EH; PITCH = g.PITCH; STAGE = g.STAGE; LEAD = g.LEAD;
+    BOX_W = g.BOX_W;
+  }
+};
+
+// GeoOf<T, O, W>::make(p): Geo for an instantiated window, DynGeo (from
+// p.w) for the generic one (W = 0)
+template <typename T, typename O, int W> struct GeoOf {
+  using type = Geo<T, O, W>;
+  __host__ __device__ static type make(int) { return type{}; }
+};
+template <typename T, typename O> struct GeoOf<T, O, 0> {
+  using type = DynGeo<T, O>;
+  __host__ __device__ static type make(int w) { return type(w); }
 };
 
 // ---------------------------------------------------------------------------
@@ -238,6 +320,14 @@ template <typename T> __device__ __forceinline__ T from_double(double c) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_double<__nv_bfloat16>(
     double c) {
   return __float2bfloat16_rn((float)c);
+}
+
+// a storage element widened to the accumulator type A
+template <typename A, typename T> __device__ __forceinline__ A widen(T v) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(v);   // exact
+  else
+    return (A)v;
 }
 
 // element e of a row held as 32-bit words, widened to A
@@ -428,7 +518,7 @@ __device__ __forceinline__ void reduce_item(const unsigned char* win,
     const int32_t qm = qs != nullptr ? qs[2 * f] : 1;
     const int32_t qsh = qs != nullptr ? qs[2 * f + 1] : 0;
     O* out = static_cast<O*>(p.out) +
-             ((size_t)m * p.N + f) * p.Ho * p.Wo + ox0;
+             ((size_t)m * p.n_out + f) * p.Ho * p.Wo + ox0;
     const A* kf = cs + f * NTAPS;
     A k[NTAPS];
 #pragma unroll
@@ -498,6 +588,175 @@ __device__ __forceinline__ void reduce_item(const unsigned char* win,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the generic window (W = 0): the radius at run time, loops over the taps
+// ---------------------------------------------------------------------------
+
+// element e of a thread's row segment whose first element is at `row`
+template <typename T, typename A>
+__device__ __forceinline__ A seg_elem(const unsigned char* row, int e) {
+  return widen<A>(reinterpret_cast<const T*>(row)[e]);
+}
+
+// the start of a sum that leaves its first term unchanged bit for bit
+template <typename A> __device__ __forceinline__ A sum_identity() {
+  if constexpr (std::is_integral<A>::value) return A(0);
+  else return -0.0f;
+}
+
+// The generic tree as a binary counter: the products enter in tap order,
+// and pushing product t adds it to the complete blocks that bit by bit end
+// at t (each level's left block first). A node of level L then covers
+// taps [k 2^L, (k + 1) 2^L), which is the pairwise, level-by-level tree
+// with the odd tail carried (core/filter2d.py:_tree); the blocks left at
+// the end, one per set bit of w*w, fold from the right. LEVELS bits take
+// w*w < 2^16.
+constexpr int LEVELS = 16;
+
+template <typename A>
+__device__ __forceinline__ void counter_push(A (&st)[LEVELS], A v, int t) {
+#pragma unroll
+  for (int L = 0; L < LEVELS; ++L) {
+    if ((t >> L) & 1) {
+      v = add(st[L], v);
+    } else {
+      st[L] = v;
+      return;
+    }
+  }
+}
+
+template <typename A>
+__device__ __forceinline__ A counter_fold(const A (&st)[LEVELS], int n) {
+  A acc = A(0);
+  bool have = false;
+#pragma unroll
+  for (int L = 0; L < LEVELS; ++L)
+    if ((n >> L) & 1) {
+      acc = have ? add(st[L], acc) : st[L];
+      have = true;
+    }
+  return acc;
+}
+
+// reduce_item for the generic window: the same outputs, sums and stores.
+// Direct and separable slide a C-element register window along each window
+// row (one shared load per tap and row); tree and compress read each
+// pixel's w*w taps from shared memory.
+template <typename T, typename A, typename O, int FORM>
+__device__ __forceinline__ void reduce_item_generic(
+    const unsigned char* win, const A* cs, const int32_t* qs, const Params& p,
+    const DynGeo<T, O>& g, int m, int cy0, int cx0) {
+  using GEO = DynGeo<T, O>;
+  constexpr int C = GEO::C, ROWS = GEO::ROWS, S = GEO::S;
+  const int W = p.w, R = g.R, PITCH = g.PITCH;
+  const int ntaps = FORM == SEPARABLE ? 2 * W : W * W;
+  const unsigned char* seg = win + (g.LEAD - R) * S;   // the segment start
+  const int ox0 = cx0 - p.shift, oy0 = cy0 - p.shift;
+  const int lo = max(0, -ox0), hi = min(C, p.Wo - ox0);
+  const bool vec = p.vec_store != 0;
+  for (int f = 0; f < p.N; ++f) {
+    const int32_t qm = qs != nullptr ? qs[2 * f] : 1;
+    const int32_t qsh = qs != nullptr ? qs[2 * f + 1] : 0;
+    O* out = static_cast<O*>(p.out) +
+             ((size_t)m * p.n_out + f) * p.Ho * p.Wo + ox0;
+    const A* k = cs + f * ntaps;
+    auto store = [&](int row, const A (&a)[C]) {
+      const int gy = oy0 + row;
+      if (gy >= 0 && gy < p.Ho)
+        emit<O, A, C>(out + (ptrdiff_t)gy * p.Wo, a, lo, hi, vec, p.rounding,
+                      qm, qsh);
+    };
+    if constexpr (FORM == FOLD || FORM == SEPARABLE) {
+      // window row y feeds output rows y - i, i < w, as their tap row i.
+      // Every sum starts from the additive identity that changes no first
+      // term (-0.0 for float: -0.0 + p == p bit for bit, a +0.0 p too), so
+      // the loop needs no first-tap select
+      A acc[ROWS][C];
+#pragma unroll
+      for (int oy = 0; oy < ROWS; ++oy)
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[oy][c] = sum_identity<A>();
+      for (int y = 0; y < ROWS + 2 * R; ++y) {
+        const unsigned char* row = seg + y * PITCH;
+        A x[C], h[C];
+#pragma unroll
+        for (int c = 0; c + 1 < C; ++c) x[c] = seg_elem<T, A>(row, c);
+#pragma unroll
+        for (int c = 0; c < C; ++c) h[c] = sum_identity<A>();
+        A next = seg_elem<T, A>(row, C - 1);
+#pragma unroll 3
+        for (int j = 0; j < W; ++j) {
+          x[C - 1] = next;                  // x[c]: element c + j
+          if (j + 1 < W) next = seg_elem<T, A>(row, j + C);
+          if constexpr (FORM == FOLD) {
+#pragma unroll
+            for (int oy = 0; oy < ROWS; ++oy) {
+              const int i = y - oy;
+              if (i < 0 || i >= W) continue;
+              const A kk = k[i * W + j];
+#pragma unroll
+              for (int c = 0; c < C; ++c)
+                acc[oy][c] = add(acc[oy][c], mul(x[c], kk));
+            }
+          } else {  // SEPARABLE: the row's v-pass
+            const A kk = k[W + j];
+#pragma unroll
+            for (int c = 0; c < C; ++c) h[c] = add(h[c], mul(x[c], kk));
+          }
+#pragma unroll
+          for (int c = 0; c + 1 < C; ++c) x[c] = x[c + 1];
+        }
+        if constexpr (FORM == SEPARABLE) {   // then its u term
+#pragma unroll
+          for (int oy = 0; oy < ROWS; ++oy) {
+            const int i = y - oy;
+            if (i < 0 || i >= W) continue;
+            const A kk = k[i];
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              acc[oy][c] = add(acc[oy][c], mul(h[c], kk));
+          }
+        }
+#pragma unroll
+        for (int oy = 0; oy < ROWS; ++oy)
+          if (y - oy == W - 1) store(oy, acc[oy]);   // its last tap row
+      }
+    } else {  // TREE, COMPRESS: each pixel's taps from shared memory
+      for (int oy = 0; oy < ROWS; ++oy) {
+        A res[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if constexpr (FORM == TREE) {
+            A st[LEVELS];
+            int t = 0;
+            for (int i = 0; i < W; ++i) {
+              const unsigned char* row = seg + (oy + i) * PITCH;
+              for (int j = 0; j < W; ++j, ++t)
+                counter_push(st, mul(seg_elem<T, A>(row, c + j), k[t]), t);
+            }
+            res[c] = counter_fold(st, W * W);
+          } else {  // COMPRESS: groups of 6 in tap order, then a chain
+            A acc = A(0), s = A(0);
+            int t = 0;
+            for (int i = 0; i < W; ++i) {
+              const unsigned char* row = seg + (oy + i) * PITCH;
+              for (int j = 0; j < W; ++j, ++t) {
+                const A prod = mul(seg_elem<T, A>(row, c + j), k[t]);
+                const int g6 = t % 6;
+                s = g6 == 0 ? prod : add(s, prod);
+                if (g6 == 5 || t == W * W - 1) acc = t < 6 ? s : add(acc, s);
+              }
+            }
+            res[c] = acc;
+          }
+        }
+        store(oy, res);
+      }
+    }
+  }
+}
+
 // The out-of-frame window slots that feed real outputs, set by the border
 // rule: rows [-r, 0) and [H, H + r) across the window, then columns [-r, 0)
 // and [W, W + r) down it (numpy.pad's rows-then-columns composition: a
@@ -505,13 +764,15 @@ __device__ __forceinline__ void reduce_item(const unsigned char* win,
 // from ywin0 and frame columns from bx0, the window's from bx0 + LEAD - r.
 // Reflections and clamps land inside the window, whose in-frame slots the
 // mux never writes, so they are read from shared memory; wrap reads the
-// opposite edge from global memory (L2).
+// opposite edge from global memory (L2). Returns the slots this thread
+// wrote.
 template <typename T, typename GEO>
-__device__ __forceinline__ void mux(unsigned char* stage, const T* src,
-                                    const Params& p, int ywin0, int bx0,
-                                    int tid) {
-  constexpr int R = GEO::R, EH = GEO::EH, EW = TILE_W + 2 * R;
-  const int xwin0 = bx0 + GEO::LEAD - R;
+__device__ __forceinline__ int mux(unsigned char* stage, const T* src,
+                                   const Params& p, const GEO& g, int ywin0,
+                                   int bx0, int tid) {
+  const int R = g.R, EH = g.EH, EW = TILE_W + 2 * R;
+  const int PITCH = g.PITCH, LEAD = g.LEAD;
+  const int xwin0 = bx0 + LEAD - R;
   auto span = [](int lo, int hi, int n) {   // [lo, hi) clipped to [0, n)
     return make_int2(min(max(lo, 0), n), min(max(hi, 0), n));
   };
@@ -528,6 +789,7 @@ __device__ __forceinline__ void mux(unsigned char* stage, const T* src,
   const int nw = cols.y - cols.x, nh = rows.y - rows.x;
   const int total = nr * nw + nh * nc;
   const T cval = from_double<T>(p.constant);
+  int written = 0;
   for (int idx = tid; idx < total; idx += NCONS) {
     int ey, ex;
     if (idx < nr * nw) {        // out-of-frame rows, across
@@ -547,27 +809,29 @@ __device__ __forceinline__ void mux(unsigned char* stage, const T* src,
       if (p.policy == WRAP)   // the opposite edge: from L2
         v = src[(size_t)sy * p.W + sx];
       else                    // a reflection or a clamp: inside the window
-        v = reinterpret_cast<const T*>(stage + (sy - ywin0) * GEO::PITCH)
+        v = reinterpret_cast<const T*>(stage + (sy - ywin0) * PITCH)
             [sx - bx0];
     }
-    reinterpret_cast<T*>(stage + ey * GEO::PITCH)[ex + GEO::LEAD - R] = v;
+    reinterpret_cast<T*>(stage + ey * PITCH)[ex + LEAD - R] = v;
+    ++written;
   }
+  return written;
 }
 
 // the per-thread loader: the producer warp copies the box TMA would copy,
 // at the storage width, zeros outside the frame
 template <typename T, typename GEO>
 __device__ __forceinline__ void fill(unsigned char* stage, const T* src,
-                                     const Params& p, int ywin0, int bx0,
-                                     int lane) {
-  constexpr int BW = GEO::BOX_W;
+                                     const Params& p, const GEO& g, int ywin0,
+                                     int bx0, int lane) {
+  const int BW = g.BOX_W, EH = g.EH, PITCH = g.PITCH;
   const T zero = from_double<T>(0.0);
 #pragma unroll 8
-  for (int e = lane; e < GEO::EH * BW; e += 32) {
+  for (int e = lane; e < EH * BW; e += 32) {
     const int ey = e / BW, ex = e - (e / BW) * BW;
     const int gy = ywin0 + ey, gx = bx0 + ex;
     const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
-    reinterpret_cast<T*>(stage + ey * GEO::PITCH)[ex] =
+    reinterpret_cast<T*>(stage + ey * PITCH)[ex] =
         inside ? src[(size_t)gy * p.W + gx] : zero;
   }
 }
@@ -580,21 +844,50 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync %0, %1;\n" ::"n"(MUX_BAR), "n"(NCONS) : "memory");
 }
 
+#ifdef F2D_TRACE
+// the trace build's records: REC_INTS ints each, {kind, launch, block,
+// item, seq, stage, warp (-1: the producer), payload[9]}; the payloads are
+// decoded by repro_torch/analysis/ir.py::from_device_log
+enum Event { EV_WAIT_EMPTY = 1, EV_EXPECT_TX = 2, EV_LOAD = 3,
+             EV_WAIT_FULL = 4, EV_MUX = 5, EV_READ = 6, EV_ARRIVE = 7,
+             EV_STORE = 8 };
+constexpr int REC_INTS = 16;
+
+__device__ __forceinline__ void trace_event(
+    const Params& p, int* seq, int kind, int item, int stage, int warp,
+    int a0 = 0, int a1 = 0, int a2 = 0, int a3 = 0, int a4 = 0, int a5 = 0,
+    int a6 = 0, int a7 = 0, int a8 = 0) {
+  const int n = atomicAdd(seq, 1);
+  const int slot = atomicAdd(p.trace.count, 1);
+  if (slot >= p.trace.cap) return;
+  int* r = p.trace.rec + (size_t)slot * REC_INTS;
+  const int v[REC_INTS] = {kind, p.trace.launch, (int)blockIdx.x, item, n,
+                           stage, warp, a0, a1, a2, a3, a4, a5, a6, a7, a8};
+#pragma unroll
+  for (int i = 0; i < REC_INTS; ++i) r[i] = v[i];
+}
+#endif
+
 // The explicit minimum of one block per SM is not a no-op: with the
 // thread count alone ptxas gives the w5 float kernel 62 registers and
 // hoists fewer shared loads, 3% slower on an H100 than with it (93); the
-// serving shapes still run two blocks per SM.
+// serving shapes still run two blocks per SM. W = 0 is the generic window.
 template <typename T, typename A, typename O, int W, int FORM>
 __global__ void __launch_bounds__(NT, 1)
 filter2d_halo_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
-  using GEO = Geo<T, O, W>;
-  constexpr int NTAPS = FORM == SEPARABLE ? 2 * W : W * W;
+  using GEO = typename GeoOf<T, O, W>::type;
+  const GEO g = GeoOf<T, O, W>::make(p.w);
+  const int w = W > 0 ? W : p.w;
+  const int NTAPS = FORM == SEPARABLE ? 2 * w : w * w;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u);
-  const uint32_t bars = smem_u32(ring + STAGES * GEO::STAGE);
+  const uint32_t bars = smem_u32(ring + STAGES * g.STAGE);
   // full[s] at bars + 8 s, empty[s] at bars + 8 (STAGES + s)
-  A* cs = reinterpret_cast<A*>(ring + STAGES * GEO::STAGE + 16 * STAGES);
+  A* cs = reinterpret_cast<A*>(ring + STAGES * g.STAGE + 16 * STAGES);
   int32_t* qs = reinterpret_cast<int32_t*>(cs + p.N * NTAPS);
+#ifdef F2D_TRACE
+  __shared__ int seq;   // the block's event numbers
+#endif
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -603,6 +896,9 @@ filter2d_halo_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
       mbar_init(bars + 8 * (STAGES + s), NCONS / 32);   // a warp each
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#ifdef F2D_TRACE
+    seq = 0;
+#endif
   }
   __syncthreads();
 
@@ -622,17 +918,31 @@ filter2d_halo_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
     for (int it = blockIdx.x, k = 0; it < items; it += gridDim.x, ++k) {
       const int s = k % STAGES;
       const int m = it / per_plane, rem = it - m * per_plane;
-      const int ywin0 = (rem % p.strips) * GEO::SH - GEO::R;
-      const int bx0 = (rem / p.strips) * TILE_W - GEO::LEAD;
-      unsigned char* stage = ring + s * GEO::STAGE;
-      mbar_wait(bars + 8 * (STAGES + s), ((k / STAGES) & 1) ^ 1);
+      const int ywin0 = (rem % p.strips) * GEO::SH - g.R;
+      const int bx0 = (rem / p.strips) * TILE_W - g.LEAD;
+      unsigned char* stage = ring + s * g.STAGE;
+      const int parity = ((k / STAGES) & 1) ^ 1;
+      mbar_wait(bars + 8 * (STAGES + s), parity);
+#ifdef F2D_TRACE
+      if (lane == 0) trace_event(p, &seq, EV_WAIT_EMPTY, it, s, -1, parity);
+#endif
       if (p.tma) {
-        mbar_expect_tx(bars + 8 * s, GEO::EH * GEO::PITCH);
+#ifdef F2D_TRACE
+        trace_event(p, &seq, EV_EXPECT_TX, it, s, -1, g.EH * g.PITCH);
+        trace_event(p, &seq, EV_LOAD, it, s, -1, m, ywin0, bx0, g.EH,
+                    g.BOX_W, (int)sizeof(T), 1);
+#endif
+        mbar_expect_tx(bars + 8 * s, g.EH * g.PITCH);
         hopper::tma_load_3d(smem_u32(stage), &map, bars + 8 * s, bx0, ywin0,
                             m);
       } else {
-        fill<T, GEO>(stage, static_cast<const T*>(p.planes) + m * plane, p,
-                     ywin0, bx0, lane);
+        fill<T>(stage, static_cast<const T*>(p.planes) + m * plane, p, g,
+                ywin0, bx0, lane);
+#ifdef F2D_TRACE
+        if (lane == 0)
+          trace_event(p, &seq, EV_LOAD, it, s, -1, m, ywin0, bx0, g.EH,
+                      g.BOX_W, (int)sizeof(T), 0);
+#endif
         mbar_arrive(bars + 8 * s);
       }
     }
@@ -648,41 +958,99 @@ filter2d_halo_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
 
   // the consumers
   const int tx = tid % GEO::TX, ty = tid / GEO::TX;
+#ifdef F2D_TRACE
+  const int warp = tid >> 5, lane = tid & 31;
+#endif
   for (int it = blockIdx.x, k = 0; it < items; it += gridDim.x, ++k) {
     const int s = k % STAGES;
     const int m = it / per_plane, rem = it - m * per_plane;
     const int y0 = (rem % p.strips) * GEO::SH, x0 = (rem / p.strips) * TILE_W;
-    const int ywin0 = y0 - GEO::R;
-    unsigned char* stage = ring + s * GEO::STAGE;
+    const int ywin0 = y0 - g.R;
+    unsigned char* stage = ring + s * g.STAGE;
     mbar_wait(bars + 8 * s, (k / STAGES) & 1);
+#ifdef F2D_TRACE
+    if (lane == 0)
+      trace_event(p, &seq, EV_WAIT_FULL, it, s, warp, (k / STAGES) & 1);
+#endif
     const bool edge = p.policy != NEGLECT &&
-                      (ywin0 < 0 || ywin0 + GEO::EH > p.H ||
-                       x0 - GEO::R < 0 || x0 + TILE_W + GEO::R > p.W);
+                      (ywin0 < 0 || ywin0 + g.EH > p.H ||
+                       x0 - g.R < 0 || x0 + TILE_W + g.R > p.W);
     if (edge) {
-      mux<T, GEO>(stage, static_cast<const T*>(p.planes) + m * plane, p,
-                  ywin0, x0 - GEO::LEAD, tid);
+      const int slots = mux<T>(stage,
+                               static_cast<const T*>(p.planes) + m * plane,
+                               p, g, ywin0, x0 - g.LEAD, tid);
+#ifdef F2D_TRACE
+      const int warp_slots = __reduce_add_sync(0xffffffffu, slots);
+      if (lane == 0) {   // the constant as the stream holds it
+        const long long c = __double_as_longlong(
+            (double)widen<float>(from_double<T>(p.constant)));
+        trace_event(p, &seq, EV_MUX, it, s, warp, warp_slots,
+                    p.policy == CONSTANT, (int)(c & 0xffffffffll),
+                    (int)(c >> 32));
+      }
+#else
+      (void)slots;
+#endif
       consumers_sync();
     }
     const int cy0 = y0 + ty * GEO::ROWS, cx0 = x0 + tx * GEO::C;
-    if (cy0 - p.shift < p.Ho && cx0 - p.shift < p.Wo &&
-        cy0 + GEO::ROWS > p.shift && cx0 + GEO::C > p.shift)
-      reduce_item<T, A, O, W, FORM>(
-          stage + ty * GEO::ROWS * GEO::PITCH + tx * GEO::C * GEO::S, cs,
-          p.qparams != nullptr ? qs : nullptr, p, m, cy0, cx0);
+    const bool active = cy0 - p.shift < p.Ho && cx0 - p.shift < p.Wo &&
+                        cy0 + GEO::ROWS > p.shift && cx0 + GEO::C > p.shift;
+    if (active) {
+      const unsigned char* win =
+          stage + ty * GEO::ROWS * g.PITCH + tx * GEO::C * GEO::S;
+      const int32_t* q = p.qparams != nullptr ? qs : nullptr;
+      if constexpr (W > 0)
+        reduce_item<T, A, O, W, FORM>(win, cs, q, p, m, cy0, cx0);
+      else
+        reduce_item_generic<T, A, O, FORM>(win, cs, q, p, g, m, cy0, cx0);
+    }
+#ifdef F2D_TRACE
+    {  // what the warp read of the stage (from the box's first row and
+       // column) and the output rectangle it stored, over its active lanes
+      const unsigned all = 0xffffffffu;
+      const int big = 1 << 30;
+      const int R0 = __reduce_min_sync(all, active ? ty * GEO::ROWS : big);
+      const int R1 = __reduce_max_sync(
+          all, active ? ty * GEO::ROWS + GEO::ROWS + 2 * g.R : -big);
+      const int C0 = __reduce_min_sync(
+          all, active ? tx * GEO::C + g.LEAD - g.R : big);
+      const int C1 = __reduce_max_sync(
+          all, active ? tx * GEO::C + g.LEAD + g.R + GEO::C : -big);
+      const int Y0 = __reduce_min_sync(
+          all, active ? max(cy0 - p.shift, 0) : big);
+      const int Y1 = __reduce_max_sync(
+          all, active ? min(cy0 - p.shift + GEO::ROWS, p.Ho) : -big);
+      const int X0 = __reduce_min_sync(
+          all, active ? max(cx0 - p.shift, 0) : big);
+      const int X1 = __reduce_max_sync(
+          all, active ? min(cx0 - p.shift + GEO::C, p.Wo) : -big);
+      if (lane == 0 && R0 < big) {
+        trace_event(p, &seq, EV_READ, it, s, warp, R0, C0, R1 - R0, C1 - C0,
+                    GEO::S, std::is_integral<A>::value ? 1 : 2);
+        for (int f = 0; f < p.N; ++f)
+          trace_event(p, &seq, EV_STORE, it, s, warp, m, p.trace.n0 + f, Y0,
+                      X0, Y1 - Y0, X1 - X0,
+                      (Y1 - Y0) * (X1 - X0) * (int)sizeof(O));
+      }
+    }
+#endif
     // the mux's generic writes before the next TMA write to this stage
     if (edge) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncwarp();   // the warp is done with the stage: one arrival for it
+#ifdef F2D_TRACE
+    if (lane == 0) trace_event(p, &seq, EV_ARRIVE, it, s, warp);
+#endif
     if ((tid & 31) == 0) mbar_arrive(bars + 8 * (STAGES + s));
   }
 }
 
 // dynamic shared memory of a launch: alignment slack, the ring, the
-// barriers, the bank's coefficients and its requant table
-template <typename T, typename A, typename O, int W, int FORM>
-constexpr size_t smem_bytes(int N) {
-  constexpr int NTAPS = FORM == SEPARABLE ? 2 * W : W * W;
-  return 128 + (size_t)STAGES * Geo<T, O, W>::STAGE + 16 * STAGES +
-         (size_t)N * NTAPS * sizeof(A) + (size_t)N * 8;
+// barriers, the chunk's coefficients and its requant table
+// (kernels/filter2d/halo.py::ring_smem_bytes is its twin)
+inline size_t smem_bytes(const Geometry& g, int ntaps, int n, int acc_bytes) {
+  return 128 + (size_t)STAGES * g.STAGE + 16 * STAGES +
+         (size_t)n * ntaps * acc_bytes + (size_t)n * 8;
 }
 
 template <typename T>
@@ -694,15 +1062,15 @@ constexpr CUtensorMapDataType tma_type() {
 
 // [M, H, W] storage type T as a 3D map (W, H, M); boxes of BOX_W x EH x 1,
 // no swizzle, out-of-frame slots read as zeros
-template <typename T, typename GEO>
-bool make_map(CUtensorMap* map, const Params& p) {
+template <typename T>
+bool make_map(CUtensorMap* map, const Params& p, const Geometry& g) {
   hopper::EncodeTiled enc = hopper::encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)p.W, (cuuint64_t)p.H,
                               (cuuint64_t)p.M};
   const cuuint64_t strides[2] = {(cuuint64_t)p.W * sizeof(T),
                                  (cuuint64_t)p.W * p.H * sizeof(T)};
-  const cuuint32_t box[3] = {(cuuint32_t)GEO::BOX_W, (cuuint32_t)GEO::EH, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)g.BOX_W, (cuuint32_t)g.EH, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   return enc(map, tma_type<T>(), 3, const_cast<void*>(p.planes), dims,
              strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -710,13 +1078,20 @@ bool make_map(CUtensorMap* map, const Params& p) {
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// `info`, when given, receives {dynamic shared memory bytes, blocks,
+// tiles, strips} of the launch
 template <typename T, typename A, typename O, int W, int FORM>
-cudaError_t launch(Params p, cudaStream_t stream) {
-  using GEO = Geo<T, O, W>;
+cudaError_t launch(Params p, cudaStream_t stream, int* info) {
+  const int w = W > 0 ? W : p.w;
+  if (w != p.w) return cudaErrorInvalidValue;
+  const Geometry g = geometry(sizeof(T), sizeof(O), w);
+  // the box and the tree's counter bound the window; the wrapper refuses
+  // such a window at compile time already (halo.py::check_ring_fits)
+  if (!box_fits(g) || w * w >= (1 << LEVELS)) return cudaErrorInvalidValue;
   // centres cover the frame; neglect keeps those whose window is inside
   p.tiles = (p.W + TILE_W - 1) / TILE_W;
-  p.strips = (p.H + GEO::SH - 1) / GEO::SH;
-  p.vec_store = p.shift == 0 && p.Wo % GEO::C == 0 &&
+  p.strips = (p.H + g.SH - 1) / g.SH;
+  p.vec_store = p.shift == 0 && p.Wo % g.C == 0 &&
                 reinterpret_cast<uintptr_t>(p.out) % 16 == 0;
   const long long items = (long long)p.M * p.tiles * p.strips;
   if (items <= 0 || p.N <= 0 || p.Ho <= 0 || p.Wo <= 0)
@@ -728,10 +1103,11 @@ cudaError_t launch(Params p, cudaStream_t stream) {
     if (reinterpret_cast<uintptr_t>(p.planes) % 16 != 0 ||
         ((size_t)p.W * sizeof(T)) % 16 != 0)
       return cudaErrorMisalignedAddress;
-    if (!make_map<T, GEO>(&map, p)) return cudaErrorInvalidValue;
+    if (!make_map<T>(&map, p, g)) return cudaErrorInvalidValue;
   }
   const auto kern = filter2d_halo_kernel<T, A, O, W, FORM>;
-  const size_t smem = smem_bytes<T, A, O, W, FORM>(p.N);
+  const size_t smem =
+      smem_bytes(g, FORM == SEPARABLE ? 2 * w : w * w, p.N, sizeof(A));
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -742,32 +1118,45 @@ cudaError_t launch(Params p, cudaStream_t stream) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long grid = items < (long long)per_sm * sms
-                             ? items : (long long)per_sm * sms;
+  long long grid = p.blocks > 0 ? p.blocks : (long long)per_sm * sms;
+  if (grid > items) grid = items;
+  if (info != nullptr) {
+    info[0] = (int)smem;
+    info[1] = (int)grid;
+    info[2] = p.tiles;
+    info[3] = p.strips;
+  }
   filter2d_halo_kernel<T, A, O, W, FORM>
       <<<(unsigned)grid, NT, smem, stream>>>(map, p);
   return cudaGetLastError();
 }
 template <typename T, typename A, typename O, int W>
-cudaError_t dispatch_form(const Params& p, int form, cudaStream_t stream) {
-  if (form == SEPARABLE) return launch<T, A, O, W, SEPARABLE>(p, stream);
+cudaError_t dispatch_form(const Params& p, int form, cudaStream_t stream,
+                          int* info) {
+  if (form == SEPARABLE) return launch<T, A, O, W, SEPARABLE>(p, stream, info);
   if constexpr (std::is_integral<A>::value) {
-    return launch<T, A, O, W, FOLD>(p, stream);  // exact mod 2^32: any order
+    // exact mod 2^32: any order
+    return launch<T, A, O, W, FOLD>(p, stream, info);
   } else {
-    if (form == TREE) return launch<T, A, O, W, TREE>(p, stream);
-    if (form == COMPRESS) return launch<T, A, O, W, COMPRESS>(p, stream);
-    return launch<T, A, O, W, FOLD>(p, stream);
+    if (form == TREE) return launch<T, A, O, W, TREE>(p, stream, info);
+    if (form == COMPRESS) return launch<T, A, O, W, COMPRESS>(p, stream, info);
+    return launch<T, A, O, W, FOLD>(p, stream, info);
   }
 }
 
+// windows 1..7 have an instantiation each; every larger odd window runs
+// the generic one
 template <typename T, typename A, typename O>
-cudaError_t dispatch(const Params& p, int form, int w, cudaStream_t stream) {
+cudaError_t dispatch(const Params& p, int form, int w, cudaStream_t stream,
+                     int* info) {
   switch (w) {
-    case 1: return dispatch_form<T, A, O, 1>(p, form, stream);
-    case 3: return dispatch_form<T, A, O, 3>(p, form, stream);
-    case 5: return dispatch_form<T, A, O, 5>(p, form, stream);
-    case 7: return dispatch_form<T, A, O, 7>(p, form, stream);
-    default: return cudaErrorInvalidValue;
+    case 1: return dispatch_form<T, A, O, 1>(p, form, stream, info);
+    case 3: return dispatch_form<T, A, O, 3>(p, form, stream, info);
+    case 5: return dispatch_form<T, A, O, 5>(p, form, stream, info);
+    case 7: return dispatch_form<T, A, O, 7>(p, form, stream, info);
+    default:
+      if (w < 9 || w % 2 == 0) return cudaErrorInvalidValue;
+      return dispatch_form<T, A, O, 0>(p, form, stream, info);
   }
 }
 
@@ -777,22 +1166,27 @@ enum DType { F32 = 0, BF16 = 1, I8 = 2, U8 = 3, I16 = 4, I32 = 5 };
 // integer storage T: out is the int32 accumulator or a requantised type
 template <typename T>
 cudaError_t dispatch_int(const Params& p, int out_dtype, int form, int w,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, int* info) {
   switch (out_dtype) {
-    case I32: return dispatch<T, int32_t, int32_t>(p, form, w, stream);
-    case I8: return dispatch<T, int32_t, int8_t>(p, form, w, stream);
-    case U8: return dispatch<T, int32_t, uint8_t>(p, form, w, stream);
-    case I16: return dispatch<T, int32_t, int16_t>(p, form, w, stream);
+    case I32: return dispatch<T, int32_t, int32_t>(p, form, w, stream, info);
+    case I8: return dispatch<T, int32_t, int8_t>(p, form, w, stream, info);
+    case U8: return dispatch<T, int32_t, uint8_t>(p, form, w, stream, info);
+    case I16: return dispatch<T, int32_t, int16_t>(p, form, w, stream, info);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // one entry per storage type, each in its own translation unit so the
 // instantiations build in parallel
-cudaError_t launch_f32(const Params& p, int out_dtype, int form, int w, cudaStream_t s);
-cudaError_t launch_bf16(const Params& p, int out_dtype, int form, int w, cudaStream_t s);
-cudaError_t launch_i8(const Params& p, int out_dtype, int form, int w, cudaStream_t s);
-cudaError_t launch_u8(const Params& p, int out_dtype, int form, int w, cudaStream_t s);
-cudaError_t launch_i16(const Params& p, int out_dtype, int form, int w, cudaStream_t s);
+cudaError_t launch_f32(const Params& p, int out_dtype, int form, int w,
+                       cudaStream_t s, int* info);
+cudaError_t launch_bf16(const Params& p, int out_dtype, int form, int w,
+                        cudaStream_t s, int* info);
+cudaError_t launch_i8(const Params& p, int out_dtype, int form, int w,
+                      cudaStream_t s, int* info);
+cudaError_t launch_u8(const Params& p, int out_dtype, int form, int w,
+                      cudaStream_t s, int* info);
+cudaError_t launch_i16(const Params& p, int out_dtype, int form, int w,
+                       cudaStream_t s, int* info);
 
 }  // namespace f2d

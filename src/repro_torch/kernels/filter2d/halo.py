@@ -443,3 +443,222 @@ def plan_vmem_working_set(plan: HaloPlan, *, num_filters: int = 1,
                 * plan.out_dtype_bytes)
     coeff = num_filters * (2 * w if separable else w * w) * plan.acc_bytes
     return scratch + out_tile + coeff
+
+
+# ---------------------------------------------------------------------------
+# The Hopper planning mode: the CUDA ring's own geometry and shared memory
+# ---------------------------------------------------------------------------
+#
+# Python twins of ``csrc/filter2d_halo_ring.cuh::geometry`` and
+# ``smem_bytes``: the thread-block tiling the kernel really runs, a ring of
+# STAGES windows of (strip + 2r) rows per block, held in shared memory
+# beside the coefficient file. ``kernel.py::geometry`` reads the same
+# numbers from the built library; ``chip_smoke.py`` holds the two equal.
+# The reference accounting above stays what ``explain()`` reports; these
+# figures feed the kernel verifier (``repro_torch.analysis``) and the
+# compile-time refusal of windows the ring cannot hold.
+
+RING_TILE_W = 128            # centre columns per item
+RING_CONSUMERS = 256         # consumer threads: 8 warps
+RING_THREADS = RING_CONSUMERS + 32   # and one producer warp
+RING_STAGES = 3              # windows in the ring
+# an H100 block's opt-in dynamic shared memory (227 KiB), and its SM's
+# (228 KiB, 1 KiB of it reserved per resident block)
+SMEM_BLOCK_LIMIT = 227 * 1024
+SMEM_SM_BYTES = 228 * 1024
+SMEM_BLOCK_RESERVED = 1024
+MAX_THREADS_PER_SM = 2048
+H100_SMS = 132               # the SXM5 part's SMs
+TMA_BOX_LIMIT = 256          # a TMA box is at most 256 elements a side
+# the coefficient file's bytes per launch: beside three stages of <= 21 KiB
+# (w <= 7) it keeps two blocks on an SM; a larger bank is split into
+# launches of as many filters as fit (at least one, if the block fits)
+COEFF_FILE_BYTES = 24 * 1024
+COEFF_BYTES = 4              # float32 or int32 coefficients
+TREE_TAPS_LIMIT = 1 << 16    # the generic tree's counter: w*w < 2^16
+
+GEOMETRY_KEYS = ("tile_w", "strip_h", "cols_per_thread", "rows_per_thread",
+                 "threads", "stages", "stage_bytes", "row_pitch_bytes")
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclasses.dataclass(frozen=True)
+class RingGeometry:
+    """The ring's tile geometry for storage bytes ``s``, output bytes
+    ``so`` and window ``w`` (``ring.cuh::geometry``). ``lead`` is the box's
+    columns left of the tile (r·s rounded up to 16 bytes, at least 16),
+    ``box_w`` × ``eh`` the TMA box (= one stage's rows of ``pitch``
+    bytes), ``stage`` the 128-byte aligned stage."""
+
+    s: int
+    so: int
+    w: int
+    r: int
+    cols_per_thread: int
+    rows_per_thread: int
+    tx: int
+    strip_h: int
+    eh: int
+    g: int
+    pitch: int
+    stage: int
+    lead: int
+    box_w: int
+
+    def as_dict(self) -> dict:
+        """The keys of ``kernel.py::geometry`` (the library's own)."""
+        return dict(zip(GEOMETRY_KEYS, (
+            RING_TILE_W, self.strip_h, self.cols_per_thread,
+            self.rows_per_thread, RING_THREADS, RING_STAGES, self.stage,
+            self.pitch)))
+
+
+def ring_geometry(s: int, so: int, w: int) -> RingGeometry:
+    """Twin of ``filter2d_halo_ring.cuh::geometry(s, so, w)``."""
+    r = w // 2
+    C = 16 // so
+    ROWS = 2 if C == 16 else 4
+    TX = RING_TILE_W // C
+    SH = (RING_CONSUMERS // TX) * ROWS
+    lead_bytes = _round_up(r * s, 16) if r * s > 16 else 16
+    pitch = _round_up(RING_TILE_W * s + lead_bytes + _round_up(r * s, 4), 16)
+    return RingGeometry(s=s, so=so, w=w, r=r, cols_per_thread=C,
+                        rows_per_thread=ROWS, tx=TX, strip_h=SH,
+                        eh=SH + 2 * r, g=min(C * s, 16), pitch=pitch,
+                        stage=_round_up((SH + 2 * r) * pitch, 128),
+                        lead=lead_bytes // s, box_w=pitch // s)
+
+
+def plan_ring_geometry(plan: HaloPlan) -> RingGeometry:
+    """The ring geometry of the launch that runs ``plan`` (its storage
+    and output widths and window)."""
+    return ring_geometry(plan.dtype_bytes, plan.out_dtype_bytes,
+                         2 * plan.rows.r + 1)
+
+
+def ring_taps(w: int, separable: bool) -> int:
+    return 2 * w if separable else w * w
+
+
+def ring_smem_bytes(geo: RingGeometry, num_filters: int,
+                    separable: bool = False) -> int:
+    """Twin of ``ring.cuh::smem_bytes``: a launch's dynamic shared memory
+    for ``num_filters`` filters — alignment slack, the ring, the full and
+    empty barriers, the coefficients and the requant table."""
+    return (128 + RING_STAGES * geo.stage + 16 * RING_STAGES
+            + num_filters * ring_taps(geo.w, separable) * COEFF_BYTES
+            + num_filters * 8)
+
+
+def chunk_filters(geo: RingGeometry, separable: bool = False) -> int:
+    """Filters per launch: as many as the coefficient file holds (at least
+    one), and no more than leave the block within its shared memory; 0
+    when not even one filter fits beside the ring."""
+    per = ring_taps(geo.w, separable) * COEFF_BYTES + 8
+    room = SMEM_BLOCK_LIMIT - ring_smem_bytes(geo, 0)
+    return max(0, min(max(1, COEFF_FILE_BYTES // per), room // per))
+
+
+def ring_refusal(geo: RingGeometry, separable: bool = False
+                 ) -> Optional[str]:
+    """Why the ring cannot run this geometry (``None`` when it can): a
+    TMA box past 256 elements a side, a window whose three stages and one
+    filter's coefficients pass the block's shared memory, or a generic
+    tree past its counter."""
+    if geo.box_w > TMA_BOX_LIMIT or geo.eh > TMA_BOX_LIMIT:
+        return (f"its TMA box of {geo.box_w} x {geo.eh} elements passes the "
+                f"limit of {TMA_BOX_LIMIT} a side")
+    need = ring_smem_bytes(geo, 1, separable)
+    if need > SMEM_BLOCK_LIMIT:
+        return (f"{RING_STAGES} stages of {geo.stage} B and one filter's "
+                f"coefficients take {need} B of shared memory, past the "
+                f"{SMEM_BLOCK_LIMIT} B a block may hold")
+    if geo.w * geo.w >= TREE_TAPS_LIMIT:
+        return f"its {geo.w * geo.w} taps pass the tree's {TREE_TAPS_LIMIT}"
+    return None
+
+
+def max_ring_window(s: int, so: int, separable: bool = False) -> int:
+    """The largest odd window the ring runs for these widths."""
+    best, w = 0, 1
+    while ring_refusal(ring_geometry(s, so, w), separable) is None:
+        best, w = w, w + 2
+    return best
+
+
+def check_ring_fits(w: int, dtype, requant: Optional[RequantSpec] = None,
+                    separable: bool = False) -> None:
+    """Refuse, at compile time, a window the CUDA ring cannot run for
+    frames of ``dtype`` (its message names the limit and the largest
+    window that fits); windows that fit pass."""
+    s, _, so = datapath_byte_widths(dtype, requant)
+    why = ring_refusal(ring_geometry(s, so, w), separable)
+    if why is not None:
+        raise ValueError(
+            f"the CUDA kernel cannot run w={w} for {dtypes.name(dtype)} "
+            f"frames: {why}; the largest window it runs for them is "
+            f"{max_ring_window(s, so, separable)}")
+
+
+def coeff_chunks(num_filters: int, geo: RingGeometry,
+                 separable: bool = False) -> Tuple[Tuple[int, int], ...]:
+    """The bank's launches: ``(n0, n1)`` filter ranges of at most
+    :func:`chunk_filters` each, in order."""
+    per = chunk_filters(geo, separable)
+    if per < 1:
+        raise ValueError(f"no filter fits beside the ring for w={geo.w}")
+    return tuple((n0, min(n0 + per, num_filters))
+                 for n0 in range(0, num_filters, per))
+
+
+def smem_working_set(plan: HaloPlan, *, num_filters: int = 1,
+                     separable: bool = False) -> int:
+    """Shared memory of one ring launch for ``plan`` — the Hopper
+    counterpart of :func:`plan_vmem_working_set`: the three stages, the
+    barriers, and the coefficient file of the launch's chunk (the bank's
+    first, and largest, when it takes several)."""
+    geo = plan_ring_geometry(plan)
+    n = coeff_chunks(num_filters, geo, separable)[0]
+    return ring_smem_bytes(geo, n[1] - n[0], separable)
+
+
+def ring_items(geo: RingGeometry, H: int, W: int, M: int
+               ) -> Tuple[int, int, int]:
+    """(tiles, strips, items) of one launch over [M, H, W] planes:
+    centres cover the frame for every policy."""
+    tiles = -(-W // RING_TILE_W)
+    strips = -(-H // geo.strip_h)
+    return tiles, strips, M * tiles * strips
+
+
+def ring_blocks(geo: RingGeometry, smem: int, items: int,
+                sms: int = H100_SMS) -> int:
+    """The blocks a launch takes as far as shared memory and threads
+    decide (the card's occupancy query may also count registers): as many
+    as fit on the SMs at once, at most one per item."""
+    per_sm = min(MAX_THREADS_PER_SM // RING_THREADS,
+                 SMEM_SM_BYTES // (smem + SMEM_BLOCK_RESERVED))
+    return max(1, min(items, per_sm * sms))
+
+
+def _clipped(lo: int, n: int, extent: int) -> int:
+    return max(0, min(lo + n, extent) - max(lo, 0))
+
+
+def ring_read_amplification(plan: HaloPlan) -> float:
+    """Frame bytes the ring loads per sweep over the frame's bytes, per
+    coefficient chunk: every item's box of ``eh`` rows from ``r`` above
+    its strip and ``box_w`` columns from ``lead`` left of its tile, only
+    its in-frame part read from memory (TMA fills the rest with zeros; the
+    per-thread loader writes them). Factors as (Σ rows)(Σ cols)."""
+    geo = plan_ring_geometry(plan)
+    H, W = plan.rows.extent, plan.cols.extent
+    tiles, strips, _ = ring_items(geo, H, W, 1)
+    rows = sum(_clipped(i * geo.strip_h - geo.r, geo.eh, H)
+               for i in range(strips))
+    cols = sum(_clipped(j * RING_TILE_W - geo.lead, geo.box_w, W)
+               for j in range(tiles))
+    return rows * cols / float(H * W)

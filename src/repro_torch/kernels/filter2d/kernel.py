@@ -34,11 +34,19 @@ What differs from the reference kernel, on purpose:
   * float coefficients reach the kernel as float32, integer-frame
     coefficients as int32 (the reference's operand types).
 
+Every odd window runs: w ≤ 7 on an instantiation each, larger windows on
+one generic instantiation per dtype and form; a window whose ring cannot
+fit a block is refused when a pipeline is compiled
+(``halo.check_ring_fits``). A bank larger than the coefficient file runs
+as one launch per chunk of filters (``halo.coeff_chunks``), each writing
+its slice of the one output.
+
 ``filter2d_halo`` launches the kernel for a CUDA tensor and runs the plain
 version ``filter2d_halo_ref`` for a CPU tensor, and only then: there is no
 fallback from the card to the plain version. ``filter2d_halo.launches``
-counts kernel launches, ``filter2d_halo.tma_launches`` those that took the
-TMA loader.
+counts kernel launches (one per chunk), ``filter2d_halo.tma_launches``
+those that took the TMA loader, and ``filter2d_halo.calls`` the wrapper's
+calls on any device (the verifier's count of an executable's calls).
 """
 from __future__ import annotations
 
@@ -51,17 +59,18 @@ from repro_torch.core import dtypes
 from repro_torch.core.border_spec import BorderSpec, out_shape
 from repro_torch.core.borders import extend
 from repro_torch.core.filter2d import apply_requant, wrap_i32
-from repro_torch.kernels.filter2d import _build
-from repro_torch.kernels.filter2d.halo import HaloPlan
+from repro_torch.kernels.filter2d import _build, halo
+from repro_torch.kernels.filter2d.contract import (ITEM_ROLES, SMEM_ROLES,
+                                                   KernelContract)
+from repro_torch.kernels.filter2d.halo import GEOMETRY_KEYS, HaloPlan
 
-KERNEL_WINDOWS = (1, 3, 5, 7)          # the instantiations in csrc/
-# the bank's coefficients sit in shared memory beside the ring of windows
-# (three stages of <= 21 KiB)
-MAX_COEFF_BYTES = 24 * 1024
 # TMA takes a frame whose base and row pitch are multiples of 16 bytes
 TMA_ALIGN = 16
 
 FORMS = ("direct", "transposed", "tree", "compress", "separable")
+# the storage dtypes the kernel takes, and the executors that launch it
+KERNEL_DTYPES = ("float32", "bfloat16", "int8", "uint8", "int16")
+RING_EXECUTIONS = ("cuda", "streaming", "sharded")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.uint8: 3, torch.int16: 4, torch.int32: 5}
 _POLICY_CODE = {"neglect": 0, "constant": 1, "wrap": 2, "duplicate": 3,
@@ -192,10 +201,6 @@ def loader_for(planes: torch.Tensor) -> str:
     return "tma" if aligned else "thread"
 
 
-GEOMETRY_KEYS = ("tile_w", "strip_h", "cols_per_thread", "rows_per_thread",
-                 "threads", "stages", "stage_bytes", "row_pitch_bytes")
-
-
 def geometry(storage_dtype: torch.dtype, out_dtype: torch.dtype,
              w: int) -> dict:
     """The built kernel's tile geometry for these dtypes and window, from
@@ -208,6 +213,44 @@ def geometry(storage_dtype: torch.dtype, out_dtype: torch.dtype,
     if rc != 0:
         raise ValueError(f"no geometry for {storage_dtype} -> {out_dtype}")
     return dict(zip(GEOMETRY_KEYS, g))
+
+
+def smem_bytes(storage_dtype: torch.dtype, out_dtype: torch.dtype, w: int,
+               form: str, num_filters: int) -> int:
+    """The dynamic shared memory the built library sizes a launch of
+    ``num_filters`` filters with (``filter2d_halo_smem``; its Python twin
+    is ``halo.ring_smem_bytes``). Needs the CUDA toolkit."""
+    n = _build.load_library().filter2d_halo_smem(
+        _DTYPE_CODE[storage_dtype], _DTYPE_CODE[out_dtype], w,
+        _FORM_CODE[form], num_filters)
+    if n < 0:
+        raise ValueError(f"no launch for {storage_dtype} -> {out_dtype}")
+    return n
+
+
+def kernel_contract(plan: HaloPlan, num_filters: int, form: str,
+                    storage_dtype, loader: str) -> KernelContract:
+    """The kernel's declared contract for one call under ``plan``: the
+    operands, the shared-memory roles, the item order, the ring and its
+    warps, the loader, the form and epilogue, and the bank's chunks
+    (``halo.coeff_chunks``) — the counterpart of the reference's
+    ``kernel_contract`` (``src/repro/kernels/filter2d/kernel.py:177``)."""
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}; choose from {FORMS}")
+    if loader not in ("tma", "thread"):
+        raise ValueError(f"loader is 'tma' or 'thread'; got {loader!r}")
+    rq = plan.requant is not None
+    geo = halo.plan_ring_geometry(plan)
+    return KernelContract(
+        operands=("frame", "coeffs") + (("qparams",) if rq else ()),
+        outputs=("out",),
+        smem=SMEM_ROLES, items=ITEM_ROLES,
+        stages=halo.RING_STAGES, producer_warps=1,
+        consumer_warps=halo.RING_CONSUMERS // 32, loader=loader,
+        num_filters=int(num_filters), form=form, has_requant=rq,
+        storage_dtype=dtypes.name(storage_dtype),
+        out_dtype=dtypes.name(out_dtype(plan, storage_dtype)),
+        chunks=halo.coeff_chunks(num_filters, geo, form == "separable"))
 
 
 def check_operands(planes, coeffs, plan, q_params, form):
@@ -225,9 +268,9 @@ def check_operands(planes, coeffs, plan, q_params, form):
         raise ValueError(f"plan is for {plan.rows.extent}x"
                          f"{plan.cols.extent} frames; got {H}x{W}")
     w = coeffs.shape[-1]
-    if w not in KERNEL_WINDOWS or w != 2 * plan.rows.r + 1:
-        raise ValueError(f"the CUDA kernel is built for windows "
-                         f"{KERNEL_WINDOWS} matching the plan; got w={w}")
+    if w != 2 * plan.rows.r + 1:
+        raise ValueError(f"the coefficients' window must match the plan's "
+                         f"w={2 * plan.rows.r + 1}; got w={w}")
     want_c = torch.int32 if dtypes.is_fixed_point(planes.dtype) \
         else torch.float32
     shape_ok = (coeffs.ndim == 3 and coeffs.shape[1] == (
@@ -238,9 +281,6 @@ def check_operands(planes, coeffs, plan, q_params, form):
                          f"[N, {'2' if form == 'separable' else 'w'}, w] "
                          f"tensor on {dev}; got {coeffs.dtype} "
                          f"{tuple(coeffs.shape)} on {coeffs.device}")
-    if coeffs.numel() * 4 > MAX_COEFF_BYTES:
-        raise ValueError(f"bank of {coeffs.shape[0]} filters exceeds the "
-                         f"kernel's {MAX_COEFF_BYTES} B coefficient file")
     if plan.requant is not None:
         n = coeffs.shape[0]
         if (q_params.device != dev or q_params.dtype != torch.int32
@@ -265,46 +305,62 @@ def filter2d_halo(planes: torch.Tensor, coeffs: torch.Tensor, plan: HaloPlan,
     Returns [M, N, Ho, Wo] at :func:`out_dtype`.
 
     A CUDA tensor launches the kernel on ``torch.cuda.current_stream()``
-    (the call returns before the card finishes); a CPU tensor runs
+    (the call returns before the card finishes), once per chunk of the
+    bank (``halo.coeff_chunks``); a CPU tensor runs
     :func:`filter2d_halo_ref`.
     """
     if form not in FORMS:
         raise ValueError(f"unknown form {form!r}; choose from {FORMS}")
+    filter2d_halo.calls += 1
     if planes.device.type == "cpu":
         return filter2d_halo_ref(planes, coeffs, plan, q_params=q_params,
                                  form=form)
     if planes.device.type != "cuda":
         raise ValueError(f"no filter2d_halo for device {planes.device}")
+    loader = loader_for(planes)
+    out, launches = launch_args(planes, coeffs, plan, q_params, form, loader)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    with torch.cuda.device(planes.device):
+        for _, _, args in launches:
+            rc = lib.filter2d_halo_launch(*args, stream)
+            if rc != 0:
+                raise RuntimeError(f"filter2d_halo launch failed with CUDA "
+                                   f"error {rc}")
+            filter2d_halo.launches += 1
+            filter2d_halo.tma_launches += loader == "tma"
+    return out
+
+
+def launch_args(planes: torch.Tensor, coeffs: torch.Tensor, plan: HaloPlan,
+                q_params: Optional[torch.Tensor], form: str, loader: str):
+    """The checked operands of a launch on the card: ``(out, launches)``,
+    the empty [M, N, Ho, Wo] output and, per chunk of the bank
+    (``halo.coeff_chunks``), ``(n0, n1, args)`` with the leading C
+    arguments of the launch that writes filters [n0, n1) of ``out``."""
     if plan.requant is not None and q_params is None:
         q_params = torch.tensor(plan.requant.params(coeffs.shape[0]),
                                 dtype=torch.int32, device=planes.device)
     check_operands(planes, coeffs, plan, q_params, form)
     M, H, W = planes.shape
     N, w = coeffs.shape[0], coeffs.shape[-1]
-    border = BorderSpec(plan.policy)
-    Ho, Wo = out_shape(H, W, w, border)
+    Ho, Wo = out_shape(H, W, w, BorderSpec(plan.policy))
     odt = out_dtype(plan, planes.dtype)
     out = torch.empty((M, N, Ho, Wo), dtype=odt, device=planes.device)
     # the constant, rounded to the storage dtype (exact as a double)
     const = float(torch.tensor(plan.constant).to(planes.dtype).double())
-    loader = loader_for(planes)
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    with torch.cuda.device(planes.device):
-        rc = lib.filter2d_halo_launch(
-            planes.data_ptr(), coeffs.data_ptr(),
-            q_params.data_ptr() if q_params is not None else None,
-            out.data_ptr(), M, H, W, N, Ho, Wo, w, plan.rows.off,
-            _POLICY_CODE[plan.policy], const, _DTYPE_CODE[planes.dtype],
-            _DTYPE_CODE[odt], _FORM_CODE[form],
-            _ROUNDING_CODE[plan.requant.rounding] if plan.requant else -1,
-            int(loader == "tma"), stream)
-    if rc != 0:
-        raise RuntimeError(f"filter2d_halo launch failed with CUDA error {rc}")
-    filter2d_halo.launches += 1
-    filter2d_halo.tma_launches += loader == "tma"
-    return out
+    chunks = halo.coeff_chunks(N, halo.plan_ring_geometry(plan),
+                               form == "separable")
+    return out, [(n0, n1, (
+        planes.data_ptr(), coeffs[n0:n1].data_ptr(),
+        q_params[n0:n1].data_ptr() if q_params is not None else None,
+        out[:, n0:n1].data_ptr(), M, H, W, n1 - n0, Ho, Wo, w, plan.rows.off,
+        _POLICY_CODE[plan.policy], const, _DTYPE_CODE[planes.dtype],
+        _DTYPE_CODE[odt], _FORM_CODE[form],
+        _ROUNDING_CODE[plan.requant.rounding] if plan.requant else -1,
+        int(loader == "tma"), N)) for n0, n1 in chunks]
 
 
 filter2d_halo.launches = 0
 filter2d_halo.tma_launches = 0
+filter2d_halo.calls = 0

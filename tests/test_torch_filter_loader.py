@@ -88,10 +88,9 @@ def _bad_cases():
     x, co, plan, q, form = _operands()
     xi, coi, plani, qi, _ = _operands(torch.int8, rounding="nearest")
     gains = torch.ones(2, 2, dtype=torch.int32)
-    big = torch.ones(K.MAX_COEFF_BYTES // (4 * 25) + 1, 5, 5)
     strided = x.transpose(1, 2).contiguous().transpose(1, 2)
-    planes, coeffs, bank, windows = ("planes must be", "coeffs must be",
-                                     "coefficient file", "built for windows")
+    planes, coeffs, windows = ("planes must be", "coeffs must be",
+                               "match the plan")
     return {
         "float64 planes": (TypeError, "planes", (x.double(), co, plan, q,
                                                  form)),
@@ -109,8 +108,6 @@ def _bad_cases():
                                                 form)),
         "separable taps as a square": (ValueError, coeffs,
                                        (x, co, plan, q, "separable")),
-        "bank past the coefficient file": (ValueError, bank,
-                                           (x, big, plan, q, form)),
         "float coeffs on an int frame": (ValueError, coeffs,
                                          (xi, coi.float(), plani, qi, form)),
         "gains of the wrong shape": (ValueError, "q_params must be",

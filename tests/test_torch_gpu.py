@@ -269,18 +269,18 @@ def test_xla_on_the_card_matches_cuda(cuda, policy, dtype, rng):
 def test_xla_overflow_edge_on_the_card(cuda, w):
     """All-max int16 under duplicate: every output is 32767 · Σk wrapped
     to int32. Past w 11 'xla' splits the coefficients in 16-bit halves;
-    the kernel stops at w 7, so those windows are held against the plain
-    'core' executor on the CPU and the closed form."""
+    'cuda' runs every odd window (w 13 and 15 on its generic
+    instantiation), so both are held against each other on the card, and
+    against the closed form."""
     x = torch.full((2, 40, 70), 32767, dtype=torch.int16)
     k = torch.full((w, w), 1 << 20, dtype=torch.int32)
     if w > 7:                   # a negative tap and a low half that carries
         k[0, 0], k[w // 2, w // 2] = -(1 << 31), 0x7FFFBEEF
     spec = Filter2D(window=w, dtype="int16", border="duplicate")
     got = spec.compile(x.shape, "xla", device=cuda)(x, k)
-    if w in K.KERNEL_WINDOWS:
-        ref = spec.compile(x.shape, "cuda", device=cuda)(x, k)
-    else:
-        ref = spec.compile(x.shape, "core", device="cpu")(x, k).to(cuda)
+    before = K.filter2d_halo.launches
+    ref = spec.compile(x.shape, "cuda", device=cuda)(x, k)
+    assert K.filter2d_halo.launches == before + 1
     edge = (32767 * int(k.long().sum()) + 2 ** 31) % 2 ** 32 - 2 ** 31
     assert got.dtype == torch.int32 and torch.equal(got, ref)
     assert bool((got == edge).all())
@@ -972,3 +972,62 @@ def test_elastic_restart_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert reps[dev].resumed_from == 3
     _same_spmd_run(reps["cuda:0"], reps["cpu"], tmp_path / "cud",
                    tmp_path / "cpu", 5)
+
+
+# -- every odd window, any bank, the trace build (F5, the verifier) ---------
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("w", [9, 17])
+def test_generic_window_is_bit_exact_on_the_card(cuda, w, dtype, form, rng):
+    """Windows past the instantiations run on the generic path, bit for
+    bit against the plain version on the card, at both loaders."""
+    n = 1 if form == "separable" else 2
+    co = _coeffs(rng, dtype, (n, 2, w) if form == "separable"
+                 else (n, w, w)).to(cuda)
+    for W in (301, 336):                      # per-thread, TMA
+        x = _frame(rng, dtype, (2, 45, W)).to(cuda)
+        plan = halo.make_plan(45, W, w, BorderSpec("mirror"), 45, W,
+                              dtype=dtype)
+        got = K.filter2d_halo(x, co, plan, form=form)
+        assert torch.equal(got, K.filter2d_halo_ref(x, co, plan, form=form))
+
+
+def test_a_bank_past_the_coefficient_file_runs_in_chunks(cuda, rng):
+    x = _frame(rng, "int16", (2, 40, 96)).to(cuda)
+    co = _coeffs(rng, "int16", (60, 11, 11)).to(cuda)
+    plan = halo.make_plan(40, 96, 11, BorderSpec("wrap"), 40, 96,
+                          dtype="int16")
+    chunks = halo.coeff_chunks(60, halo.plan_ring_geometry(plan))
+    before = K.filter2d_halo.launches
+    got = K.filter2d_halo(x, co, plan)
+    assert K.filter2d_halo.launches - before == len(chunks) > 1
+    assert torch.equal(got, K.filter2d_halo_ref(x, co, plan))
+
+
+@pytest.mark.parametrize("loader", ["tma", "thread"])
+@pytest.mark.parametrize("dtype,policy", [("float32", "constant"),
+                                          ("int8", "wrap")])
+def test_trace_build_log_equals_the_schedule_model(cuda, dtype, policy,
+                                                   loader, rng):
+    """The trace build's events equal ``schedule_model``'s, the passes
+    are clean on the card's log, and its output is the kernel's."""
+    from repro_torch import analysis
+    from repro_torch.kernels.filter2d import trace
+    W = 320
+    x = _frame(rng, dtype, (2, 70, W)).to(cuda)
+    co = _coeffs(rng, dtype, (3, 5, 5)).to(cuda)
+    plan = halo.make_plan(70, W, 5, BorderSpec(policy, -3), 70, W,
+                          dtype=dtype)
+    out, log = trace.traced_call(x, co, plan, loader=loader, blocks=3)
+    ct = K.kernel_contract(plan, 3, "direct", dtype, loader)
+    dev = analysis.from_device_log(log, contract=ct, plan=plan, M=2)
+    model = analysis.schedule_model(ct, halo.plan_ring_geometry(plan), plan,
+                                    2, 3)
+    assert analysis.schedule_diff(model, dev) == []
+    report = analysis.verify_kernel(plan, num_filters=3, dtype=dtype, M=2,
+                                    loader=loader, blocks=3,
+                                    schedule=lambda *a: dev)
+    assert report.clean, report.render()
+    assert torch.equal(out, K.filter2d_halo_ref(x, co, plan))

@@ -51,6 +51,11 @@ def test_import_leaves_jax_and_reference_out():
             "import repro_torch.sharding.placement, "
             "repro_torch.training.spmd, repro_torch.launch.dryrun\n"
             "import repro_torch.launch.roofline, repro_torch.launch.report\n"
+            "import repro_torch.analysis, repro_torch.analysis.ir, "
+            "repro_torch.analysis.passes, repro_torch.analysis.report, "
+            "repro_torch.analysis.verify, repro_torch.analysis.__main__, "
+            "repro_torch.kernels.filter2d.contract, "
+            "repro_torch.kernels.filter2d.trace\n"
             "sys.path.insert(0, sys.argv[1]); import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
