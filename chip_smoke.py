@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --generic  # phases 3b and 6d alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -10,10 +11,13 @@ Phases, in order; any failure exits non-zero:
   2. build    — builds the three CUDA kernels (``filter2d_halo``,
                 ``swattn``, ``dwconv1d``) and the filter kernel's trace
                 build (``-DF2D_TRACE``, phase 6e's) from ``src/`` into
-                ``build/`` (one ``nvcc`` per source, all started together) and
-                summarises ``-Xptxas -v`` per kernel: registers, shared
-                memory, spills (the full reports stay in ``build/``); a
-                float32 ``swattn`` instantiation that spills is a failure.
+                ``build/`` (one ``nvcc`` per source, all started together;
+                each unit's seconds are printed) and summarises ``-Xptxas
+                -v`` per kernel: registers, shared memory, spills (the full
+                reports stay in ``build/``), the generic window's
+                instantiations on a line of their own; a float32
+                ``swattn`` or generic-window filter instantiation that
+                spills is a failure.
   3. kernel   — holds the kernel against its plain torch version
                 (``filter2d_halo_ref``) on the card: 6 border policies
                 (non-zero constant), 4 forms + separable, w ∈ {3, 5, 7},
@@ -30,12 +34,20 @@ Phases, in order; any failure exits non-zero:
                 bit-exact; float32 within rtol=atol=3e-4; bfloat16 within
                 3e-2.
  3b. windows  — the generic window (every odd w past 7, the radius a
-                runtime value) at w 9, 11, 13, 15 and 31: every dtype,
-                policy and form (the separable form too), both loaders,
-                integer frames alternating the int32 output and a requant
-                in each rounding, bit for bit against the plain version;
-                and a bank of 48 w13 float32 filters (32,448 B of
-                coefficients), two launches of one output.
+                runtime value) at w 9, 13, 15, 17, 31 and 33 (either side
+                of the 16-tap chunks its loops take a row's taps in):
+                every dtype, policy and form (the separable form too),
+                both loaders, integer frames alternating the int32 output
+                and a requant in each rounding, 8-bit direct banks once
+                within a signed byte (the dp4a route) and once with a
+                coefficient of 200 (the int32 MAC), bit for bit against
+                the plain version, the route each bank took observed
+                through the trace build (its reads' packed flag); each
+                datapath at the largest window the
+                ring holds for it (float32 61, bfloat16 87, int16 101,
+                8-bit 129; separable too); and a bank of 48 w13 float32
+                filters (32,448 B of coefficients), two launches of one
+                output.
   4. serving  — ``FilterServeEngine(batch_size=4, device='cuda')`` serves
                 32 requests drawn from ``build_mix(rng, scale=15)`` (1440x1920
                 float32 w5 mirror for two tenants, 960x1440 float32 w3
@@ -102,9 +114,18 @@ Phases, in order; any failure exits non-zero:
                 read after (the launches must be 2 + strips + shards +
                 waves); then ``compile()`` refusing the first float32
                 window the ring cannot hold, its message printed.
- 6d. generic  — the generic window's times at w 9 and 13, float32 and int8
-                with a requant, at [4,960,1440], as phase 5 prints the
-                buckets' (kernel, plain, ``F.conv2d`` for float32, bound).
+ 6d. generic  — the generic window's times at [4,960,1440], as phase 5
+                prints the buckets' (kernel, plain, ``F.conv2d`` for float
+                frames, bound): float32 w 9 and 13 direct, w13 separable,
+                w9 tree and compress, bfloat16 w9, int8 requant w 9 and 13
+                on both MAC routes, uint8 and int16 requant w9. Float rows
+                also give the ceiling of separately rounded products and
+                sums (half the float32 peak); integer rows state the rate
+                their bound assumes (dp4a: four MACs an instruction at the
+                IMAD issue rate), the 8-bit rows' route observed through
+                the trace build on the row's bank. ``python3 chip_smoke.py
+                --generic`` runs
+                3b and 6d alone.
  6e. analysis — the kernel verifier (``repro_torch.analysis``) on the card:
                 the built library's geometry and shared memory equal to
                 the Python twin's for every window the ring runs; the
@@ -367,8 +388,34 @@ SERVING_KERNELS = ("filter2d_halo<f32,f32,f32,w5,fold>",
                    "filter2d_halo<f32,f32,f32,w3,fold>",
                    "filter2d_halo<i8,i32,i8,w3,fold>")
 REPLACES = "src/repro/kernels/filter2d/kernel.py:349"
-# the windows past the instantiations that phase 3b holds bit for bit
-LARGE_WINDOWS = (9, 11, 13, 15, 31)
+# the windows past the instantiations that phase 3b holds bit for bit: the
+# generic path runs a row's taps in chunks of 16, so 15 | 17 and 31 | 33
+# sit on either side of a chunk boundary
+LARGE_WINDOWS = (9, 13, 15, 17, 31, 33)
+# every datapath the kernel builds, as (storage dtype, requant dtype or None
+# for the accumulator's own output); phase 3b runs each at the largest
+# window the ring holds for it
+DATAPATHS = (("float32", None), ("bfloat16", None), ("int8", None),
+             ("int8", "int8"), ("uint8", "uint8"), ("int16", None),
+             ("int16", "int16"))
+ITEMSIZE = {"float32": 4, "bfloat16": 2, "int8": 1, "uint8": 1, "int16": 2}
+# phase 6d's rows of the generic window at [4,960,1440]: (row, storage
+# dtype, w, form, requant dtype, bank). "byte": every coefficient fits a
+# signed byte (the dp4a route of 8-bit frames); "wide": one coefficient of
+# 200 (the int32 MAC). int16 frames always take the int32 MAC.
+GENERIC_ROWS = (
+    ("w9float32", "float32", 9, "direct", None, None),
+    ("w13float32", "float32", 13, "direct", None, None),
+    ("w13float32separable", "float32", 13, "separable", None, None),
+    ("w9float32tree", "float32", 9, "tree", None, None),
+    ("w9float32compress", "float32", 9, "compress", None, None),
+    ("w9bfloat16", "bfloat16", 9, "direct", None, None),
+    ("w9int8", "int8", 9, "direct", "int8", "byte"),
+    ("w13int8", "int8", 13, "direct", "int8", "byte"),
+    ("w9int8wide", "int8", 9, "direct", "int8", "wide"),
+    ("w13int8wide", "int8", 13, "direct", "int8", "wide"),
+    ("w9uint8", "uint8", 9, "direct", "uint8", "byte"),
+    ("w9int16", "int16", 9, "direct", "int16", "byte"))
 # the kernel per dtype: bfloat16, then float32
 SWATTN_SOURCE = ("src/repro_torch/kernels/swattn/csrc/swattn_bf16.cu, "
                  "src/repro_torch/kernels/swattn/csrc/swattn.cu")
@@ -698,6 +745,43 @@ class Smoke:
         self.say(f"kernel phase: {n} cases agree, each through the loader "
                  "it was meant to take")
 
+    def mac_route(self, dt, co, *, loader="tma", requant=None):
+        """The MAC route an integer bank's generic-window launch takes, as
+        the trace build observes it (``trace.traced_call`` on a small
+        frame, the card's own grid): every read of the log counted by
+        ``trace.mac_routes``, the output held against the plain version
+        bit for bit. Raises unless every read took the same route."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core.border_spec import BorderSpec
+        from repro_torch.core.requant import RequantSpec
+        from repro_torch.kernels.filter2d import halo, trace
+        from repro_torch.kernels.filter2d.kernel import filter2d_halo_ref
+        co = torch.as_tensor(co).to(torch.int32).cuda()
+        N, w = co.shape[0], co.shape[-1]
+        H, W = w + 6, 176 if loader == "tma" else 175
+        info = np.iinfo(dt)
+        rng = np.random.default_rng(w)
+        x = torch.from_numpy(rng.integers(info.min, int(info.max) + 1,
+                                          (1, H, W)).astype(dt)).cuda()
+        rq = None if requant is None else RequantSpec(
+            multiplier=3, shift=6, rounding="nearest", dtype=requant)
+        q = None if rq is None else torch.tensor(rq.params(N),
+                                                 dtype=torch.int32,
+                                                 device="cuda")
+        plan = halo.make_plan(H, W, w, BorderSpec("mirror"), H, W, dtype=dt,
+                              requant=rq)
+        out, log = trace.traced_call(x, co, plan, q_params=q, loader=loader)
+        ref = filter2d_halo_ref(x, co, plan, q_params=q)
+        case = f"{dt} w{w} [1,{H},{W}] {loader} requant={requant}"
+        if not torch.equal(out, ref):
+            raise AssertionError(f"trace build {case}: not bit for bit")
+        seen = {k: v for k, v in trace.mac_routes(log).items() if v}
+        if len(seen) != 1:
+            raise AssertionError(f"trace build {case}: reads by route "
+                                 f"{seen}")
+        return next(iter(seen))
+
     # -- phase 3b ------------------------------------------------------------
 
     def large_window_phase(self, windows=LARGE_WINDOWS):
@@ -705,25 +789,67 @@ class Smoke:
         a bank past the coefficient file, bit for bit against the plain
         version: every dtype, policy and form, both loaders; integer
         frames alternate the int32 output and a requant in each rounding.
-        Returns the case count."""
+        8-bit direct banks run twice, once with every coefficient in a
+        signed byte (-128 and 127 among them: the dp4a route) and once
+        with a coefficient of 200 (the int32 MAC); at the first policy each
+        such bank also runs through the trace build, which must observe
+        the route its coefficients call for (``mac_route``). Then each
+        datapath at
+        the largest window the ring holds for it, direct and separable,
+        both loaders. Returns the case count."""
         import numpy as np
-        torch = self.torch
         from repro_torch.kernels.filter2d import halo
         from repro_torch.kernels.filter2d import kernel as K
         rng = np.random.default_rng(26)
-        n = 0
+        n = k = 0
+        routes = {"dp4a": 0, "int32 MAC": 0}
         for W, loader in ((301, "thread"), (336, "tma")):
             for dt in ("float32", "bfloat16", "int8", "uint8", "int16"):
                 for policy in POLICIES:
                     for form in FORMS:
                         for w in windows:
                             N = 1 if form == "separable" else 2
-                            rounding = (None if dt in TOL or n % 2
-                                        else ROUNDINGS[(n // 2) % 3])
-                            self.check_case(rng, dt, policy, form, w, M=2,
-                                            N=N, W=W, rounding=rounding,
-                                            loader=loader, exact=True)
-                            n += 1
+                            rounding = (None if dt in TOL or k % 2
+                                        else ROUNDINGS[(k // 2) % 3])
+                            k += 1
+                            x, co = self._inputs(rng, dt, 2, 67, W, N, w,
+                                                 form)
+                            banks = [(None, co)]
+                            # transposed is the direct instantiation
+                            if dt in ("int8", "uint8") and form == "direct":
+                                fits, wide = co.clone(), co.clone()
+                                fits.view(-1)[0] = -128
+                                fits.view(-1)[-1] = 127
+                                wide.view(-1)[-1] = 200
+                                banks = [("dp4a", fits), ("int32 MAC", wide)]
+                            for route, c in banks:
+                                self.check_case(rng, dt, policy, form, w,
+                                                x=x, co=c, rounding=rounding,
+                                                loader=loader, exact=True)
+                                n += 1
+                                if route is None or policy != POLICIES[0]:
+                                    continue
+                                seen = self.mac_route(dt, c, loader=loader)
+                                if seen != route:
+                                    raise AssertionError(
+                                        f"{dt} w{w} {loader}: the trace "
+                                        f"build saw the {seen} route, the "
+                                        f"bank calls for {route}")
+                                routes[route] += 1
+        tops = {}
+        for dt, out in DATAPATHS:
+            s, so = ITEMSIZE[dt], ITEMSIZE[out] if out else (
+                ITEMSIZE[dt] if dt in TOL else 4)
+            for form in ("direct", "separable"):
+                w = halo.max_ring_window(s, so, form == "separable")
+                tops[f"{dt}->{out or ('int32' if dt not in TOL else dt)} "
+                     f"{form}"] = w
+                for W, loader in ((175, "thread"), (176, "tma")):
+                    x, co = self._inputs(rng, dt, 1, w + 6, W, 1, w, form)
+                    self.check_case(rng, dt, "mirror", form, w, x=x, co=co,
+                                    rounding="nearest_even" if out else None,
+                                    loader=loader, exact=True)
+                    n += 1
         # a bank of 48 w13 float32 filters: 32,448 B of coefficients, two
         # launches of one output
         x, co = self._inputs(rng, "float32", 2, 67, 336, 48, 13, "direct")
@@ -739,9 +865,11 @@ class Smoke:
         n += 1
         self.say(f"large-window phase: {n} cases at w {list(windows)} "
                  f"agree bit for bit with the plain version (every dtype, "
-                 f"policy and form, both loaders), and a bank of 48 w13 "
-                 f"float32 filters ({48 * 13 * 13 * 4} B of coefficients) "
-                 f"ran as {added} launches {list(chunks)}")
+                 f"policy and form, both loaders; 8-bit direct banks by "
+                 f"route, as the trace build observed it: {routes}), each datapath at its largest window "
+                 f"{tops}, and a bank of 48 w13 float32 filters "
+                 f"({48 * 13 * 13 * 4} B of coefficients) ran as {added} "
+                 f"launches {list(chunks)}")
         return n
 
     # -- phase 4 -------------------------------------------------------------
@@ -931,8 +1059,11 @@ class Smoke:
         from repro_torch.kernels.filter2d import kernel as K
         cf = t.spec.compile(batched_shape(t.frame.shape, 4), "cuda",
                             device="cuda")
-        planes = torch.from_numpy(np.stack([t.frame] * 4)).cuda()
+        frame = torch.as_tensor(t.frame)
+        planes = torch.stack([frame] * 4).cuda()
         fixed = t.spec.requant is not None
+        form = "separable" if t.spec.separable else t.spec.form
+        route = getattr(t, "route", None)
         co = torch.as_tensor(np.asarray(t.coeffs)).cuda()
         co = co.to(torch.int32 if fixed else torch.float32)[None]
         co = co.contiguous()
@@ -945,11 +1076,11 @@ class Smoke:
 
         def kern():
             return K.filter2d_halo(planes, co, cf.plan, q_params=q,
-                                   form=t.spec.form)
+                                   form=form)
 
         def plain():
             return K.filter2d_halo_ref(planes, co, cf.plan, q_params=q,
-                                       form=t.spec.form)
+                                       form=form)
 
         ms = self._time(kern, 50)
         plain_ms = self._time(plain, 5, warmup=1)
@@ -958,13 +1089,16 @@ class Smoke:
         lib_ms = None
         if not fixed:
             xp = extend(planes, w // 2, t.spec.border)[:, None]
-            wt = co[:, None]
+            # the separable factors as the one w x w filter they make
+            wt = (co[:, 0, :, None] * co[:, 1, None, :] if form ==
+                  "separable" else co)[:, None].to(planes.dtype)
 
             def lib():
                 return F.conv2d(xp, wt)
             with cudnn_without_tf32():
-                err = float((lib()[:, 0] - kern()[:, 0]).abs().max())
-                if err > 1e-3:
+                err = float((lib()[:, 0].float()
+                             - kern()[:, 0].float()).abs().max())
+                if err > (1e-3 if planes.dtype == torch.float32 else 0.1):
                     raise AssertionError(f"yardstick conv2d disagrees: "
                                          f"{err}")
                 lib_ms = self._time(lib, 50)
@@ -972,10 +1106,20 @@ class Smoke:
         geo = K.geometry(planes.dtype, out.dtype, w)
         bytes_moved = (planes.numel() * planes.element_size()
                        + out.numel() * out.element_size())
-        ops = 2 * w * w * out.numel()
+        Mo, No, Ho, Wo = out.shape
+        # the separable form: the v-pass over every window row, then the
+        # u-pass; every other form w*w products and sums a pixel
+        ops = (2 * w * Mo * No * Wo * (2 * Ho + w - 1) if form ==
+               "separable" else 2 * w * w * out.numel())
+        # dp4a: four byte products an instruction at the IMAD issue rate
+        rate = self.peak_ops[t.spec.dtype] * (4 if route == "dp4a" else 1)
         bytes_ms = bytes_moved / self.hbm_bw * 1e3
-        ops_ms = ops / self.peak_ops[t.spec.dtype] * 1e3
+        ops_ms = ops / rate * 1e3
         bound_ms = max(bytes_ms, ops_ms)
+        # float frames run on the float32 units with no contraction: two
+        # instructions a product and sum, so at most half of that peak
+        ceiling_ms = (2 * ops / self.peak_ops["float32"] * 1e3
+                      if not fixed else None)
         row = {"bucket": t.bucket, "shape": [M, H, W], "w": w,
                "dtype": t.spec.dtype, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms,
@@ -984,15 +1128,23 @@ class Smoke:
                "bytes": bytes_moved, "ops": ops,
                "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                "share_of_bound": bound_ms / ms, "copy_ms": copy_ms,
-               "geometry": geo}
+               "geometry": geo, "form": form, "route": route,
+               "ops_rate": rate, "ceiling_ms": ceiling_ms}
         self.say(f"timing {t.bucket} planes [{M},{H},{W}] w{w} "
                  f"{t.spec.dtype}: kernel {ms!r} ms, bound {bound_ms!r} "
                  f"ms ({row['bound_by']}: {bytes_moved} B / "
                  f"{self.hbm_bw:.3g} B/s = {bytes_ms!r} ms; {ops} ops / "
-                 f"{self.peak_ops[t.spec.dtype]:.3g} op/s = "
-                 f"{ops_ms!r} ms), plain {plain_ms!r} ms, library "
+                 f"{rate:.3g} op/s = {ops_ms!r} ms), plain {plain_ms!r} ms, library "
                  f"{lib_ms!r} ms, {bytes_moved / (ms * 1e-3) / 1e12!r} "
                  "TB/s achieved")
+        if ceiling_ms is not None:
+            self.say(f"timing {t.bucket}: {form} on the float32 units with "
+                     f"no contraction: ceiling {ceiling_ms!r} ms, share of "
+                     f"the ceiling {ceiling_ms / ms!r}")
+        elif route is not None:
+            per = "4 MACs a dp4a" if route == "dp4a" else "one MAC an IMAD"
+            self.say(f"timing {t.bucket}: {route} route, operations bound at "
+                     f"{rate:.4g} op/s ({per} at the IMAD issue rate)")
         copy_bytes = 2 * planes.numel() * planes.element_size()
         copy_rate = copy_bytes / (copy_ms * 1e-3) / 1e12
         self.say(f"timing {t.bucket}: share of bound {bound_ms / ms!r}; a "
@@ -1696,9 +1848,11 @@ class Smoke:
                 "refusal": refusal}
 
     def generic_timing(self, shape=(4, 960, 1440)):
-        """The generic window's kernel at w 9 and 13, float32 and int8 with
-        a requant, as phase 5 times the serving buckets: kernel, plain,
-        ``F.conv2d`` (float32) and the bound."""
+        """The generic window's kernel at phase 6d's rows
+        (``GENERIC_ROWS``), as phase 5 times the serving buckets: kernel,
+        plain, ``F.conv2d`` (float frames) and the bound; the float rows
+        also beside the ceiling of separately rounded products and sums,
+        the integer rows at the rate of the MAC they take."""
         import types
         import numpy as np
         from repro_torch.core.border_spec import BorderSpec
@@ -1707,28 +1861,44 @@ class Smoke:
         rng = np.random.default_rng(13)
         rows = {}
         with saved_counts():
-            for dt in ("float32", "int8"):
-                for w in (9, 13):
-                    if dt == "float32":
-                        frame = rng.standard_normal(shape[1:]).astype(
-                            np.float32)
-                        co = (rng.standard_normal((w, w)) / w).astype(
-                            np.float32)
-                        gains = None
-                        spec = Filter2D(window=w, border=BorderSpec("mirror"))
-                    else:
-                        frame = rng.integers(-128, 128, shape[1:]).astype(
-                            np.int8)
-                        co = rng.integers(-8, 9, (w, w)).astype(np.int32)
-                        gains = RequantSpec(multiplier=3, shift=6,
-                                            rounding="nearest", dtype="int8")
-                        spec = Filter2D(window=w, border=BorderSpec("mirror"),
-                                        dtype="int8",
-                                        requant=gains.gain_free())
-                    t = types.SimpleNamespace(bucket=f"w{w}{dt}", spec=spec,
-                                              frame=frame, coeffs=co,
-                                              gains=gains)
-                    rows[t.bucket] = self._filter_timing(t)
+            for name, dt, w, form, rq, bank in GENERIC_ROWS:
+                sep = form == "separable"
+                cshape = (2, w) if sep else (w, w)
+                if dt in TOL:
+                    frame = rng.standard_normal(shape[1:]).astype(np.float32)
+                    if dt == "bfloat16":
+                        frame = self.torch.from_numpy(frame).to(
+                            self.torch.bfloat16)
+                    co = (rng.standard_normal(cshape) / w).astype(np.float32)
+                    gains = None
+                    spec = Filter2D(window=w, border=BorderSpec("mirror"),
+                                    dtype=dt, separable=sep,
+                                    form="direct" if sep else form)
+                else:
+                    info = np.iinfo(dt)
+                    frame = rng.integers(info.min, int(info.max) + 1,
+                                         shape[1:]).astype(dt)
+                    co = rng.integers(-8, 9, cshape).astype(np.int32)
+                    if bank == "wide":
+                        co[0, 0] = 200
+                    gains = RequantSpec(multiplier=3, shift=6,
+                                        rounding="nearest", dtype=rq)
+                    spec = Filter2D(window=w, border=BorderSpec("mirror"),
+                                    dtype=dt, requant=gains.gain_free())
+                # 8-bit frames pick their route per block at run time: the
+                # trace build observes it on this bank; int16 frames have
+                # no dp4a instantiation
+                route = None
+                if dt in ("int8", "uint8"):
+                    route = self.mac_route(dt, co[None], requant=rq)
+                    if route != ("dp4a" if bank == "byte" else "int32 MAC"):
+                        raise AssertionError(f"{name}: the trace build saw "
+                                             f"the {route} route")
+                elif dt not in TOL:
+                    route = "int32 MAC"
+                t = types.SimpleNamespace(bucket=name, spec=spec, frame=frame,
+                                          coeffs=co, gains=gains, route=route)
+                rows[name] = self._filter_timing(t)
         return rows
 
     def analysis_phase(self):
@@ -4809,6 +4979,18 @@ def ptxas_report(smoke, libs) -> None:
             if spilled:
                 raise AssertionError(f"ptxas: serving kernels spill: "
                                      f"{spilled}")
+            # the generic window's instantiations (w0: the radius at run
+            # time); a float32 one that spills is a failure
+            generic = [(kernel_label(m), r, sp) for m, r, _, sp in kernels
+                       if ",w0," in kernel_label(m)]
+            smoke.say("ptxas filter2d_halo generic window: " + "; ".join(
+                f"{label} {r} registers, {sp} B spilled"
+                for label, r, sp in generic))
+            spilled = [label for label, _, sp in generic
+                       if sp and label.startswith("filter2d_halo<f32")]
+            if spilled:
+                raise AssertionError(f"ptxas: float32 generic kernels "
+                                     f"spill: {spilled}")
         f32 = [(kernel_label(m), r, sp) for m, r, _, sp in kernels
                if kernel_label(m).startswith("swattn<f32")]
         if f32:
@@ -4829,6 +5011,29 @@ def ptxas_report(smoke, libs) -> None:
         for line in lib.ptxas_log.read_text().splitlines():
             if "wgmma" in line and "Performance Loss" in line:
                 smoke.say(f"ptxas {lib.name}: {line.strip()[:300]}")
+
+
+def generic_main(torch, card, part) -> int:
+    """``--generic``: the filter kernel's generic window alone. Builds the
+    filter library, prints its ptxas report and build time, then runs
+    phases 3b (every odd window past 7 bit for bit) and 6d (the generic
+    rows' times) and prints the rows as JSON; about 3 minutes on an
+    H100."""
+    from repro_torch.kernels import _build
+    lib = _build.all_libraries()[0]
+    t0 = time.perf_counter()
+    _build.build_all([lib], verbose=True)
+    lib.load()
+    smoke = Smoke(torch, card, part)
+    ptxas_report(smoke, [lib])
+    smoke.say(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cases = smoke.large_window_phase()
+    smoke.say(f"large-window phase took {time.perf_counter() - t0:.1f} s")
+    rows = smoke.generic_timing()
+    print(json.dumps({"large_window_cases": cases, "generic": rows}),
+          flush=True)
+    return 0
 
 
 def main() -> int:
@@ -4852,6 +5057,8 @@ def main() -> int:
     print(f"roofline constants: {part.name}, {part.hbm_bw!r} B/s, peak "
           f"op/s {dict(part.peak_ops)}", flush=True)
 
+    if sys.argv[1:] == ["--generic"]:
+        return generic_main(torch, card, part)
     from repro_torch.kernels import _build
     from repro_torch.kernels.filter2d import trace
     t0 = time.perf_counter()

@@ -270,10 +270,10 @@ class RingModel:
     def smem_parts(self, n: int) -> Tuple[Tuple[str, int], ...]:
         """The launch's shared memory by role, for ``n`` filters."""
         g, S = self.geo, halo.RING_STAGES
-        taps = halo.ring_taps(g.w, self.contract.separable)
+        words = halo.ring_coeff_words(g.w, self.contract.separable)
         return (("align", 128), ("ring", S * g.stage),
                 ("full_bar", 8 * S), ("empty_bar", 8 * S),
-                ("coeffs", n * taps * halo.COEFF_BYTES), ("qparams", n * 8))
+                ("coeffs", n * words * halo.COEFF_BYTES), ("qparams", n * 8))
 
     # -- the schedule -------------------------------------------------------
 

@@ -5,7 +5,7 @@
 // memory, a TMA frame that is not 16-byte aligned) is reported at once.
 //
 // Built with -DF2D_TRACE (kernels/filter2d/trace.py: this file with the
-// float32 and int8 units only) it exports filter2d_halo_trace_launch
+// float32, int8 and uint8 units only) it exports filter2d_halo_trace_launch
 // instead, the same launch writing the ring's event log.
 #include "filter2d_halo_ring.cuh"
 
@@ -52,9 +52,9 @@ int launch_any(const f2d::Params& p, int in_dtype, int out_dtype, int form,
   switch (in_dtype) {
     case f2d::F32: return (int)f2d::launch_f32(p, out_dtype, form, w, s, info);
     case f2d::I8: return (int)f2d::launch_i8(p, out_dtype, form, w, s, info);
+    case f2d::U8: return (int)f2d::launch_u8(p, out_dtype, form, w, s, info);
 #ifndef F2D_TRACE
     case f2d::BF16: return (int)f2d::launch_bf16(p, out_dtype, form, w, s, info);
-    case f2d::U8: return (int)f2d::launch_u8(p, out_dtype, form, w, s, info);
     case f2d::I16: return (int)f2d::launch_i16(p, out_dtype, form, w, s, info);
 #endif
     default: return (int)cudaErrorInvalidValue;
@@ -123,7 +123,8 @@ extern "C" int filter2d_halo_smem(int in_dtype, int out_dtype, int w,
                                   int form, int n) {
   const int s = dtype_bytes(in_dtype), so = dtype_bytes(out_dtype);
   if (s == 0 || so == 0 || w < 1) return -1;
-  const int ntaps = form == f2d::SEPARABLE ? 2 * w : w * w;
   // the accumulator, and so each coefficient, is 4 bytes for every dtype
-  return (int)f2d::smem_bytes(f2d::geometry(s, so, w), ntaps, n, 4);
+  return (int)f2d::smem_bytes(f2d::geometry(s, so, w),
+                              f2d::coeff_words(w, form == f2d::SEPARABLE), n,
+                              4);
 }

@@ -61,10 +61,11 @@
 //     The consumer warps then sync on a named barrier. Interior items run
 //     no mux and no barrier.
 //  4. Register blocking. Each consumer thread owns C adjacent output columns
-//     (C * sizeof(out) = 16 bytes) and ROWS rows. It reads each window row
-//     segment of C + 2r elements once, with the widest aligned shared loads
-//     that cover it (at a compile-time phase: the segment starts LEAD - r
-//     columns into its words), and slides down: a row's products go
+//     (C * sizeof(out) = 16 bytes; 32 for the float32 generic window) and
+//     ROWS rows. It reads each window row segment of C + 2r elements once,
+//     with the widest aligned shared loads that cover it (at a
+//     compile-time phase: the segment starts LEAD - r columns into its
+//     words), and slides down: a row's products go
 //     straight into the accumulators of the ROWS outputs it feeds, in the
 //     reference's tap order, so the direct form costs (ROWS + 2r) / ROWS
 //     row-segment loads per output row segment instead of w*w loads per
@@ -75,11 +76,25 @@
 //     Windows 1, 3, 5 and 7 are instantiated one by one (the serving
 //     path). Every larger odd window takes one generic instantiation per
 //     dtype and form whose radius is a runtime value (W = 0 below): the
-//     same ring, loaders, mux and epilogue, and loops over the taps; the
-//     direct and separable forms slide a C-element register window along
-//     each row, and tree and compress read each pixel's taps from shared
-//     memory (a w*w tree is too large for registers), the tree through a
-//     binary counter of partial sums that keeps the reference's pairing.
+//     same ring, loaders, mux and epilogue. Its float forms are bound by
+//     issue (two FP32 instructions a tap, no contraction), so the other
+//     instructions must stay few and the shared-memory pipe below its
+//     rate. The direct and separable forms sweep the window rows once; a
+//     row's taps run in chunks of JC = 16 whose lengths are compile-time
+//     cases, so a chunk's C + 15 elements sit in registers at constant
+//     indices, read with the widest aligned shared loads and moved to the
+//     segment's start (a runtime byte offset, the same for every thread)
+//     by word selects; each row feeds the ROWS output rows it belongs to,
+//     each with its coefficient row read by 16-byte broadcast loads from
+//     a file of 16-byte rows. An 8-bit direct launch whose coefficients
+//     all fit a signed byte runs dp4a on packed coefficient words (four
+//     taps an instruction), each block choosing from its own copy of the
+//     bank; other banks and int16 frames run the int32 MAC in the same
+//     loops, and compress runs them with a running sum of each group of
+//     6 taps. The tree reads each pixel's taps from shared memory (its
+//     pairwise sums need a stack of partial sums per output, too many
+//     registers for a thread's block), through a binary counter of
+//     partial sums that keeps the reference's pairing.
 //  4b. A bank whose coefficients exceed the coefficient file is split by
 //     the wrapper into chunks of filters, one launch each, every launch
 //     writing its [:, n0:n1] slice of the one output (Params::n_out is
@@ -202,6 +217,7 @@ struct Params {
 // covers the tile's C-column thread segments plus r columns either side.
 struct Geometry {
   int C;      // output columns per consumer thread: 16 bytes of output
+              // (32 for the float32 generic window)
   int ROWS;   // output rows per consumer thread
   int TX;     // consumer threads across a tile
   int SH;     // centre rows per item (strip height)
@@ -220,8 +236,12 @@ __host__ __device__ constexpr int round_up(int x, int m) {
 
 __host__ __device__ constexpr Geometry geometry(int s, int so, int w) {
   const int r = w / 2;
-  const int C = 16 / so;
-  const int ROWS = C == 16 ? 2 : 4;
+  // float32 windows past 7 (the generic path) take 8 x 2 outputs a thread:
+  // a window row's products come in blocks of 8 independent sums, and a
+  // thread sweeps 2 + w - 1 window rows for 16 outputs
+  const bool wide = w > 7 && s == 4 && so == 4;
+  const int C = wide ? 8 : 16 / so;
+  const int ROWS = wide || C == 16 ? 2 : 4;
   const int TX = TILE_W / C;
   const int SH = (NCONS / TX) * ROWS;
   const int lead_bytes = r * s > 16 ? round_up(r * s, 16) : 16;
@@ -257,11 +277,11 @@ struct Geo {
 };
 
 // the geometry of the generic window: the radius and what follows from it
-// at run time, the thread blocking (a function of the output type alone)
-// at compile time
+// at run time, the thread blocking (the same for every window past 7) at
+// compile time
 template <typename T, typename O>
 struct DynGeo {
-  static constexpr Geometry g0 = geometry(sizeof(T), sizeof(O), 1);
+  static constexpr Geometry g0 = geometry(sizeof(T), sizeof(O), 9);
   static constexpr int S = sizeof(T);
   static constexpr int C = g0.C, ROWS = g0.ROWS, TX = g0.TX, SH = g0.SH;
   static constexpr int G = g0.G;
@@ -469,8 +489,8 @@ __device__ __forceinline__ O from_bits(uint32_t b) {
 }
 
 // one output row segment of a thread: C pixels at dst, those in [lo, hi)
-// inside the output; one 16-byte store where the whole segment is inside
-// and the row allows it
+// inside the output; 16-byte stores where the whole segment is inside and
+// the row allows it
 template <typename O, typename A, int C>
 __device__ __forceinline__ void emit(O* dst, const A (&acc)[C], int lo,
                                      int hi, bool vec, int rounding, int32_t m,
@@ -480,16 +500,21 @@ __device__ __forceinline__ void emit(O* dst, const A (&acc)[C], int lo,
   for (int c = 0; c < C; ++c) bits[c] = finish_bits<O>(acc[c], rounding, m, sh);
   if (vec && lo == 0 && hi >= C) {
     constexpr int PER = 4 / (int)sizeof(O);   // pixels per 32-bit word
-    uint32_t w[4];
+    constexpr int NW = C / PER;               // words: 4 per 16-byte store
+    static_assert(NW % 4 == 0, "whole 16-byte stores");
+    uint32_t w[NW];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
+    for (int k = 0; k < NW; ++k) {
       w[k] = 0;
 #pragma unroll
       for (int e = 0; e < PER; ++e)
         w[k] |= bits[k * PER + e] << (8 * (int)sizeof(O) * e);
     }
     // streaming: the output is not read again, the input's halo is
-    __stcs(reinterpret_cast<uint4*>(dst), make_uint4(w[0], w[1], w[2], w[3]));
+#pragma unroll
+    for (int v = 0; v < NW; v += 4)
+      __stcs(reinterpret_cast<uint4*>(dst) + v / 4,
+             make_uint4(w[v], w[v + 1], w[v + 2], w[v + 3]));
   } else {
 #pragma unroll
     for (int c = 0; c < C; ++c)
@@ -589,19 +614,221 @@ __device__ __forceinline__ void reduce_item(const unsigned char* win,
 }
 
 // ---------------------------------------------------------------------------
-// the generic window (W = 0): the radius at run time, loops over the taps
+// the generic window (W = 0): the radius at run time
 // ---------------------------------------------------------------------------
 
-// element e of a thread's row segment whose first element is at `row`
-template <typename T, typename A>
-__device__ __forceinline__ A seg_elem(const unsigned char* row, int e) {
-  return widen<A>(reinterpret_cast<const T*>(row)[e]);
+// The coefficient file in shared memory. Fixed windows keep the bank as it
+// is in global memory. The generic path pads each filter row to KP =
+// round_up(w, 4) words, so a chunk of a row is a few 16-byte broadcast
+// loads; an 8-bit direct launch whose coefficients all fit a signed byte
+// holds them packed instead, four taps a word, rows of round_up(w, 16)
+// bytes padded with zero taps (stage_generic_coeffs). coeff_words is the
+// file's words per filter (halo.py::ring_coeff_words is its twin).
+__host__ __device__ constexpr int coeff_pitch(int w) { return round_up(w, 4); }
+__host__ __device__ constexpr int packed_pitch(int w) {   // words a row
+  return round_up(w, 16) / 4;
+}
+__host__ __device__ constexpr int coeff_words(int w, bool separable) {
+  return w <= 7 ? (separable ? 2 * w : w * w)
+                : (separable ? 2 : w) * coeff_pitch(w);
 }
 
 // the start of a sum that leaves its first term unchanged bit for bit
 template <typename A> __device__ __forceinline__ A sum_identity() {
   if constexpr (std::is_integral<A>::value) return A(0);
   else return -0.0f;
+}
+
+// A window row's taps run in chunks of JC: every chunk but the last has JC
+// taps, the last (w is odd) an odd count, and each length is a case of its
+// own (by_taps), so every register index inside a chunk is a constant.
+constexpr int JC = 16;
+
+template <int N> using Taps = std::integral_constant<int, N>;
+
+// f(Taps<nt>{}) for nt in {JC, JC - 1, JC - 3, ..., 1}
+template <int N, typename F>
+__device__ __forceinline__ void by_taps(int nt, F&& f) {
+  if (nt == N) {
+    f(Taps<N>{});
+  } else if constexpr (N > 1) {
+    by_taps<(N == JC ? JC - 1 : N - 2)>(nt, f);
+  }
+}
+
+// NWORD 32-bit words of a row from byte b past the G-aligned p (0 <= b <
+// G, the same for every thread): the widest aligned loads, then the start
+// moved by b: word selects, and a funnel shift for 1- and 2-byte storage
+template <int S, int G, int NWORD>
+__device__ __forceinline__ void load_realigned(const unsigned char* p, int b,
+                                               uint32_t (&out)[NWORD]) {
+  constexpr int Q = G / 4;                  // words per aligned load
+  constexpr int NL = round_up(NWORD + Q, Q);
+  uint32_t a[NL];
+  load_words<0, NL, G>(p, a);
+  const int q = b >> 2;
+  uint32_t u[NWORD + 1];
+  if constexpr (Q == 1) {
+#pragma unroll
+    for (int m = 0; m <= NWORD; ++m) u[m] = a[m];
+  } else if constexpr (Q == 2) {
+#pragma unroll
+    for (int m = 0; m <= NWORD; ++m) u[m] = q ? a[m + 1] : a[m];
+  } else {
+    uint32_t t[NWORD + 3];
+#pragma unroll
+    for (int m = 0; m < NWORD + 3; ++m) t[m] = (q & 1) ? a[m + 1] : a[m];
+#pragma unroll
+    for (int m = 0; m <= NWORD; ++m) u[m] = (q & 2) ? t[m + 2] : t[m];
+  }
+  if constexpr (S == 4) {
+#pragma unroll
+    for (int k = 0; k < NWORD; ++k) out[k] = u[k];
+  } else {
+    const int sh = (b & 3) * 8;
+#pragma unroll
+    for (int k = 0; k < NWORD; ++k)
+      out[k] = __funnelshift_r(u[k], u[k + 1], sh);
+  }
+}
+
+template <typename V> __device__ __forceinline__ V from_word(uint32_t w) {
+  if constexpr (std::is_same<V, float>::value) return __uint_as_float(w);
+  else return (V)w;
+}
+
+// N (a multiple of 4) 32-bit values from a 16-byte aligned shared row that
+// every thread of the warp reads (a broadcast)
+template <typename V, int N>
+__device__ __forceinline__ void load_row4(const V* src, V (&dst)[N]) {
+  static_assert(N % 4 == 0 && sizeof(V) == 4, "16-byte loads");
+#pragma unroll
+  for (int k = 0; k < N; k += 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src + k);
+    dst[k] = from_word<V>(v.x);
+    dst[k + 1] = from_word<V>(v.y);
+    dst[k + 2] = from_word<V>(v.z);
+    dst[k + 3] = from_word<V>(v.w);
+  }
+}
+
+// The direct form's chunk of NTP taps (from tap j0 of each row) at window
+// row y: the thread's C + NTP - 1 elements from byte b past `row`, in
+// registers; then for each output row oy the row feeds as its tap row i =
+// y - oy, row i's NTP coefficients (broadcast loads from kf + i * kp) and
+// the C x NTP products into acc[oy], in raster tap order. GROUPS (the
+// compress form) sums each run of 6 taps t = i * w + j (raster order,
+// counted from 0) into grp[oy] first, adding each closed group to acc[oy]:
+// a group opens on -0.0, which leaves its first product unchanged
+template <typename T, typename A, int C, int ROWS, int G, int NTP,
+          bool GROUPS>
+__device__ __forceinline__ void fold_chunk(const unsigned char* row, int b,
+                                           const A* kf, int kp, int y, int w,
+                                           int j0, A (&acc)[ROWS][C],
+                                           A (&grp)[ROWS][C]) {
+  constexpr int S = sizeof(T), NE = C + NTP - 1;
+  uint32_t words[(NE * S + 3) / 4];
+  load_realigned<S, G>(row, b, words);
+  A x[NE];
+#pragma unroll
+  for (int e = 0; e < NE; ++e) x[e] = element<T, A>(words, e);
+#pragma unroll
+  for (int oy = 0; oy < ROWS; ++oy) {
+    const int i = y - oy;
+    if (i < 0 || i >= w) continue;
+    A k[round_up(NTP, 4)];
+    load_row4(kf + i * kp, k);
+    if constexpr (GROUPS) {
+      int q = (i * w + j0) % 6;             // tap j's place in its group
+#pragma unroll
+      for (int j = 0; j < NTP; ++j) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          grp[oy][c] = add(q == 0 ? sum_identity<A>() : grp[oy][c],
+                           mul(x[c + j], k[j]));
+          if (q == 5) acc[oy][c] = add(acc[oy][c], grp[oy][c]);
+        }
+        q = q == 5 ? 0 : q + 1;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NTP; ++j)
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          acc[oy][c] = add(acc[oy][c], mul(x[c + j], k[j]));
+    }
+  }
+}
+
+// the separable form's v-pass over a chunk: h[c] += x[c + j] * v[j]
+template <typename T, typename A, int C, int G, int NTP>
+__device__ __forceinline__ void vpass_chunk(const unsigned char* row, int b,
+                                            const A* v, A (&h)[C]) {
+  constexpr int S = sizeof(T), NE = C + NTP - 1;
+  uint32_t words[(NE * S + 3) / 4];
+  load_realigned<S, G>(row, b, words);
+  A x[NE];
+#pragma unroll
+  for (int e = 0; e < NE; ++e) x[e] = element<T, A>(words, e);
+  A k[round_up(NTP, 4)];
+  load_row4(v, k);
+#pragma unroll
+  for (int j = 0; j < NTP; ++j)
+#pragma unroll
+    for (int c = 0; c < C; ++c) h[c] = add(h[c], mul(x[c + j], k[j]));
+}
+
+// dp4a: four byte products summed into the int32 accumulator in one
+// instruction, exact mod 2^32 like the MAC (8-bit pixels, signed bytes)
+template <typename T>
+__device__ __forceinline__ int32_t dot4(uint32_t px, uint32_t k, int32_t acc) {
+  int32_t d;
+  if constexpr (std::is_same<T, int8_t>::value)
+    asm("dp4a.s32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(px), "r"(k), "r"(acc));
+  else
+    asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(px), "r"(k), "r"(acc));
+  return d;
+}
+
+// fold_chunk on packed coefficients (8-bit storage): output c's taps 4q ..
+// 4q + 3 of the chunk read pixel bytes c + 4q .. c + 4q + 3, the word of
+// byte phase c % 4 (a funnel shift of the row's words) at c / 4 + q; the
+// zero taps past w add nothing
+template <typename T, int C, int ROWS, int G, int NTP>
+__device__ __forceinline__ void dp4a_chunk(const unsigned char* row, int b,
+                                           const uint32_t* kf, int kq, int y,
+                                           int w, int32_t (&acc)[ROWS][C]) {
+  constexpr int NQ = (NTP + 3) / 4;        // coefficient words
+  constexpr int NB = C / 4 + NQ;           // pixel words the products read
+  static_assert(C % 4 == 0, "whole words of outputs");
+  uint32_t px[NB];
+  load_realigned<1, G>(row, b, px);
+  uint32_t ph[4][NB - 1];                  // ph[p][k]: bytes 4k + p ..
+#pragma unroll
+  for (int k = 0; k < NB - 1; ++k) {
+    ph[0][k] = px[k];
+#pragma unroll
+    for (int s = 1; s < 4; ++s)
+      ph[s][k] = __funnelshift_r(px[k], px[k + 1], 8 * s);
+  }
+#pragma unroll
+  for (int oy = 0; oy < ROWS; ++oy) {
+    const int i = y - oy;
+    if (i < 0 || i >= w) continue;
+    uint32_t kw[round_up(NQ, 4)];
+    load_row4(kf + i * kq, kw);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        acc[oy][c] = dot4<T>(ph[c % 4][c / 4 + q], kw[q], acc[oy][c]);
+  }
+}
+
+// element e of a thread's row segment whose first element is at `row`
+template <typename T, typename A>
+__device__ __forceinline__ A seg_elem(const unsigned char* row, int e) {
+  return widen<A>(reinterpret_cast<const T*>(row)[e]);
 }
 
 // The generic tree as a binary counter: the products enter in tap order,
@@ -640,18 +867,25 @@ __device__ __forceinline__ A counter_fold(const A (&st)[LEVELS], int n) {
 }
 
 // reduce_item for the generic window: the same outputs, sums and stores.
-// Direct and separable slide a C-element register window along each window
-// row (one shared load per tap and row); tree and compress read each
-// pixel's w*w taps from shared memory.
+// Direct, compress and separable sweep the window rows y once: each row's
+// taps in chunks (fold_chunk, vpass_chunk, or dp4a_chunk where the block
+// holds packed coefficients), each chunk's elements loaded once and used
+// by every output row the row feeds. The tree reads each pixel's w*w taps
+// from shared memory.
 template <typename T, typename A, typename O, int FORM>
 __device__ __forceinline__ void reduce_item_generic(
     const unsigned char* win, const A* cs, const int32_t* qs, const Params& p,
-    const DynGeo<T, O>& g, int m, int cy0, int cx0) {
+    const DynGeo<T, O>& g, bool packed, int m, int cy0, int cx0) {
   using GEO = DynGeo<T, O>;
-  constexpr int C = GEO::C, ROWS = GEO::ROWS, S = GEO::S;
-  const int W = p.w, R = g.R, PITCH = g.PITCH;
-  const int ntaps = FORM == SEPARABLE ? 2 * W : W * W;
+  constexpr int C = GEO::C, ROWS = GEO::ROWS, S = GEO::S, G = GEO::G;
+  constexpr bool PACK = std::is_integral<A>::value && S == 1 && FORM == FOLD;
+  const int W = p.w, R = g.R, PITCH = g.PITCH, KP = coeff_pitch(W);
+  const int words = coeff_words(W, FORM == SEPARABLE);
   const unsigned char* seg = win + (g.LEAD - R) * S;   // the segment start
+  // the segment as G-aligned loads from `base`, moved by b bytes (win is
+  // G-aligned: the thread's C columns are C * S bytes)
+  const int b = ((g.LEAD - R) * S) & (G - 1);
+  const unsigned char* base = seg - b;
   const int ox0 = cx0 - p.shift, oy0 = cy0 - p.shift;
   const int lo = max(0, -ox0), hi = min(C, p.Wo - ox0);
   const bool vec = p.vec_store != 0;
@@ -660,96 +894,98 @@ __device__ __forceinline__ void reduce_item_generic(
     const int32_t qsh = qs != nullptr ? qs[2 * f + 1] : 0;
     O* out = static_cast<O*>(p.out) +
              ((size_t)m * p.n_out + f) * p.Ho * p.Wo + ox0;
-    const A* k = cs + f * ntaps;
+    const A* k = cs + f * words;
     auto store = [&](int row, const A (&a)[C]) {
       const int gy = oy0 + row;
       if (gy >= 0 && gy < p.Ho)
         emit<O, A, C>(out + (ptrdiff_t)gy * p.Wo, a, lo, hi, vec, p.rounding,
                       qm, qsh);
     };
-    if constexpr (FORM == FOLD || FORM == SEPARABLE) {
-      // window row y feeds output rows y - i, i < w, as their tap row i.
-      // Every sum starts from the additive identity that changes no first
-      // term (-0.0 for float: -0.0 + p == p bit for bit, a +0.0 p too), so
-      // the loop needs no first-tap select
-      A acc[ROWS][C];
+    if constexpr (FORM != TREE) {
+      // window row y feeds output rows y - i, i < w, as their tap row i;
+      // output row oy is complete after row oy + w - 1 (compress then
+      // adds its last, partial, group: w * w is odd). Every sum starts
+      // from the additive identity that changes no first term (-0.0 for
+      // float: -0.0 + p == p bit for bit, a +0.0 p too)
+      auto sweep = [&](auto per_row) {
+        A acc[ROWS][C], grp[ROWS][C];
 #pragma unroll
-      for (int oy = 0; oy < ROWS; ++oy)
+        for (int oy = 0; oy < ROWS; ++oy)
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[oy][c] = sum_identity<A>();
-      for (int y = 0; y < ROWS + 2 * R; ++y) {
-        const unsigned char* row = seg + y * PITCH;
-        A x[C], h[C];
+          for (int c = 0; c < C; ++c) acc[oy][c] = grp[oy][c] = sum_identity<A>();
+        for (int y = 0; y < ROWS + W - 1; ++y) {
+          per_row(base + y * PITCH, y, acc, grp);
 #pragma unroll
-        for (int c = 0; c + 1 < C; ++c) x[c] = seg_elem<T, A>(row, c);
+          for (int oy = 0; oy < ROWS; ++oy)
+            if (y - oy == W - 1) {
+              if constexpr (FORM == COMPRESS) {
 #pragma unroll
-        for (int c = 0; c < C; ++c) h[c] = sum_identity<A>();
-        A next = seg_elem<T, A>(row, C - 1);
-#pragma unroll 3
-        for (int j = 0; j < W; ++j) {
-          x[C - 1] = next;                  // x[c]: element c + j
-          if (j + 1 < W) next = seg_elem<T, A>(row, j + C);
-          if constexpr (FORM == FOLD) {
-#pragma unroll
-            for (int oy = 0; oy < ROWS; ++oy) {
-              const int i = y - oy;
-              if (i < 0 || i >= W) continue;
-              const A kk = k[i * W + j];
-#pragma unroll
-              for (int c = 0; c < C; ++c)
-                acc[oy][c] = add(acc[oy][c], mul(x[c], kk));
+                for (int c = 0; c < C; ++c)
+                  acc[oy][c] = add(acc[oy][c], grp[oy][c]);
+              }
+              store(oy, acc[oy]);
             }
-          } else {  // SEPARABLE: the row's v-pass
-            const A kk = k[W + j];
-#pragma unroll
-            for (int c = 0; c < C; ++c) h[c] = add(h[c], mul(x[c], kk));
-          }
-#pragma unroll
-          for (int c = 0; c + 1 < C; ++c) x[c] = x[c + 1];
         }
-        if constexpr (FORM == SEPARABLE) {   // then its u term
+      };
+      if constexpr (FORM == FOLD || FORM == COMPRESS) {
+        bool done = false;
+        if constexpr (PACK) {
+          if (packed) {
+            const uint32_t* kq = reinterpret_cast<const uint32_t*>(cs) +
+                                 f * W * packed_pitch(W);
+            sweep([&](const unsigned char* row, int y, auto& acc, auto&) {
+              for (int j0 = 0; j0 < W; j0 += JC)
+                by_taps<JC>(min(JC, W - j0), [&](auto t) {
+                  dp4a_chunk<T, C, ROWS, G, decltype(t)::value>(
+                      row + j0, b, kq + j0 / 4, packed_pitch(W), y, W, acc);
+                });
+            });
+            done = true;
+          }
+        }
+        if (!done)
+          sweep([&](const unsigned char* row, int y, auto& acc, auto& grp) {
+            for (int j0 = 0; j0 < W; j0 += JC)
+              by_taps<JC>(min(JC, W - j0), [&](auto t) {
+                fold_chunk<T, A, C, ROWS, G, decltype(t)::value,
+                           FORM == COMPRESS>(row + j0 * S, b, k + j0, KP, y,
+                                             W, j0, acc, grp);
+              });
+          });
+      } else {   // SEPARABLE: the row's v-pass (row 1), then its u term
+        sweep([&](const unsigned char* row, int y, auto& acc, auto&) {
+          A h[C];
+#pragma unroll
+          for (int c = 0; c < C; ++c) h[c] = sum_identity<A>();
+          for (int j0 = 0; j0 < W; j0 += JC)
+            by_taps<JC>(min(JC, W - j0), [&](auto t) {
+              vpass_chunk<T, A, C, G, decltype(t)::value>(row + j0 * S, b,
+                                                           k + KP + j0, h);
+            });
 #pragma unroll
           for (int oy = 0; oy < ROWS; ++oy) {
             const int i = y - oy;
             if (i < 0 || i >= W) continue;
-            const A kk = k[i];
+            const A u = k[i];
 #pragma unroll
-            for (int c = 0; c < C; ++c)
-              acc[oy][c] = add(acc[oy][c], mul(h[c], kk));
+            for (int c = 0; c < C; ++c) acc[oy][c] = add(acc[oy][c], mul(h[c], u));
           }
-        }
-#pragma unroll
-        for (int oy = 0; oy < ROWS; ++oy)
-          if (y - oy == W - 1) store(oy, acc[oy]);   // its last tap row
+        });
       }
-    } else {  // TREE, COMPRESS: each pixel's taps from shared memory
+    } else {  // TREE: each pixel's taps from shared memory
       for (int oy = 0; oy < ROWS; ++oy) {
         A res[C];
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          if constexpr (FORM == TREE) {
-            A st[LEVELS];
-            int t = 0;
-            for (int i = 0; i < W; ++i) {
-              const unsigned char* row = seg + (oy + i) * PITCH;
-              for (int j = 0; j < W; ++j, ++t)
-                counter_push(st, mul(seg_elem<T, A>(row, c + j), k[t]), t);
-            }
-            res[c] = counter_fold(st, W * W);
-          } else {  // COMPRESS: groups of 6 in tap order, then a chain
-            A acc = A(0), s = A(0);
-            int t = 0;
-            for (int i = 0; i < W; ++i) {
-              const unsigned char* row = seg + (oy + i) * PITCH;
-              for (int j = 0; j < W; ++j, ++t) {
-                const A prod = mul(seg_elem<T, A>(row, c + j), k[t]);
-                const int g6 = t % 6;
-                s = g6 == 0 ? prod : add(s, prod);
-                if (g6 == 5 || t == W * W - 1) acc = t < 6 ? s : add(acc, s);
-              }
-            }
-            res[c] = acc;
+          A st[LEVELS];
+          int t = 0;
+          for (int i = 0; i < W; ++i) {
+            const unsigned char* row = seg + (oy + i) * PITCH;
+            const A* ki = k + i * KP;
+            for (int j = 0; j < W; ++j, ++t)
+              counter_push(st, mul(seg_elem<T, A>(row, c + j), ki[j]), t);
           }
+          res[c] = counter_fold(st, W * W);
         }
         store(oy, res);
       }
@@ -844,10 +1080,63 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync %0, %1;\n" ::"n"(MUX_BAR), "n"(NCONS) : "memory");
 }
 
+// consumers_sync that also returns whether v held on every consumer thread
+__device__ __forceinline__ bool consumers_all(bool v) {
+  __syncwarp();
+  int r;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.s32 p, %1, 0;\n"
+      " bar.red.and.pred q, %2, %3, p;\n selp.s32 %0, 1, 0, q;\n}\n"
+      : "=r"(r) : "r"((int)v), "n"(MUX_BAR), "n"(NCONS) : "memory");
+  return r != 0;
+}
+
+// The generic path's coefficient file (coeff_words), filled once per block
+// by the consumers from the launch's [n, rows, w] bank g: rows padded to
+// coeff_pitch(w); or, for an 8-bit direct launch whose every coefficient
+// fits a signed byte (checked on the block's own copy of the bank, so the
+// route needs no host sync and follows a swapped bank), packed four taps a
+// word for dp4a. Returns whether the file is packed.
+template <typename T, typename A, int FORM>
+__device__ __forceinline__ bool stage_generic_coeffs(A* cs, const A* g, int n,
+                                                     int w, int tid) {
+  const int rows = n * (FORM == SEPARABLE ? 2 : w);   // the bank's rows
+  bool packed = false;
+  if constexpr (std::is_integral<A>::value && sizeof(T) == 1 &&
+                FORM == FOLD) {
+    bool fits = true;
+    for (int e = tid; e < rows * w; e += NCONS)
+      fits = fits && g[e] >= -128 && g[e] <= 127;
+    packed = consumers_all(fits);
+  }
+  if (packed) {
+    const int kq = packed_pitch(w);
+    uint32_t* q = reinterpret_cast<uint32_t*>(cs);
+    for (int e = tid; e < rows * kq; e += NCONS) {
+      const int r = e / kq, j = 4 * (e - r * kq);
+      uint32_t word = 0;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (j + t < w)
+          word |= ((uint32_t)g[r * w + j + t] & 0xffu) << (8 * t);
+      q[e] = word;
+    }
+  } else {
+    const int kp = coeff_pitch(w);
+    for (int e = tid; e < rows * kp; e += NCONS) {
+      const int r = e / kp, j = e - r * kp;
+      cs[e] = j < w ? g[r * w + j] : A(0);
+    }
+  }
+  return packed;
+}
+
 #ifdef F2D_TRACE
 // the trace build's records: REC_INTS ints each, {kind, launch, block,
 // item, seq, stage, warp (-1: the producer), payload[9]}; the payloads are
-// decoded by repro_torch/analysis/ir.py::from_device_log
+// decoded by repro_torch/analysis/ir.py::from_device_log, and a read's
+// seventh (1: the block's coefficient file is packed, the dp4a route) by
+// kernels/filter2d/trace.py::mac_routes
 enum Event { EV_WAIT_EMPTY = 1, EV_EXPECT_TX = 2, EV_LOAD = 3,
              EV_WAIT_FULL = 4, EV_MUX = 5, EV_READ = 6, EV_ARRIVE = 7,
              EV_STORE = 8 };
@@ -871,20 +1160,27 @@ __device__ __forceinline__ void trace_event(
 // The explicit minimum of one block per SM is not a no-op: with the
 // thread count alone ptxas gives the w5 float kernel 62 registers and
 // hoists fewer shared loads, 3% slower on an H100 than with it (93); the
-// serving shapes still run two blocks per SM. W = 0 is the generic window.
+// serving shapes still run two blocks per SM. W = 0 is the generic window:
+// ptxas holds it to 96 registers a thread for two blocks per SM, which
+// its shared memory allows to w 27 (float32), 39 (bfloat16) and 73
+// (8-bit), so one block's warps issue while the other's wait on their
+// loads. One block per SM was 9-28% slower on an H100 for float32, and
+// 0-42% slower for the bf16 compress and integer instantiations that
+// spill 16-628 B under the cap (tools/filter_ab.py); three, at 72
+// registers, spill.
 template <typename T, typename A, typename O, int W, int FORM>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(NT, W == 0 ? 2 : 1)
 filter2d_halo_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
   using GEO = typename GeoOf<T, O, W>::type;
   const GEO g = GeoOf<T, O, W>::make(p.w);
   const int w = W > 0 ? W : p.w;
-  const int NTAPS = FORM == SEPARABLE ? 2 * w : w * w;
+  const int NWORDS = coeff_words(w, FORM == SEPARABLE);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u);
   const uint32_t bars = smem_u32(ring + STAGES * g.STAGE);
   // full[s] at bars + 8 s, empty[s] at bars + 8 (STAGES + s)
   A* cs = reinterpret_cast<A*>(ring + STAGES * g.STAGE + 16 * STAGES);
-  int32_t* qs = reinterpret_cast<int32_t*>(cs + p.N * NTAPS);
+  int32_t* qs = reinterpret_cast<int32_t*>(cs + p.N * NWORDS);
 #ifdef F2D_TRACE
   __shared__ int seq;   // the block's event numbers
 #endif
@@ -951,7 +1247,11 @@ filter2d_halo_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
 
   // the bank's coefficients and requant table, once per block
   const A* gco = static_cast<const A*>(p.coeffs);
-  for (int e = tid; e < p.N * NTAPS; e += NCONS) cs[e] = gco[e];
+  bool packed = false;
+  if constexpr (W > 0)
+    for (int e = tid; e < p.N * NWORDS; e += NCONS) cs[e] = gco[e];
+  else
+    packed = stage_generic_coeffs<T, A, FORM>(cs, gco, p.N, w, tid);
   if (p.qparams != nullptr)
     for (int e = tid; e < 2 * p.N; e += NCONS) qs[e] = p.qparams[e];
   consumers_sync();
@@ -1003,7 +1303,8 @@ filter2d_halo_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
       if constexpr (W > 0)
         reduce_item<T, A, O, W, FORM>(win, cs, q, p, m, cy0, cx0);
       else
-        reduce_item_generic<T, A, O, FORM>(win, cs, q, p, g, m, cy0, cx0);
+        reduce_item_generic<T, A, O, FORM>(win, cs, q, p, g, packed, m,
+                                           cy0, cx0);
     }
 #ifdef F2D_TRACE
     {  // what the warp read of the stage (from the box's first row and
@@ -1027,7 +1328,7 @@ filter2d_halo_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
           all, active ? min(cx0 - p.shift + GEO::C, p.Wo) : -big);
       if (lane == 0 && R0 < big) {
         trace_event(p, &seq, EV_READ, it, s, warp, R0, C0, R1 - R0, C1 - C0,
-                    GEO::S, std::is_integral<A>::value ? 1 : 2);
+                    GEO::S, std::is_integral<A>::value ? 1 : 2, packed);
         for (int f = 0; f < p.N; ++f)
           trace_event(p, &seq, EV_STORE, it, s, warp, m, p.trace.n0 + f, Y0,
                       X0, Y1 - Y0, X1 - X0,
@@ -1046,11 +1347,12 @@ filter2d_halo_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
 }
 
 // dynamic shared memory of a launch: alignment slack, the ring, the
-// barriers, the chunk's coefficients and its requant table
-// (kernels/filter2d/halo.py::ring_smem_bytes is its twin)
-inline size_t smem_bytes(const Geometry& g, int ntaps, int n, int acc_bytes) {
+// barriers, the chunk's coefficient file (`words` a filter: coeff_words)
+// and its requant table (kernels/filter2d/halo.py::ring_smem_bytes is its
+// twin)
+inline size_t smem_bytes(const Geometry& g, int words, int n, int acc_bytes) {
   return 128 + (size_t)STAGES * g.STAGE + 16 * STAGES +
-         (size_t)n * ntaps * acc_bytes + (size_t)n * 8;
+         (size_t)n * words * acc_bytes + (size_t)n * 8;
 }
 
 template <typename T>
@@ -1107,7 +1409,7 @@ cudaError_t launch(Params p, cudaStream_t stream, int* info) {
   }
   const auto kern = filter2d_halo_kernel<T, A, O, W, FORM>;
   const size_t smem =
-      smem_bytes(g, FORM == SEPARABLE ? 2 * w : w * w, p.N, sizeof(A));
+      smem_bytes(g, coeff_words(w, FORM == SEPARABLE), p.N, sizeof(A));
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

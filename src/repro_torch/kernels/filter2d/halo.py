@@ -476,6 +476,9 @@ TMA_BOX_LIMIT = 256          # a TMA box is at most 256 elements a side
 COEFF_FILE_BYTES = 24 * 1024
 COEFF_BYTES = 4              # float32 or int32 coefficients
 TREE_TAPS_LIMIT = 1 << 16    # the generic tree's counter: w*w < 2^16
+# the largest window with an instantiation of its own; every larger odd
+# window runs the generic one (``ring.cuh::dispatch``)
+RING_FIXED_MAX = 7
 
 GEOMETRY_KEYS = ("tile_w", "strip_h", "cols_per_thread", "rows_per_thread",
                  "threads", "stages", "stage_bytes", "row_pitch_bytes")
@@ -517,10 +520,13 @@ class RingGeometry:
 
 
 def ring_geometry(s: int, so: int, w: int) -> RingGeometry:
-    """Twin of ``filter2d_halo_ring.cuh::geometry(s, so, w)``."""
+    """Twin of ``filter2d_halo_ring.cuh::geometry(s, so, w)``: a thread
+    takes 16 bytes of output columns and 4 rows (2 at 16 columns), and
+    the float32 generic window (w > 7) 8 x 2 outputs."""
     r = w // 2
-    C = 16 // so
-    ROWS = 2 if C == 16 else 4
+    wide = w > RING_FIXED_MAX and s == 4 and so == 4
+    C = 8 if wide else 16 // so
+    ROWS = 2 if wide or C == 16 else 4
     TX = RING_TILE_W // C
     SH = (RING_CONSUMERS // TX) * ROWS
     lead_bytes = _round_up(r * s, 16) if r * s > 16 else 16
@@ -539,8 +545,14 @@ def plan_ring_geometry(plan: HaloPlan) -> RingGeometry:
                          2 * plan.rows.r + 1)
 
 
-def ring_taps(w: int, separable: bool) -> int:
-    return 2 * w if separable else w * w
+def ring_coeff_words(w: int, separable: bool) -> int:
+    """Twin of ``ring.cuh::coeff_words``: the 4-byte words of one filter
+    in the launch's coefficient file. A window with an instantiation of
+    its own (w ≤ 7) keeps the bank's layout; the generic path pads each
+    filter row (w of them, or the separable u and v) to a multiple of 4
+    words, room enough for the packed bytes of its dp4a route too."""
+    rows = 2 if separable else w
+    return rows * (w if w <= RING_FIXED_MAX else _round_up(w, 4))
 
 
 def ring_smem_bytes(geo: RingGeometry, num_filters: int,
@@ -549,7 +561,8 @@ def ring_smem_bytes(geo: RingGeometry, num_filters: int,
     for ``num_filters`` filters — alignment slack, the ring, the full and
     empty barriers, the coefficients and the requant table."""
     return (128 + RING_STAGES * geo.stage + 16 * RING_STAGES
-            + num_filters * ring_taps(geo.w, separable) * COEFF_BYTES
+            + num_filters * ring_coeff_words(geo.w, separable)
+            * COEFF_BYTES
             + num_filters * 8)
 
 
@@ -557,7 +570,7 @@ def chunk_filters(geo: RingGeometry, separable: bool = False) -> int:
     """Filters per launch: as many as the coefficient file holds (at least
     one), and no more than leave the block within its shared memory; 0
     when not even one filter fits beside the ring."""
-    per = ring_taps(geo.w, separable) * COEFF_BYTES + 8
+    per = ring_coeff_words(geo.w, separable) * COEFF_BYTES + 8
     room = SMEM_BLOCK_LIMIT - ring_smem_bytes(geo, 0)
     return max(0, min(max(1, COEFF_FILE_BYTES // per), room // per))
 

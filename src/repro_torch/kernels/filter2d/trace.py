@@ -11,14 +11,16 @@ returns, a consumer before it arrives, so the numbers order the events as
 the barriers do. ``repro_torch.analysis.ir.from_device_log`` decodes the
 log and the verifier's passes check it.
 
-Only the verifier and ``chip_smoke.py``'s analysis phase load this
+Only the verifier and ``chip_smoke.py``'s phases 3b, 6d and 6e load this
 library; the main path never does. It builds the float32 and int8 units
-(the dtypes of the verifier's sweep) and the C entry.
+(the dtypes of the verifier's sweep), the uint8 unit (whose generic window,
+like int8's, picks its MAC route per block at run time: :func:`mac_routes`)
+and the C entry.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,9 +29,10 @@ from repro_torch.kernels.filter2d import _build, halo
 from repro_torch.kernels.filter2d import kernel as K
 from repro_torch.kernels.filter2d.halo import HaloPlan
 
-TRACE_DTYPES = (torch.float32, torch.int8)
+TRACE_DTYPES = (torch.float32, torch.int8, torch.uint8)
 REC_INTS = 16                  # ints per record (ring.cuh REC_INTS)
 EV_LAUNCH = 0                  # a header row the host writes per launch
+EV_READ = 6                    # a consumer warp's read of a stage (ring.cuh)
 
 # filter2d_halo_trace_launch: filter2d_halo_launch's arguments up to the
 # output's bank size, then the blocks, the log and its counter, the
@@ -44,7 +47,8 @@ LIBRARY = KernelLibrary(
         "filter2d_halo_geometry": [ctypes.c_int] * 3 + [ctypes.c_void_p],
         "filter2d_halo_smem": [ctypes.c_int] * 5},
     defines=("F2D_TRACE",),
-    only=("filter2d_halo.cu", "filter2d_halo_f32.cu", "filter2d_halo_i8.cu"))
+    only=("filter2d_halo.cu", "filter2d_halo_f32.cu", "filter2d_halo_i8.cu",
+          "filter2d_halo_u8.cu"))
 
 
 def capacity(plan: HaloPlan, M: int, n: int) -> int:
@@ -109,3 +113,19 @@ def traced_call(planes: torch.Tensor, coeffs: torch.Tensor, plan: HaloPlan,
                                         info[0], info[2], info[3]])
             rows += [head, rec[:n].cpu()]
     return out, torch.cat(rows)
+
+
+def mac_routes(log) -> Dict[str, int]:
+    """The reads of a :func:`traced_call` log by the route their block's
+    products took: ``'dp4a'`` (an 8-bit direct launch of the generic window
+    whose coefficient file the block packed, every coefficient in a signed
+    byte), ``'int32 MAC'`` (any other integer launch) or ``'float'``. A
+    read record's sixth payload int is its accumulator (1: int32, 2:
+    float32) and its seventh the block's packed flag; header rows are
+    skipped."""
+    rows = torch.as_tensor(log).reshape(-1, REC_INTS)
+    reads = rows[rows[:, 0] == EV_READ]
+    acc, packed = reads[:, 12], reads[:, 13]
+    return {"dp4a": int(((acc == 1) & (packed != 0)).sum()),
+            "int32 MAC": int(((acc == 1) & (packed == 0)).sum()),
+            "float": int((acc == 2).sum())}

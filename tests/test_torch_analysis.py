@@ -273,6 +273,40 @@ def test_device_log_decodes_to_the_schedule(dtype, policy, loader):
     assert report.clean, report.render()
 
 
+@pytest.mark.parametrize("dtype,packed_every", [
+    ("float32", 0), ("int8", 0), ("int8", 1), ("int8", 3)])
+def test_mac_routes_counts_reads_by_their_packed_flag(dtype, packed_every):
+    """The trace build writes a read's packed flag (the block took the dp4a
+    route) as its seventh payload int: ``trace.mac_routes`` counts the
+    reads by route as a numpy count of the same columns does, and the
+    decoder's schedule is the model's whatever the flag."""
+    from repro_torch.kernels.filter2d import trace
+    plan = halo.make_plan(40, 300, 9, BorderSpec("mirror"), 40, 300,
+                          dtype=dtype)
+    ct = K.kernel_contract(plan, 2, "direct", dtype, "thread")
+    model = analysis.schedule_model(ct, halo.plan_ring_geometry(plan), plan,
+                                    2, 4)
+    log = _encode(model)
+    reads = (log[:, 0] == trace.EV_READ).nonzero().flatten()
+    if packed_every:
+        log[reads[::packed_every], 13] = 1
+    rows = log.numpy()
+    is_read = rows[:, 0] == 6
+    want = {"dp4a": int((is_read & (rows[:, 12] == 1)
+                         & (rows[:, 13] != 0)).sum()),
+            "int32 MAC": int((is_read & (rows[:, 12] == 1)
+                              & (rows[:, 13] == 0)).sum()),
+            "float": int((is_read & (rows[:, 12] == 2)).sum())}
+    got = trace.mac_routes(log)
+    assert got == want and sum(got.values()) == len(reads) > 0
+    if dtype == "float32":
+        assert got["float"] == len(reads)
+    elif packed_every == 1:
+        assert got == {"dp4a": len(reads), "int32 MAC": 0, "float": 0}
+    dev = analysis.from_device_log(log, contract=ct, plan=plan, M=2)
+    assert analysis.schedule_diff(model, dev) == []
+
+
 def test_a_log_missing_an_arrival_is_a_finding():
     plan = halo.make_plan(40, 300, 5, BorderSpec("mirror"), 40, 300)
     ct = K.kernel_contract(plan, 1, "direct", "float32", "tma")

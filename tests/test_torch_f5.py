@@ -79,6 +79,25 @@ def test_twin_meets_the_layout_rules_up_to_the_largest_window(widths):
     assert halo.ring_refusal(halo.ring_geometry(s, so, top + 2)) is not None
 
 
+@pytest.mark.parametrize("widths", list(WIDTHS), ids=str)
+def test_twin_blocks_the_float32_generic_window_eight_by_two(widths):
+    """A thread's outputs: 16 bytes of columns by 4 rows (2 at 16
+    columns), but 8 x 2 for float32 windows past 7. The strip, pitch and
+    stage are the same either way."""
+    s, so = WIDTHS[widths]
+    for w in (3, 7, 9, 13, 61):
+        g = halo.ring_geometry(s, so, w)
+        wide = w > 7 and (s, so) == (4, 4)
+        C = 8 if wide else 16 // so
+        ROWS = 2 if wide or C == 16 else 4
+        assert (g.cols_per_thread, g.rows_per_thread) == (C, ROWS)
+        assert g.tx == halo.RING_TILE_W // C
+        assert g.strip_h == halo.RING_CONSUMERS // g.tx * ROWS
+        assert g.g == min(C * s, 16)
+    assert halo.ring_geometry(4, 4, 9).strip_h == \
+        halo.ring_geometry(4, 4, 7).strip_h == 32
+
+
 # -- the compile-time refusal -------------------------------------------------
 
 
@@ -105,6 +124,88 @@ def test_compile_refuses_a_window_the_ring_cannot_hold(execution, dtype,
         (H, H), "core", device="cpu")
 
 
+# the largest window the ring runs per (storage, output) width, direct and
+# separable; the generic path's coefficient file may not lower any of them
+MAX_WINDOWS = {(4, 4): (61, 65), (2, 2): (87, 97), (1, 4): (129, 129),
+               (1, 1): (129, 129), (1, 2): (129, 129), (2, 4): (101, 119),
+               (2, 1): (87, 97)}
+
+
+@pytest.mark.parametrize("widths", sorted(MAX_WINDOWS), ids=str)
+def test_max_ring_window_holds_for_every_datapath(widths):
+    s, so = widths
+    assert halo.max_ring_window(s, so) >= MAX_WINDOWS[widths][0]
+    assert halo.max_ring_window(s, so, True) >= MAX_WINDOWS[widths][1]
+
+
+def _generic_file(bank: np.ndarray, separable: bool, packed: bool):
+    """A numpy model of the generic path's coefficient file
+    (``ring.cuh::stage_generic_coeffs``): the bank's rows padded to
+    ``round_up(w, 4)`` int32 words, or packed four signed bytes a word in
+    rows of ``round_up(w, 16)`` bytes, zero past w."""
+    n, rows, w = bank.shape
+    if not packed:
+        out = np.zeros((n, rows, -(-w // 4) * 4), np.int64)
+        out[..., :w] = bank
+        return out.reshape(-1)
+    out = np.zeros((n, rows, -(-w // 16) * 16), np.uint8)
+    out[..., :w] = bank.astype(np.int8).view(np.uint8)
+    return out.reshape(-1).view("<u4")
+
+
+@pytest.mark.parametrize("w", [1, 3, 5, 7, 9, 13, 15, 17, 31, 33, 61, 129])
+@pytest.mark.parametrize("separable", [False, True])
+def test_coefficient_file_words_match_its_model(w, separable, rng):
+    """``ring_coeff_words`` (the twin of ``ring.cuh::coeff_words``): the
+    bank's layout for a window with its own instantiation, the padded rows
+    of the generic path, and room for the packed bytes of its dp4a
+    route."""
+    rows = 2 if separable else w
+    bank = rng.integers(-128, 128, (3, rows, w))
+    words = halo.ring_coeff_words(w, separable)
+    if w <= halo.RING_FIXED_MAX:
+        assert words == rows * w
+        return
+    assert 3 * words == _generic_file(bank, separable, False).size
+    assert words % 4 == 0                  # 16-byte rows
+    packed = _generic_file(bank, separable, True)
+    assert packed.size <= 3 * words
+    # a packed word holds taps 4q .. 4q + 3 of its row, low byte first
+    q = packed.reshape(3, rows, -1)
+    for t in (0, w // 2, w - 1):
+        got = (q[1, rows - 1, t // 4] >> (8 * (t % 4))) & 0xff
+        assert np.int8(np.uint8(got)) == bank[1, rows - 1, t]
+
+
+def test_a_bank_past_the_coefficient_file_is_cut_into_launches():
+    """The wrapper's launches for banks past the file, on CPU tensors: the
+    chunks of ``coeff_chunks``, each file within 24 KiB and each block
+    within its shared memory."""
+    for dtype, w, n, sep in (("float32", 13, 48, False),
+                             ("int8", 15, 40, False),
+                             ("bfloat16", 33, 9, False),
+                             ("int16", 61, 2, False),
+                             ("float32", 31, 120, True)):
+        plan = halo.make_plan(40, 96, w, BorderSpec("mirror"), 40, 96,
+                              dtype=dtype)
+        x = torch.zeros((2, 40, 96), dtype=getattr(torch, dtype))
+        fixed = dtype not in ("float32", "bfloat16")
+        co = torch.zeros((n, 2, w) if sep else (n, w, w),
+                         dtype=torch.int32 if fixed else torch.float32)
+        form = "separable" if sep else "direct"
+        out, launches = K.launch_args(x, co, plan, None, form, "thread")
+        geo = halo.plan_ring_geometry(plan)
+        chunks = halo.coeff_chunks(n, geo, sep)
+        assert [(a, b) for a, b, _ in launches] == list(chunks)
+        assert out.shape[1] == n and len(chunks) >= 2
+        for a, b in chunks:
+            file = (b - a) * halo.ring_coeff_words(w, sep) * halo.COEFF_BYTES
+            assert file <= max(halo.COEFF_FILE_BYTES,
+                               halo.ring_coeff_words(w, sep) * 4)
+            assert halo.ring_smem_bytes(geo, b - a, sep) \
+                <= halo.SMEM_BLOCK_LIMIT
+
+
 def test_refusal_names_the_box_limit_where_it_binds():
     why = halo.ring_refusal(halo.ring_geometry(1, 1, 131))
     assert "TMA box" in why and "256" in why
@@ -116,9 +217,10 @@ def test_refusal_names_the_box_limit_where_it_binds():
 @pytest.mark.parametrize("n,w,sep,want", [
     (1, 5, False, ((0, 1),)),
     (48, 5, False, ((0, 48),)),                  # 48 x 25 x 4 B fit 24 KiB
-    (48, 13, False, ((0, 35), (35, 48))),        # 32,448 B do not
-    (256, 13, False, tuple((n0, min(n0 + 35, 256))
-                           for n0 in range(0, 256, 35))),
+    # the generic path's rows padded to 16 bytes: 13 x 16 x 4 B a filter
+    (48, 13, False, ((0, 29), (29, 48))),
+    (256, 13, False, tuple((n0, min(n0 + 29, 256))
+                           for n0 in range(0, 256, 29))),
     (3, 61, False, ((0, 1), (1, 2), (2, 3))),    # one filter past 24 KiB
     (1, 13, True, ((0, 1),))])
 def test_bank_chunks(n, w, sep, want):

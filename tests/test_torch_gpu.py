@@ -994,6 +994,80 @@ def test_generic_window_is_bit_exact_on_the_card(cuda, w, dtype, form, rng):
         assert torch.equal(got, K.filter2d_halo_ref(x, co, plan, form=form))
 
 
+@pytest.mark.parametrize("form", ["direct", "separable", "tree"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("w", [15, 17, 31, 33])
+def test_generic_window_chunk_boundaries_are_bit_exact(cuda, w, dtype, form,
+                                                       rng):
+    """Either side of the generic path's tap chunks (16 taps: 15 | 17 and
+    31 | 33), bit for bit against the plain version, at both loaders."""
+    n = 1 if form == "separable" else 2
+    co = _coeffs(rng, dtype, (n, 2, w) if form == "separable"
+                 else (n, w, w)).to(cuda)
+    for W in (301, 336):                      # per-thread, TMA
+        x = _frame(rng, dtype, (2, 45, W)).to(cuda)
+        plan = halo.make_plan(45, W, w, BorderSpec("constant", 3), 45, W,
+                              dtype=dtype)
+        got = K.filter2d_halo(x, co, plan, form=form)
+        assert torch.equal(got, K.filter2d_halo_ref(x, co, plan, form=form))
+
+
+@pytest.mark.parametrize("edge", [-128, 127, 128, -129, 200])
+@pytest.mark.parametrize("dtype", ["int8", "uint8"])
+def test_generic_8bit_banks_take_either_mac_route(cuda, dtype, edge, rng):
+    """An 8-bit direct bank whose coefficients all fit a signed byte runs
+    dp4a on packed coefficients, one with a coefficient past it the int32
+    MAC: each block decides from its own copy of the bank, so the same
+    compiled plan takes either. Both bit for bit, to int32 and through a
+    requant; the trace build sees every read of the launch take the route
+    the bank calls for (its blocks' packed flag)."""
+    from repro_torch.kernels.filter2d import trace
+    x = _frame(rng, dtype, (2, 45, 336)).to(cuda)
+    route = "dp4a" if -128 <= edge <= 127 else "int32 MAC"
+    for w in (9, 13, 17):
+        co = _coeffs(rng, dtype, (3, w, w))
+        co.view(-1)[5] = edge
+        co = co.to(cuda)
+        for rounding in (None, "nearest"):
+            rq = None if rounding is None else RequantSpec(
+                rounding=rounding, dtype=dtype)
+            plan = halo.make_plan(45, 336, w, BorderSpec("mirror"), 45, 336,
+                                  dtype=dtype, requant=rq)
+            q = None if rq is None else torch.tensor(
+                rq.params(3), dtype=torch.int32, device=cuda)
+            got = K.filter2d_halo(x, co, plan, q_params=q)
+            ref = K.filter2d_halo_ref(x, co, plan, q_params=q)
+            assert torch.equal(got, ref)
+            traced, log = trace.traced_call(x, co, plan, q_params=q)
+            assert torch.equal(traced, ref)
+            seen = trace.mac_routes(log)
+            assert seen[route] > 0 and seen[route] == sum(seen.values())
+
+
+@pytest.mark.parametrize("separable", [False, True])
+@pytest.mark.parametrize("dtype,requant", [
+    ("float32", None), ("bfloat16", None), ("int8", None), ("int8", "int8"),
+    ("uint8", "uint8"), ("int16", None), ("int16", "int16")])
+def test_generic_window_runs_the_largest_window_of_each_datapath(
+        cuda, dtype, requant, separable, rng):
+    size = {"float32": 4, "bfloat16": 2, "int8": 1, "uint8": 1, "int16": 2}
+    so = size[requant] if requant else (size[dtype] if dtype in TOL else 4)
+    w = halo.max_ring_window(size[dtype], so, separable)
+    rq = None if requant is None else RequantSpec(rounding="nearest_even",
+                                                  dtype=requant)
+    co = _coeffs(rng, dtype, (1, 2, w) if separable else (1, w, w)).to(cuda)
+    form = "separable" if separable else "direct"
+    for W in (175, 176):                      # per-thread, TMA
+        x = _frame(rng, dtype, (1, w + 6, W)).to(cuda)
+        plan = halo.make_plan(w + 6, W, w, BorderSpec("mirror"), w + 6, W,
+                              dtype=dtype, requant=rq)
+        q = None if rq is None else torch.tensor(
+            rq.params(1), dtype=torch.int32, device=cuda)
+        got = K.filter2d_halo(x, co, plan, q_params=q, form=form)
+        assert torch.equal(got, K.filter2d_halo_ref(x, co, plan, q_params=q,
+                                                    form=form))
+
+
 def test_a_bank_past_the_coefficient_file_runs_in_chunks(cuda, rng):
     x = _frame(rng, "int16", (2, 40, 96)).to(cuda)
     co = _coeffs(rng, "int16", (60, 11, 11)).to(cuda)
