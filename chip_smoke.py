@@ -45,7 +45,10 @@ Phases, in order; any failure exits non-zero:
                 through the trace build (its reads' packed flag); each
                 datapath at the largest window the
                 ring holds for it (float32 61, bfloat16 87, int16 101,
-                8-bit 129; separable too); and a bank of 48 w13 float32
+                8-bit 129; separable too; the tree too for the float
+                datapaths, where its counter reaches its top levels);
+                the float32 tree at w 23 and 47 (the counter's 10- and
+                12-level cases); and a bank of 48 w13 float32
                 filters (32,448 B of coefficients), two launches of one
                 output.
   4. serving  — ``FilterServeEngine(batch_size=4, device='cuda')`` serves
@@ -117,8 +120,12 @@ Phases, in order; any failure exits non-zero:
  6d. generic  — the generic window's times at [4,960,1440], as phase 5
                 prints the buckets' (kernel, plain, ``F.conv2d`` for float
                 frames, bound): float32 w 9 and 13 direct, w13 separable,
-                w9 tree and compress, bfloat16 w9, int8 requant w 9 and 13
-                on both MAC routes, uint8 and int16 requant w9. Float rows
+                w 9 and 13 tree, w9 compress, bfloat16 w9 direct and
+                tree, int8 requant w 9 and 13
+                on both MAC routes, uint8 and int16 requant w9; then the
+                instantiated windows' tree and compress forms (float32
+                w 3, 5 and 7, bfloat16 w7; their ptxas registers and
+                spills on the generic window's ptxas line). Float rows
                 also give the ceiling of separately rounded products and
                 sums (half the float32 peak); integer rows state the rate
                 their bound assumes (dp4a: four MACs an instruction at the
@@ -392,6 +399,9 @@ REPLACES = "src/repro/kernels/filter2d/kernel.py:349"
 # generic path runs a row's taps in chunks of 16, so 15 | 17 and 31 | 33
 # sit on either side of a chunk boundary
 LARGE_WINDOWS = (9, 13, 15, 17, 31, 33)
+# and the float32 tree at two more windows, whose w*w take the counter's
+# 10- and 12-level cases
+TREE_WINDOWS = (23, 47)
 # every datapath the kernel builds, as (storage dtype, requant dtype or None
 # for the accumulator's own output); phase 3b runs each at the largest
 # window the ring holds for it
@@ -408,14 +418,22 @@ GENERIC_ROWS = (
     ("w13float32", "float32", 13, "direct", None, None),
     ("w13float32separable", "float32", 13, "separable", None, None),
     ("w9float32tree", "float32", 9, "tree", None, None),
+    ("w13float32tree", "float32", 13, "tree", None, None),
     ("w9float32compress", "float32", 9, "compress", None, None),
     ("w9bfloat16", "bfloat16", 9, "direct", None, None),
+    ("w9bfloat16tree", "bfloat16", 9, "tree", None, None),
     ("w9int8", "int8", 9, "direct", "int8", "byte"),
     ("w13int8", "int8", 13, "direct", "int8", "byte"),
     ("w9int8wide", "int8", 9, "direct", "int8", "wide"),
     ("w13int8wide", "int8", 13, "direct", "int8", "wide"),
     ("w9uint8", "uint8", 9, "direct", "uint8", "byte"),
     ("w9int16", "int16", 9, "direct", "int16", "byte"))
+# beside them, the instantiated windows' tree and compress forms (w <= 7:
+# each pixel's w*w products from row segments kept in registers)
+FIXED_TREE_ROWS = tuple(
+    (f"w{w}{dt}{form}", dt, w, form, None, None)
+    for dt, ws in (("float32", (3, 5, 7)), ("bfloat16", (7,)))
+    for w in ws for form in ("tree", "compress"))
 # the kernel per dtype: bfloat16, then float32
 SWATTN_SOURCE = ("src/repro_torch/kernels/swattn/csrc/swattn_bf16.cu, "
                  "src/repro_torch/kernels/swattn/csrc/swattn.cu")
@@ -547,8 +565,27 @@ def ptxas_summary(text: str):
     return rows
 
 
+def ptxas_stack(text: str) -> dict:
+    """Stack frame bytes per kernel instantiation in a ``-Xptxas -v``
+    report: where an array the compiler could not keep in registers lives
+    (spills included)."""
+    import re
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            out[name] = int(m.group(1))
+            name = None
+    return out
+
+
 def kernel_label(mangled: str) -> str:
-    """``filter2d_halo<storage,acc,out,wW,form>``, ``swattn<dtype,hdN>``,
+    """``filter2d_halo<storage,acc,out,wW,form>`` (``…,tree,lL>`` for the
+    generic tree's kernel of L counter levels), ``swattn<dtype,hdN>``,
     ``swattn<bf16,hdN,wgmma>`` or ``dwconv1d<dtype,kN>`` from a mangled
     name."""
     import re
@@ -562,15 +599,18 @@ def kernel_label(mangled: str) -> str:
     if m:
         dt = "f32" if m.group(1) == "f" else "bf16"
         return f"dwconv1d<{dt},k{m.group(2)}>"
-    m = re.search(r"filter2d_halo_kernelI(.*?)Li(\d+)ELi(\d+)E", mangled)
+    m = re.search(r"filter2d_halo_kernelI(.*?)Li(\d+)ELi(\d+)E(?:Li(\d+)E)?",
+                  mangled)
     if not m:
         return mangled
     codes = {"f": "f32", "i": "i32", "a": "i8", "h": "u8", "s": "i16",
              "13__nv_bfloat16": "bf16", "S1_": "bf16"}  # S1_: repeated type
     types = re.findall(r"13__nv_bfloat16|S1_|[fiahs]", m.group(1))
     form = ("fold", "tree", "compress", "separable")[int(m.group(3))]
+    # a generic tree's kernel per level case of its counter
+    levels = f",l{m.group(4)}" if int(m.group(4) or 0) else ""
     return (f"filter2d_halo<{','.join(codes[t] for t in types)},"
-            f"w{m.group(2)},{form}>")
+            f"w{m.group(2)},{form}{levels}>")
 
 
 def card_line() -> str:
@@ -795,8 +835,9 @@ class Smoke:
         such bank also runs through the trace build, which must observe
         the route its coefficients call for (``mac_route``). Then each
         datapath at
-        the largest window the ring holds for it, direct and separable,
-        both loaders. Returns the case count."""
+        the largest window the ring holds for it, direct and separable
+        (and the tree for float frames), both loaders, and the float32
+        tree at ``TREE_WINDOWS``. Returns the case count."""
         import numpy as np
         from repro_torch.kernels.filter2d import halo
         from repro_torch.kernels.filter2d import kernel as K
@@ -840,7 +881,10 @@ class Smoke:
         for dt, out in DATAPATHS:
             s, so = ITEMSIZE[dt], ITEMSIZE[out] if out else (
                 ITEMSIZE[dt] if dt in TOL else 4)
-            for form in ("direct", "separable"):
+            # the tree's counter reaches its top levels at the float
+            # datapaths' largest windows
+            for form in ("direct", "separable") + (
+                    ("tree",) if dt in TOL else ()):
                 w = halo.max_ring_window(s, so, form == "separable")
                 tops[f"{dt}->{out or ('int32' if dt not in TOL else dt)} "
                      f"{form}"] = w
@@ -850,6 +894,14 @@ class Smoke:
                                     rounding="nearest_even" if out else None,
                                     loader=loader, exact=True)
                     n += 1
+        # the float32 tree past its first level cases (w*w of 529 and
+        # 2,209: the counter's 10- and 12-level cases)
+        for w in TREE_WINDOWS:
+            for W, loader in ((301, "thread"), (336, "tma")):
+                x, co = self._inputs(rng, "float32", 2, 67, W, 2, w, "tree")
+                self.check_case(rng, "float32", "mirror", "tree", w, x=x,
+                                co=co, loader=loader, exact=True)
+                n += 1
         # a bank of 48 w13 float32 filters: 32,448 B of coefficients, two
         # launches of one output
         x, co = self._inputs(rng, "float32", 2, 67, 336, 48, 13, "direct")
@@ -867,7 +919,8 @@ class Smoke:
                  f"agree bit for bit with the plain version (every dtype, "
                  f"policy and form, both loaders; 8-bit direct banks by "
                  f"route, as the trace build observed it: {routes}), each datapath at its largest window "
-                 f"{tops}, and a bank of 48 w13 float32 filters "
+                 f"{tops}, the float32 tree at w {list(TREE_WINDOWS)}, "
+                 f"and a bank of 48 w13 float32 filters "
                  f"({48 * 13 * 13 * 4} B of coefficients) ran as {added} "
                  f"launches {list(chunks)}")
         return n
@@ -1849,10 +1902,11 @@ class Smoke:
 
     def generic_timing(self, shape=(4, 960, 1440)):
         """The generic window's kernel at phase 6d's rows
-        (``GENERIC_ROWS``), as phase 5 times the serving buckets: kernel,
-        plain, ``F.conv2d`` (float frames) and the bound; the float rows
-        also beside the ceiling of separately rounded products and sums,
-        the integer rows at the rate of the MAC they take."""
+        (``GENERIC_ROWS``) and the instantiated windows' tree and compress
+        forms (``FIXED_TREE_ROWS``), as phase 5 times the serving buckets:
+        kernel, plain, ``F.conv2d`` (float frames) and the bound; the
+        float rows also beside the ceiling of separately rounded products
+        and sums, the integer rows at the rate of the MAC they take."""
         import types
         import numpy as np
         from repro_torch.core.border_spec import BorderSpec
@@ -1861,7 +1915,8 @@ class Smoke:
         rng = np.random.default_rng(13)
         rows = {}
         with saved_counts():
-            for name, dt, w, form, rq, bank in GENERIC_ROWS:
+            for name, dt, w, form, rq, bank in (GENERIC_ROWS
+                                                + FIXED_TREE_ROWS):
                 sep = form == "separable"
                 cshape = (2, w) if sep else (w, w)
                 if dt in TOL:
@@ -4980,14 +5035,25 @@ def ptxas_report(smoke, libs) -> None:
                 raise AssertionError(f"ptxas: serving kernels spill: "
                                      f"{spilled}")
             # the generic window's instantiations (w0: the radius at run
-            # time); a float32 one that spills is a failure
-            generic = [(kernel_label(m), r, sp) for m, r, _, sp in kernels
+            # time; the tree a kernel per level case), then the instantiated
+            # windows' tree and compress forms, with their stack frames (a
+            # tree whose counters left the registers shows one); a float32
+            # generic one that spills is a failure
+            stack = ptxas_stack(lib.ptxas_log.read_text())
+            generic = [(kernel_label(m), r, sp, stack.get(m))
+                       for m, r, _, sp in kernels
                        if ",w0," in kernel_label(m)]
-            smoke.say("ptxas filter2d_halo generic window: " + "; ".join(
-                f"{label} {r} registers, {sp} B spilled"
-                for label, r, sp in generic))
-            spilled = [label for label, _, sp in generic
-                       if sp and label.startswith("filter2d_halo<f32")]
+            generic += [(kernel_label(m), r, sp, stack.get(m))
+                        for m, r, _, sp in kernels
+                        if ",w0," not in kernel_label(m)
+                        and kernel_label(m).endswith(("tree>", "compress>"))]
+            smoke.say("ptxas filter2d_halo generic window (then the fixed "
+                      "windows' tree and compress): " + "; ".join(
+                f"{label} {r} registers, {sp} B spilled, {st} B stack"
+                for label, r, sp, st in generic))
+            spilled = [label for label, _, sp, _ in generic
+                       if sp and label.startswith("filter2d_halo<f32")
+                       and ",w0," in label]
             if spilled:
                 raise AssertionError(f"ptxas: float32 generic kernels "
                                      f"spill: {spilled}")

@@ -91,10 +91,13 @@
 //     taps an instruction), each block choosing from its own copy of the
 //     bank; other banks and int16 frames run the int32 MAC in the same
 //     loops, and compress runs them with a running sum of each group of
-//     6 taps. The tree reads each pixel's taps from shared memory (its
-//     pairwise sums need a stack of partial sums per output, too many
-//     registers for a thread's block), through a binary counter of
-//     partial sums that keeps the reference's pairing.
+//     6 taps. The tree keeps the reference's pairing through a binary
+//     counter of partial sums per pixel, in registers: it sweeps one
+//     output row's window rows at a time, in the same chunks, for a group
+//     of the thread's columns (too many registers for all of them); how
+//     far each push climbs is the same for the whole warp, known at
+//     compile time below level 3 and decided by one branch an 8 taps
+//     above it.
 //  4b. A bank whose coefficients exceed the coefficient file is split by
 //     the wrapper into chunks of filters, one launch each, every launch
 //     writing its [:, n0:n1] slice of the one output (Params::n_out is
@@ -490,7 +493,7 @@ __device__ __forceinline__ O from_bits(uint32_t b) {
 
 // one output row segment of a thread: C pixels at dst, those in [lo, hi)
 // inside the output; 16-byte stores where the whole segment is inside and
-// the row allows it
+// the row allows it (and C pixels make whole 16-byte stores)
 template <typename O, typename A, int C>
 __device__ __forceinline__ void emit(O* dst, const A (&acc)[C], int lo,
                                      int hi, bool vec, int rounding, int32_t m,
@@ -498,28 +501,29 @@ __device__ __forceinline__ void emit(O* dst, const A (&acc)[C], int lo,
   uint32_t bits[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) bits[c] = finish_bits<O>(acc[c], rounding, m, sh);
-  if (vec && lo == 0 && hi >= C) {
-    constexpr int PER = 4 / (int)sizeof(O);   // pixels per 32-bit word
-    constexpr int NW = C / PER;               // words: 4 per 16-byte store
-    static_assert(NW % 4 == 0, "whole 16-byte stores");
-    uint32_t w[NW];
+  constexpr int PER = 4 / (int)sizeof(O);     // pixels per 32-bit word
+  constexpr int NW = C / PER;                 // words: 4 per 16-byte store
+  if constexpr (C % PER == 0 && NW % 4 == 0) {
+    if (vec && lo == 0 && hi >= C) {
+      uint32_t w[NW];
 #pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      w[k] = 0;
+      for (int k = 0; k < NW; ++k) {
+        w[k] = 0;
 #pragma unroll
-      for (int e = 0; e < PER; ++e)
-        w[k] |= bits[k * PER + e] << (8 * (int)sizeof(O) * e);
+        for (int e = 0; e < PER; ++e)
+          w[k] |= bits[k * PER + e] << (8 * (int)sizeof(O) * e);
+      }
+      // streaming: the output is not read again, the input's halo is
+#pragma unroll
+      for (int v = 0; v < NW; v += 4)
+        __stcs(reinterpret_cast<uint4*>(dst) + v / 4,
+               make_uint4(w[v], w[v + 1], w[v + 2], w[v + 3]));
+      return;
     }
-    // streaming: the output is not read again, the input's halo is
-#pragma unroll
-    for (int v = 0; v < NW; v += 4)
-      __stcs(reinterpret_cast<uint4*>(dst) + v / 4,
-             make_uint4(w[v], w[v + 1], w[v + 2], w[v + 3]));
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (c >= lo && c < hi) dst[c] = from_bits<O>(bits[c]);
   }
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (c >= lo && c < hi) dst[c] = from_bits<O>(bits[c]);
 }
 
 // ---------------------------------------------------------------------------
@@ -825,54 +829,168 @@ __device__ __forceinline__ void dp4a_chunk(const unsigned char* row, int b,
   }
 }
 
-// element e of a thread's row segment whose first element is at `row`
-template <typename T, typename A>
-__device__ __forceinline__ A seg_elem(const unsigned char* row, int e) {
-  return widen<A>(reinterpret_cast<const T*>(row)[e]);
-}
-
 // The generic tree as a binary counter: the products enter in tap order,
 // and pushing product t adds it to the complete blocks that bit by bit end
 // at t (each level's left block first). A node of level L then covers
 // taps [k 2^L, (k + 1) 2^L), which is the pairwise, level-by-level tree
 // with the odd tail carried (core/filter2d.py:_tree); the blocks left at
-// the end, one per set bit of w*w, fold from the right. LEVELS bits take
-// w*w < 2^16.
-constexpr int LEVELS = 16;
+// the end, one per set bit of w*w, fold from the right. Each pixel keeps
+// its counter in registers, a level a row, so every index must be a
+// constant. How far a push climbs is the count of trailing ones of t, the
+// same for every pixel of the warp:
+//  * below TREE_PB it follows from t's low bits, which a chunk knows at
+//    compile time once its first tap's phase (t0 mod 2^TREE_PB) is a case
+//    of its own (by_phase), so those sums need no branch;
+//  * from TREE_PB to TREE_LOW - 1 one uniform branch a 2^TREE_PB taps
+//    decides, for a thread's whole group of columns;
+//  * a push past TREE_LOW - 1 (t ends in TREE_LOW ones: one tap in any 16)
+//    leaves its sum as the chunk's carry, which climbs the higher levels
+//    after the chunk's taps.
+// The level count LV is a case of w*w's range, each a kernel of its own
+// (tree_levels; halo.py::tree_levels is its twin): the smallest of 8, 10,
+// 12 and 13 bits that holds w*w, so TREE_LEVELS bits take w <= 89 (every
+// window the float datapaths' shared memory allows: 61 for float32, 87
+// for bf16). One kernel holding every case spilled kilobytes.
+constexpr int TREE_PB = 3;
+constexpr int TREE_LOW = 4;
+constexpr int TREE_LEVELS = 13;
+static_assert(JC <= (1 << TREE_LOW) && TREE_PB <= TREE_LOW,
+              "at most one carry a chunk");
 
-template <typename A>
-__device__ __forceinline__ void counter_push(A (&st)[LEVELS], A v, int t) {
+__host__ __device__ constexpr int tree_levels(int w) {
+  return w * w < (1 << 8) ? 8
+         : w * w < (1 << 10) ? 10
+         : w * w < (1 << 12) ? 12
+         : w * w < (1 << TREE_LEVELS) ? TREE_LEVELS : 0;
+}
+
+// the columns of a thread that share a sweep of the window: their
+// counters, a chunk's elements and its coefficients stay under the 96
+// registers of two blocks an SM
+template <int LV> __host__ __device__ constexpr int tree_cols() {
+  return LV <= 8 ? 4 : 2;
+}
+
+template <int N> using Phase = std::integral_constant<int, N>;
+
+// f(Phase<ph>{}) for ph in [0, 2^TREE_PB)
+template <int PH, typename F>
+__device__ __forceinline__ void by_phase(int ph, F&& f) {
+  if (ph == PH) {
+    f(Phase<PH>{});
+  } else if constexpr (PH + 1 < (1 << TREE_PB)) {
+    by_phase<PH + 1>(ph, f);
+  }
+}
+
+// The tree form's chunk of NTP taps t0 .. t0 + NTP - 1 (one window row's,
+// from its tap j0; t0 = PH mod 2^TREE_PB) for a group of TG columns: the
+// TG + NTP - 1 elements from byte b past `row` and the NTP coefficients at
+// kr, then each tap's TG products pushed into the counters
+// st[level][column]
+template <typename T, typename A, int TG, int G, int NTP, int LV, int PH>
+__device__ __forceinline__ void tree_chunk(const unsigned char* row, int b,
+                                           const A* kr, int t0,
+                                           A (&st)[LV][TG]) {
+  constexpr int S = sizeof(T), NE = TG + NTP - 1;
+  constexpr int PM = (1 << TREE_PB) - 1;
+  uint32_t words[(NE * S + 3) / 4];
+  load_realigned<S, G>(row, b, words);
+  A x[NE];
 #pragma unroll
-  for (int L = 0; L < LEVELS; ++L) {
-    if ((t >> L) & 1) {
-      v = add(st[L], v);
-    } else {
-      st[L] = v;
-      return;
+  for (int e = 0; e < NE; ++e) x[e] = element<T, A>(words, e);
+  // the coefficients by 16-byte broadcast loads into registers, or by a
+  // broadcast load a tap where ptxas would spill them beside the counters
+  // (float32's 8- and 10-level kernels: 16-88 B; bf16's 8-level kernel
+  // spills 52 B the other way)
+  constexpr bool KTAP = S == 4 && LV <= 10;
+  A k[round_up(NTP, 4)];
+  if constexpr (!KTAP) load_row4(kr, k);
+  A cv[TG];
+#pragma unroll
+  for (int j = 0; j < NTP; ++j) {
+    A kj;
+    if constexpr (KTAP) kj = kr[j];
+    else kj = k[j];
+    A v[TG];
+#pragma unroll
+    for (int c = 0; c < TG; ++c) v[c] = mul(x[c + j], kj);
+    // below TREE_PB: t's low bits, a constant once the loop unrolls
+    const int tl = (PH + j) & PM;
+    bool up = true;
+#pragma unroll
+    for (int L = 0; L < TREE_PB; ++L) {
+      if (up && ((tl >> L) & 1)) {
+#pragma unroll
+        for (int c = 0; c < TG; ++c) v[c] = add(st[L][c], v[c]);
+      } else if (up) {
+#pragma unroll
+        for (int c = 0; c < TG; ++c) st[L][c] = v[c];
+        up = false;
+      }
+    }
+    if (up) {   // t ends in TREE_PB ones: the next levels by t itself
+      const int top = TREE_PB + __ffs(~((t0 + j) >> TREE_PB)) - 1;
+#pragma unroll
+      for (int L = TREE_PB; L < TREE_LOW; ++L) {
+        if (L < top) {
+#pragma unroll
+          for (int c = 0; c < TG; ++c) v[c] = add(st[L][c], v[c]);
+        } else if (L == top) {
+#pragma unroll
+          for (int c = 0; c < TG; ++c) st[L][c] = v[c];
+        }
+      }
+      if (top >= TREE_LOW) {
+#pragma unroll
+        for (int c = 0; c < TG; ++c) cv[c] = v[c];
+      }
+    }
+  }
+  // the carry, from the chunk's tap that ends in TREE_LOW ones, if any
+  constexpr int M = (1 << TREE_LOW) - 1;
+  const int tc = t0 + ((M - t0) & M);
+  if (tc < t0 + NTP) {
+    // levels TREE_LOW .. LV - 1, unrolled (no early exit: a loop that
+    // breaks may not unroll, and the counters would leave the registers)
+    const int top = TREE_LOW + __ffs(~(tc >> TREE_LOW)) - 1;
+#pragma unroll
+    for (int L = TREE_LOW; L < LV; ++L) {
+      if (L < top) {
+#pragma unroll
+        for (int c = 0; c < TG; ++c) cv[c] = add(st[L][c], cv[c]);
+      } else if (L == top) {
+#pragma unroll
+        for (int c = 0; c < TG; ++c) st[L][c] = cv[c];
+      }
     }
   }
 }
 
-template <typename A>
-__device__ __forceinline__ A counter_fold(const A (&st)[LEVELS], int n) {
-  A acc = A(0);
+// the sum of the blocks a counter holds after n pushes (one per set bit
+// of n), from the right: the deepest level holds the leftmost block
+template <typename A, int LV, int TG>
+__device__ __forceinline__ void tree_fold(const A (&st)[LV][TG], int n,
+                                          A (&out)[TG]) {
   bool have = false;
 #pragma unroll
-  for (int L = 0; L < LEVELS; ++L)
+  for (int L = 0; L < LV; ++L)
     if ((n >> L) & 1) {
-      acc = have ? add(st[L], acc) : st[L];
+#pragma unroll
+      for (int c = 0; c < TG; ++c)
+        out[c] = have ? add(st[L][c], out[c]) : st[L][c];
       have = true;
     }
-  return acc;
 }
 
 // reduce_item for the generic window: the same outputs, sums and stores.
 // Direct, compress and separable sweep the window rows y once: each row's
 // taps in chunks (fold_chunk, vpass_chunk, or dp4a_chunk where the block
 // holds packed coefficients), each chunk's elements loaded once and used
-// by every output row the row feeds. The tree reads each pixel's w*w taps
-// from shared memory.
-template <typename T, typename A, typename O, int FORM>
+// by every output row the row feeds. The tree sweeps each output row's w
+// window rows in the same chunks (tree_chunk), once for each group of its
+// columns, whose counters stay in registers.
+template <typename T, typename A, typename O, int FORM, int LV>
 __device__ __forceinline__ void reduce_item_generic(
     const unsigned char* win, const A* cs, const int32_t* qs, const Params& p,
     const DynGeo<T, O>& g, bool packed, int m, int cy0, int cx0) {
@@ -881,11 +999,11 @@ __device__ __forceinline__ void reduce_item_generic(
   constexpr bool PACK = std::is_integral<A>::value && S == 1 && FORM == FOLD;
   const int W = p.w, R = g.R, PITCH = g.PITCH, KP = coeff_pitch(W);
   const int words = coeff_words(W, FORM == SEPARABLE);
-  const unsigned char* seg = win + (g.LEAD - R) * S;   // the segment start
-  // the segment as G-aligned loads from `base`, moved by b bytes (win is
-  // G-aligned: the thread's C columns are C * S bytes)
+  // the thread's segment (from byte (LEAD - R) * S of its window rows) as
+  // G-aligned loads from `base`, moved by b bytes (win is G-aligned: the
+  // thread's C columns are C * S bytes)
   const int b = ((g.LEAD - R) * S) & (G - 1);
-  const unsigned char* base = seg - b;
+  const unsigned char* base = win + (g.LEAD - R) * S - b;
   const int ox0 = cx0 - p.shift, oy0 = cy0 - p.shift;
   const int lo = max(0, -ox0), hi = min(C, p.Wo - ox0);
   const bool vec = p.vec_store != 0;
@@ -972,22 +1090,39 @@ __device__ __forceinline__ void reduce_item_generic(
           }
         });
       }
-    } else {  // TREE: each pixel's taps from shared memory
+    } else {  // TREE: an output row at a time, a group of columns at a time
+      constexpr int TG = tree_cols<LV>();
+#pragma unroll 1
       for (int oy = 0; oy < ROWS; ++oy) {
-        A res[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          A st[LEVELS];
-          int t = 0;
+        const int gy = oy0 + oy;
+#pragma unroll 1
+        for (int grp = 0; grp < C / TG; ++grp) {
+          A st[LV][TG];
+          // the window rows oy .. oy + w - 1 in tap order, each in chunks
+          // from the group's first column
           for (int i = 0; i < W; ++i) {
-            const unsigned char* row = seg + (oy + i) * PITCH;
-            const A* ki = k + i * KP;
-            for (int j = 0; j < W; ++j, ++t)
-              counter_push(st, mul(seg_elem<T, A>(row, c + j), ki[j]), t);
+            const unsigned char* row = base + (oy + i) * PITCH;
+            for (int j0 = 0; j0 < W; j0 += JC) {
+              const int o = b + (grp * TG + j0) * S, t0 = i * W + j0;
+              by_taps<JC>(min(JC, W - j0), [&](auto nt) {
+                by_phase<0>(t0 & ((1 << TREE_PB) - 1), [&](auto ph) {
+                  tree_chunk<T, A, TG, G, decltype(nt)::value, LV,
+                             decltype(ph)::value>(
+                      row + (o & ~(G - 1)), o & (G - 1), k + i * KP + j0, t0,
+                      st);
+                });
+              });
+            }
           }
-          res[c] = counter_fold(st, W * W);
+          A sum[TG];
+          tree_fold(st, W * W, sum);
+          // the group's pixels straight out: no register holds the row's
+          // other groups meanwhile
+          const int c0 = grp * TG;
+          if (gy >= 0 && gy < p.Ho)
+            emit<O, A, TG>(out + (ptrdiff_t)gy * p.Wo + c0, sum, lo - c0,
+                           hi - c0, vec, p.rounding, qm, qsh);
         }
-        store(oy, res);
       }
     }
   }
@@ -1168,7 +1303,7 @@ __device__ __forceinline__ void trace_event(
 // 0-42% slower for the bf16 compress and integer instantiations that
 // spill 16-628 B under the cap (tools/filter_ab.py); three, at 72
 // registers, spill.
-template <typename T, typename A, typename O, int W, int FORM>
+template <typename T, typename A, typename O, int W, int FORM, int LV>
 __global__ void __launch_bounds__(NT, W == 0 ? 2 : 1)
 filter2d_halo_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
   using GEO = typename GeoOf<T, O, W>::type;
@@ -1303,7 +1438,7 @@ filter2d_halo_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
       if constexpr (W > 0)
         reduce_item<T, A, O, W, FORM>(win, cs, q, p, m, cy0, cx0);
       else
-        reduce_item_generic<T, A, O, FORM>(win, cs, q, p, g, packed, m,
+        reduce_item_generic<T, A, O, FORM, LV>(win, cs, q, p, g, packed, m,
                                            cy0, cx0);
     }
 #ifdef F2D_TRACE
@@ -1381,15 +1516,17 @@ bool make_map(CUtensorMap* map, const Params& p, const Geometry& g) {
 }
 
 // `info`, when given, receives {dynamic shared memory bytes, blocks,
-// tiles, strips} of the launch
-template <typename T, typename A, typename O, int W, int FORM>
+// tiles, strips} of the launch; LV is a generic tree's level case (0 for
+// every other instantiation)
+template <typename T, typename A, typename O, int W, int FORM, int LV = 0>
 cudaError_t launch(Params p, cudaStream_t stream, int* info) {
   const int w = W > 0 ? W : p.w;
   if (w != p.w) return cudaErrorInvalidValue;
   const Geometry g = geometry(sizeof(T), sizeof(O), w);
   // the box and the tree's counter bound the window; the wrapper refuses
   // such a window at compile time already (halo.py::check_ring_fits)
-  if (!box_fits(g) || w * w >= (1 << LEVELS)) return cudaErrorInvalidValue;
+  if (!box_fits(g) || (LV > 0 && tree_levels(w) != LV))
+    return cudaErrorInvalidValue;
   // centres cover the frame; neglect keeps those whose window is inside
   p.tiles = (p.W + TILE_W - 1) / TILE_W;
   p.strips = (p.H + g.SH - 1) / g.SH;
@@ -1407,7 +1544,7 @@ cudaError_t launch(Params p, cudaStream_t stream, int* info) {
       return cudaErrorMisalignedAddress;
     if (!make_map<T>(&map, p, g)) return cudaErrorInvalidValue;
   }
-  const auto kern = filter2d_halo_kernel<T, A, O, W, FORM>;
+  const auto kern = filter2d_halo_kernel<T, A, O, W, FORM, LV>;
   const size_t smem =
       smem_bytes(g, coeff_words(w, FORM == SEPARABLE), p.N, sizeof(A));
   cudaError_t err = cudaFuncSetAttribute(
@@ -1428,7 +1565,7 @@ cudaError_t launch(Params p, cudaStream_t stream, int* info) {
     info[2] = p.tiles;
     info[3] = p.strips;
   }
-  filter2d_halo_kernel<T, A, O, W, FORM>
+  filter2d_halo_kernel<T, A, O, W, FORM, LV>
       <<<(unsigned)grid, NT, smem, stream>>>(map, p);
   return cudaGetLastError();
 }
@@ -1440,7 +1577,23 @@ cudaError_t dispatch_form(const Params& p, int form, cudaStream_t stream,
     // exact mod 2^32: any order
     return launch<T, A, O, W, FOLD>(p, stream, info);
   } else {
-    if (form == TREE) return launch<T, A, O, W, TREE>(p, stream, info);
+    if (form == TREE) {
+      if constexpr (W == 0) {   // a kernel per level case
+        switch (tree_levels(p.w)) {
+          case 8: return launch<T, A, O, 0, TREE, 8>(p, stream, info);
+          case 10: return launch<T, A, O, 0, TREE, 10>(p, stream, info);
+          case 12: return launch<T, A, O, 0, TREE, 12>(p, stream, info);
+          case TREE_LEVELS:
+            // float32 frames stop at w 61 (12 levels): shared memory holds
+            // no larger window, so their 13-level kernel is not built
+            if constexpr (sizeof(T) == 4) return cudaErrorInvalidValue;
+            else return launch<T, A, O, 0, TREE, TREE_LEVELS>(p, stream, info);
+          default: return cudaErrorInvalidValue;   // past the counter
+        }
+      } else {
+        return launch<T, A, O, W, TREE>(p, stream, info);
+      }
+    }
     if (form == COMPRESS) return launch<T, A, O, W, COMPRESS>(p, stream, info);
     return launch<T, A, O, W, FOLD>(p, stream, info);
   }

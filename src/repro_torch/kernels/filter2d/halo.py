@@ -475,7 +475,13 @@ TMA_BOX_LIMIT = 256          # a TMA box is at most 256 elements a side
 # launches of as many filters as fit (at least one, if the block fits)
 COEFF_FILE_BYTES = 24 * 1024
 COEFF_BYTES = 4              # float32 or int32 coefficients
-TREE_TAPS_LIMIT = 1 << 16    # the generic tree's counter: w*w < 2^16
+# the generic tree's counter (``ring.cuh::tree_levels``): its level cases
+# (a kernel each), the smallest of which that holds w*w a launch takes,
+# and the levels a push settles in the tap's own code before it carries
+TREE_LEVEL_CASES = (8, 10, 12, 13)
+TREE_TAPS_LIMIT = 1 << TREE_LEVEL_CASES[-1]   # w*w < 2^13: w <= 89
+TREE_LOW = 4
+RING_CHUNK = 16              # a window row's taps run in chunks of 16
 # the largest window with an instantiation of its own; every larger odd
 # window runs the generic one (``ring.cuh::dispatch``)
 RING_FIXED_MAX = 7
@@ -589,9 +595,65 @@ def ring_refusal(geo: RingGeometry, separable: bool = False
         return (f"{RING_STAGES} stages of {geo.stage} B and one filter's "
                 f"coefficients take {need} B of shared memory, past the "
                 f"{SMEM_BLOCK_LIMIT} B a block may hold")
-    if geo.w * geo.w >= TREE_TAPS_LIMIT:
+    # the tree runs for float frames only (integer frames fold in every
+    # form): storage and output of one width, 4 or 2 bytes; never for the
+    # separable form
+    tree = not separable and geo.s == geo.so and geo.s in (2, 4)
+    if tree and geo.w * geo.w >= TREE_TAPS_LIMIT:
         return f"its {geo.w * geo.w} taps pass the tree's {TREE_TAPS_LIMIT}"
     return None
+
+
+def tree_levels(w: int) -> int:
+    """Twin of ``ring.cuh::tree_levels``: the counter levels a generic tree
+    launch of window ``w`` takes, the smallest case that holds w*w."""
+    for levels in TREE_LEVEL_CASES:
+        if w * w < 1 << levels:
+            return levels
+    raise ValueError(f"w={w}: {w * w} taps pass the tree's "
+                     f"{TREE_TAPS_LIMIT}")
+
+
+def tree_schedule_sum(products, w: int) -> np.ndarray:
+    """The generic tree's sums as the kernel forms them
+    (``ring.cuh::tree_chunk`` and ``tree_fold``): ``products`` is
+    [w*w, P] float32, the taps of P pixels in raster order. Each window
+    row's taps run in chunks of 16; a push of tap t adds the blocks its
+    trailing ones complete (each level's left block first), settling the
+    levels below ``TREE_LOW`` at once and leaving a push that climbs past
+    them as the chunk's carry, which goes up the higher levels after the
+    chunk. The blocks left, one per set bit of w*w, fold from the right.
+    numpy's float32 adds round as ``__fadd_rn`` does."""
+    p = np.asarray(products, dtype=np.float32)
+    if p.shape[0] != w * w:
+        raise ValueError(f"{p.shape[0]} products for w={w}")
+    levels = tree_levels(w)
+    st = [None] * levels
+    for i in range(w):
+        for j0 in range(0, w, RING_CHUNK):
+            t0 = i * w + j0
+            carry = None
+            for t in range(t0, t0 + min(RING_CHUNK, w - j0)):
+                v, L = p[t], 0
+                while (t >> L) & 1 and L < TREE_LOW:
+                    v = st[L] + v
+                    L += 1
+                if L < TREE_LOW:
+                    st[L] = v
+                else:
+                    carry = (t, v)
+            if carry is not None:
+                tc, v = carry
+                L = TREE_LOW
+                while (tc >> L) & 1:
+                    v = st[L] + v
+                    L += 1
+                st[L] = v
+    out = None
+    for L in range(levels):
+        if (w * w >> L) & 1:
+            out = st[L] if out is None else st[L] + out
+    return out
 
 
 def max_ring_window(s: int, so: int, separable: bool = False) -> int:

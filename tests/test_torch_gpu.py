@@ -1056,16 +1056,32 @@ def test_generic_window_runs_the_largest_window_of_each_datapath(
     rq = None if requant is None else RequantSpec(rounding="nearest_even",
                                                   dtype=requant)
     co = _coeffs(rng, dtype, (1, 2, w) if separable else (1, w, w)).to(cuda)
-    form = "separable" if separable else "direct"
+    # the float datapaths' tree reaches its counter's top levels here
+    forms = (["separable"] if separable else
+             ["direct"] + (["tree"] if dtype in TOL else []))
     for W in (175, 176):                      # per-thread, TMA
         x = _frame(rng, dtype, (1, w + 6, W)).to(cuda)
         plan = halo.make_plan(w + 6, W, w, BorderSpec("mirror"), w + 6, W,
                               dtype=dtype, requant=rq)
         q = None if rq is None else torch.tensor(
             rq.params(1), dtype=torch.int32, device=cuda)
-        got = K.filter2d_halo(x, co, plan, q_params=q, form=form)
-        assert torch.equal(got, K.filter2d_halo_ref(x, co, plan, q_params=q,
-                                                    form=form))
+        for form in forms:
+            got = K.filter2d_halo(x, co, plan, q_params=q, form=form)
+            assert torch.equal(got, K.filter2d_halo_ref(
+                x, co, plan, q_params=q, form=form))
+
+
+@pytest.mark.parametrize("w", [23, 47])
+def test_generic_tree_runs_its_middle_level_cases(cuda, w, rng):
+    """The float32 tree at windows whose w*w take the counter's 10- and
+    12-level cases, both loaders, bit for bit."""
+    co = _coeffs(rng, "float32", (2, w, w)).to(cuda)
+    for W in (301, 336):                      # per-thread, TMA
+        x = _frame(rng, "float32", (2, 67, W)).to(cuda)
+        plan = halo.make_plan(67, W, w, BorderSpec("mirror"), 67, W)
+        got = K.filter2d_halo(x, co, plan, form="tree")
+        assert torch.equal(got, K.filter2d_halo_ref(x, co, plan,
+                                                    form="tree"))
 
 
 def test_a_bank_past_the_coefficient_file_runs_in_chunks(cuda, rng):

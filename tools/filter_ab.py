@@ -36,6 +36,9 @@ ROWS = (
     ("f32 w9", "float32", 9, "direct", None, False),
     ("f32 w13", "float32", 13, "direct", None, False),
     ("f32 compress w9", "float32", 9, "compress", None, False),
+    ("f32 tree w9", "float32", 9, "tree", None, False),
+    ("f32 tree w13", "float32", 13, "tree", None, False),
+    ("bf16 tree w9", "bfloat16", 9, "tree", None, False),
     ("bf16 w9", "bfloat16", 9, "direct", None, False),
     ("bf16 compress w9", "bfloat16", 9, "compress", None, False),
     ("bf16 compress w13", "bfloat16", 13, "compress", None, False),
