@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --generic  # phases 3b and 6d alone
+    python3 chip_smoke.py --spmd     # phase 16 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -337,8 +338,10 @@ Phases, in order; any failure exits non-zero:
                 raised at the end.
  16. SPMD     — ``train_loop(mesh=)``: the weights and AdamW's moments
                 placed by the train profile's ``PartitionSpec``s
-                (``sharding/placement.py``), each data-parallel rank on
-                gathered weights (``training/spmd.py``), on (data 2,
+                (``sharding/placement.py``), each data-parallel rank
+                gathering one layer at a time, in forward and again in
+                backward, and reduce-scattering that layer's gradient
+                (``training/spmd.py``, ``sharding/fsdp.py``), on (data 2,
                 model 2) of four ``cuda:0`` entries (no kernel launches).
                 (a) float32 at 2 layers full width, [4, 2048], 3 steps,
                 against ``train_loop`` on one device (loss and grad norm
@@ -346,11 +349,16 @@ Phases, in order; any failure exits non-zero:
                 ``DP_PARAM_TOL``); controls that must fail: the data
                 reduction taken as a sum, the clip norm counting
                 replicated blocks, the blocks gathered in reversed
-                'model' order. Then h2o-danube-1.8b as published, bf16
-                compute on float32 master weights, 4 x 2048, 3 steps:
-                step ms, tokens/s, peak memory and the bytes a step
+                'model' order (inside the per-layer gather). Then
+                h2o-danube-1.8b as published, bf16 compute on float32
+                master weights, 4 x 2048, 3 steps: step ms and peak
+                memory beside one device's, tokens/s, the bytes a step
                 gathers and reduce-scatters (between cards and within
-                one), losses within ``SPMD_BF16_TOL`` of one device's.
+                one) and the most it holds gathered (``gathered_peak``,
+                equal to ``fsdp.peak_bytes`` and below the whole tree's
+                bytes), losses within ``SPMD_BF16_TOL`` of one device's;
+                a control that must fail: one step with every stacked
+                leaf gathered whole reports the whole tree's bytes.
                 (b) The elastic restart at 2 layers: 3 steps on (data 2)
                 with a checkpoint, 2 resumed on (data 2, model 2),
                 against 5 uninterrupted steps on one device; the step-3
@@ -4426,6 +4434,7 @@ class Smoke:
                         rec["traffic"] = {k: {"moved": t.moved,
                                               "local": t.local}
                                           for k, t in traffic.items()}
+                        rec["gathered_peak"] = step.gathered_peak
                     hist.append(rec)
                     last["params"] = out[0]
                     return out
@@ -4513,16 +4522,22 @@ class Smoke:
                               .square().sum())
             return torch.stack(sq).sum().sqrt()
 
-        def reversed_model(st, device, traffic=None, at=None, copy=False):
-            # every block placed at its mirror along 'model'
+        def reversed_model(st, device, layer=None, traffic=None, at=None):
+            # every block (its layer's rows) placed at its mirror along
+            # 'model'
             device = torch.device(device)
             m = st.mesh
             i = m.axis_names.index("model")
             n = m.devices.shape[i]
-            out = torch.empty(st.shape, dtype=st.dtype, device=device)
+            shape = st.shape if layer is None else st.shape[1:]
+            out = torch.empty(shape, dtype=st.dtype, device=device)
             for c in m.coords():
                 mirror = c[:i] + (n - 1 - c[i],) + c[i + 1:]
-                out[st.sharding.index(mirror, st.shape)].copy_(st.block(c))
+                idx = st.sharding.index(mirror, st.shape)
+                if layer is None:
+                    out[idx].copy_(st.block(c))
+                else:
+                    out[idx[1:]].copy_(st.block(c)[layer])
             return out
 
         ctrl = {}
@@ -4532,7 +4547,7 @@ class Smoke:
                 ("clip norm counting replicated blocks", spmd, "grad_norm",
                  every_coordinate),
                 ("blocks gathered in reversed model order",
-                 placement.ShardedTensor, "gather", reversed_model)):
+                 placement.ShardedTensor, "gather_layer", reversed_model)):
             keep = getattr(obj, attr)
             setattr(obj, attr, fake)
             try:
@@ -4552,14 +4567,23 @@ class Smoke:
         """(a) the published config, bf16 compute on float32 master
         weights, ``train_loop(mesh=)`` on (data 2, model 2): step ms,
         tokens/s, peak memory, the bytes each step gathers and
-        reduce-scatters; losses finite and within ``SPMD_BF16_TOL`` of
-        ``train_loop`` on one device, step for step."""
+        reduce-scatters and the most it holds gathered at once
+        (``gathered_peak``, against ``fsdp.peak_bytes`` and the whole
+        tree's bytes); losses finite and within ``SPMD_BF16_TOL`` of
+        ``train_loop`` on one device, step for step. A control that must
+        fail: one step with every stacked leaf gathered whole
+        (``spmd.stacked_leaf`` replaced) must report the whole tree."""
         import math
         import statistics
         torch = self.torch
+        from repro_torch.models import registry
         from repro_torch.models.module import tree_leaves
+        from repro_torch.sharding import fsdp
+        from repro_torch.training import spmd
         rc = self._train_rc(mc, seq, batch, 0)
         mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        specs = registry.build(rc, device="meta").specs
+        layerwise, whole = fsdp.peak_bytes(specs), fsdp.whole_bytes(specs)
         self._free("before (a) published", "SPMD")
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -4573,32 +4597,61 @@ class Smoke:
         _, single, p1 = self._train_run(rc, steps)
         single_peak = torch.cuda.max_memory_allocated()
         del p1
+        self._free("after the one-device run", "SPMD")
+        keep = spmd.stacked_leaf
+        spmd.stacked_leaf = lambda x, rank: rank.gather_whole(x)
+        try:
+            _, ctrl, p2 = self._train_run(rc, 1, mesh=mesh)
+        finally:
+            spmd.stacked_leaf = keep
+        del p2
         ms = [h["ms"] for h in hist]
         med = statistics.median(ms)
+        single_ms = [h["ms"] for h in single]
+        single_med = statistics.median(single_ms)
         losses = [h["loss"] for h in hist]
         plain = [h["loss"] for h in single]
+        held = [h["gathered_peak"] for h in hist]
         self.say(f"SPMD (a) {mc.name} train_loop(mesh=) on {mesh}: {n} "
                  f"parameters, [{batch},{seq}], {mc.dtype} compute; losses "
                  f"{losses!r} (one device {plain!r}); step ms {ms!r}, median "
                  f"{med!r} ({batch * seq / (med * 1e-3)!r} tokens/s; one "
-                 f"device {statistics.median(h['ms'] for h in single)!r} "
-                 f"ms); peak allocated {peak} B (one device {single_peak} "
-                 f"B); traffic a step {hist[-1]['traffic']!r}; kernel "
-                 f"launches {launches}")
+                 f"device {single_ms!r}, median {single_med!r} ms, mesh / "
+                 f"one device {med / single_med!r}); peak allocated {peak} "
+                 f"B (one device {single_peak} B, ratio "
+                 f"{peak / single_peak!r}); traffic a step "
+                 f"{hist[-1]['traffic']!r}; kernel launches {launches}")
+        self.say(f"SPMD (a) gathered_peak a step {held!r} B (fsdp.peak_bytes "
+                 f"{layerwise} B; the whole tree's weights and float32 "
+                 f"gradients {whole} B, {layerwise / whole!r} of it)")
+        self.say(f"SPMD (a) control, every stacked leaf gathered whole: "
+                 f"gathered_peak {ctrl[0]['gathered_peak']} B (must be the "
+                 f"whole tree, {whole} B); loss {ctrl[0]['loss']!r}; step "
+                 f"ms {ctrl[0]['ms']!r}")
         if any(launches.values()):
             raise AssertionError(f"SPMD (a): kernel launches {launches}")
         if not (all(math.isfinite(x) for x in losses) and all(
                 abs(a - b) <= SPMD_BF16_TOL for a, b in zip(losses, plain))):
             raise AssertionError(f"SPMD (a): bf16 losses {losses} against "
                                  f"one device's {plain}")
+        if any(h != layerwise for h in held) or layerwise >= whole:
+            raise AssertionError(f"SPMD (a): gathered_peak {held}, one "
+                                 f"layer at a time {layerwise}, whole "
+                                 f"{whole}")
+        if ctrl[0]["gathered_peak"] != whole:
+            raise AssertionError(f"SPMD (a): the whole-tree control reports "
+                                 f"{ctrl[0]['gathered_peak']}, not {whole}")
         return {"step_ms": ms, "median_step_ms": med, "losses": losses,
                 "single_device_losses": plain,
-                "single_device_step_ms": [h["ms"] for h in single],
+                "single_device_step_ms": single_ms,
                 "tokens_per_s": batch * seq / (med * 1e-3),
                 "peak_allocated_bytes": peak,
                 "single_device_peak_bytes": single_peak, "parameters": n,
-                "traffic": hist[-1]["traffic"], "launches": launches,
-                "mesh": repr(mesh)}
+                "traffic": hist[-1]["traffic"], "gathered_peak": held,
+                "peak_bytes": layerwise, "whole_tree_bytes": whole,
+                "whole_tree_control": {k: ctrl[0][k] for k in (
+                    "gathered_peak", "loss", "ms")},
+                "launches": launches, "mesh": repr(mesh)}
 
     def spmd_elastic(self, mc, seq: int = 2048, batch: int = 4,
                      devices=None):
@@ -4685,12 +4738,13 @@ class Smoke:
     def spmd_phase(self, arch: str = "h2o_danube_1_8b", parity=(2, 2048),
                    full=(2048, 4, 3)):
         """Phase 16: ``train_loop(mesh=)``, the weights and AdamW's moments
-        sharded by the train profile, on meshes of the card's entries: (a)
-        float32 parity at ``parity`` (layers, sequence) with three
-        controls, and the published config at ``full`` (sequence, batch,
-        steps); (b) the elastic restart; (c) (a) and (b) on distinct cards
-        where there are several; (d) the launcher. Returns the
-        readings."""
+        sharded by the train profile and gathered one layer at a time, on
+        meshes of the card's entries: (a) float32 parity at ``parity``
+        (layers, sequence) with three controls, and the published config
+        at ``full`` (sequence, batch, steps) with its ``gathered_peak``
+        and the whole-tree control; (b) the elastic restart; (c) (a) and
+        (b) on distinct cards where there are several; (d) the launcher.
+        Returns the readings."""
         import dataclasses
         torch = self.torch
         from repro_torch.configs.base import get_model_config
@@ -5102,6 +5156,20 @@ def generic_main(torch, card, part) -> int:
     return 0
 
 
+def spmd_main(torch, card, part) -> int:
+    """``--spmd``: phase 16 alone (no kernel is built: the mesh step runs
+    none), its readings printed as JSON; about a minute on an H100."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smoke = Smoke(torch, card, part)
+    t0 = time.perf_counter()
+    out, launches = smoke.spmd_phase()
+    smoke.say(f"SPMD phase took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"spmd": out, "launches": launches}, default=repr),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
@@ -5125,6 +5193,8 @@ def main() -> int:
 
     if sys.argv[1:] == ["--generic"]:
         return generic_main(torch, card, part)
+    if sys.argv[1:] == ["--spmd"]:
+        return spmd_main(torch, card, part)
     from repro_torch.kernels import _build
     from repro_torch.kernels.filter2d import trace
     t0 = time.perf_counter()

@@ -23,8 +23,14 @@ placements and its own step. Per device:
   output_bytes     train: the updated parameters and moments, as placed,
                    and the five metrics; prefill / decode: one rank's
                    logits and caches for its rows;
-  gathered_bytes   the working set a rank's step gathers: the whole
-                   parameter tree (and, to train, its float32 gradient);
+  gathered_bytes   the most a rank's step holds gathered at once. To
+                   train, ``fsdp.peak_bytes``: the leaves outside the
+                   stacks and the largest layer of any stack, weights
+                   and float32 gradients, as the mesh step gathers one
+                   layer at a time and counts in its ``gathered_peak``;
+                   to prefill or decode, the whole parameter tree (the
+                   port has no mesh serving path, and the reference's
+                   serve launcher takes no mesh);
   temp_bytes, generated_code_bytes
                    XLA's, which the port cannot give: ``null``;
   matmul_flops_per_rank
@@ -69,6 +75,7 @@ from repro_torch.models import module as mod
 from repro_torch.models import registry
 from repro_torch.models.module import tree_leaves
 from repro_torch.optim.adamw import AdamWState, adamw_abstract
+from repro_torch.sharding import fsdp
 from repro_torch.sharding import rules as shd_rules
 from repro_torch.sharding.placement import NamedSharding
 from repro_torch.training.spmd import dp_axes
@@ -204,7 +211,7 @@ def build_cell(rc: RunConfig, mesh, kind: str,
     params_ab = mod.abstract_params(bundle.specs, param_dtype)
     B, S = rc.shape.global_batch, rc.shape.seq_len
     rows = _rank_rows(B, ctx)
-    gathered = logical_bytes(params_ab)
+    gathered = logical_bytes(params_ab)     # serving: the whole tree
     cur = False
     if kind == "train":
         # ZeRO-1: the moments keep the FSDP (data-sharded) layout though
@@ -215,7 +222,7 @@ def build_cell(rc: RunConfig, mesh, kind: str,
         args = [(params_ab, pshard),
                 (adamw_abstract(bundle.specs), AdamWState(None, mv, mv)),
                 (bspecs, batch_shardings(bspecs, ctx))]
-        gathered += sum(t.numel() * 4 for t in tree_leaves(params_ab))
+        gathered = fsdp.peak_bytes(bundle.specs, param_dtype)
         tc = rc.train
 
         def body():
@@ -259,7 +266,8 @@ def build_cell(rc: RunConfig, mesh, kind: str,
     else:
         raise ValueError(kind)
     return {"ctx": ctx, "args": args, "cur": cur, "train": kind == "train",
-            "gathered_bytes": gathered, "rank_rows": rows, "body": body}
+            "gathered_bytes": gathered, "rank_rows": rows, "body": body,
+            "specs": bundle.specs}
 
 
 def unique_bytes(cell: Dict[str, Any], read, outs) -> Tuple[int, int]:

@@ -34,10 +34,12 @@ What is counted, per device (per data-parallel rank: the ranks along
           from the port's placements, not parsed from HLO (the port has
           none; the reference's ``parse_collective_bytes`` is not
           carried): the blocks of every weight a rank gathers from the
-          other coordinates before its body, and, to train, the blocks of
-          its float32 gradient it sends to their owners after it, as one
+          other coordinates, and, to train, the blocks of its float32
+          gradient it sends to their owners, as one
           ``make_spmd_train_step`` step counts them in its ``Traffic``
-          (``gathered``, ``reduce_scattered``). Keyed by the reference's
+          (``gathered``, ``reduce_scattered``): every microbatch, the
+          stacked leaves a layer at a time in forward and again in
+          backward, the other leaves once. Keyed by the reference's
           op names under its ``_WIRE_FACTOR`` convention (x 1 for
           all-gather and reduce-scatter, x 2 for all-reduce, which the
           port's step does not issue), with the bytes a ring carries as
@@ -105,10 +107,12 @@ from repro_torch.configs.base import (ARCH_IDS, RunConfig, get_model_config,
 from repro_torch.launch import dryrun as dr
 from repro_torch.launch.mesh import make_moe_mesh, make_production_mesh
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import whisper
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.module import tree_leaves
+from repro_torch.models.module import tree_leaves, tree_paths
 from repro_torch.models.transformer import make_stages
 from repro_torch.obs.roofline import HBM_BW, PEAK_OPS_PER_S, link_bw
+from repro_torch.sharding import fsdp
 from repro_torch.training.spmd import dp_axes
 
 # wire bytes per op byte (the reference's convention, ring algorithms), for
@@ -298,18 +302,34 @@ def collective_bytes(rc: RunConfig, mesh, kind: str,
                      ) -> Dict[str, Any]:
     """One computing rank's collective bytes by op kind (``_WIRE_FACTOR``
     applied) and the ranks that compute: each weight split K ways is
-    gathered from its K − 1 other blocks; to train, its float32 gradient's
-    K − 1 blocks are sent to their owners."""
+    gathered from its K − 1 other blocks; to train, its float32
+    gradient's K − 1 blocks are sent to their owners. To train, a rank
+    does so every microbatch, gathering a stacked leaf a layer at a time
+    in forward and again in backward (``sharding/fsdp.py``; whisper's
+    cross K/V weights twice each way, ``whisper.READ_TWICE``) and the
+    other leaves once."""
     cell = dr.build_cell(rc, mesh, kind, param_dtype)
     params, shardings = cell["args"][0]
+    train = kind == "train"
+    twice = set(whisper.READ_TWICE) if rc.model.family == "encdec" else ()
+    sh_at = tree_paths(shardings)
+    specs = tree_paths(cell["specs"])
     gathered = scattered = 0
-    for t, sh in zip(tree_leaves(params), tree_leaves(shardings)):
+    for path, t in tree_paths(params).items():
+        sh = sh_at[path]
         K = math.prod(sh.splits(t.ndim))
         block = math.prod(sh.shard_shape(t.shape))
-        gathered += (K - 1) * block * t.element_size()
+        passes = 1
+        if train and fsdp.stacked(specs[path]):
+            passes = 4 if path in twice else 2
+        gathered += passes * (K - 1) * block * t.element_size()
         scattered += (K - 1) * block * 4
+    if train:
+        B = rc.shape.global_batch
+        n = B // (rc.train.microbatch or B)
+        gathered, scattered = n * gathered, n * scattered
     by_kind = {"all-gather": gathered * _WIRE_FACTOR["all-gather"]}
-    if kind == "train":
+    if train:
         by_kind["reduce-scatter"] = (scattered
                                      * _WIRE_FACTOR["reduce-scatter"])
     return {"by_kind": by_kind,

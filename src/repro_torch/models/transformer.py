@@ -56,6 +56,7 @@ from repro_torch.models.layers import (embed, embed_specs, head_specs,
                                        lm_head, mlp, mlp_specs, rms_norm,
                                        rms_norm_specs, unembed)
 from repro_torch.models.module import p, stack_specs
+from repro_torch.sharding import fsdp
 
 # the reference's layer kinds the port does not run yet: none
 NOT_PORTED: tuple = ()
@@ -479,10 +480,14 @@ def _layer(tree, i: int):
 
 def _unstack(tree, n: int) -> List[Dict[str, Any]]:
     """A stage's stacked params as ``n`` per-layer trees, one
-    ``torch.unbind`` per leaf."""
+    ``torch.unbind`` per leaf; a leaf the mesh step hands in as
+    ``fsdp.Stacked`` gives one ``LayerRef`` a layer, which the layer's
+    run gathers (``_remat``)."""
     if isinstance(tree, dict):
         per_key = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    if isinstance(tree, fsdp.Stacked):
+        return tree.layers(n)
     return list(tree.unbind(0))
 
 
@@ -501,9 +506,12 @@ def _remat(block, policy: str):
     ``checkpoint_dots`` and ``checkpoint_dots_with_no_batch_dims``).
     The block's (x', aux) pass through the checkpoint as they are, so a
     moe layer's aux loss keeps its gradient. The blocks draw no random
-    numbers, so no RNG state is kept."""
+    numbers, so no RNG state is kept. A layer of ``LayerRef``s (the mesh
+    step's) is gathered inside the run: inside the checkpointed function,
+    so backward gathers it again, or, under ``'none'``, with its weights
+    saved for backward as handles (``sharding/fsdp.py``)."""
     if policy == "none":
-        return block
+        return fsdp.hooked(block)
     if policy == "full":
         context_fn = noop_context_fn
     elif policy in _SAVED_OPS:
@@ -519,7 +527,9 @@ def _remat(block, policy: str):
     else:
         raise ValueError(policy)
 
+    inner = fsdp.gathered(block)
+
     def run(lp, x, ctx, cfg):
-        return checkpoint(block, lp, x, ctx, cfg, use_reentrant=False,
+        return checkpoint(inner, lp, x, ctx, cfg, use_reentrant=False,
                           preserve_rng_state=False, context_fn=context_fn)
     return run

@@ -30,6 +30,7 @@ from repro_torch.models.layers import (embed, embed_specs, layer_norm,
                                        layer_norm_specs, mlp2, mlp2_specs,
                                        unembed)
 from repro_torch.models.module import p, stack_specs
+from repro_torch.sharding import fsdp
 
 
 # ---------------------------------------------------------------------------
@@ -129,16 +130,29 @@ def _dec_positions_embed(params, positions: torch.Tensor, cfg: ModelConfig,
     return emb.to(dtype)
 
 
+# the stacked leaves a cache-less forward gathers twice a layer on a mesh
+# (``sharding/fsdp.py``): the cross K/V weights, by ``cross_kv`` and by
+# their decoder layer
+READ_TWICE = (("decoder", "cross_attn", "wk"), ("decoder", "cross_attn", "wv"))
+
+
 def cross_kv(params, enc_states: torch.Tensor, cfg: ModelConfig):
     """Each decoder layer's cross-attention K/V from the encoder states,
     stacked: {'k', 'v'} [L, B, S_enc, KV, hd] (the decode-time cross
     cache)."""
     w = params["decoder"]["cross_attn"]
     ks, vs = [], []
+    project = fsdp.hooked(_cross_kv_layer)
     for lw in tfm._unstack({"wk": w["wk"], "wv": w["wv"]}, cfg.num_layers):
-        ks.append(attn._project(enc_states, lw["wk"]))
-        vs.append(attn._project(enc_states, lw["wv"]))
+        k, v = project(lw, enc_states)
+        ks.append(k)
+        vs.append(v)
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def _cross_kv_layer(lw, enc_states: torch.Tensor):
+    return (attn._project(enc_states, lw["wk"]),
+            attn._project(enc_states, lw["wv"]))
 
 
 def _dec_layer(lp, x, ctx, cfg: ModelConfig, cache=None):

@@ -214,28 +214,77 @@ class ShardedTensor:
             out[self.sharding.key_index(k, self.shape)].copy_(src)
         return out
 
+    def gather_layer(self, device, layer: Optional[int] = None,
+                     traffic: Optional[Traffic] = None,
+                     at: Optional[Coord] = None) -> torch.Tensor:
+        """Index ``layer`` of the leading dim (the whole tensor where
+        ``layer`` is None) on ``device``, as a tensor object of its own:
+        an alias of the base's storage where ``device`` has a base (no
+        copy, and not a view, so its views and their lifetimes are its
+        own), else the blocks' rows assembled. The leading dim of a
+        stacked leaf is never sharded (``W_RULES['layers']``).
+        ``traffic`` counts as ``gather`` does, for that layer's bytes
+        only."""
+        device = torch.device(device)
+        if layer is not None and self.sharding.splits(self.ndim)[0] != 1:
+            raise ValueError(f"{self!r}: the leading dim is sharded")
+        if traffic is not None:
+            self.count_gather(device, traffic, at, layer is not None)
+        if device in self.bases:
+            base = self.bases[device]
+            t = base if layer is None else base[layer]
+            return torch.empty(0, dtype=t.dtype, device=device).set_(
+                t.untyped_storage(), t.storage_offset(), t.size(), t.stride())
+        shape = self.shape if layer is None else self.shape[1:]
+        out = torch.empty(shape, dtype=self.dtype, device=device)
+        for k, o in self.owner.items():
+            src = self.blocks.get((device, k), self.blocks[(o, k)])
+            idx = self.sharding.key_index(k, self.shape)
+            if layer is None:
+                out[idx].copy_(src)
+            else:
+                out[idx[1:]].copy_(src[layer])
+        return out
+
     def count_gather(self, device, traffic: Traffic,
-                     at: Optional[Coord] = None) -> None:
+                     at: Optional[Coord] = None, layer: bool = False) -> None:
         """Add to ``traffic`` the blocks a gather onto ``device`` at
         coordinate ``at`` takes from the other coordinates (see
-        ``gather``)."""
+        ``gather``); with ``layer``, one layer's rows of them."""
         device = torch.device(device)
         own = self.key(at) if at is not None else None
-        nb = self.block_nbytes()
+        nb = self.block_nbytes() // (self.shape[0] if layer else 1)
         for k in self.owner:
             if k != own:
                 src = device if (device, k) in self.blocks else self.owner[k]
                 traffic.add(nb, src, device)
 
-    def count_scatter(self, at: Coord, traffic: Traffic) -> None:
+    def count_scatter(self, at: Coord, traffic: Traffic,
+                      layer: bool = False) -> None:
         """Add to ``traffic`` the blocks of a gradient a reduce-scatter
-        sends from coordinate ``at`` to their owners (all but its own)."""
+        sends from coordinate ``at`` to their owners (all but its own);
+        with ``layer``, one layer's rows of them."""
         src = self.mesh.device(at)
         own = self.key(at)
-        nb = self.block_nbytes()
+        nb = self.block_nbytes() // (self.shape[0] if layer else 1)
         for k, o in self.owner.items():
             if k != own:
                 traffic.add(nb, src, o)
+
+    @torch.no_grad()
+    def scatter_add(self, grad: torch.Tensor, into: List[torch.Tensor],
+                    layer: Optional[int] = None) -> None:
+        """Add ``grad`` (the logical tensor's gradient, or layer
+        ``layer``'s) into ``into``, one accumulator per ``owned_keys``
+        entry shaped as its ``owned_units`` tensor: each owner's blocks
+        take their part, on the owner (a view of one gradient where the
+        owner is ``grad``'s own device)."""
+        for (owner, key), acc in zip(self.owned_keys(), into, strict=True):
+            part = grad
+            if key is not None:
+                idx = self.sharding.key_index(key, self.shape)
+                part = grad[idx if layer is None else idx[1:]]
+            (acc if layer is None else acc[layer]).add_(part.to(owner))
 
     # -- in-place updates ------------------------------------------------------
     def owned_keys(self) -> List[Tuple[torch.device, Optional[Key]]]:

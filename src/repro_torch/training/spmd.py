@@ -7,32 +7,38 @@ move of bytes is an explicit gather or reduce-scatter.
 Storage: the parameters, AdamW's moments and the batch are
 ``ShardedTensor``s placed by ``ctx.sharding`` (``sharding/placement.py``).
 
-Compute (ZeRO-3 over every axis the weights are sharded on): the global
-batch is split into microbatches first, as the reference's scan
+Compute (ZeRO-3 over every axis the weights are sharded on, one layer at
+a time, as XLA gathers inside the reference's scan over the layers): the
+global batch is split into microbatches first, as the reference's scan
 (``step.py:34-54``), and each microbatch's rows then over the
-data-parallel ranks (the axes ``act_batch`` maps to, pod-major). Each
-rank gathers the whole parameter tree onto its device and runs the
-port's single-device body there with ``shd=None``. Its loss is weighted
-by its share of the microbatch's labels (``rank_weight``: its count of
+data-parallel ranks (the axes ``act_batch`` maps to, pod-major), one
+rank after another. A rank runs the port's single-device body with
+``shd=None`` on a tree whose leaves outside the stacks (embedding, head,
+final norm) it has gathered for the microbatch, and whose stacked leaves
+are handles (``stacked_leaf``): each layer's run gathers that layer, in
+forward and again in backward, and sends its float32 gradient to the
+blocks' owners (``sharding/fsdp.py``), so a rank holds one layer's
+weights and gradients at a time beside the leaves outside the stacks
+(``step.gathered_peak``, ``fsdp.peak_bytes``). Its loss is weighted by
+its share of the microbatch's labels (``rank_weight``: its count of
 labels that are not ``IGNORE`` over the microbatch's, counted from the
 labels before the forward) and its aux loss by its share of the rows,
 so the ranks' sum is the reference's token mean and row mean. Ranks
 that differ only along the other axes ('model', 'expert') hold the same
-rows and are computed once. The gradients are summed in float32 over
-the ranks (on one device by autograd, into one ``.grad``; across
-devices on each block's owner) and left, block by block, on the
-coordinates that own them (a reduce-scatter). The clip's norm counts
-each distinct block once; the schedule and AdamW run once per distinct
-block; the blocks are then copied to their replicas on other devices.
+rows and are computed once. The gradients accumulate in float32 on
+their owners over the ranks and microbatches (the reference accumulates
+in float32 too, ``step.py:49-52``) and are scaled by 1 / microbatches.
+The clip's norm counts each distinct block once; the schedule and AdamW
+run once per distinct block; the blocks are then copied to their
+replicas on other devices.
 
 What the 'model' axis does here: it shards storage, not compute. The
 values are the reference's, but no activation is split over 'model' as
-XLA's tensor parallelism splits it, and a rank gathers the whole tree at
-once (per-layer gathering is an open item, ``ROADMAP.md``). On one card
-whose entries make the mesh, a gather returns the one stored tensor (no
-copy) and the reduce-scatter leaves views of one gradient: ``traffic``
-counts those bytes as ``local``, and bytes between distinct cards as
-``moved``.
+XLA's tensor parallelism splits it (an open item, ``ROADMAP.md``). On
+one card whose entries make the mesh, a gather returns an alias of the
+one stored tensor (no copy) and the reduce-scatter adds into views of
+the owners' accumulators: ``traffic`` counts those bytes as ``local``,
+and bytes between distinct cards as ``moved``.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from repro_torch.models.module import tree_leaves, tree_map
 from repro_torch.optim import adamw_update, cosine_warmup, global_norm
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.clip import scale_by_norm
+from repro_torch.sharding import fsdp
 from repro_torch.sharding.collectives import Traffic
 from repro_torch.sharding.mesh import Coord, DeviceMesh, mesh_device
 from repro_torch.sharding.placement import ShardedTensor
@@ -85,6 +92,12 @@ def grad_norm(leaves: List[ShardedTensor],
     return global_norm([u for us in units for u in us])
 
 
+def stacked_leaf(x: ShardedTensor, rank: fsdp.Rank):
+    """How the step hands a model a stacked leaf: a handle whose layers
+    the layer's run gathers one at a time (``sharding/fsdp.py``)."""
+    return fsdp.Stacked(x, rank)
+
+
 def make_spmd_train_step(bundle, rc: RunConfig, ctx: ShardingCtx):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
     on ``ctx.mesh``, in place: ``params``, ``opt_state``'s moments and
@@ -93,9 +106,13 @@ def make_spmd_train_step(bundle, rc: RunConfig, ctx: ShardingCtx):
     metrics live: ``loss``, ``aux_loss``, ``grad_norm`` (before
     clipping) as 0-d tensors, ``lr`` (float) and ``step`` (int). After a
     call, ``step.traffic`` holds that step's ``Traffic`` by kind:
-    ``gathered`` (weights onto the ranks), ``reduce_scattered``
-    (gradients to their owners), ``replicas`` (updated blocks to their
-    copies) and ``batch``."""
+    ``gathered`` (weights onto the ranks: each layer in forward and again
+    in backward, the other leaves once, per microbatch and rank),
+    ``reduce_scattered`` (gradients to their owners, per microbatch and
+    rank), ``replicas`` (updated blocks to their copies) and ``batch``;
+    and ``step.gathered_peak`` the most bytes of gathered weights and
+    their float32 gradients it held at once (``fsdp.peak_bytes`` of the
+    specs)."""
     tc = rc.train
     mesh = ctx.mesh
     home = mesh.devices.flat[0]
@@ -126,77 +143,49 @@ def make_spmd_train_step(bundle, rc: RunConfig, ctx: ShardingCtx):
         # every rank holds every row)
         active = ranks if mb % len(ranks) == 0 else ranks[:1]
         rows = mb // len(active)
-        first: Dict[torch.device, Coord] = {}
-        for c in active:
-            first.setdefault(mesh.device(c), c)
-        used = list(first)
-        full: Dict[torch.device, List[torch.Tensor]] = {}
         data = {}
-        for dev, at in first.items():
-            full[dev] = [x.gather(dev, traffic["gathered"], at)
-                         for x in leaves]
-            data[dev] = {k: v.gather(dev, traffic["batch"], at)
-                         for k, v in batch.items()}
-        for c in active:              # ranks that share a device's gather
-            if first[mesh.device(c)] != c:
-                for x in leaves:
-                    x.count_gather(mesh.device(c), traffic["gathered"], c)
-        trees = {}
-        for dev in used:
-            by_id = {id(x): t for x, t in zip(leaves, full[dev])}
-            trees[dev] = tree_map(lambda x, by_id=by_id: by_id[id(x)], params)
+        for c in active:
+            dev = mesh.device(c)
+            if dev not in data:
+                data[dev] = {k: v.gather(dev, traffic["batch"], c)
+                             for k, v in batch.items()}
+        # the owners' float32 gradient accumulators
+        accs = {id(x): [torch.zeros(u.shape, dtype=torch.float32,
+                                    device=u.device)
+                        for u in x.owned_units()] for x in leaves}
+        ledger = fsdp.Ledger()
         loss_sum = torch.zeros((), dtype=torch.float32, device=home)
         aux_sum = torch.zeros((), dtype=torch.float32, device=home)
-        for dev in used:
-            for t in full[dev]:
-                t.grad = None
-                t.requires_grad_(True)
-        try:
-            for i in range(n):
-                labels = data[home]["labels"][i * mb:(i + 1) * mb]
-                total = torch.clamp((labels != IGNORE).sum().float(), min=1.0)
-                for r, c in enumerate(active):
-                    dev = mesh.device(c)
-                    lo = i * mb + r * rows
-                    sub = {k: v[lo:lo + rows] for k, v in data[dev].items()}
-                    count = (sub["labels"] != IGNORE).sum().float()
-                    w = rank_weight(count, total.to(dev))
-                    ce, (aux, _) = bundles[dev].loss_fn(
-                        trees[dev], sub, remat_policy=tc.remat_policy,
-                        loss_chunk=tc.loss_chunk, z_loss=tc.z_loss,
-                        aux_weight=0.0)
-                    obj = ce * w + aux * (aux_weight / len(active))
-                    obj.backward()
-                    loss_sum += obj.detach().to(home)
-                    aux_sum += (aux.detach() / len(active)).to(home)
-        finally:
-            for dev in used:
-                for t in full[dev]:
-                    t.requires_grad_(False)
-        grads = {}
-        for dev in used:
-            grads[dev] = [t.grad if t.grad is not None
-                          else torch.zeros_like(t) for t in full[dev]]
-            if n > 1:
-                torch._foreach_mul_(grads[dev], 1.0 / n)
-        # reduce-scatter: each owned block's gradient summed over the
-        # devices that computed ranks, on its owner
-        g_units, p_units, m_units, v_units = [], [], [], []
-        for li, x in enumerate(leaves):
-            mine = []
-            for owner, key in x.owned_keys():
-                idx = (None if key is None
-                       else x.sharding.key_index(key, x.shape))
-                acc = None
-                for dev in used:
-                    part = grads[dev][li] if idx is None \
-                        else grads[dev][li][idx]
-                    part = part.to(owner)
-                    acc = part if acc is None else acc + part
-                mine.append(acc)
-            for c in active:
-                x.count_scatter(c, traffic["reduce_scattered"])
-            g_units.append(mine)
+        for i in range(n):
+            labels = data[home]["labels"][i * mb:(i + 1) * mb]
+            total = torch.clamp((labels != IGNORE).sum().float(), min=1.0)
+            for r, c in enumerate(active):
+                dev = mesh.device(c)
+                rank = fsdp.Rank(dev, c, traffic, ledger, accs)
+                lo = i * mb + r * rows
+                sub = {k: v[lo:lo + rows] for k, v in data[dev].items()}
+                count = (sub["labels"] != IGNORE).sum().float()
+                w = rank_weight(count, total.to(dev))
+                tree = tree_map(
+                    lambda x, s, rank=rank: (stacked_leaf(x, rank)
+                                             if fsdp.stacked(s)
+                                             else rank.gather_whole(x)),
+                    params, bundle.specs)
+                ce, (aux, _) = bundles[dev].loss_fn(
+                    tree, sub, remat_policy=tc.remat_policy,
+                    loss_chunk=tc.loss_chunk, z_loss=tc.z_loss,
+                    aux_weight=0.0)
+                del tree
+                obj = ce * w + aux * (aux_weight / len(active))
+                rank.backward(obj)
+                loss_sum += obj.detach().to(home)
+                aux_sum += (aux.detach() / len(active)).to(home)
+                del obj, ce, aux
+        g_units = [accs[id(x)] for x in leaves]
+        if n > 1:
+            torch._foreach_mul_([u for us in g_units for u in us], 1.0 / n)
+        p_units, m_units, v_units = [], [], []
+        for x in leaves:
             p_units.extend(x.owned_units())
         for tree, out in ((opt_state.m, m_units), (opt_state.v, v_units)):
             for x in tree_leaves(tree):
@@ -215,14 +204,13 @@ def make_spmd_train_step(bundle, rc: RunConfig, ctx: ShardingCtx):
         for x in (leaves + tree_leaves(opt_state.m)
                   + tree_leaves(opt_state.v)):
             x.sync_replicas(traffic["replicas"])
-        for dev in used:
-            for t in full[dev]:
-                t.grad = None
         step.traffic = traffic
+        step.gathered_peak = ledger.peak
         metrics = {"loss": loss_sum / n, "aux_loss": aux_sum / n,
                    "grad_norm": gnorm, "lr": lr, "step": int(new.step)}
         return params, AdamWState(new.step, opt_state.m, opt_state.v), \
             metrics
 
     step.traffic = None
+    step.gathered_peak = None
     return step

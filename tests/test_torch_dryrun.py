@@ -18,6 +18,7 @@ and the drops equal the reference's, cell by cell.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -25,10 +26,12 @@ import textwrap
 
 import pytest
 
-from repro_torch.configs.base import (ARCH_IDS, SHAPES, RunConfig,
+from repro_torch.configs.base import (ARCH_IDS, SHAPES, RunConfig, resolve,
                                       supported_shapes)
 from repro_torch.configs.tiny import tiny_of
 from repro_torch.launch import dryrun
+from repro_torch.models import registry
+from repro_torch.models.module import tree_leaves, tree_paths
 from repro_torch.sharding.mesh import make_mesh
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -145,17 +148,52 @@ def test_production_cell_builds_on_meta():
     assert "fits True" in lines[0] and lines[-1] == "[dryrun] all 1 cells built"
 
 
+def _one_layer_at_a_time(arch):
+    """The mesh step's gathered working set, reckoned from the specs: the
+    leaves outside the stacks and the largest layer of any stack, each
+    element a float32 weight and a float32 gradient."""
+    specs = registry.build(resolve(arch, "train_4k"), device="meta").specs
+    other, layer = 0, {}
+    for path, s in tree_paths(specs).items():
+        n = 8 * math.prod(s.shape)
+        if s.axes[0] == "layers":
+            layer[path[0]] = layer.get(path[0], 0) + n // s.shape[0]
+        else:
+            other += n
+    return other + max(layer.values())
+
+
 def test_production_figures():
     """h2o-danube-1.8b ``train_4k`` on both production meshes: the
     parameters and moments (1,831,201,280 float32 each) as placed, the
-    batch's rows over the data axes, and the whole tree gathered."""
+    batch's rows over the data axes, and one layer at a time gathered."""
     for mp, rows in ((False, 16), (True, 8)):
         rep = dryrun.run_cell("h2o_danube_1_8b", "train_4k", mp)
         assert rep["devices"] == (512 if mp else 256)
         assert rep["rank_rows"] == rows
-        assert rep["memory"]["gathered_bytes"] == 2 * 4 * 1_831_201_280
+        assert rep["memory"]["gathered_bytes"] == _one_layer_at_a_time(
+            "h2o_danube_1_8b")
         assert rep["fits"] is True
         json.dumps(rep)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "qwen3_moe_30b_a3b"])
+def test_moe_train_cells_fit_one_layer_at_a_time(arch):
+    """``train_4k`` on 16 x 16: the arguments as placed and one layer at
+    a time gathered fit the card's 80 GB, where the whole tree gathered
+    would not (the train step reads every argument, so no body need run
+    to count them)."""
+    from repro_torch.launch.mesh import make_production_mesh
+    rc = resolve(arch, "train_4k")
+    cell = dryrun.build_cell(rc, make_production_mesh(["meta"] * 512),
+                             "train")
+    args, _ = dryrun.unique_bytes(cell, None, None)
+    gathered = cell["gathered_bytes"]
+    assert gathered == _one_layer_at_a_time(arch)
+    assert args + gathered <= dryrun.HBM_BYTES
+    whole = sum(8 * math.prod(t.shape)
+                for t in tree_leaves(cell["args"][0][0]))
+    assert args + whole > dryrun.HBM_BYTES
 
 
 def test_meta_meshes():

@@ -357,8 +357,10 @@ def test_collective_bytes_equal_the_mesh_steps_traffic():
     bytes (``local + moved``, summed over its computing ranks) against
     the roofline's per-rank all-gather and reduce-scatter bytes x those
     ranks, under ``_WIRE_FACTOR`` (x 1 for both), at one microbatch and
-    at two (each rank gathers once a step), and at microbatches of one
-    row, which do not split over the two ranks (the first computes)."""
+    at two (each rank gathers every microbatch, the stacked leaves a
+    layer at a time in forward and again in backward, the other leaves
+    once), and at microbatches of one row, which do not split over the
+    two ranks (the first computes)."""
     from repro_torch.data import make_train_batch
     from repro_torch.models import registry
     from repro_torch.optim import adamw_init
