@@ -343,6 +343,10 @@ Phases, in order; any failure exits non-zero:
                 backward, and reduce-scattering that layer's gradient
                 (``training/spmd.py``, ``sharding/fsdp.py``), on (data 2,
                 model 2) of four ``cuda:0`` entries (no kernel launches).
+                Every coordinate computes: each 'model' coordinate of a
+                rank runs its heads, MLP columns and vocabulary block
+                from its own block of the weights, and the parts are
+                summed (tensor parallelism, ``sharding/tp.py``).
                 (a) float32 at 2 layers full width, [4, 2048], 3 steps,
                 against ``train_loop`` on one device (loss and grad norm
                 within 1e-5 every step, parameters within
@@ -352,13 +356,19 @@ Phases, in order; any failure exits non-zero:
                 'model' order (inside the per-layer gather). Then
                 h2o-danube-1.8b as published, bf16 compute on float32
                 master weights, 4 x 2048, 3 steps: step ms and peak
-                memory beside one device's, tokens/s, the bytes a step
-                gathers and reduce-scatters (between cards and within
-                one) and the most it holds gathered (``gathered_peak``,
-                equal to ``fsdp.peak_bytes`` and below the whole tree's
-                bytes), losses within ``SPMD_BF16_TOL`` of one device's;
-                a control that must fail: one step with every stacked
-                leaf gathered whole reports the whole tree's bytes.
+                memory beside one device's and beside the same mesh
+                without the split (each rank computing alone), tokens/s,
+                the bytes a step gathers, reduce-scatters and
+                all-reduces (between cards and within one), each
+                coordinate's matmul flops (``step.coord_flops``) and the
+                most a coordinate holds gathered (``gathered_peak``,
+                equal to ``fsdp.peak_bytes`` of the plan and below the
+                whole tree's bytes), losses within ``SPMD_BF16_TOL`` of
+                one device's; controls that must fail: one step with
+                every stacked leaf gathered whole reports the whole
+                tree's bytes at the regions, and one step whose loss
+                drops one coordinate's part from its sum of exponentials
+                leaves ``SPMD_BF16_TOL``.
                 (b) The elastic restart at 2 layers: 3 steps on (data 2)
                 with a checkpoint, 2 resumed on (data 2, model 2),
                 against 5 uninterrupted steps on one device; the step-3
@@ -1257,7 +1267,8 @@ class Smoke:
         busy = sum(r[0] for r in rows)
         self.say(f"profile {label}: wall {wall_ms!r} ms (profiled), device "
                  f"busy {busy!r} ms, idle share {1 - busy / wall_ms!r}, "
-                 f"{len(rows)} kernel names")
+                 f"{len(rows)} kernel names, {sum(r[1] for r in rows)} "
+                 "launches")
         for ms, count, key in sorted(rows, reverse=True)[:top]:
             self.say(f"profile {label}:   {ms!r} ms ({ms / busy:.3f} of "
                      f"busy) x{count} {key[:90]}")
@@ -4435,6 +4446,9 @@ class Smoke:
                                               "local": t.local}
                                           for k, t in traffic.items()}
                         rec["gathered_peak"] = step.gathered_peak
+                    if getattr(step, "coord_flops", None):
+                        rec["coord_flops"] = {str(c): f for c, f in
+                                              step.coord_flops.items()}
                     hist.append(rec)
                     last["params"] = out[0]
                     return out
@@ -4522,9 +4536,10 @@ class Smoke:
                               .square().sum())
             return torch.stack(sq).sum().sqrt()
 
-        def reversed_model(st, device, layer=None, traffic=None, at=None):
+        def reversed_model(st, device, layer=None, traffic=None, at=None,
+                           index=None):
             # every block (its layer's rows) placed at its mirror along
-            # 'model'
+            # 'model', and the coordinate's region of that taken
             device = torch.device(device)
             m = st.mesh
             i = m.axis_names.index("model")
@@ -4538,7 +4553,9 @@ class Smoke:
                     out[idx].copy_(st.block(c))
                 else:
                     out[idx[1:]].copy_(st.block(c)[layer])
-            return out
+            if index is not None:
+                out = out[tuple(index if layer is None else index[1:])]
+            return out.contiguous()
 
         ctrl = {}
         for name, obj, attr, fake in (
@@ -4565,25 +4582,43 @@ class Smoke:
     def spmd_full_width(self, mc, seq: int = 2048, batch: int = 4,
                         steps: int = 3, devices=None):
         """(a) the published config, bf16 compute on float32 master
-        weights, ``train_loop(mesh=)`` on (data 2, model 2): step ms,
-        tokens/s, peak memory, the bytes each step gathers and
-        reduce-scatters and the most it holds gathered at once
-        (``gathered_peak``, against ``fsdp.peak_bytes`` and the whole
-        tree's bytes); losses finite and within ``SPMD_BF16_TOL`` of
-        ``train_loop`` on one device, step for step. A control that must
-        fail: one step with every stacked leaf gathered whole
-        (``spmd.stacked_leaf`` replaced) must report the whole tree."""
+        weights, ``train_loop(mesh=)`` on (data 2, model 2), every
+        coordinate computing its share of the split products (tensor
+        parallelism over 'model', ``sharding/tp.py``): step ms, tokens/s,
+        peak memory, the bytes each step gathers, reduce-scatters and
+        all-reduces and the most a coordinate holds gathered at once
+        (``gathered_peak``, against ``fsdp.peak_bytes`` of the plan and
+        the whole tree's bytes at the same regions); losses finite and
+        within ``SPMD_BF16_TOL`` of ``train_loop`` on one device, step for
+        step; each coordinate's matmul flops (one more step counted,
+        ``step.coord_flops``); the same run without tensor parallelism
+        (``spmd.tp_plan`` returning None: each data-parallel rank
+        computes alone, the layout before the split), step ms and peak
+        beside. Controls that must fail: one step with every stacked leaf
+        gathered whole (``spmd.stacked_leaf`` replaced) must report the
+        whole tree at the regions; one step whose loss drops one
+        coordinate's partial from one sum (the sum of exponentials of
+        the vocabulary-parallel loss) must leave ``SPMD_BF16_TOL``."""
+        import functools
         import math
         import statistics
         torch = self.torch
         from repro_torch.models import registry
         from repro_torch.models.module import tree_leaves
         from repro_torch.sharding import fsdp
-        from repro_torch.training import spmd
+        from repro_torch.sharding import tp as tp_mod
+        from repro_torch.sharding.rules import make_ctx
+        from repro_torch.training import spmd, trainer
         rc = self._train_rc(mc, seq, batch, 0)
         mesh = self._mesh_of((2, 2), ("data", "model"), devices)
         specs = registry.build(rc, device="meta").specs
-        layerwise, whole = fsdp.peak_bytes(specs), fsdp.whole_bytes(specs)
+        plan = spmd.tp_plan(rc, make_ctx(mesh, "train"))
+        if plan is None:
+            raise AssertionError(f"SPMD (a): {mc.name} does not split over "
+                                 "'model'")
+        layerwise = fsdp.peak_bytes(specs, plan=plan)
+        whole = fsdp.whole_bytes(specs, plan=plan)
+        unsplit = fsdp.peak_bytes(specs)
         self._free("before (a) published", "SPMD")
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -4605,6 +4640,46 @@ class Smoke:
         finally:
             spmd.stacked_leaf = keep
         del p2
+        self._free("after the whole-tree control", "SPMD")
+        # the layout before the split: each rank computes alone
+        keep = spmd.tp_plan
+        spmd.tp_plan = lambda rc, ctx: None
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            _, alone, p3 = self._train_run(rc, steps, mesh=mesh)
+        finally:
+            spmd.tp_plan = keep
+        alone_peak = torch.cuda.max_memory_allocated()
+        del p3
+        self._free("after the run without the split", "SPMD")
+        # each coordinate's matmul flops, one more step counted
+        keep = trainer.make_spmd_train_step
+        trainer.make_spmd_train_step = functools.partial(keep,
+                                                         count_flops=True)
+        try:
+            _, counted, p4 = self._train_run(rc, 1, mesh=mesh)
+        finally:
+            trainer.make_spmd_train_step = keep
+        del p4
+        self._free("after the counted step", "SPMD")
+        # the control: the loss's sum of exponentials without its last
+        # member's part, once a rank's forward
+        keep = tp_mod.TP.all_reduce
+
+        def dropped(tp, parts, members, op="sum"):
+            if (op == "sum" and parts[0].ndim == 2 and len(parts) > 1
+                    and not getattr(tp, "dropped", False)):
+                tp.dropped = True
+                parts, members = parts[:-1], members[:-1]
+            return keep(tp, parts, members, op)
+        tp_mod.TP.all_reduce = dropped
+        try:
+            _, drop, p5 = self._train_run(rc, 1, mesh=mesh)
+        finally:
+            tp_mod.TP.all_reduce = keep
+        del p5
+        self._free("after the dropped-part control", "SPMD")
+        self.spmd_profiles(rc, mesh)
         ms = [h["ms"] for h in hist]
         med = statistics.median(ms)
         single_ms = [h["ms"] for h in single]
@@ -4612,6 +4687,10 @@ class Smoke:
         losses = [h["loss"] for h in hist]
         plain = [h["loss"] for h in single]
         held = [h["gathered_peak"] for h in hist]
+        alone_ms = [h["ms"] for h in alone]
+        alone_med = statistics.median(alone_ms)
+        flops = counted[0]["coord_flops"]
+        reduced = hist[-1]["traffic"]["all_reduced"]
         self.say(f"SPMD (a) {mc.name} train_loop(mesh=) on {mesh}: {n} "
                  f"parameters, [{batch},{seq}], {mc.dtype} compute; losses "
                  f"{losses!r} (one device {plain!r}); step ms {ms!r}, median "
@@ -4622,12 +4701,28 @@ class Smoke:
                  f"{peak / single_peak!r}); traffic a step "
                  f"{hist[-1]['traffic']!r}; kernel launches {launches}")
         self.say(f"SPMD (a) gathered_peak a step {held!r} B (fsdp.peak_bytes "
-                 f"{layerwise} B; the whole tree's weights and float32 "
-                 f"gradients {whole} B, {layerwise / whole!r} of it)")
+                 f"of the plan {layerwise} B; the whole tree's weights and "
+                 f"float32 gradients at the same regions {whole} B, "
+                 f"{layerwise / whole!r} of it; a rank that computes alone "
+                 f"{unsplit} B)")
+        self.say(f"SPMD (a) tensor parallelism: each coordinate's matmul "
+                 f"flops a step {flops!r}; all-reduced a step {reduced!r} "
+                 f"B, the controller's copies "
+                 f"{hist[-1]['traffic']['copies']!r} B")
+        self.say(f"SPMD (a) without the split (each rank computes alone): "
+                 f"step ms {alone_ms!r}, median {alone_med!r} (split / "
+                 f"alone {med / alone_med!r}); peak allocated {alone_peak} "
+                 f"B (split / alone {peak / alone_peak!r}); gathered_peak "
+                 f"{[h['gathered_peak'] for h in alone]!r} B; losses "
+                 f"{[h['loss'] for h in alone]!r}")
         self.say(f"SPMD (a) control, every stacked leaf gathered whole: "
                  f"gathered_peak {ctrl[0]['gathered_peak']} B (must be the "
-                 f"whole tree, {whole} B); loss {ctrl[0]['loss']!r}; step "
-                 f"ms {ctrl[0]['ms']!r}")
+                 f"whole tree at the regions, {whole} B); loss "
+                 f"{ctrl[0]['loss']!r}; step ms {ctrl[0]['ms']!r}")
+        self.say(f"SPMD (a) control, one coordinate's part dropped from the "
+                 f"loss's sum of exponentials: loss {drop[0]['loss']!r} "
+                 f"against one device's {plain[0]!r} (must differ by more "
+                 f"than {SPMD_BF16_TOL})")
         if any(launches.values()):
             raise AssertionError(f"SPMD (a): kernel launches {launches}")
         if not (all(math.isfinite(x) for x in losses) and all(
@@ -4641,6 +4736,19 @@ class Smoke:
         if ctrl[0]["gathered_peak"] != whole:
             raise AssertionError(f"SPMD (a): the whole-tree control reports "
                                  f"{ctrl[0]['gathered_peak']}, not {whole}")
+        if any(h["gathered_peak"] != unsplit for h in alone) or not all(
+                abs(h["loss"] - w) <= SPMD_BF16_TOL
+                for h, w in zip(alone, plain)):
+            raise AssertionError(f"SPMD (a): the run without the split: "
+                                 f"{alone}")
+        if len(flops) != 4 or not all(f > 0 for f in flops.values()):
+            raise AssertionError(f"SPMD (a): coordinate flops {flops}")
+        if reduced["local"] + reduced["moved"] <= 0:
+            raise AssertionError("SPMD (a): nothing all-reduced")
+        if abs(drop[0]["loss"] - plain[0]) <= SPMD_BF16_TOL:
+            raise AssertionError(f"SPMD (a): the check passes a loss with "
+                                 f"one coordinate's part dropped: "
+                                 f"{drop[0]['loss']} against {plain[0]}")
         return {"step_ms": ms, "median_step_ms": med, "losses": losses,
                 "single_device_losses": plain,
                 "single_device_step_ms": single_ms,
@@ -4651,7 +4759,51 @@ class Smoke:
                 "peak_bytes": layerwise, "whole_tree_bytes": whole,
                 "whole_tree_control": {k: ctrl[0][k] for k in (
                     "gathered_peak", "loss", "ms")},
+                "coord_flops": flops, "all_reduced": reduced,
+                "unsplit_peak_bytes": unsplit,
+                "without_split": {"step_ms": alone_ms,
+                                  "median_step_ms": alone_med,
+                                  "peak_allocated_bytes": alone_peak,
+                                  "losses": [h["loss"] for h in alone]},
+                "dropped_part_control": {"loss": drop[0]["loss"],
+                                         "one_device": plain[0]},
                 "launches": launches, "mesh": repr(mesh)}
+
+    def spmd_profiles(self, rc, mesh) -> None:
+        """``profile`` lines of one warm step of the mesh step, split over
+        'model' and without the split (``spmd.tp_plan`` returning None),
+        each on fresh weights: the device's busy and idle share and the
+        kernels that took the most device time."""
+        torch = self.torch
+        from repro_torch.data import make_train_batch
+        from repro_torch.models import registry
+        from repro_torch.optim import adamw_init
+        from repro_torch.sharding.placement import shard_tree
+        from repro_torch.sharding.rules import make_ctx
+        from repro_torch.training import spmd
+        ctx = make_ctx(mesh, "train")
+        keep = spmd.tp_plan
+        for label, plan in (("split", keep), ("without the split",
+                                              lambda rc, ctx: None)):
+            spmd.tp_plan = plan
+            try:
+                bundle = registry.build(rc, device=mesh.devices.flat[0])
+                params = shard_tree(
+                    bundle.init_params(torch.Generator(
+                        device=bundle.device).manual_seed(0)),
+                    ctx.spec_tree_shardings(bundle.specs))
+                opt = adamw_init(params)
+                bs = {k: ctx.sharding(s.shape, ("act_batch",)
+                                      + (None,) * (s.ndim - 1))
+                      for k, s in bundle.input_specs("train").items()}
+                batch = make_train_batch(rc, 0, bundle.device, mesh, bs)
+                step = spmd.make_spmd_train_step(bundle, rc, ctx)
+                self.profile(f"SPMD (a) step {label}",
+                             lambda: step(params, opt, batch), top=12)
+            finally:
+                spmd.tp_plan = keep
+            del bundle, params, opt, batch, step
+            self._free(f"after the profile {label}", "SPMD")
 
     def spmd_elastic(self, mc, seq: int = 2048, batch: int = 4,
                      devices=None):
@@ -4738,13 +4890,14 @@ class Smoke:
     def spmd_phase(self, arch: str = "h2o_danube_1_8b", parity=(2, 2048),
                    full=(2048, 4, 3)):
         """Phase 16: ``train_loop(mesh=)``, the weights and AdamW's moments
-        sharded by the train profile and gathered one layer at a time, on
-        meshes of the card's entries: (a) float32 parity at ``parity``
-        (layers, sequence) with three controls, and the published config
-        at ``full`` (sequence, batch, steps) with its ``gathered_peak``
-        and the whole-tree control; (b) the elastic restart; (c) (a) and
-        (b) on distinct cards where there are several; (d) the launcher.
-        Returns the readings."""
+        sharded by the train profile and gathered one layer at a time,
+        every 'model' coordinate computing its share, on meshes of the
+        card's entries: (a) float32 parity at ``parity`` (layers,
+        sequence) with three controls, and the published config at
+        ``full`` (sequence, batch, steps) with its ``gathered_peak``, its
+        coordinates' flops, the run without the split and two controls;
+        (b) the elastic restart; (c) (a) and (b) on distinct cards where
+        there are several; (d) the launcher. Returns the readings."""
         import dataclasses
         torch = self.torch
         from repro_torch.configs.base import get_model_config

@@ -23,28 +23,45 @@ placements and its own step. Per device:
   output_bytes     train: the updated parameters and moments, as placed,
                    and the five metrics; prefill / decode: one rank's
                    logits and caches for its rows;
-  gathered_bytes   the most a rank's step holds gathered at once. To
-                   train, ``fsdp.peak_bytes``: the leaves outside the
-                   stacks and the largest layer of any stack, weights
-                   and float32 gradients, as the mesh step gathers one
-                   layer at a time and counts in its ``gathered_peak``;
-                   to prefill or decode, the whole parameter tree (the
-                   port has no mesh serving path, and the reference's
-                   serve launcher takes no mesh);
+  gathered_bytes   the most a device's step holds gathered at once. To
+                   train, ``fsdp.peak_bytes`` of the specs and the
+                   step's tensor-parallel plan (``spmd.tp_plan``): the
+                   leaves outside the stacks and the largest layer of any
+                   stack, weights and float32 gradients, each split leaf
+                   at the coordinate's region and the others whole, as
+                   the mesh step gathers one layer at a time and counts
+                   in its ``gathered_peak``; to prefill or decode, the
+                   whole parameter tree (the port has no mesh serving
+                   path, and the reference's serve launcher takes no
+                   mesh);
   temp_bytes, generated_code_bytes
                    XLA's, which the port cannot give: ``null``;
-  matmul_flops_per_rank
+  matmul_flops_per_device
                    ``torch.utils.flop_counter.FlopCounterMode`` over one
-                   rank's body on ``meta`` (its rows of the batch; to
+                   device's body on ``meta`` (its rows of the batch; to
                    train, forward and backward): the matmuls and
-                   attention products it counts, not XLA's flops;
+                   attention products it counts, not XLA's flops (the
+                   reference's ``flops_per_device``, ``null`` here). To
+                   train on a mesh with a tensor-parallel axis it is one
+                   coordinate's: the first of its data-parallel rank's
+                   group (``sharding/tp.py``), which runs its share of
+                   every split product and the parts that run once a
+                   rank; the other members' shares are not run (a probe);
+  tp_members       the coordinates of a rank's tensor-parallel group that
+                   compute (1: none split);
+  all_reduced_bytes_per_device
+                   to train, the bytes a coordinate sends into tensor
+                   parallelism's sums, on average over its group
+                   (``step.traffic``'s ``all_reduced``, from the probe's
+                   count: the members but the first send their parts);
   dropped_shardings
                    the placements that fell back to replication because
                    a dim does not divide: of the weights, the batch and
-                   the caches. The reference's count also takes in its
-                   activation constraints, which the port's step does not
-                   apply (``sharding/rules.py``), so the two totals differ
-                   by design;
+                   the caches. The step also resolves the reference's
+                   activation constraints (``ShardingCtx.tp_blocks``), but
+                   once per step build, where the reference's count takes
+                   them in once per trace; those drops are not counted,
+                   and the two totals differ by design;
   fits             ``argument_bytes + gathered_bytes`` within the H100's
                    80 GB (activations not counted).
 
@@ -77,7 +94,10 @@ from repro_torch.models.module import tree_leaves
 from repro_torch.optim.adamw import AdamWState, adamw_abstract
 from repro_torch.sharding import fsdp
 from repro_torch.sharding import rules as shd_rules
+from repro_torch.sharding.collectives import TPCounts, Traffic
 from repro_torch.sharding.placement import NamedSharding
+from repro_torch.sharding.tp import TP, Parts
+from repro_torch.training import spmd
 from repro_torch.training.spmd import dp_axes
 
 HBM_BYTES = 80e9          # the H100's 80 GB
@@ -213,6 +233,7 @@ def build_cell(rc: RunConfig, mesh, kind: str,
     rows = _rank_rows(B, ctx)
     gathered = logical_bytes(params_ab)     # serving: the whole tree
     cur = False
+    plan, tp, counts = None, None, None
     if kind == "train":
         # ZeRO-1: the moments keep the FSDP (data-sharded) layout though
         # the weights are replicated over 'data'
@@ -222,17 +243,28 @@ def build_cell(rc: RunConfig, mesh, kind: str,
         args = [(params_ab, pshard),
                 (adamw_abstract(bundle.specs), AdamWState(None, mv, mv)),
                 (bspecs, batch_shardings(bspecs, ctx))]
-        gathered = fsdp.peak_bytes(bundle.specs, param_dtype)
+        plan = spmd.tp_plan(rc, ctx)
+        gathered = fsdp.peak_bytes(bundle.specs, param_dtype, plan)
         tc = rc.train
+        kw, back = {}, {"on": False}
+        if plan is not None:
+            counts = TPCounts(Traffic(), Traffic(), lambda: back["on"])
+            tp = kw["tp"] = TP(ctx, ["meta"] * ctx.tp_size(), counts,
+                               probe=True)
 
         def body():
             for t in tree_leaves(params_ab):
                 t.requires_grad_(True)
-            loss, _ = bundle.loss_fn(params_ab, _rows(bspecs, rows),
+            tree = params_ab if plan is None else _split(params_ab, plan)
+            loss, _ = bundle.loss_fn(tree, _rows(bspecs, rows),
                                      remat_policy=tc.remat_policy,
                                      loss_chunk=tc.loss_chunk,
-                                     z_loss=tc.z_loss)
-            loss.backward()
+                                     z_loss=tc.z_loss, **kw)
+            back["on"] = True
+            try:
+                loss.backward()
+            finally:
+                back["on"] = False
             return None
     elif kind == "prefill":
         bspecs = bundle.input_specs("prefill")
@@ -267,7 +299,26 @@ def build_cell(rc: RunConfig, mesh, kind: str,
         raise ValueError(kind)
     return {"ctx": ctx, "args": args, "cur": cur, "train": kind == "train",
             "gathered_bytes": gathered, "rank_rows": rows, "body": body,
-            "specs": bundle.specs}
+            "specs": bundle.specs, "plan": plan,
+            "tp_members": 1 if tp is None else tp_members(plan),
+            "tp_counts": counts}
+
+
+def _split(tree, plan, path=()):
+    """``tree`` with each leaf the plan splits as ``tp.Parts`` of its
+    members' regions (views on ``meta``)."""
+    if isinstance(tree, dict):
+        return {k: _split(v, plan, path + (k,)) for k, v in tree.items()}
+    p = plan.get(path)
+    if p is None:
+        return tree
+    return Parts([None if ix is None else tree[ix] for ix in p], p)
+
+
+def tp_members(plan) -> int:
+    """The members of a group that compute under ``plan``."""
+    return len({m for p in plan.values() for m, ix in enumerate(p)
+                if ix is not None}) or 1
 
 
 def unique_bytes(cell: Dict[str, Any], read, outs) -> Tuple[int, int]:
@@ -318,7 +369,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         "mesh": mesh_name(mesh), "devices": mesh.size,
         "build_s": round(t_build, 2), "flops_s": round(t_flops, 2),
         "rank_rows": cell["rank_rows"],
-        "matmul_flops_per_rank": fc.get_total_flops(),
+        "matmul_flops_per_device": fc.get_total_flops(),
+        "tp_members": cell["tp_members"],
+        "all_reduced_bytes_per_device": (
+            None if cell["tp_counts"] is None
+            else cell["tp_counts"].all_reduced.local / cell["tp_members"]),
         "flops_per_device": None, "bytes_per_device": None,
         "memory": {"argument_bytes": args, "output_bytes": out_bytes,
                    "gathered_bytes": cell["gathered_bytes"],
@@ -358,8 +413,9 @@ def main(argv=None):
         mem = rep["memory"]
         print(f"[dryrun] OK   {tag}: args "
               f"{mem['argument_bytes'] / 2 ** 30:.2f} GiB/dev, gathered "
-              f"{mem['gathered_bytes'] / 2 ** 30:.2f} GiB/rank, matmul "
-              f"flops/rank {rep['matmul_flops_per_rank']:.3e}, dropped "
+              f"{mem['gathered_bytes'] / 2 ** 30:.2f} GiB/dev, matmul "
+              f"flops/dev {rep['matmul_flops_per_device']:.3e} "
+              f"({rep['tp_members']} tensor-parallel), dropped "
               f"{rep['dropped_shardings']}, fits {rep['fits']}")
         if args.out:
             os.makedirs(args.out, exist_ok=True)

@@ -6,9 +6,11 @@ the per-cell JSON files of ``python -m repro_torch.launch.dryrun --all
 
 The roofline table has the reference's columns and format. The dry-run
 table's columns are the port's: it has no XLA compile (``build_s`` in
-place of ``compile_s``), reports the working set a rank gathers and the
-matmul flops its body counts, and its ``temp_bytes``, ``flops_per_device``
-and ``bytes_per_device`` are ``null``; a null prints as "—", never as 0.
+place of ``compile_s``), reports the working set a device gathers, the
+matmul flops its body counts and the members of a rank's
+tensor-parallel group that compute ("TP"; the flops are one member's),
+and its ``temp_bytes``, ``flops_per_device`` and ``bytes_per_device``
+are ``null``; a null prints as "—", never as 0.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.report --dryrun DIR \\
@@ -48,14 +50,15 @@ def dryrun_table(directory: str) -> str:
                      f"{_gib(mem['argument_bytes'])} | "
                      f"{_gib(mem['gathered_bytes'])} | "
                      f"{_gib(mem['temp_bytes'])} | "
-                     f"{_sci(r['matmul_flops_per_rank'])} | "
+                     f"{_sci(r['matmul_flops_per_device'])} | "
+                     f"{r['tp_members']} | "
                      f"{_sci(r['flops_per_device'])} | "
                      f"{_sci(r['bytes_per_device'])} | "
                      f"{r['dropped_shardings']} | {r['fits']} |"))
     lines = ["| arch | shape | mesh | kind | build | args GiB/dev | "
-             "gathered GiB/rank | temp GiB/dev | matmul flops/rank | "
+             "gathered GiB/dev | temp GiB/dev | matmul flops/dev | TP | "
              "HLO flops/dev | HLO bytes/dev | dropped | fits |",
-             "|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
+             "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     lines += [line for _, line in sorted(rows)]
     lines.append(f"\n{len(rows)} cells built on meta. temp, HLO flops and "
                  "HLO bytes are XLA's, which the port has no compiled "

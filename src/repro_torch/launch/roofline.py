@@ -10,15 +10,19 @@ No card and no allocation: every cell is built on ``meta`` tensors and a
 mesh of ``meta`` entries by the dry run's ``build_cell``, and one rank's
 body is run under two counters.
 
-What is counted, per device (per data-parallel rank: the ranks along
-'model' hold the same rows and are computed once, ``training/spmd.py``):
+What is counted, per device: to train, one coordinate of a
+data-parallel rank's tensor-parallel group (``training/spmd.py``: each
+computes its share of the split products, the first also what runs once
+a rank), the dry run's probe (``launch/dryrun.py``); to prefill or
+decode, a data-parallel rank (the port serves with no tensor
+parallelism: the ranks along 'model' hold the same rows and would
+compute them once).
 
   flops   ``torch.utils.flop_counter.FlopCounterMode``: the matmuls and
-          attention products the rank's body runs (to train: forward,
+          attention products the device's body runs (to train: forward,
           backward and the remat policy's recomputation). The reference
-          reads XLA's HLO flops, which also take in elementwise work and
-          are split over 'model' by XLA's tensor parallelism. The CUDA
-          ``swattn`` gate counts the kernel's banded pairs
+          reads XLA's HLO flops, which also take in elementwise work. The
+          CUDA ``swattn`` gate counts the kernel's banded pairs
           (``kernels/swattn/kernel.py::band_flops``), not S x S.
   bytes   :class:`EagerBytes`: for every operation that is not a view, the
           bytes of its tensor inputs and outputs. This is the port's eager
@@ -31,21 +35,27 @@ What is counted, per device (per data-parallel rank: the ranks along
           decode step returns written in place, of which it writes one
           slot): a hard lower bound on the memory traffic.
   collective bytes
-          from the port's placements, not parsed from HLO (the port has
-          none; the reference's ``parse_collective_bytes`` is not
-          carried): the blocks of every weight a rank gathers from the
-          other coordinates, and, to train, the blocks of its float32
-          gradient it sends to their owners, as one
-          ``make_spmd_train_step`` step counts them in its ``Traffic``
-          (``gathered``, ``reduce_scattered``): every microbatch, the
-          stacked leaves a layer at a time in forward and again in
-          backward, the other leaves once. Keyed by the reference's
-          op names under its ``_WIRE_FACTOR`` convention (x 1 for
-          all-gather and reduce-scatter, x 2 for all-reduce, which the
-          port's step does not issue), with the bytes a ring carries as
-          the op's bytes: (K - 1) blocks of a weight split K ways, where
-          the reference counts the whole gathered result (K / (K - 1) of
-          that) and the scattered block (1 / (K - 1) of that).
+          from the port's placements and its count, not parsed from HLO
+          (the port has none; the reference's ``parse_collective_bytes``
+          is not carried), as one ``make_spmd_train_step`` step counts
+          them in its ``Traffic``, averaged over the coordinates that
+          compute: the parts of every weight a coordinate gathers from
+          the other coordinates (its region of a split weight, the
+          others whole) and, to train, those of its float32 gradient it
+          sends to their owners (``gathered``, ``reduce_scattered``):
+          every microbatch, the stacked leaves a layer at a time in
+          forward and again in backward, the other leaves once; and, to
+          train with tensor parallelism, the bytes each member sends
+          into the group's sums (``all_reduced``: each split block's
+          output in forward, its input's gradient in backward, the
+          loss's row maxima, sums and target logits), counted by the
+          classes' probe runs. Keyed by the reference's op names under
+          its ``_WIRE_FACTOR`` convention (x 1 for all-gather and
+          reduce-scatter, x 2 for all-reduce), with the bytes a ring
+          carries as the op's bytes: (K - 1) blocks of a weight split K
+          ways, where the reference counts the whole gathered result
+          (K / (K - 1) of that) and the scattered block (1 / (K - 1) of
+          that); a sum's (n − 1) members' parts.
 
 **Counting by layer class** (the reference's scan correction). A cell is
 not counted by running its whole model: F₀ is counted on the depth-0
@@ -113,16 +123,17 @@ from repro_torch.models.module import tree_leaves, tree_paths
 from repro_torch.models.transformer import make_stages
 from repro_torch.obs.roofline import HBM_BW, PEAK_OPS_PER_S, link_bw
 from repro_torch.sharding import fsdp
+from repro_torch.training import spmd
 from repro_torch.training.spmd import dp_axes
 
 # wire bytes per op byte (the reference's convention, ring algorithms), for
-# the two collectives the port's mesh step issues
-_WIRE_FACTOR = {"all-gather": 1.0, "reduce-scatter": 1.0}
+# the collectives the port's mesh step issues
+_WIRE_FACTOR = {"all-gather": 1.0, "reduce-scatter": 1.0, "all-reduce": 2.0}
 # the recurrences' (module, loop, body): each loop calls its body by name
 _LOOPS = ((ssm_mod, "ssd_chunked", "ssd_body"),
           (xlstm_mod, "mlstm_chunkwise", "mlstm_chunk_body"),
           (xlstm_mod, "slstm_scan", "slstm_step"))
-_KEYS = ("flops", "bytes", "unique")
+_KEYS = ("flops", "bytes", "unique", "all_reduce")
 
 
 class EagerBytes(TorchDispatchMode):
@@ -202,8 +213,11 @@ def _count_body(cell: Dict[str, Any], keep: Optional[int]
     if len(set(trips)) > 1:
         raise ValueError(f"the loops of one class ran {sorted(set(trips))} "
                          "trips")
+    counts = cell["tp_counts"]
     return ({"flops": float(fc.get_total_flops()), "bytes": float(eb.bytes),
-             "unique": float(args + out_bytes - 4 * cell["cur"])},
+             "unique": float(args + out_bytes - 4 * cell["cur"]),
+             "all_reduce": float(0 if counts is None
+                                 else counts.all_reduced.local)},
             trips[0] if trips else 0)
 
 
@@ -288,52 +302,84 @@ def combine(counts: Dict[str, Any]) -> Dict[str, float]:
 
 
 def _active_ranks(rc: RunConfig, ctx, kind: str) -> int:
-    """The data-parallel ranks that compute (``make_spmd_train_step``'s
-    ``active``): all where a microbatch splits over them, else the
-    first."""
+    """The coordinates that compute: the data-parallel ranks that do
+    (``make_spmd_train_step``'s ``active``: all where a microbatch splits
+    over them, else the first), times, to train, the members of each
+    one's tensor-parallel group that compute (``dryrun.build_cell``'s
+    ``tp_members``)."""
     R = math.prod(ctx.mesh.shape[a] for a in dp_axes(ctx))
     B = rc.shape.global_batch
     mb = (rc.train.microbatch or B) if kind == "train" else B
-    return R if mb % R == 0 else 1
+    dp = R if mb % R == 0 else 1
+    if kind != "train":
+        return dp
+    plan = spmd.tp_plan(rc, ctx)
+    return dp * (1 if plan is None else dr.tp_members(plan))
 
 
 def collective_bytes(rc: RunConfig, mesh, kind: str,
-                     param_dtype: Optional[torch.dtype] = None
-                     ) -> Dict[str, Any]:
-    """One computing rank's collective bytes by op kind (``_WIRE_FACTOR``
-    applied) and the ranks that compute: each weight split K ways is
-    gathered from its K − 1 other blocks; to train, its float32
-    gradient's K − 1 blocks are sent to their owners. To train, a rank
-    does so every microbatch, gathering a stacked leaf a layer at a time
-    in forward and again in backward (``sharding/fsdp.py``; whisper's
-    cross K/V weights twice each way, ``whisper.READ_TWICE``) and the
-    other leaves once."""
+                     param_dtype: Optional[torch.dtype] = None,
+                     all_reduce: Optional[float] = None) -> Dict[str, Any]:
+    """The collective bytes of one computing coordinate, averaged over
+    those that compute, by op kind (``_WIRE_FACTOR`` applied), and their
+    count (``ranks``): each computing coordinate gathers the parts of
+    every weight its data-parallel rank's plan gives it (its region of a
+    split weight, else the weight whole on the rank's first coordinate,
+    ``spmd.tp_plan``) from the other coordinates; to train, it sends
+    those of the weight's float32 gradient to their owners. To train, a
+    coordinate does so every microbatch, gathering a stacked leaf a layer
+    at a time in forward and again in backward (``sharding/fsdp.py``;
+    whisper's cross K/V weights twice each way, ``whisper.READ_TWICE``)
+    and the other leaves once; and with tensor parallelism each member
+    sends ``all_reduce`` bytes into the group's sums over the step (the
+    classes' probe count of one rank's body, ``combine(class_counts)``,
+    where not given), scaled from the probe's rows to the batch's."""
     cell = dr.build_cell(rc, mesh, kind, param_dtype)
     params, shardings = cell["args"][0]
+    ctx, plan = cell["ctx"], cell["plan"]
     train = kind == "train"
     twice = set(whisper.READ_TWICE) if rc.model.family == "encdec" else ()
     sh_at = tree_paths(shardings)
     specs = tree_paths(cell["specs"])
+    # every data-parallel rank's group moves as much as the first's
+    first = spmd.rank_coords(mesh, dp_axes(ctx))[0]
+    group = (spmd.group_coords(mesh, first, ctx.tp_axes())
+             if plan is not None else [first])
+    coords = _active_ranks(rc, ctx, kind)
+    dp = coords // (1 if plan is None else dr.tp_members(plan))
     gathered = scattered = 0
     for path, t in tree_paths(params).items():
         sh = sh_at[path]
-        K = math.prod(sh.splits(t.ndim))
-        block = math.prod(sh.shard_shape(t.shape))
+        regions = plan.get(path) if plan is not None else None
         passes = 1
         if train and fsdp.stacked(specs[path]):
             passes = 4 if path in twice else 2
-        gathered += passes * (K - 1) * block * t.element_size()
-        scattered += (K - 1) * block * 4
+        for m, at in enumerate(group):
+            if regions is None and m:
+                continue            # the first member's, whole
+            index = None if regions is None else regions[m]
+            if regions is not None and index is None:
+                continue
+            n = dp * sum(k for _, k in sh.foreign(t.shape, at, index))
+            gathered += passes * n * t.element_size()
+            scattered += n * 4
+    by_kind = {}
     if train:
         B = rc.shape.global_batch
         n = B // (rc.train.microbatch or B)
         gathered, scattered = n * gathered, n * scattered
-    by_kind = {"all-gather": gathered * _WIRE_FACTOR["all-gather"]}
-    if train:
-        by_kind["reduce-scatter"] = (scattered
+        by_kind["reduce-scatter"] = (scattered / coords
                                      * _WIRE_FACTOR["reduce-scatter"])
-    return {"by_kind": by_kind,
-            "ranks": _active_ranks(rc, cell["ctx"], kind)}
+        if plan is not None:
+            if all_reduce is None:
+                all_reduce = combine(class_counts(rc, mesh, kind,
+                                                  param_dtype))["all_reduce"]
+            total = all_reduce * (B // cell["rank_rows"])
+            by_kind["all-reduce"] = total / coords * _WIRE_FACTOR[
+                "all-reduce"]
+    by_kind = {"all-gather": gathered / coords * _WIRE_FACTOR["all-gather"],
+               **by_kind}
+    return {"by_kind": by_kind, "ranks": coords}
 
 
 # ---------------------------------------------------------------------------
@@ -394,7 +440,7 @@ def analyze_cell(arch: str, shape_name: str, *, verbose: bool = True,
     kind = kind or dr.shape_kind(shape_name)
     counts = class_counts(rc, mesh, kind, param_dtype)
     tot = combine(counts)
-    coll = collective_bytes(rc, mesh, kind, param_dtype)
+    coll = collective_bytes(rc, mesh, kind, param_dtype, tot["all_reduce"])
     coll_total = sum(coll["by_kind"].values())
     n_dev = mesh.size
     peak = PEAK_OPS_PER_S[rc.model.dtype]
@@ -424,12 +470,13 @@ def analyze_cell(arch: str, shape_name: str, *, verbose: bool = True,
         "coll_by_kind": coll["by_kind"], "ranks": coll["ranks"],
         "peak_ops": peak, "peak_dtype": rc.model.dtype, "hbm_bw": HBM_BW,
         "link_bw": link,
-        "counts": (f"one rank's body on meta, FlopCounterMode matmul and "
+        "counts": (f"one device's body on meta, FlopCounterMode matmul and "
                    f"attention flops, eager bytes of every non-view op; "
                    f"depth 0 + {len(counts['classes'])} classes (layers, "
                    f"stages) {[c[:3] for c in counts['classes']]}"
                    + (f"; recurrence trips {trips}" if trips else "")
-                   + "; collectives from the placements"),
+                   + "; collectives from the placements and the "
+                   "classes' count of the tensor-parallel sums"),
     }
     if verbose:
         print(f"[roofline] {arch}/{shape_name}: "

@@ -73,12 +73,60 @@ def out_project(o: torch.Tensor, params) -> torch.Tensor:
     return o.flatten(-2) @ params["wo"].to(o.dtype).reshape(H * hd, D)
 
 
-def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """[B,S,Kv,hd] -> [B,S,H,hd] by repetition."""
+def repeat_kv(k: torch.Tensor, num_heads: int, first: int = 0,
+              group: Optional[int] = None) -> torch.Tensor:
+    """[B,S,Kv,hd] -> [B,S,H,hd] by repetition. With ``group``: the
+    ``num_heads`` query heads from head ``first`` on (a tensor-parallel
+    member's), each reading key/value head ``head // group``, where
+    ``k`` holds the key/value heads from ``first // group`` on."""
     Kv = k.shape[2]
+    if group is not None:
+        sel = [h // group - first // group
+               for h in range(first, first + num_heads)]
+        if num_heads % Kv or sel != [j // (num_heads // Kv)
+                                     for j in range(num_heads)]:
+            return k.index_select(2, torch.tensor(sel, device=k.device))
     if Kv == num_heads:
         return k
     return k.repeat_interleave(num_heads // Kv, dim=2)
+
+
+def tp_heads(tp, num_heads: int, num_kv: int):
+    """The heads' split at the attention's constraint points (q, and
+    k / v repeated to the heads: ``act_heads``) as (member, query heads,
+    key/value heads) a computing member, or None where the heads do not
+    split. A member's key/value heads are those its query heads read:
+    its own block where they split with the heads, else the GQA groups of
+    its heads, taken from the replicated weights."""
+    blocks = tp.blocks((1, 1, num_heads, 1),
+                       ("act_batch", None, "act_heads", None))
+    members = tp.members(blocks)
+    if len(members) == 1:
+        return None
+    g = num_heads // num_kv
+    return [(m, blocks[m][2], slice(blocks[m][2].start // g,
+                                    (blocks[m][2].stop - 1) // g + 1))
+            for m in members]
+
+
+def tp_plan(tp, num_heads: int, num_kv: int, use_qk_norm: bool):
+    """Each attention weight's region at each member ({name: [index or
+    None a member]}, the shapes of ``attn_specs``), {} where the heads
+    do not split."""
+    split = tp_heads(tp, num_heads, num_kv)
+    if split is None:
+        return {}
+    every = slice(None)
+    out = {k: [None] * tp.n for k in ("wq", "wk", "wv", "wo")}
+    if use_qk_norm:
+        out.update(q_norm=[None] * tp.n, k_norm=[None] * tp.n)
+    for m, hs, kvs in split:
+        out["wq"][m] = (every, hs, every)
+        out["wk"][m] = out["wv"][m] = (every, kvs, every)
+        out["wo"][m] = (hs, every, every)
+        if use_qk_norm:
+            out["q_norm"][m] = out["k_norm"][m] = (every,)
+    return out
 
 
 def _mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,

@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.module import p
+from repro_torch.sharding.tp import Parts, at
 
 
 # -- norms -------------------------------------------------------------------
@@ -49,7 +50,13 @@ def mlp_specs(d: int, f: int):
     }
 
 
-def mlp(x: torch.Tensor, params, act=F.silu) -> torch.Tensor:
+def mlp(x: torch.Tensor, params, act=F.silu, tp=None) -> torch.Tensor:
+    """With ``tp`` and the weights as ``tp.Parts``: the up and gate
+    projections split by columns, the down projection by rows, each
+    member's product from its columns, summed over the members."""
+    if isinstance(params["wi"], Parts):
+        return tp.run(x, params["wi"].members,
+                      lambda m, xm: mlp(xm, at(params, m), act))
     h = x @ params["wi"].to(x.dtype)
     g = x @ params["wg"].to(x.dtype)
     return (act(g) * h) @ params["wo"].to(x.dtype)
@@ -80,15 +87,63 @@ def embed_specs(vocab: int, d: int):
 
 
 def embed(tokens: torch.Tensor, params,
-          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+          dtype: torch.dtype = torch.bfloat16, tp=None) -> torch.Tensor:
+    """The rows of ``tokens``. With ``tp`` and the table as ``tp.Parts``
+    (split by vocabulary): each member looks up the tokens in its rows
+    (zeros for the others') and the members' rows are summed."""
+    table = params["table"]
+    if isinstance(table, Parts):
+        parts = []
+        for m, tok in zip(tp.live(table.members),
+                          tp.replicate(tokens, table.members)):
+            with tp.part(m):
+                n = table[m].shape[0]
+                local = tok - table.start(m, 0)
+                mine = (local >= 0) & (local < n)
+                rows = table[m][local.clamp(0, n - 1)].to(dtype)
+                parts.append(torch.where(mine[..., None], rows,
+                                         rows.new_zeros(())))
+        return tp.all_reduce(parts, table.members)
     # gather, then cast: the cast is element by element, so this equals
     # casting the whole table first, without reading all of it per call
-    return params["table"][tokens].to(dtype)
+    return table[tokens].to(dtype)
 
 
 def unembed(x: torch.Tensor, params) -> torch.Tensor:
     """Logits from hidden states: [.., d] @ [vocab, d]^T."""
     return x @ params["table"].to(x.dtype).t()
+
+
+def tp_vocab(tp, vocab: int):
+    """Each computing member's vocabulary block at the logits' constraint
+    point (``act_vocab``), None where the vocabulary does not split."""
+    blocks = tp.blocks((1, 1, vocab), ("act_batch", "act_seq", "act_vocab"))
+    members = tp.members(blocks)
+    return None if len(members) == 1 else [(m, blocks[m][2])
+                                           for m in members]
+
+
+def tp_columns(tp, f: int):
+    """Each computing member's MLP columns at the hidden activation's
+    constraint point (``act_mlp``), None where they do not split."""
+    blocks = tp.blocks((1, 1, f), ("act_batch", None, "act_mlp"))
+    members = tp.members(blocks)
+    return None if len(members) == 1 else [(m, blocks[m][2])
+                                           for m in members]
+
+
+def mlp_plan(tp, f: int):
+    """The gated MLP's regions at each member (``mlp_specs``' shapes), {}
+    where its columns do not split."""
+    split = tp_columns(tp, f)
+    if split is None:
+        return {}
+    every = slice(None)
+    out = {k: [None] * tp.n for k in ("wi", "wg", "wo")}
+    for m, cols in split:
+        out["wi"][m] = out["wg"][m] = (every, cols)
+        out["wo"][m] = (cols, every)
+    return out
 
 
 def head_specs(d: int, vocab: int):

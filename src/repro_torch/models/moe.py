@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.module import p
+from repro_torch.sharding.tp import Parts, at
 
 
 def moe_specs(d: int, d_ff: int, num_experts: int, expert_tp: bool):
@@ -134,20 +135,75 @@ def dispatch_rows(slot: torch.Tensor, keep: torch.Tensor, num_experts: int,
     return sel
 
 
+def tp_experts(tp, num_experts: int, d_ff: int):
+    """The experts' split at their constraint points (the dispatched rows
+    ``act_experts``, their hidden ``act_experts`` then ``act_mlp``) as
+    (member, experts, columns) a computing member, or None where neither
+    splits: the experts where they divide the axis, else (expert-TP) each
+    expert's columns."""
+    blocks = tp.blocks((1, num_experts, 1, d_ff),
+                       ("act_batch", "act_experts", None, "act_mlp"))
+    members = tp.members(blocks)
+    if len(members) == 1:
+        return None
+    return [(m, blocks[m][1], blocks[m][3]) for m in members]
+
+
+def tp_plan(tp, num_experts: int, d_ff: int):
+    """The MoE weights' regions at each member (``moe_specs``' shapes),
+    {} where nothing splits: the router whole at every computing member,
+    each one's experts or columns of the three products."""
+    split = tp_experts(tp, num_experts, d_ff)
+    if split is None:
+        return {}
+    every = slice(None)
+    out = {k: [None] * tp.n for k in ("router", "wi", "wg", "wo")}
+    for m, es, cols in split:
+        out["router"][m] = (every, every)
+        out["wi"][m] = out["wg"][m] = (es, every, cols)
+        out["wo"][m] = (es, cols, every)
+    return out
+
+
 def moe_block(x: torch.Tensor, params, *, num_experts: int, k: int,
-              capacity_factor: float = 1.25, act=F.silu
+              capacity_factor: float = 1.25, act=F.silu, tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y [B, S, D], aux loss: the rows' mean). Routing per
-    batch row."""
+    batch row. With ``tp`` and the experts' weights as ``tp.Parts``: each
+    member routes the rows itself (the router replicated), runs its
+    experts (or, expert-TP, its columns of every expert) on the rows
+    dispatched to them and combines its share; the shares are summed
+    after the combine, which is linear in the experts' outputs (the
+    reference's note at ``moe.py:105-109``: the all-reduce on [B, S, D],
+    not on the padded E·C layout). The first member's aux loss is the
+    block's."""
+    if isinstance(params["wi"], Parts):
+        wi = params["wi"]
+        return tp.run(x, wi.members, lambda m, xm: _moe(
+            xm, at(params, m), num_experts, k, capacity_factor, act,
+            first=wi.start(m, 0)))
+    return _moe(x, params, num_experts, k, capacity_factor, act)
+
+
+def _moe(x: torch.Tensor, params, num_experts: int, k: int,
+         capacity_factor: float, act, first: int = 0):
+    """The block on the experts ``params`` holds: all of them, or those
+    from expert ``first`` on (a tensor-parallel member's)."""
     B, S, D = x.shape
     E = num_experts
     cap = capacity(S, E, k, capacity_factor)
     w, idx, aux = route(x, params["router"], k)          # [B, S, k]
     slot, keep = dispatch_indices(idx, E, cap, S)        # [B, S·k]
     sel = dispatch_rows(slot, keep, E, cap, S, k)        # [B, E·C]
+    El = params["wi"].shape[0]
+    if El < E:                      # this member's experts' slots only
+        sel = sel[:, first * cap:(first + El) * cap]
+        slot = slot - first * cap
+        keep = keep & (slot >= 0) & (slot < El * cap)
+        slot = slot.clamp(0, El * cap - 1)
     # gather tokens into [B, E, C, D]; the sentinel row S reads zeros
     xpad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
-    xe = _gather_rows(xpad, sel).reshape(B, E, cap, D)
+    xe = _gather_rows(xpad, sel).reshape(B, El, cap, D)
     dt = x.dtype
     h = torch.einsum("becd,edf->becf", xe, params["wi"].to(dt))
     g = torch.einsum("becd,edf->becf", xe, params["wg"].to(dt))
@@ -155,7 +211,7 @@ def moe_block(x: torch.Tensor, params, *, num_experts: int, k: int,
     ye = torch.einsum("becf,efd->becd", h, params["wo"].to(dt))
     # combine: each token's k weighted rows, added in assignment order
     # (assignment a is token a // k's choice a % k)
-    contrib = _gather_rows(ye.reshape(B, E * cap, D), slot) * \
+    contrib = _gather_rows(ye.reshape(B, El * cap, D), slot) * \
         w.reshape(B, S * k, 1).to(dt)
     contrib = torch.where(keep[..., None], contrib, 0).reshape(B, S, k, D)
     y = contrib[:, :, 0]

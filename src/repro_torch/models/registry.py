@@ -94,7 +94,7 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         return (torch.cat([meta, x], dim=1),
                 torch.cat([mpos, positions + M], dim=1))
 
-    def _prompt(params, batch):
+    def _prompt(params, batch, tp=None):
         """The prompt's inputs and [B, S(+M)] positions from 0, the meta
         tokens prepended."""
         inputs = torch.as_tensor(batch["inputs"], device=device)
@@ -102,7 +102,7 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=device)[None].expand(B, S)
         if M:
-            x = (embed(inputs, params["embed"], dt) if inputs.ndim == 2
+            x = (embed(inputs, params["embed"], dt, tp) if inputs.ndim == 2
                  else inputs.to(dt))
             inputs, positions = _with_meta(params, x, positions)
         return inputs, positions
@@ -120,15 +120,18 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
 
     def loss_fn(params, batch, remat_policy: str = "none",
                 loss_chunk: int = 2048, z_loss: float = 0.0,
-                aux_weight: float = 0.01):
+                aux_weight: float = 0.01, tp=None):
         """Mean next-token CE of ``batch['labels']`` [B,S] (``IGNORE``
         skipped) from the cache-less forward of ``batch['inputs']``, the
         head projected per ``loss_chunk`` positions, the meta tokens'
         hidden states dropped first. Returns (loss + aux_weight · aux,
-        (aux, the count of labels))."""
-        inputs, positions = _prompt(params, batch)
+        (aux, the count of labels)). ``tp``: the mesh train step's
+        tensor-parallel group (``tfm.forward``; the loss then
+        vocabulary-parallel)."""
+        inputs, positions = _prompt(params, batch, tp)
         hidden, _, aux = tfm.forward(params, inputs, positions, mc,
-                                     remat_policy=remat_policy, logits=False)
+                                     remat_policy=remat_policy, logits=False,
+                                     tp=tp)
         if M:
             hidden = hidden[:, M:]
         if mc.tie_embeddings:
@@ -138,7 +141,7 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         labels = torch.as_tensor(batch["labels"], device=device)
         loss, denom = chunked_ce_from_hidden(
             hidden, head_w, labels, chunk=loss_chunk, z_loss=z_loss,
-            transpose_head=tr)
+            transpose_head=tr, tp=tp)
         return loss + aux_weight * aux, (aux, denom)
 
     def cache_init(batch: int, seq_len: int):
@@ -312,6 +315,15 @@ def _whisper_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
                        prefill=prefill, decode_step=decode_step,
                        cache_init=cache_init, cache_abstract=cache_abstract,
                        cache_axes=cache_axes, input_specs=input_specs)
+
+
+def tp_plan(rc: RunConfig, tp):
+    """The mesh train step's plan for a tensor-parallel group ``tp``
+    (``transformer.tp_plan``), None for whisper, whose layers the port
+    does not split yet (each data-parallel rank computes it whole)."""
+    if rc.model.family == "encdec":
+        return None
+    return tfm.tp_plan(rc.model, tp)
 
 
 def build(rc: RunConfig, device="cuda") -> ModelBundle:

@@ -53,10 +53,12 @@ from repro_torch.models import rope
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (embed, embed_specs, head_specs,
-                                       lm_head, mlp, mlp_specs, rms_norm,
-                                       rms_norm_specs, unembed)
+                                       lm_head, mlp, mlp_plan, mlp_specs,
+                                       rms_norm, rms_norm_specs, tp_vocab,
+                                       unembed)
 from repro_torch.models.module import p, stack_specs
 from repro_torch.sharding import fsdp
+from repro_torch.sharding.tp import Parts, at
 
 # the reference's layer kinds the port does not run yet: none
 NOT_PORTED: tuple = ()
@@ -180,6 +182,49 @@ def model_specs(cfg: ModelConfig):
     return specs
 
 
+def tp_plan(cfg: ModelConfig, tp) -> Dict[tuple, list]:
+    """The mesh train step's plan for a tensor-parallel group ``tp``: by
+    leaf path of ``model_specs(cfg)``, each member's region of the leaf
+    (None where the member does not read it), for the leaves whose
+    blocks split at the reference's constraint points: the vocabulary
+    (embedding table, head), and in each attention-bearing layer the
+    heads, the MLP's columns and the experts. A leaf left out is read
+    whole by the group's first member: the norms, hymba's meta tokens and
+    mamba part, the ``mamba``, ``mlstm`` and ``slstm`` kinds, and every
+    part whose dim does not divide the group (the reference drops that
+    mapping too)."""
+    every = slice(None)
+    out: Dict[tuple, list] = {}
+
+    def put(path, regions, stacked=False):
+        for name, per in regions.items():
+            out[path + (name,)] = [None if ix is None else
+                                   ((every,) + ix if stacked else ix)
+                                   for ix in per]
+
+    vocab = tp_vocab(tp, cfg.vocab_size)
+    if vocab is not None:
+        rows = [None] * tp.n
+        cols = [None] * tp.n
+        for m, vs in vocab:
+            rows[m], cols[m] = (vs, every), (every, vs)
+        out[("embed", "table")] = rows
+        if not cfg.tie_embeddings:
+            out[("head", "w")] = cols
+    for i, st in enumerate(make_stages(cfg)):
+        if st.kind not in ("dense", "moe", "hymba"):
+            continue
+        key = (f"stage_{i}",)
+        put(key + ("attn",), attn.tp_plan(tp, cfg.num_heads, cfg.num_kv_heads,
+                                          cfg.use_qk_norm), True)
+        if st.kind == "moe":
+            put(key + ("moe",), moe_mod.tp_plan(
+                tp, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff), True)
+        else:
+            put(key + ("mlp",), mlp_plan(tp, cfg.d_ff), True)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Cache / state trees
 # ---------------------------------------------------------------------------
@@ -288,12 +333,31 @@ def _store(cache, state) -> None:
 
 def _attention_part(lp, x, cos_sin, q_pos, cfg: ModelConfig, window,
                     cache=None, cur=None, softcap: float = 0.0,
-                    sinks: int = 0) -> torch.Tensor:
+                    sinks: int = 0, tp=None, pos=None) -> torch.Tensor:
     """The shared attention sub-block. With a cache (one layer's slice),
     the new keys and values are written into it first: decode (one query)
-    attends against the cache, a prefill chunk within itself."""
+    attends against the cache, a prefill chunk within itself. With
+    ``tp`` and the projections as ``tp.Parts`` (the heads split): each
+    member attends with its heads (``pos[m]``: the positions' cos, sin
+    and positions at member m) and the members' out-projections, a
+    row-split product, are summed."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = attn.qkv_project(h, lp["attn"], cfg.use_qk_norm)
+    w = lp["attn"]
+    if isinstance(w["wq"], Parts):
+        group = cfg.num_heads // cfg.num_kv_heads
+        return tp.run(h, w["wq"].members, lambda m, hm: _attention(
+            at(w, m), hm, pos[m][0], pos[m][1], cfg, window, softcap=softcap,
+            sinks=sinks, first=w["wq"].start(m, 1), group=group))
+    return _attention(w, h, cos_sin, q_pos, cfg, window, cache, cur,
+                      softcap, sinks)
+
+
+def _attention(w, h, cos_sin, q_pos, cfg: ModelConfig, window, cache=None,
+               cur=None, softcap: float = 0.0, sinks: int = 0,
+               first: int = 0, group=None) -> torch.Tensor:
+    """Attention on the normed input ``h`` with the projections ``w``:
+    every head, or (``group``) the query heads from head ``first`` on."""
+    q, k, v = attn.qkv_project(h, w, cfg.use_qk_norm)
     cos, sin = cos_sin
     q = rope.apply_rope(q, cos, sin)
     k = rope.apply_rope(k, cos, sin)
@@ -303,50 +367,57 @@ def _attention_part(lp, x, cos_sin, q_pos, cfg: ModelConfig, window,
         attn.write_cache(cache, k, v, cur, pos_new=q_pos[0], sinks=sinks)
     use_kernel = (cfg.use_pallas_attn and not decode and sinks == 0
                   and softcap == 0.0 and isinstance(window, int))
+    H = q.shape[2]
     if decode:
         o = attn.decode_attend(q, cache, cfg.num_heads, window=window,
                                softcap=softcap, scale=scale, q_pos=q_pos,
                                sinks=sinks)
-    elif use_kernel:
+    elif use_kernel and group is None:
         # the banded CUDA kernel: the online-softmax state stays on chip,
         # no S×S score plane in device memory, k/v read per GQA group
         o = swattn_cuda(q, k, v, window=window, scale=scale)
     else:
-        kf = attn.repeat_kv(k, cfg.num_heads)
-        vf = attn.repeat_kv(v, cfg.num_heads)
-        o = attn.attend(q, kf, vf, q_pos, q_pos, causal=True, window=window,
-                        softcap=softcap, scale=scale, sinks=sinks,
-                        q_chunk=cfg.q_chunk)
-    return attn.out_project(o, lp["attn"])
+        kf = attn.repeat_kv(k, H, first, group)
+        vf = attn.repeat_kv(v, H, first, group)
+        if use_kernel:          # a member's heads, each with its own k/v
+            o = swattn_cuda(q, kf, vf, window=window, scale=scale)
+        else:
+            o = attn.attend(q, kf, vf, q_pos, q_pos, causal=True,
+                            window=window, softcap=softcap, scale=scale,
+                            sinks=sinks, q_chunk=cfg.q_chunk)
+    return attn.out_project(o, w)
 
 
 # Every block returns (x', aux): its auxiliary loss (a float32 0-d tensor
 # for moe, 0.0 for the kinds that have none), which ``forward`` sums.
 
 
+def _attn_of(lp, x, ctx, cfg: ModelConfig, cache, softcap: float):
+    return _attention_part(lp, x, ctx["cos_sin"], ctx["q_pos"], cfg,
+                           ctx["window"], cache, ctx["cur"], softcap,
+                           ctx["sinks"], ctx.get("tp"), ctx.get("pos"))
+
+
 def dense_block(lp, x, ctx, cfg: ModelConfig, cache=None):
     """Attention + gated MLP, pre-norm residual."""
-    x = x + _attention_part(lp, x, ctx["cos_sin"], ctx["q_pos"], cfg,
-                            ctx["window"], cache, ctx["cur"],
-                            cfg.attn_logit_softcap, ctx["sinks"])
+    x = x + _attn_of(lp, x, ctx, cfg, cache, cfg.attn_logit_softcap)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp(h, lp["mlp"]), 0.0
+    return x + mlp(h, lp["mlp"], tp=ctx.get("tp")), 0.0
 
 
 def moe_block(lp, x, ctx, cfg: ModelConfig, cache=None):
     """Attention + the MoE block, pre-norm residual. A decode step (one
     query per row) routes the whole batch as one group ([1, B, D]), as
     the reference does; otherwise each row is its own group."""
-    x = x + _attention_part(lp, x, ctx["cos_sin"], ctx["q_pos"], cfg,
-                            ctx["window"], cache, ctx["cur"],
-                            cfg.attn_logit_softcap, ctx["sinks"])
+    x = x + _attn_of(lp, x, ctx, cfg, cache, cfg.attn_logit_softcap)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     B, S, D = h.shape
     if S == 1:
         h = h.reshape(1, B, D)
     y, aux = moe_mod.moe_block(h, lp["moe"], num_experts=cfg.num_experts,
                                k=cfg.num_experts_per_tok,
-                               capacity_factor=cfg.capacity_factor)
+                               capacity_factor=cfg.capacity_factor,
+                               tp=ctx.get("tp"))
     return x + y.reshape(B, S, D), aux
 
 
@@ -354,16 +425,15 @@ def hymba_block(lp, x, ctx, cfg: ModelConfig, cache=None):
     """Attention ∥ mamba on the same normed input (the mean of the two
     paths), then the gated MLP. The mamba state streams through
     ``cache['mamba']``, updated in place."""
-    a = _attention_part(lp, x, ctx["cos_sin"], ctx["q_pos"], cfg,
-                        ctx["window"], None if cache is None
-                        else cache["attn"], ctx["cur"], 0.0, ctx["sinks"])
+    a = _attn_of(lp, x, ctx, cfg, None if cache is None else cache["attn"],
+                 0.0)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     cm = None if cache is None else cache["mamba"]
     m, state = ssm_mod.mamba_block(h, lp["mamba"], cfg, state_in=cm)
     _store(cm, state)
     x = x + 0.5 * (a + m)
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp(h2, lp["mlp"]), 0.0
+    return x + mlp(h2, lp["mlp"], tp=ctx.get("tp")), 0.0
 
 
 def mamba_block(lp, x, ctx, cfg: ModelConfig, cache=None):
@@ -417,7 +487,7 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
             cfg: ModelConfig, *, caches=None, cur: Optional[int] = None,
-            remat_policy: str = "none", logits: bool = True):
+            remat_policy: str = "none", logits: bool = True, tp=None):
     """Run the decoder stack.
 
     inputs: [B,S] int tokens, or [B,S,D] embeddings (embeddings_in archs).
@@ -430,21 +500,35 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
     or the final hidden states [B,S,D] with ``logits=False``; the caches,
     written in place, or None; the aux loss summed over layers, a float32
     0-d tensor, 0 where no layer has one).
+
+    ``tp`` (the mesh train step's tensor-parallel group, ``sharding/tp.py``;
+    cache-less, hidden states only): the leaves the step's plan splits
+    come as ``tp.Parts`` and their blocks run split over the group
+    (``tp_plan``); the rest runs on the group's first member.
     """
+    if tp is not None and (caches is not None or logits):
+        raise ValueError("a tensor-parallel forward is the mesh train "
+                         "step's: no caches, hidden states out")
     dtype = model_dtype(cfg)
     if inputs.ndim == 2:
-        x = embed(inputs, params["embed"], dtype)
+        x = embed(inputs, params["embed"], dtype, tp)
     else:
         x = inputs.to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     cos_sin = _positions_cos_sin(cfg, positions)
+    pos = None
+    if tp is not None:          # the positions at every member, once
+        cos, sin, at_pos = (tp.replicate(t, range(tp.n))
+                            for t in (*cos_sin, positions))
+        pos = list(zip(zip(cos, sin), at_pos))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, st in enumerate(make_stages(cfg)):
         block = BLOCKS[st.kind]
         sp = params[f"stage_{i}"]
         ctx = {"cos_sin": cos_sin, "q_pos": positions, "window": st.window,
-               "cur": cur, "sinks": cfg.num_meta_tokens}
+               "cur": cur, "sinks": cfg.num_meta_tokens, "tp": tp,
+               "pos": pos}
         # one unbind per stage: backward stacks the layers' gradients once
         # (indexing each layer would add a zero-filled stack per layer)
         layer_params = _unstack(sp, st.count)
@@ -488,6 +572,8 @@ def _unstack(tree, n: int) -> List[Dict[str, Any]]:
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
     if isinstance(tree, fsdp.Stacked):
         return tree.layers(n)
+    if isinstance(tree, Parts):
+        return tree.unbind(n)
     return list(tree.unbind(0))
 
 
@@ -509,7 +595,9 @@ def _remat(block, policy: str):
     numbers, so no RNG state is kept. A layer of ``LayerRef``s (the mesh
     step's) is gathered inside the run: inside the checkpointed function,
     so backward gathers it again, or, under ``'none'``, with its weights
-    saved for backward as handles (``sharding/fsdp.py``)."""
+    saved for backward as handles (``sharding/fsdp.py``). With tensor
+    parallelism over distinct cards the recomputation is started on the
+    rank's own card (``tp.TP.recomputed_first``)."""
     if policy == "none":
         return fsdp.hooked(block)
     if policy == "full":
@@ -527,7 +615,15 @@ def _remat(block, policy: str):
     else:
         raise ValueError(policy)
 
-    inner = fsdp.gathered(block)
+    gathered = fsdp.gathered(block)
+
+    def inner(lp, x, ctx, cfg):
+        out = gathered(lp, x, ctx, cfg)
+        tp = ctx.get("tp") if isinstance(ctx, dict) else None
+        if tp is None:
+            return out
+        y, aux = out
+        return tp.recomputed_first(y), aux
 
     def run(lp, x, ctx, cfg):
         return checkpoint(inner, lp, x, ctx, cfg, use_reentrant=False,

@@ -1,7 +1,8 @@
 """Sharding: logical-axis rules (``rules``), a mesh of named axes over
 torch devices (``mesh``), one-controller collectives over it
-(``collectives``) and tensors placed on it by a ``PartitionSpec``
-(``placement``)."""
+(``collectives``), tensors placed on it by a ``PartitionSpec``
+(``placement``), the mesh train step's per-layer gathering (``fsdp``)
+and its tensor parallelism over 'model' (``tp``)."""
 from repro_torch.sharding.mesh import DeviceMesh, make_mesh
 from repro_torch.sharding.placement import NamedSharding, ShardedTensor
 from repro_torch.sharding.rules import (EP_OVERRIDES, PartitionSpec,

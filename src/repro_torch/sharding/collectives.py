@@ -17,6 +17,23 @@ one card, and a machine with one card runs a mesh of repeated entries.
 A reduction is taken in order along the axis on the group's first entry
 (``((v0 + v1) + v2) ...``), then handed to every member of the group.
 
+``all_reduce`` and ``broadcast`` serve tensor parallelism
+(``training/spmd.py``): a data-parallel rank's group of coordinates over
+its tensor-parallel axes ('model') computes one part each of a product,
+and the parts are summed (or their maximum taken) where the reference's
+partitioned program all-reduces. The single controller takes the
+reduction on the group's first member and hands its inputs to the other
+members with ``broadcast``. Both are autograd functions: the gradient of
+a reduction is handed back to each part's member, and that of a
+broadcast is summed from the members, the all-reduce of the input's
+gradient. What each moves is counted by kind: ``all_reduced`` the bytes
+the members other than the first send into a reduction (the all-reduces
+of the reference's program, one per reduction in forward and one per
+broadcast in backward), ``copies`` the single controller's own copies of
+a replicated tensor (a broadcast's inputs, a reduction's gradient, and a
+reduction run again where the remat policy recomputes a layer in
+backward).
+
 ``all_gather`` and ``reduce_scatter`` over named axes are ``jax.lax``'s
 ``all_gather(tiled=True)`` and ``psum_scatter(tiled=True)``: what XLA
 inserts around a weight sharded by a ``PartitionSpec``. Each adds the
@@ -29,7 +46,9 @@ new one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
+import threading
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -122,15 +141,19 @@ def ppermute(v: MeshValue, axis: str,
 @dataclasses.dataclass
 class Traffic:
     """Bytes carried by collectives: ``moved`` between distinct devices,
-    ``local`` between entries of one device (no copy)."""
+    ``local`` between entries of one device (no copy). ``add`` may be
+    called from autograd's threads, one a card."""
     moved: int = 0
     local: int = 0
+    lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
 
     def add(self, nbytes: int, src: torch.device, dst: torch.device) -> None:
-        if src == dst:
-            self.local += int(nbytes)
-        else:
-            self.moved += int(nbytes)
+        with self.lock:
+            if src == dst:
+                self.local += int(nbytes)
+            else:
+                self.moved += int(nbytes)
 
 
 def _axes(axes: Union[str, Sequence[str]]) -> Tuple[str, ...]:
@@ -220,3 +243,115 @@ def reduce_scatter(v: MeshValue, axes, dim: int,
             acc = part if acc is None else acc + part
         out[c] = acc
     return MeshValue(v.mesh, out)
+
+
+@dataclasses.dataclass
+class TPCounts:
+    """Where tensor parallelism's bytes are counted: ``all_reduced`` (the
+    reference's all-reduces) and ``copies`` (the single controller's);
+    ``recompute()`` says whether a forward runs again in backward, whose
+    reductions are then copies."""
+    all_reduced: Traffic
+    copies: Traffic
+    recompute: Callable[[], bool] = lambda: False
+
+
+def _add(t: Optional[Traffic], x: torch.Tensor, src, dst) -> None:
+    if t is not None:
+        t.add(x.nbytes, src, dst)
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, device, counts, *parts):
+        ctx.op, ctx.counts = op, counts
+        ctx.devices = [p.device for p in parts]
+        kind = None
+        if counts is not None:
+            kind = counts.copies if counts.recompute() else \
+                counts.all_reduced
+        acc = parts[0].to(device)
+        for p in parts[1:]:
+            _add(kind, p, p.device, device)
+            q = p.to(device)
+            acc = acc + q if op == "sum" else torch.maximum(acc, q)
+        if op == "max":
+            # the first part holding each maximum takes its gradient
+            taken = torch.zeros_like(acc, dtype=torch.bool)
+            wins = []
+            for p in parts:
+                w = (p.to(device) == acc) & ~taken
+                taken |= w
+                wins.append(w)
+            ctx.save_for_backward(*wins)
+        return acc
+
+    @staticmethod
+    def backward(ctx, grad):
+        counts = ctx.counts
+        out = []
+        wins = ctx.saved_tensors if ctx.op == "max" else None
+        for i, dev in enumerate(ctx.devices):
+            g = grad if wins is None else torch.where(wins[i], grad, 0)
+            if i and counts is not None:
+                _add(counts.copies, g, g.device, dev)
+            out.append(g.to(dev))
+        return (None, None, None, *out)
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, counts, x):
+        ctx.device, ctx.counts = x.device, counts
+        out = []
+        for i, dev in enumerate(devices):
+            if i and counts is not None:
+                _add(counts.copies, x, x.device, dev)
+            # a view where the member is the input's device: autograd
+            # needs an output of its own for each member
+            out.append(x.to(dev) if dev != x.device else x.view_as(x))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        counts = ctx.counts
+        acc = None
+        for i, g in enumerate(grads):
+            if g is None:
+                continue
+            if i and counts is not None:
+                _add(counts.all_reduced, g, g.device, ctx.device)
+            g = g.to(ctx.device)
+            acc = g if acc is None else acc + g
+        return None, None, acc
+
+
+def all_reduce(parts: Sequence[torch.Tensor], device, op: str = "sum",
+               counts: Optional[TPCounts] = None) -> torch.Tensor:
+    """The sum (or elementwise maximum, ``op='max'``) of a
+    tensor-parallel group's parts, on ``device`` (the group's first
+    member), taken in the parts' order. Its gradient goes back to each
+    part's member (a maximum's to the first part holding it)."""
+    if op not in ("sum", "max"):
+        raise ValueError(op)
+    if len(parts) == 1:
+        return parts[0]
+    return _Reduce.apply(op, torch.device(device), counts, *parts)
+
+
+def broadcast(x: torch.Tensor, devices: Sequence[torch.device],
+              counts: Optional[TPCounts] = None) -> List[torch.Tensor]:
+    """``x`` at each of ``devices`` (``devices[0]`` is ``x``'s own): a copy
+    between two cards, ``x`` itself between entries of one. Its gradient
+    is the sum of the members' (the all-reduce of the input's gradient),
+    in the members' order."""
+    if len(devices) == 1:
+        return [x]
+    if not x.requires_grad:
+        out = []
+        for i, dev in enumerate(devices):
+            if i and counts is not None:
+                _add(counts.copies, x, x.device, dev)
+            out.append(x.to(dev))
+        return out
+    return list(_Broadcast.apply(tuple(devices), counts, x))

@@ -20,11 +20,16 @@ block they share; the first coordinate (row-major) that holds a block
 ``gather(device)`` gives the logical tensor on ``device``: the base
 itself where that device has one (no copy), else the blocks assembled,
 each taken from that device where it holds it, else from its owner.
+``gather_layer`` gives one layer of it, or one *region* (``index``: a
+slice per dim): what a coordinate of a tensor-parallel group computes
+with is its own part of a weight (its heads, its columns, its experts),
+gathered over the other axes only, so its 'model' block stays split.
 Every byte a gather or a replica copy carries can be counted in a
 ``collectives.Traffic``.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -70,8 +75,11 @@ class NamedSharding:
 
     def splits(self, ndim: int) -> Tuple[int, ...]:
         """How many blocks each dim is split into."""
-        return tuple(math.prod(self.mesh.shape[a] for a in axes)
-                     for axes in self.dim_axes(ndim))
+        memo = self.__dict__.setdefault("_splits", {})
+        if ndim not in memo:
+            memo[ndim] = tuple(math.prod(self.mesh.shape[a] for a in axes)
+                               for axes in self.dim_axes(ndim))
+        return memo[ndim]
 
     def key(self, coord: Coord, ndim: int) -> Key:
         """The block a coordinate holds: its position along each dim."""
@@ -101,6 +109,27 @@ class NamedSharding:
         """The slices of the block at ``coord`` of a tensor of ``shape``."""
         return self.key_index(self.key(coord, len(shape)), shape)
 
+    def keys(self, ndim: int) -> List[Key]:
+        """Every block's key, row-major."""
+        return list(itertools.product(*(range(n)
+                                        for n in self.splits(ndim))))
+
+    def foreign(self, shape: Sequence[int], at: Optional[Coord],
+                index: Optional[Sequence[slice]] = None
+                ) -> List[Tuple[Key, int]]:
+        """(key, elements) of each block other than coordinate ``at``'s
+        (every block where ``at`` is None) that meets the region
+        ``index`` of a tensor of ``shape``: what a gather of that region
+        at ``at`` takes from the other coordinates."""
+        own = self.key(at, len(shape)) if at is not None else None
+        region = _box(index, shape)
+        out = []
+        for k in self.keys(len(shape)):
+            n = _numel(_meet(_box(self.key_index(k, shape), shape), region))
+            if k != own and n:
+                out.append((k, n))
+        return out
+
     def shard(self, x: torch.Tensor) -> "ShardedTensor":
         return ShardedTensor.from_tensor(self, x)
 
@@ -113,6 +142,39 @@ class NamedSharding:
 
     def __repr__(self):
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+Box = List[Tuple[int, int]]
+
+
+def _box(index: Optional[Sequence[slice]], shape: Sequence[int]) -> Box:
+    """``index`` (a slice per dim, step 1; None: everything) as (start,
+    stop) per dim of ``shape``."""
+    if index is None:
+        return [(0, n) for n in shape]
+    out = []
+    for i, n in enumerate(shape):
+        sl = index[i] if i < len(index) else slice(None)
+        lo, hi, step = sl.indices(n)
+        if step != 1:
+            raise ValueError(f"a region's slices take every element: {sl}")
+        out.append((lo, hi))
+    return out
+
+
+def _meet(a: Box, b: Box) -> Optional[Box]:
+    out = [(max(x0, y0), min(x1, y1)) for (x0, x1), (y0, y1) in zip(a, b)]
+    return None if any(lo >= hi for lo, hi in out) else out
+
+
+def _within(inner: Box, outer: Box) -> Tuple[slice, ...]:
+    """``inner``'s slices relative to ``outer``'s start."""
+    return tuple(slice(lo - o, hi - o) for (lo, hi), (o, _) in
+                 zip(inner, outer))
+
+
+def _numel(box: Optional[Box]) -> int:
+    return 0 if box is None else math.prod(hi - lo for lo, hi in box)
 
 
 def _own_copy(x: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -216,75 +278,110 @@ class ShardedTensor:
 
     def gather_layer(self, device, layer: Optional[int] = None,
                      traffic: Optional[Traffic] = None,
-                     at: Optional[Coord] = None) -> torch.Tensor:
+                     at: Optional[Coord] = None,
+                     index: Optional[Sequence[slice]] = None
+                     ) -> torch.Tensor:
         """Index ``layer`` of the leading dim (the whole tensor where
-        ``layer`` is None) on ``device``, as a tensor object of its own:
-        an alias of the base's storage where ``device`` has a base (no
-        copy, and not a view, so its views and their lifetimes are its
-        own), else the blocks' rows assembled. The leading dim of a
+        ``layer`` is None), or its region ``index`` (a slice per dim of
+        the logical shape, the leading dim's ignored for a layer), on
+        ``device``, as a tensor object of its own: an alias of the base's
+        storage where ``device`` has a base (no copy, and not a view, so
+        its views and their lifetimes are its own), else the parts of the
+        blocks that meet the region assembled. The leading dim of a
         stacked leaf is never sharded (``W_RULES['layers']``).
-        ``traffic`` counts as ``gather`` does, for that layer's bytes
+        ``traffic`` counts as ``gather`` does, for that layer's region
         only."""
         device = torch.device(device)
         if layer is not None and self.sharding.splits(self.ndim)[0] != 1:
             raise ValueError(f"{self!r}: the leading dim is sharded")
         if traffic is not None:
-            self.count_gather(device, traffic, at, layer is not None)
+            self.count_gather(device, traffic, at, layer is not None, index)
+        region = _box(index, self.shape)
+        if layer is not None:
+            region[0] = (layer, layer + 1)
+        sl = tuple(slice(lo, hi) for lo, hi in region)
         if device in self.bases:
-            base = self.bases[device]
-            t = base if layer is None else base[layer]
+            t = self.bases[device][sl]
+            if layer is not None:
+                t = t[0]
             return torch.empty(0, dtype=t.dtype, device=device).set_(
                 t.untyped_storage(), t.storage_offset(), t.size(), t.stride())
-        shape = self.shape if layer is None else self.shape[1:]
-        out = torch.empty(shape, dtype=self.dtype, device=device)
+        shape = [hi - lo for lo, hi in region]
+        out = torch.empty(shape[1:] if layer is not None else shape,
+                          dtype=self.dtype, device=device)
+        dst = out if layer is None else out[None]
         for k, o in self.owner.items():
+            box = _box(self.sharding.key_index(k, self.shape), self.shape)
+            part = _meet(box, region)
+            if part is None:
+                continue
             src = self.blocks.get((device, k), self.blocks[(o, k)])
-            idx = self.sharding.key_index(k, self.shape)
-            if layer is None:
-                out[idx].copy_(src)
-            else:
-                out[idx[1:]].copy_(src[layer])
+            dst[_within(part, region)].copy_(src[_within(part, box)])
         return out
 
+    def _foreign(self, at: Optional[Coord], layer: bool,
+                 index: Optional[Sequence[slice]]):
+        """(key, owner, bytes) of each block other than ``at``'s that meets
+        the region ``index``: the part of it there (one layer's rows with
+        ``layer``). Kept per (``at``, ``layer``, region): a step asks the
+        same every layer."""
+        memo = self.__dict__.setdefault("_foreign_memo", {})
+        region = None if index is None else tuple(
+            (sl.start, sl.stop) for sl in index)
+        got = memo.get((at, layer, region))
+        if got is None:
+            size = torch.empty((), dtype=self.dtype).element_size()
+            got = memo[(at, layer, region)] = [
+                (k, self.owner[k],
+                 n * size // (self.shape[0] if layer else 1))
+                for k, n in self.sharding.foreign(self.shape, at, index)]
+        return got
+
     def count_gather(self, device, traffic: Traffic,
-                     at: Optional[Coord] = None, layer: bool = False) -> None:
+                     at: Optional[Coord] = None, layer: bool = False,
+                     index: Optional[Sequence[slice]] = None) -> None:
         """Add to ``traffic`` the blocks a gather onto ``device`` at
         coordinate ``at`` takes from the other coordinates (see
-        ``gather``); with ``layer``, one layer's rows of them."""
+        ``gather``); with ``layer``, one layer's rows of them; with
+        ``index``, their parts in that region."""
         device = torch.device(device)
-        own = self.key(at) if at is not None else None
-        nb = self.block_nbytes() // (self.shape[0] if layer else 1)
-        for k in self.owner:
-            if k != own:
-                src = device if (device, k) in self.blocks else self.owner[k]
-                traffic.add(nb, src, device)
+        for k, o, nb in self._foreign(at, layer, index):
+            src = device if (device, k) in self.blocks else o
+            traffic.add(nb, src, device)
 
     def count_scatter(self, at: Coord, traffic: Traffic,
-                      layer: bool = False) -> None:
+                      layer: bool = False,
+                      index: Optional[Sequence[slice]] = None) -> None:
         """Add to ``traffic`` the blocks of a gradient a reduce-scatter
         sends from coordinate ``at`` to their owners (all but its own);
-        with ``layer``, one layer's rows of them."""
+        with ``layer``, one layer's rows of them; with ``index``, their
+        parts in that region."""
         src = self.mesh.device(at)
-        own = self.key(at)
-        nb = self.block_nbytes() // (self.shape[0] if layer else 1)
-        for k, o in self.owner.items():
-            if k != own:
-                traffic.add(nb, src, o)
+        for _, o, nb in self._foreign(at, layer, index):
+            traffic.add(nb, src, o)
 
     @torch.no_grad()
     def scatter_add(self, grad: torch.Tensor, into: List[torch.Tensor],
-                    layer: Optional[int] = None) -> None:
-        """Add ``grad`` (the logical tensor's gradient, or layer
-        ``layer``'s) into ``into``, one accumulator per ``owned_keys``
-        entry shaped as its ``owned_units`` tensor: each owner's blocks
-        take their part, on the owner (a view of one gradient where the
-        owner is ``grad``'s own device)."""
+                    layer: Optional[int] = None,
+                    index: Optional[Sequence[slice]] = None) -> None:
+        """Add ``grad`` (the gradient of the logical tensor, of layer
+        ``layer``, or of their region ``index``) into ``into``, one
+        accumulator per ``owned_keys`` entry shaped as its
+        ``owned_units`` tensor: each owner's blocks take the part of it
+        they meet, on the owner (a view of one gradient where the owner
+        is ``grad``'s own device)."""
+        region = _box(index, self.shape)
+        if layer is not None:
+            region[0] = (layer, layer + 1)
+            grad = grad[None]
         for (owner, key), acc in zip(self.owned_keys(), into, strict=True):
-            part = grad
-            if key is not None:
-                idx = self.sharding.key_index(key, self.shape)
-                part = grad[idx if layer is None else idx[1:]]
-            (acc if layer is None else acc[layer]).add_(part.to(owner))
+            box = (_box(None, self.shape) if key is None else
+                   _box(self.sharding.key_index(key, self.shape),
+                        self.shape))
+            part = _meet(box, region)
+            if part is not None:
+                acc[_within(part, box)].add_(
+                    grad[_within(part, region)].to(owner))
 
     # -- in-place updates ------------------------------------------------------
     def owned_keys(self) -> List[Tuple[torch.device, Optional[Key]]]:

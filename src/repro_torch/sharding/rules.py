@@ -17,18 +17,27 @@ Profiles:
 With a mesh, ``sharding`` gives a ``placement.NamedSharding`` (a
 weight or batch held as blocks, one per mesh coordinate) and
 ``spec_tree_shardings`` the tree of them; without one, ``None``, as the
-reference's. ``constrain`` is the reference's activation constraint, a
-hint to XLA's partitioner. Torch has none: the port's mesh step
-(``training/spmd.py``) gathers the weights onto each data-parallel rank's
-device and runs the single-device body there with ``shd=None``, as the
-reference's own ``dp_shardmap.py:43`` runs each rank's body. So
-``constrain`` with a mesh raises, rather than pass an activation through
-unconstrained under a name that says otherwise.
+reference's.
+
+Activation constraints. The reference's ``constrain`` is a hint to XLA's
+partitioner, which splits the products at the constraint points
+(attention's heads, the MLP's columns, the experts, the vocabulary) over
+the axes the rules map them to. Torch has no partitioner: the port's mesh
+step (``training/spmd.py``) splits them itself, one data-parallel rank's
+tensor-parallel group at a time, and asks this module where.
+``tp_axes`` names the group's mesh axes (every axis the batch does not
+take), and ``tp_blocks(shape, axes)`` gives each member's block of the
+activation a constraint point names: ``pspec(shape, axes)`` on those axes,
+its drops included (a dim that does not divide stays whole, and the part
+is computed replicated). So ``constrain`` itself, with a mesh, still
+raises: nothing in the port passes an activation through it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple, Union
+import itertools
+import math
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.models import module as mod
 
@@ -36,9 +45,14 @@ MeshAxes = Union[None, str, Tuple[str, ...]]
 
 _CONSTRAIN = ("an activation constraint on a mesh (with_sharding_constraint) "
               "has no counterpart in the port: its mesh step "
-              "(training/spmd.py) runs each data-parallel rank's body on "
-              "gathered weights with shd=None, as the reference's "
-              "dp_shardmap.py does")
+              "(training/spmd.py) splits the constraint points' products "
+              "itself, by ShardingCtx.tp_blocks")
+
+
+def _names(entry: MeshAxes) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 class PartitionSpec(tuple):
@@ -120,7 +134,8 @@ class ShardingCtx:
         return present if len(present) > 1 else present[0]
 
     def pspec(self, shape: Sequence[int],
-              axes: Sequence[Optional[str]]) -> PartitionSpec:
+              axes: Sequence[Optional[str]],
+              record: bool = True) -> PartitionSpec:
         entries = []
         used = set()
         for dim, logical in zip(shape, axes):
@@ -133,7 +148,8 @@ class ShardingCtx:
                 entries.append(None)
                 continue
             if dim % self._axis_size(m) != 0:
-                self.dropped.append((tuple(shape), logical, m))
+                if record:
+                    self.dropped.append((tuple(shape), logical, m))
                 entries.append(None)
                 continue
             entries.append(m)
@@ -149,6 +165,62 @@ class ShardingCtx:
             return None
         from repro_torch.sharding.placement import NamedSharding
         return NamedSharding(self.mesh, self.pspec(shape, axes))
+
+    # -- tensor parallelism ---------------------------------------------------
+    def tp_axes(self) -> Tuple[str, ...]:
+        """The mesh axes of a data-parallel rank's tensor-parallel group:
+        every axis of the mesh that ``act_batch`` does not map to, in mesh
+        order. None where the profile splits the sequence over one of them
+        (``train_sp``, ``kv_seq``: not in the port's mesh step yet, which
+        then computes each rank's rows whole, as before)."""
+        if self.mesh is None:
+            return ()
+        batch = self._mesh_axes("act_batch")
+        batch = (batch,) if isinstance(batch, str) else tuple(batch or ())
+        axes = tuple(a for a in self.mesh.axis_names if a not in batch)
+        for seq in ("act_seq", "act_kv_seq"):
+            m = self._mesh_axes(seq)
+            m = (m,) if isinstance(m, str) else tuple(m or ())
+            if set(m) & set(axes):
+                return ()
+        return axes
+
+    def tp_size(self) -> int:
+        """The members of a tensor-parallel group (1 without one)."""
+        return math.prod(dict(self.mesh.shape)[a] for a in self.tp_axes()) \
+            if self.mesh is not None else 1
+
+    def tp_blocks(self, shape: Sequence[int],
+                  axes: Sequence[Optional[str]]) -> List[Tuple[slice, ...]]:
+        """Each member's block of an activation of ``shape`` at a
+        constraint point of logical ``axes``, in the group's order
+        (row-major over ``tp_axes``): ``pspec(shape, axes)`` on the
+        group's axes, its drops included, each split dim cut into equal
+        parts and the member's taken (row-major over the dim's axes, as
+        ``NamedSharding.key``); the dims on the data-parallel axes whole
+        (the step splits the rows). Members whose blocks are equal
+        compute one part once. The drops are not recorded in
+        ``dropped``: that counts the placements."""
+        tp = self.tp_axes()
+        logical = [a if a is not None and self._mesh_axes(a) is not None
+                   and set(_names(self._mesh_axes(a))) <= set(tp) else None
+                   for a in axes]
+        spec = self.pspec(shape, logical, record=False)
+        sizes = [dict(self.mesh.shape)[a] for a in tp]
+        out = []
+        for pos in itertools.product(*(range(n) for n in sizes)):
+            at = dict(zip(tp, pos))
+            block = []
+            for d, n in enumerate(shape):
+                names = _names(spec[d]) if d < len(spec) else ()
+                k, parts = 0, 1
+                for a in names:
+                    k = k * dict(self.mesh.shape)[a] + at[a]
+                    parts *= dict(self.mesh.shape)[a]
+                step = n // parts
+                block.append(slice(k * step, (k + 1) * step))
+            out.append(tuple(block))
+        return out
 
     # -- application --------------------------------------------------------
     def constrain(self, x, *axes: Optional[str]):

@@ -1,0 +1,336 @@
+"""Tensor parallelism as the model sees it in the mesh train step: the
+reference's activation constraints made explicit.
+
+Under ``jax.jit`` on a mesh the reference's constraints
+(``sharding/rules.py``'s ``act_heads``, ``act_mlp``, ``act_vocab``,
+``act_experts``, all on 'model' in the train profile) let XLA split the
+products between them over 'model' and all-reduce where a block's output
+leaves it. The port's mesh step does it by hand, Megatron's way (no
+sequence parallelism): one data-parallel rank's *group*, its coordinates
+along the tensor-parallel axes (``ShardingCtx.tp_axes``), computes each
+split block once per member, on the member's device, from the member's
+own block of the weights (``Parts``), and the members' partial outputs
+are summed. The residual stream, the norms, RoPE and the residual adds
+stay whole and are computed once a rank, on the group's first member.
+
+- ``Parts``: a weight as the group holds it, member by member (None where
+  a member does not compute with it), with each member's region.
+- ``TP``: the group. ``blocks`` resolves a constraint point's split
+  (``ShardingCtx.tp_blocks``), ``run`` computes a block's members and sums
+  them, ``broadcast`` / ``replicate`` / ``all_reduce`` are the moves
+  (``sharding/collectives.py``), counted in its ``counts``.
+- ``CoordFlops``: ``FlopCounterMode`` with each operation counted under
+  the member whose part is running (forward, and its backward, which
+  autograd runs between the marks ``run`` puts on the part's input and
+  output), else under its ``default``, the rank's first member.
+
+On one device there is no group (``tp=None``) and no ``Parts``: the model
+runs as before.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.sharding import collectives as coll
+
+Index = Tuple[slice, ...]
+
+
+class Parts:
+    """``tensors[i]``: member i's region ``index[i]`` of a weight (the
+    slices of the logical tensor), None where member i does not compute
+    with it."""
+
+    def __init__(self, tensors: Sequence[Optional[torch.Tensor]],
+                 index: Sequence[Optional[Index]]):
+        self.tensors, self.index = list(tensors), list(index)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self.tensors[i]
+
+    @property
+    def members(self) -> List[int]:
+        return [i for i, t in enumerate(self.tensors) if t is not None]
+
+    def start(self, i: int, dim: int) -> int:
+        """Where member i's region starts along ``dim``."""
+        return self.index[i][dim].start or 0
+
+    def unbind(self, n: int) -> List["Parts"]:
+        """A stacked weight's ``n`` layers (the regions' leading dim is
+        the stack's, whole)."""
+        per = [t.unbind(0) if t is not None else [None] * n
+               for t in self.tensors]
+        index = [None if ix is None else ix[1:] for ix in self.index]
+        return [Parts([p[j] for p in per], index) for j in range(n)]
+
+
+def at(tree, i: int):
+    """Member i's tree: each ``Parts`` leaf's tensor, the others as
+    they are."""
+    if isinstance(tree, dict):
+        return {k: at(v, i) for k, v in tree.items()}
+    if isinstance(tree, Parts):
+        return tree[i]
+    return tree
+
+
+# -- which member an operation belongs to ------------------------------------
+
+# each thread's stack of the parts it runs (autograd runs a card's
+# backward on a thread of its own); every push is popped
+_SCOPE = threading.local()
+
+
+def _stack() -> list:
+    if not hasattr(_SCOPE, "stack"):
+        _SCOPE.stack = []
+    return _SCOPE.stack
+
+
+@contextlib.contextmanager
+def scope(name):
+    _stack().append(name)
+    try:
+        yield
+    finally:
+        _stack().pop()
+
+
+class _Enter(torch.autograd.Function):
+    """Identity on a part's outputs; its backward enters the part."""
+
+    @staticmethod
+    def forward(ctx, name, *xs):
+        ctx.name = name
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _stack().append(ctx.name)
+        return (None, *grads)
+
+
+class _Leave(torch.autograd.Function):
+    """Identity on a part's input; its backward leaves the part."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _stack().pop()
+        return grad
+
+
+class _Recompute(torch.autograd.Function):
+    """Identity that saves its input. At the end of a region that
+    ``torch.utils.checkpoint`` recomputes, its backward is the region's
+    first: it unpacks its saved input and so recomputes the whole region
+    on its own thread, before the backward of any member's part (another
+    card's thread) asks for a saved tensor. The checkpoint's
+    recomputation is not safe to start from two threads at once."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.saved_tensors
+        return grad
+
+
+class _Unseen(torch.autograd.Function):
+    """Identity; its backward counts the gradients of ``n`` members a
+    probe does not run as all-reduced."""
+
+    @staticmethod
+    def forward(ctx, x, counts, n):
+        ctx.counts, ctx.n = counts, n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.counts.all_reduced.add(ctx.n * grad.nbytes, grad.device,
+                                   grad.device)
+        return grad, None, None
+
+
+class _Parents:
+    """Stands in for ``FlopCounterMode``'s module tracker: every
+    operation's parents are the whole and the member whose part runs,
+    else the counter's ``default``."""
+
+    def __init__(self, counter: "CoordFlops"):
+        self.counter = counter
+
+    @property
+    def parents(self):
+        st = _stack()
+        return {"Global", st[-1] if st else self.counter.default}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+
+class CoordFlops(FlopCounterMode):
+    """``FlopCounterMode`` whose counts are kept by member
+    (``by_scope()``) besides the total; an operation outside every part
+    counts under ``default`` (the caller sets it: the rank's first
+    member)."""
+
+    def __init__(self):
+        super().__init__(display=False)
+        if not hasattr(self, "mod_tracker"):
+            raise RuntimeError("this torch's FlopCounterMode keeps no "
+                               "module tracker to attribute flops by")
+        self.default = None
+        self.mod_tracker = _Parents(self)
+
+    def by_scope(self) -> dict:
+        return {k: sum(v.values()) for k, v in self.flop_counts.items()
+                if k != "Global"}
+
+
+# -- the group ------------------------------------------------------------------
+
+
+class TP:
+    """One data-parallel rank's tensor-parallel group: ``devices[i]`` is
+    member i's (``devices[0]`` the rank's own, where the residual stream
+    lives), ``names[i]`` its scope in a ``CoordFlops`` count;
+    ``counts`` where the moves are counted; ``probe``: only member 0
+    computes (the dry run's count of one coordinate on ``meta``), the
+    other members' parts left out of every sum."""
+
+    def __init__(self, ctx, devices: Sequence[torch.device],
+                 counts: Optional[coll.TPCounts] = None,
+                 names: Optional[Sequence] = None, probe: bool = False):
+        self.ctx = ctx
+        self.devices = [torch.device(d) for d in devices]
+        self.counts = counts
+        self.names = list(names) if names is not None else None
+        self.probe = probe
+
+    @property
+    def n(self) -> int:
+        return len(self.devices)
+
+    @property
+    def home(self) -> torch.device:
+        return self.devices[0]
+
+    def recomputed_first(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, the output of a region the remat checkpoint recomputes,
+        marked so that backward recomputes the region on ``home``'s
+        thread first (``_Recompute``), where the members are distinct
+        cards (autograd runs each card's backward on a thread of its
+        own); ``x`` itself on one card."""
+        if (len(set(self.devices)) == 1 or not torch.is_grad_enabled()
+                or not x.requires_grad):
+            return x
+        return _Recompute.apply(x)
+
+    def blocks(self, shape: Sequence[int],
+               axes: Sequence[Optional[str]]) -> List[Index]:
+        """Each member's block of the activation at a constraint point
+        (``ShardingCtx.tp_blocks``)."""
+        return self.ctx.tp_blocks(shape, axes)
+
+    @staticmethod
+    def members(blocks: Sequence[Index]) -> List[int]:
+        """The members that compute: the first of each distinct block
+        (``[0]`` alone: the part is not split)."""
+        seen, out = set(), []
+        for i, b in enumerate(blocks):
+            key = tuple((s.start, s.stop) for s in b)
+            if key not in seen:
+                seen.add(key)
+                out.append(i)
+        return out
+
+    def live(self, members: Sequence[int]) -> List[int]:
+        """The members of ``members`` that run (a probe's first only)."""
+        return [m for m in members if m == 0] if self.probe else list(members)
+
+    def broadcast(self, x: torch.Tensor, members: Sequence[int]
+                  ) -> List[torch.Tensor]:
+        """``x`` (on ``home``) at each of ``members``' devices."""
+        live = self.live(members)
+        if len(live) < len(members) and x.requires_grad and self.counts:
+            x = _Unseen.apply(x, self.counts, len(members) - len(live))
+        return coll.broadcast(x, [self.devices[m] for m in live],
+                              self.counts)
+
+    def replicate(self, x: torch.Tensor, members: Sequence[int]
+                  ) -> List[torch.Tensor]:
+        """``x`` with no gradient at each of ``members``' devices."""
+        return self.broadcast(x.detach(), members)
+
+    def all_reduce(self, parts: Sequence[torch.Tensor],
+                   members: Sequence[int], op: str = "sum") -> torch.Tensor:
+        """The sum (``op='max'``: the maximum) of ``members``' parts, on
+        ``home``."""
+        unseen = len(members) - len(parts)
+        if unseen and self.counts is not None:     # a probe's: counted
+            kind = (self.counts.copies if self.counts.recompute()
+                    else self.counts.all_reduced)
+            kind.add(unseen * parts[0].nbytes, self.home, self.home)
+        return coll.all_reduce(parts, self.home, op, self.counts)
+
+    def _name(self, m: int):
+        return self.names[m] if self.names is not None else None
+
+    @contextlib.contextmanager
+    def part(self, m: int):
+        """Member m's part runs within (its operations counted under it)."""
+        if self.names is None:
+            yield
+            return
+        with scope(self._name(m)):
+            yield
+
+    def marks(self, x: torch.Tensor) -> bool:
+        """Whether a part on input ``x`` gets its backward marks: flops are
+        counted and ``x`` takes a gradient (a part marked on its outputs
+        alone would never leave)."""
+        return (self.names is not None and torch.is_grad_enabled()
+                and x.requires_grad)
+
+    def enter(self, m: int, *outs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Mark a part's outputs: backward enters member m's part there."""
+        return _Enter.apply(self._name(m), *outs)
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        """Mark a part's input: backward leaves the part there."""
+        return _Leave.apply(x)
+
+    def run(self, x: torch.Tensor, members: Sequence[int],
+            fn: Callable[[int, torch.Tensor], object]):
+        """Σ over ``members`` of ``fn(m, x at member m)``, on ``home``.
+        ``fn`` may return a tuple: its first element is summed, the rest
+        are the first member's."""
+        outs, rest = [], None
+        for m, xm in zip(self.live(members), self.broadcast(x, members)):
+            mark = self.marks(xm)
+            with self.part(m):
+                y = fn(m, self.leave(xm) if mark else xm)
+            ys = y if isinstance(y, tuple) else (y,)
+            if mark:
+                ys = self.enter(m, *ys)
+            outs.append(ys[0])
+            if rest is None:
+                rest = ys[1:]
+        out = self.all_reduce(outs, members)
+        return (out, *rest) if rest else out

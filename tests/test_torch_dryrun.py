@@ -26,7 +26,8 @@ import textwrap
 
 import pytest
 
-from repro_torch.configs.base import (ARCH_IDS, SHAPES, RunConfig, resolve,
+from repro_torch.configs.base import (ARCH_IDS, SHAPES, RunConfig,
+                                      get_model_config, resolve,
                                       supported_shapes)
 from repro_torch.configs.tiny import tiny_of
 from repro_torch.launch import dryrun
@@ -130,7 +131,7 @@ def test_argument_bytes_equal_the_references_compiled(ref, arch, shape,
     assert want["lowering_drops"] >= want["placement_drops"]
     assert rep["memory"]["temp_bytes"] is None
     assert rep["memory"]["generated_code_bytes"] is None
-    assert rep["matmul_flops_per_rank"] > 0
+    assert rep["matmul_flops_per_device"] > 0
     assert rep["mesh"] == "2x2x2" and rep["devices"] == 8
 
 
@@ -149,9 +150,11 @@ def test_production_cell_builds_on_meta():
 
 
 def _one_layer_at_a_time(arch):
-    """The mesh step's gathered working set, reckoned from the specs: the
-    leaves outside the stacks and the largest layer of any stack, each
-    element a float32 weight and a float32 gradient."""
+    """The gathered working set of a data-parallel rank that computes
+    alone, reckoned from the specs: the leaves outside the stacks and the
+    largest layer of any stack, each element a float32 weight and a
+    float32 gradient (the mesh step before it split the products over
+    'model': no coordinate may gather more)."""
     specs = registry.build(resolve(arch, "train_4k"), device="meta").specs
     other, layer = 0, {}
     for path, s in tree_paths(specs).items():
@@ -163,37 +166,87 @@ def _one_layer_at_a_time(arch):
     return other + max(layer.values())
 
 
+def _per_coordinate(arch, multi_pod=False):
+    """``fsdp.peak_bytes`` of the specs and the mesh step's
+    tensor-parallel plan on the production mesh: each split leaf at a
+    coordinate's region."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding import fsdp
+    from repro_torch.sharding.rules import make_ctx
+    from repro_torch.training import spmd
+    rc = resolve(arch, "train_4k", multi_pod=multi_pod)
+    mesh = make_production_mesh(["meta"] * 512, multi_pod=multi_pod)
+    ctx = make_ctx(mesh, "train")
+    specs = registry.build(rc, device="meta").specs
+    return fsdp.peak_bytes(specs, plan=spmd.tp_plan(rc, ctx))
+
+
 def test_production_figures():
     """h2o-danube-1.8b ``train_4k`` on both production meshes: the
     parameters and moments (1,831,201,280 float32 each) as placed, the
-    batch's rows over the data axes, and one layer at a time gathered."""
+    batch's rows over the data axes, one layer at a time gathered at a
+    coordinate's regions (less than a whole layer), and a coordinate's
+    matmul flops: its 16-way share of the q/o, MLP, score and head
+    products (the 8 key/value heads do not split 16 ways: a member
+    projects the one its two query heads read), under an eighth of the
+    rank's whole products that a mesh with no 'model' axis counts."""
+    from repro_torch.sharding.mesh import make_mesh
+    reps = {}
     for mp, rows in ((False, 16), (True, 8)):
-        rep = dryrun.run_cell("h2o_danube_1_8b", "train_4k", mp)
+        rep = reps[mp] = dryrun.run_cell("h2o_danube_1_8b", "train_4k", mp)
         assert rep["devices"] == (512 if mp else 256)
         assert rep["rank_rows"] == rows
-        assert rep["memory"]["gathered_bytes"] == _one_layer_at_a_time(
-            "h2o_danube_1_8b")
-        assert rep["fits"] is True
+        gathered = rep["memory"]["gathered_bytes"]
+        assert gathered == _per_coordinate("h2o_danube_1_8b", mp)
+        assert gathered < _one_layer_at_a_time("h2o_danube_1_8b")
+        assert rep["fits"] is True and rep["tp_members"] == 16
+        assert rep["all_reduced_bytes_per_device"] > 0
         json.dumps(rep)
+    whole = dryrun.run_cell("h2o_danube_1_8b", "train_4k", False,
+                            mesh=make_mesh((16,), ("data",), ["meta"] * 16))
+    assert whole["rank_rows"] == 16 and whole["tp_members"] == 1
+    assert reps[False]["matmul_flops_per_device"] * 8 < (
+        whole["matmul_flops_per_device"])
 
 
 @pytest.mark.parametrize("arch", ["mixtral_8x7b", "qwen3_moe_30b_a3b"])
 def test_moe_train_cells_fit_one_layer_at_a_time(arch):
     """``train_4k`` on 16 x 16: the arguments as placed and one layer at
-    a time gathered fit the card's 80 GB, where the whole tree gathered
-    would not (the train step reads every argument, so no body need run
-    to count them)."""
+    a time gathered, at a coordinate's regions, fit the card's 80 GB,
+    where the whole tree gathered would not (the train step reads every
+    argument, so no body need run to count them)."""
     from repro_torch.launch.mesh import make_production_mesh
     rc = resolve(arch, "train_4k")
     cell = dryrun.build_cell(rc, make_production_mesh(["meta"] * 512),
                              "train")
     args, _ = dryrun.unique_bytes(cell, None, None)
     gathered = cell["gathered_bytes"]
-    assert gathered == _one_layer_at_a_time(arch)
+    assert gathered == _per_coordinate(arch)
+    assert gathered <= _one_layer_at_a_time(arch)
     assert args + gathered <= dryrun.HBM_BYTES
     whole = sum(8 * math.prod(t.shape)
                 for t in tree_leaves(cell["args"][0][0]))
     assert args + whole > dryrun.HBM_BYTES
+
+
+TRAIN_CELLS = [(a, mp) for a in ARCH_IDS
+               if "train_4k" in supported_shapes(get_model_config(a))
+               for mp in (False, True)]
+
+
+@pytest.mark.parametrize("arch,multi_pod", TRAIN_CELLS)
+def test_every_train_cell_fits_per_coordinate(arch, multi_pod):
+    """Every ``train_4k`` cell on both production meshes: a coordinate
+    gathers no more than a rank that computes alone did, and its
+    arguments and gathered working set fit the card."""
+    from repro_torch.launch.mesh import make_production_mesh
+    rc = resolve(arch, "train_4k", multi_pod=multi_pod)
+    mesh = make_production_mesh(["meta"] * 512, multi_pod=multi_pod)
+    cell = dryrun.build_cell(rc, mesh, "train")
+    args, _ = dryrun.unique_bytes(cell, None, None)
+    assert cell["gathered_bytes"] == _per_coordinate(arch, multi_pod)
+    assert cell["gathered_bytes"] <= _one_layer_at_a_time(arch)
+    assert args + cell["gathered_bytes"] <= dryrun.HBM_BYTES
 
 
 def test_meta_meshes():

@@ -9,15 +9,18 @@ stages) and whisper-large-v3 (encoder, cross K/V, decoder).
   'full' and 'dots' and in microbatches.
 - Weakrefs taken by the spy show that when a layer is gathered no other
   layer's gathered weights are alive, and no layer's gradient is.
-- ``step.gathered_peak`` equals ``fsdp.peak_bytes`` of the specs and is
-  below the whole tree's bytes; the whole tree gathered at once (the
-  test-only hook ``spmd.stacked_leaf``) reports the whole tree and gives
-  the same loss and parameters.
+- ``step.gathered_peak`` equals ``fsdp.peak_bytes`` of the specs and the
+  step's tensor-parallel plan (``spmd.tp_plan``: each coordinate gathers
+  its region of a split weight) and is below the whole tree's bytes; the
+  whole tree gathered at once (the test-only hook ``spmd.stacked_leaf``)
+  reports the whole tree at the same regions and gives the same loss and
+  parameters.
 - Blocks on "distinct devices" (each coordinate's block a copy of its
   own, the layout of distinct cards, on the CPU) give the same step as
   the shared base of one device.
-- The step's gathered and reduce-scattered bytes equal the roofline's
-  collective bytes (``launch/roofline.py::collective_bytes``).
+- The step's gathered, reduce-scattered and all-reduced bytes equal the
+  roofline's collective bytes (``launch/roofline.py::collective_bytes``),
+  averaged over the coordinates that compute.
 
 Tolerances: ``METRIC_TOL`` and ``PARAM_TOL`` of ``tests/test_torch_spmd.py``
 (relative 1e-5 for loss and grad norm, 1e-4 absolute for parameters).
@@ -82,6 +85,12 @@ def _setup(rc, mesh_shape=(2, 2)):
     return mesh, ctx, bundle, params, batch
 
 
+def _plan(rc):
+    """The step's tensor-parallel plan on the (data 2, model 2) mesh."""
+    mesh = make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    return spmd.tp_plan(rc, make_ctx(mesh, "train"))
+
+
 def _step(rc, params=None, setup=None):
     mesh, ctx, bundle, p0, batch = setup or _setup(rc)
     params = p0 if params is None else params
@@ -104,7 +113,7 @@ class _Spy:
         self.phase = "forward"
         gather, scatter = ShardedTensor.gather_layer, \
             ShardedTensor.scatter_add
-        backward = fsdp.Rank.backward
+        backward = fsdp.Group.backward
         spy = self
 
         def rank_backward(rank, loss):
@@ -114,22 +123,23 @@ class _Spy:
             finally:
                 spy.phase = "forward"
 
-        def gather_layer(x, device, layer=None, traffic=None, at=None):
+        def gather_layer(x, device, layer=None, traffic=None, at=None,
+                         index=None):
             key = (spy.names[id(x)][0] if layer is not None else None, layer)
             spy._check(key)
-            t = gather(x, device, layer, traffic, at)
+            t = gather(x, device, layer, traffic, at, index)
             spy.events.append((spy.phase,) + key)
             spy.tensors.append(key + (weakref.ref(t),))
             return t
 
-        def scatter_add(x, grad, into, layer=None):
+        def scatter_add(x, grad, into, layer=None, index=None):
             key = (spy.names[id(x)][0] if layer is not None else None, layer)
-            scatter(x, grad, into, layer)
+            scatter(x, grad, into, layer, index)
             if layer is not None:
                 spy.grads.append(key + (weakref.ref(grad),))
         monkeypatch.setattr(ShardedTensor, "gather_layer", gather_layer)
         monkeypatch.setattr(ShardedTensor, "scatter_add", scatter_add)
-        monkeypatch.setattr(fsdp.Rank, "backward", rank_backward)
+        monkeypatch.setattr(fsdp.Group, "backward", rank_backward)
 
     def _check(self, key):
         """Before a gather: no other layer's gathered weights alive, and
@@ -202,9 +212,14 @@ def test_layers_gathered_in_order_and_let_go(monkeypatch, arch, remat,
 def test_gathered_peak_is_the_specs_reckoning(arch):
     rc = _rc(ARCHS[arch], "full")
     step, _, _, bundle = _step(rc)
-    want = fsdp.peak_bytes(bundle.specs)
+    plan = _plan(rc)
+    want = fsdp.peak_bytes(bundle.specs, plan=plan)
     assert step.gathered_peak == want
-    assert want < fsdp.whole_bytes(bundle.specs)
+    assert want < fsdp.whole_bytes(bundle.specs, plan=plan)
+    # whisper is not split: every layer whole on the rank's coordinate
+    unsplit = fsdp.peak_bytes(bundle.specs)
+    assert (plan is None) == (arch == "whisper")
+    assert want == unsplit if plan is None else want < unsplit
     # the reckoning by hand: the largest layer of any stack and every
     # leaf outside the stacks, float32 weights and gradients
     layer, other = {}, 0
@@ -214,7 +229,7 @@ def test_gathered_peak_is_the_specs_reckoning(arch):
             layer[path[0]] = layer.get(path[0], 0) + n // s.shape[0]
         else:
             other += n
-    assert want == other + max(layer.values())
+    assert unsplit == other + max(layer.values())
 
 
 def _logical(params):
@@ -233,8 +248,9 @@ def test_whole_tree_gathered_gives_the_same_step(monkeypatch, arch, remat):
         mp.setattr(spmd, "stacked_leaf",
                    lambda x, rank: rank.gather_whole(x))
         whole, mw, pw, _ = _step(rc)
-    assert whole.gathered_peak == fsdp.whole_bytes(bundle.specs)
-    assert step.gathered_peak == fsdp.peak_bytes(bundle.specs)
+    plan = _plan(rc)
+    assert whole.gathered_peak == fsdp.whole_bytes(bundle.specs, plan=plan)
+    assert step.gathered_peak == fsdp.peak_bytes(bundle.specs, plan=plan)
     for k in ("loss", "aux_loss", "grad_norm"):
         assert abs(m[k] - mw[k]) <= METRIC_TOL * max(abs(mw[k]), 1e-6), k
     for a, b in zip(_logical(params), _logical(pw), strict=True):
@@ -270,7 +286,8 @@ def test_assembled_blocks_give_the_same_step(arch, remat):
         return blocks[id(t)]
     split = swap(setup[3])
     step, mb, _, _ = _step(rc, params=split, setup=setup)
-    assert step.gathered_peak == fsdp.peak_bytes(bundle.specs)
+    assert step.gathered_peak == fsdp.peak_bytes(bundle.specs,
+                                                 plan=_plan(rc))
     for k in ("loss", "aux_loss", "grad_norm"):
         assert abs(m[k] - mb[k]) <= METRIC_TOL * max(abs(m[k]), 1e-6), k
     for a, b in zip(_logical(params), _logical(split), strict=True):
@@ -322,20 +339,28 @@ def test_a_sharded_leading_dim_is_refused():
 @pytest.mark.parametrize("arch,microbatch", [("moe", 2), ("hymba", 0),
                                              ("whisper", 2)])
 def test_traffic_equals_the_rooflines_collective_bytes(arch, microbatch):
-    """Every microbatch and rank: the stacked leaves gathered in forward
-    and in backward (whisper's cross K/V weights twice each), the other
-    leaves once, every gradient reduce-scattered."""
+    """Every microbatch and coordinate that computes (both of each
+    rank's 'model' coordinates, but whisper's, which the port does not
+    split): the stacked leaves gathered in forward and in backward
+    (whisper's cross K/V weights twice each), the other leaves once,
+    every gradient reduce-scattered, and with tensor parallelism the
+    members' parts of the group's sums all-reduced (x 2 on the wire)."""
     rc = _rc(ARCHS[arch], "full", microbatch=microbatch)
     step, _, _, _ = _step(rc)
     got = R.collective_bytes(rc, make_mesh((2, 2), ("data", "model"),
                                            ["meta"] * 4), "train")
     t = step.traffic
     n = got["ranks"]
-    assert n == 2
-    assert got["by_kind"] == {
+    assert n == (2 if arch == "whisper" else 4)
+    want = {
         "all-gather": (t["gathered"].local + t["gathered"].moved) / n,
         "reduce-scatter": (t["reduce_scattered"].local
                            + t["reduce_scattered"].moved) / n}
+    if arch != "whisper":
+        want["all-reduce"] = 2 * (t["all_reduced"].local
+                                  + t["all_reduced"].moved) / n
+        assert want["all-reduce"] > 0
+    assert got["by_kind"] == want
 
 
 def test_plain_trees_pass_the_seam_untouched():

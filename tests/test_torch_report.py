@@ -94,18 +94,21 @@ def test_dryrun_table_renders_nulls_as_dashes(tmp_path):
     assert len(rows) == 2 and rows[0].startswith("| hymba_1_5b |")
     for row in rows:
         cells = [c.strip() for c in row.strip("|").split("|")]
-        assert len(cells) == 13
+        assert len(cells) == 14
         # temp bytes, HLO flops and HLO bytes are null: dashes, not zeros
-        assert cells[7] == cells[9] == cells[10] == "—"
+        assert cells[7] == cells[10] == cells[11] == "—"
         assert cells[8] != "—" and float(cells[8]) > 0
-        assert cells[11].isdigit() and cells[12] == "True"
+        # the members of a rank's tensor-parallel group that compute
+        assert cells[9] == ("2" if row.startswith("| yi") else "1")
+        assert cells[12].isdigit() and cells[13] == "True"
     assert "2 cells built on meta" in table
 
 
 def test_report_command(tmp_path):
     (tmp_path / "dr").mkdir()
     rep = {"arch": "yi_6b", "shape": "decode_32k", "mesh": "16x16",
-           "kind": "decode", "build_s": None, "matmul_flops_per_rank": 1e9,
+           "kind": "decode", "build_s": None, "matmul_flops_per_device": 1e9,
+           "tp_members": 1,
            "flops_per_device": None, "bytes_per_device": None,
            "memory": {"argument_bytes": 2 ** 30, "output_bytes": 0,
                       "gathered_bytes": None, "temp_bytes": None,
@@ -122,7 +125,7 @@ def test_report_command(tmp_path):
     out = r.stdout
     assert out.startswith("## Dry-run table\n")
     assert ("| yi_6b | decode_32k | 16x16 | decode | — | 1.00 | — | — | "
-            "1.00e+09 | — | — | 3 | False |") in out
+            "1.00e+09 | 1 | — | — | 3 | False |") in out
     assert "## Roofline table" in out
     assert out.rstrip().endswith(
         "| yi_6b | train_4k | 3.4520 | 13.3712 | 0.9647 | memory | "

@@ -13,7 +13,12 @@ one more of each). Its dot and convolution flops are parsed from
 each computation weighted by the trips of the loops that call it (XLA's
 ``known_trip_count``: the sLSTM's time loop and the layer scans), per
 device x 8 devices. The port counts the same configs on a (2, 2, 2) mesh
-of ``meta`` entries, one rank's body x its 4 data-parallel ranks.
+of ``meta`` entries, one rank's body x its 4 data-parallel ranks; to
+train, on a (2, 2, 1) mesh, where no product splits over 'model' and a
+rank's body is its share of the whole model's products (on (2, 2, 2) the
+port's train step splits them over 'model' as XLA does, and its count is
+one coordinate's: ``tests/test_torch_tp.py`` holds that against XLA's
+per-device count).
 
 Each lowering is also compiled on a one-device mesh, whose count is the
 whole model's products once: on the (2, 2, 2) mesh XLA repeats on both
@@ -269,7 +274,9 @@ def _by_design(arch, kind, label):
 def test_matmul_flops_per_class_match_the_references_hlo(ref, arch, kind,
                                                          label, over):
     rc = R._analysis_rc(_tiny_rc(arch, kind), **over)
-    got = R.count_cell(rc, _meta_mesh(), kind)["flops"] * RANKS
+    mesh = (_meta_mesh() if kind != "train" else
+            make_mesh((2, 2, 1), ("pod", "data", "model"), ["meta"] * 4))
+    got = R.count_cell(rc, mesh, kind)["flops"] * RANKS
     key = "/".join((arch, kind, label))
     one, eight = ref["lowerings"][key + "/1"], ref["lowerings"][key + "/8"]
     assert one > 0
@@ -353,14 +360,16 @@ def test_eager_bytes_on_a_hand_built_sequence():
 
 def test_collective_bytes_equal_the_mesh_steps_traffic():
     """Tiny h2o-danube on (data 2, model 2) of four CPU entries: one
-    ``make_spmd_train_step`` step's ``gathered`` and ``reduce_scattered``
-    bytes (``local + moved``, summed over its computing ranks) against
-    the roofline's per-rank all-gather and reduce-scatter bytes x those
-    ranks, under ``_WIRE_FACTOR`` (x 1 for both), at one microbatch and
-    at two (each rank gathers every microbatch, the stacked leaves a
-    layer at a time in forward and again in backward, the other leaves
-    once), and at microbatches of one row, which do not split over the
-    two ranks (the first computes)."""
+    ``make_spmd_train_step`` step's ``gathered``, ``reduce_scattered`` and
+    ``all_reduced`` bytes (``local + moved``, summed over its computing
+    coordinates: both 'model' coordinates of each rank) against the
+    roofline's per-coordinate all-gather, reduce-scatter and all-reduce
+    bytes x those coordinates, under ``_WIRE_FACTOR`` (x 1, x 1, x 2),
+    at one microbatch and at two (each coordinate gathers every
+    microbatch, the stacked leaves a layer at a time in forward and again
+    in backward, the other leaves once), and at microbatches of one row,
+    which do not split over the two ranks (the first rank's two
+    coordinates compute)."""
     from repro_torch.data import make_train_batch
     from repro_torch.models import registry
     from repro_torch.optim import adamw_init
@@ -388,17 +397,20 @@ def test_collective_bytes_equal_the_mesh_steps_traffic():
         got = R.collective_bytes(rc, make_mesh((2, 2), ("data", "model"),
                                                ["meta"] * 4), "train")
         n = got["ranks"]
-        assert n == (1 if microbatch == 1 else 2)
+        assert n == (2 if microbatch == 1 else 4)
         gathered = t["gathered"].local + t["gathered"].moved
         scattered = (t["reduce_scattered"].local
                      + t["reduce_scattered"].moved)
-        assert gathered > 0 and scattered > 0
+        reduced = t["all_reduced"].local + t["all_reduced"].moved
+        assert gathered > 0 and scattered > 0 and reduced > 0
         assert got["by_kind"] == {"all-gather": gathered / n,
-                                  "reduce-scatter": scattered / n}
+                                  "reduce-scatter": scattered / n,
+                                  "all-reduce": 2 * reduced / n}
     rep = R.analyze_cell("h2o_danube_1_8b", "train_4k", verbose=False,
                          rc=rc, mesh=make_mesh((2, 2), ("data", "model"),
                                                ["meta"] * 4))
-    assert rep["collective_bytes_per_device"] == (gathered + scattered) / n
+    assert rep["collective_bytes_per_device"] == (
+        gathered / n + scattered / n + 2 * reduced / n)
     assert rep["link_bw"] == 450e9 and rep["devices"] == 4
 
 
@@ -475,15 +487,23 @@ def test_production_cell_through_the_cli(tmp_path):
     # the per-class combination of a 24-layer model against the dry run's
     # whole-model count (which runs the body's loss chunks and q chunks)
     assert rep["flops_per_device"] == pytest.approx(
-        dr["matmul_flops_per_rank"], rel=1e-9)
+        dr["matmul_flops_per_device"], rel=1e-9)
     assert rep["model_flops"] == R.model_flops(
         resolve("h2o_danube_1_8b", "train_4k"), "train")
+    # every coordinate computes: the dry run's coordinate, its sums' bytes
+    # on the wire (x 2) as the roofline's all-reduce
+    assert rep["ranks"] == 256 and dr["tp_members"] == 16
+    assert rep["coll_by_kind"]["all-reduce"] == (
+        2 * dr["all_reduced_bytes_per_device"])
 
 
 def test_profiles_on_the_production_meshes():
     """``profile='kv8'`` counts the int8 cache's quantise and dequantise
     traffic; ``profile='ep'`` builds the EP mesh (16 x 8 x 2 of ``meta``
-    entries) with the experts' forced placement."""
+    entries) with the experts' forced placement, and its train cell
+    reckons one coordinate of the tensor-parallel step, against
+    ``profile='dp'`` (``dp_only``: 'model' folded into the batch, a rank
+    computes alone on 256 ranks)."""
     base = R.analyze_cell("yi_6b", "decode_32k", verbose=False)
     kv8 = R.analyze_cell("yi_6b", "decode_32k", verbose=False, profile="kv8")
     assert kv8["profile"] == "kv8" and base["profile"] == "default"
@@ -494,3 +514,13 @@ def test_profiles_on_the_production_meshes():
                         profile="ep")
     assert ep["profile"] == "ep" and ep["devices"] == 256
     assert ep["link_bw"] == 50e9 and ep["collective_bytes_per_device"] > 0
+    # to train, a coordinate's count: the group spans 'expert' and
+    # 'model' (16 members: 32 heads split 16 ways, the experts 8 ways,
+    # each block's first member computing it)
+    tr = R.analyze_cell("qwen3_moe_30b_a3b", "train_4k", verbose=False,
+                        profile="ep")
+    assert tr["ranks"] == 256 and tr["coll_by_kind"]["all-reduce"] > 0
+    whole = R.analyze_cell("qwen3_moe_30b_a3b", "train_4k", verbose=False,
+                           profile="dp")
+    assert whole["ranks"] == 256 and "all-reduce" not in whole[
+        "coll_by_kind"]

@@ -6,7 +6,9 @@ Runs ``chip_smoke.py``'s phase 16 (a) published run
 (``Smoke.spmd_full_width``: h2o-danube-1.8b as published, bf16 compute
 on float32 master weights, [4, 2048], 3 steps of ``train_loop(mesh=)``
 on (data 2, model 2) of four entries of the first card, beside the same
-run on one device) from this checkout ("this") and from each ``--tree
+run on one device and, where the tree splits the products over 'model',
+beside the same mesh without the split) from this checkout ("this") and
+from each ``--tree
 NAME=DIR`` (another checkout, for example the parent commit's from ``git
 archive``), in turns (this, the trees, the trees again in reverse, this),
 each in a process of its own that imports that tree's ``src/`` and
@@ -64,11 +66,17 @@ def main(argv=None) -> int:
             return 1
         rec = json.loads(p.stdout.strip().splitlines()[-1])
         runs.append({"tree": name, **rec})
+        alone = rec.get("without_split")
         print(f"spmd_ab {name}: median step {rec['median_step_ms']!r} ms "
-              f"(one device {rec['single_device_step_ms']!r}), peak "
-              f"{rec['peak_allocated_bytes']} B (one device "
-              f"{rec['single_device_peak_bytes']} B), traffic "
-              f"{rec['traffic']!r}", flush=True)
+              f"(one device {rec['single_device_step_ms']!r}"
+              + ("" if alone is None else
+                 f"; without the split {alone['step_ms']!r}")
+              + f"), peak {rec['peak_allocated_bytes']} B (one device "
+              f"{rec['single_device_peak_bytes']} B"
+              + ("" if alone is None else
+                 f"; without the split {alone['peak_allocated_bytes']} B")
+              + f"), coordinate flops {rec.get('coord_flops')!r}, "
+              f"traffic {rec['traffic']!r}", flush=True)
     print(json.dumps(runs), flush=True)
     return 0
 
