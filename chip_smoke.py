@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --generic  # phases 3b and 6d alone
     python3 chip_smoke.py --spmd     # phase 16 alone
+    python3 chip_smoke.py --serve-mesh   # phase 18 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -380,9 +381,46 @@ Phases, in order; any failure exits non-zero:
                 with a finite loss (a subprocess). Each part runs; a
                 failure is raised at the end.
 
+ 18. serving on a mesh — ``sharding/serve.py``'s ``make_spmd_prefill``
+                and ``make_spmd_decode_step`` on (data 2, model 2) of
+                four ``cuda:0`` entries: the weights placed by the
+                profile and gathered one layer at a time, forward only;
+                the prefill's 'model' group splitting the heads, MLP
+                columns, experts and vocabulary, each member's keys and
+                values sent to the members whose cache slots they fill;
+                the decode step's group splitting the KV cache's
+                sequence (flash-decode), the MLP, experts and
+                vocabulary. (a) h2o-danube-1.8b at 2 layers, full
+                width, float32 (TF32 off, the gate off), 4 x 4608 (past
+                the 4096 window: the eviction write spans every
+                member's block) + 16 steps fed one device's greedy
+                tokens, against one device's ``prefill`` /
+                ``decode_step``: the last logits, every step's and every
+                cache leaf gathered whole within relative L2
+                ``SERVE_MESH_TOL``; controls that must fail: the cache
+                blocks written in reversed 'model' order, the combine
+                without rescaling by the maximum, one member's partial
+                dropped. (b) h2o-danube-1.8b as published, bf16 weights,
+                the gate on, 4 x 6144 + 32: each row within ``LM_TOL``
+                of one device's, tokens equal beyond the margin rule,
+                every stage on the ring's slot layout; the prefill's
+                ``swattn`` launches = layers x computing members x
+                ranks (96), none in decode; prefill ms, decode step
+                median and p90, tokens/s beside one device's and beside
+                the same mesh without the split, ``gathered_peak``
+                against ``fsdp.peak_bytes(grads=False)`` of each plan,
+                each move's bytes, peak memory, a profile of one decode
+                step. (c) qwen3-moe-30b-a3b at 4 of 48 layers (experts
+                split, capacity E / k), 2 x 2048 + 16, (b)'s checks.
+                (d) (a) on distinct cards where there are several, else
+                one line says so. ``python3 chip_smoke.py
+                --serve-mesh`` runs it alone (the ``swattn`` library
+                built alone). Each part runs; a failure is raised at
+                the end.
+
 Every main path (serving, the streaming and xla engines, the ring, LM,
 mamba, LM serving, LM kinds, LM recurrent, the mesh paths, the SPMD
-path) runs
+path, serving on a mesh) runs
 with the three launch counts set to 0 just before it and read just after;
 ``swattn``'s launches are also counted by dtype, and the summary gives
 the float32 kernel's on each path (``launches_float32``).
@@ -510,6 +548,10 @@ DP_F32_TOL = 1e-2
 SPMD_BF16_TOL = 0.05
 # Phase 15 (b): the pipeline against the unpipelined stack, relative L2.
 PIPE_TOL = {"bfloat16": 4e-2, "float32": 1e-5}
+# Phase 18 (a): float32 serving on a mesh against one device, relative L2
+# of the logits and of every cache leaf (the split products summed in
+# another order)
+SERVE_MESH_TOL = 1e-5
 
 
 def counters():
@@ -4963,6 +5005,377 @@ class Smoke:
             raise AssertionError("SPMD phase: " + "; ".join(failed))
         return out, launches
 
+    # -- phase 18: serving on a mesh ------------------------------------------
+
+    def _mesh_serve(self, bundle, params, prompt, feed, mesh):
+        """``sharding/serve.py``'s prefill of ``prompt`` and one decode
+        step per token of ``feed`` [B, steps] (teacher forced), on
+        ``mesh``: the weights placed by the train profile (the prefill's)
+        and the decode step on the decode profile, the caches the
+        prefill's. Returns the logits of each row that made a token
+        [steps + 1, B, V], the prefill's and each step's host ms (each
+        call synchronised), the caches (``ShardedTensor``s), the prefill's
+        ``swattn`` launches, and the two functions (their ``traffic`` and
+        ``gathered_peak``)."""
+        torch = self.torch
+        from repro_torch.sharding import serve
+        from repro_torch.sharding.placement import shard_tree
+        from repro_torch.sharding.rules import make_ctx
+        rc = bundle.cfg
+        tctx, dctx = make_ctx(mesh, "train"), make_ctx(mesh, "decode")
+        placed = shard_tree(params, tctx.spec_tree_shardings(bundle.specs))
+        pre = serve.make_spmd_prefill(bundle, rc, tctx)
+        dec = serve.make_spmd_decode_step(bundle, rc, dctx)
+        sw = counters()["swattn"]
+        torch.cuda.synchronize()
+        before = sw.launches
+        t0 = time.perf_counter()
+        last, caches = pre(placed, {"inputs": prompt})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = sw.launches - before
+        P, M = prompt.shape[1], rc.model.num_meta_tokens
+        rows, ms = [last], []
+        for i in range(feed.shape[1]):
+            torch.cuda.synchronize()
+            before = sw.launches
+            t0 = time.perf_counter()
+            step, caches = dec(placed, feed[:, i:i + 1], caches, P + M + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if sw.launches != before:
+                raise AssertionError(f"serving on a mesh: decode step {i} "
+                                     "launched swattn")
+            rows.append(step)
+        return {"rows": torch.stack(rows), "prefill_ms": prefill_ms,
+                "ms": ms, "caches": caches, "launches": launches,
+                "prefill": pre, "decode": dec, "placed": placed}
+
+    def _gathered_caches(self, caches):
+        """A placed cache tree gathered whole on the first card, in the
+        tree of ``bundle.cache_init``."""
+        if isinstance(caches, dict):
+            return {k: self._gathered_caches(v) for k, v in caches.items()}
+        if isinstance(caches, (list, tuple)):
+            return type(caches)(self._gathered_caches(v) for v in caches)
+        return caches.gather("cuda:0")
+
+    def _cache_rel(self, got, want) -> float:
+        """The largest relative L2 between two cache trees' float leaves;
+        an integer leaf must be equal (inf where not)."""
+        from repro_torch.models.module import tree_leaves
+        worst = 0.0
+        for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                return float("inf")
+            if not g.is_floating_point():
+                if not bool((g == w).all()):
+                    return float("inf")
+                continue
+            worst = max(worst, float((g.float() - w.float()).norm()
+                                     / w.float().norm().clamp_min(1e-30)))
+        return worst
+
+    def _rows_rel(self, got, want) -> list:
+        """Each row's relative L2 (prefill's last, then each step's)."""
+        return [float((g.float() - w.float()).norm() / w.float().norm())
+                for g, w in zip(got, want)]
+
+    def serve_mesh_parity(self, arch: str, layers: int = 2, batch: int = 4,
+                          prompt_len: int = 4608, steps: int = 16,
+                          devices=None, controls: bool = True):
+        """(a) float32 (TF32 off) at ``layers`` layers, full width, the
+        plain attention (gate off), on (data 2, model 2): prefill past the
+        window (the eviction write spans every member's block) and
+        ``steps`` decode steps fed one device's greedy tokens, against one
+        device's ``prefill`` / ``decode_step`` from the same weights: the
+        last logits, every step's logits and every cache leaf gathered
+        whole within relative L2 ``SERVE_MESH_TOL``. Controls that must
+        fail: the members' cache blocks written in reversed 'model' order
+        (``serve.cache_block``), the flash-decode combine summing the
+        members' outputs without rescaling by the maximum, and one
+        member's partial dropped (``tp.TP.combine``)."""
+        torch = self.torch
+        from repro_torch.sharding import serve
+        from repro_torch.sharding import tp as tp_mod
+        bundle = self._bundle(arch, batch, prompt_len + steps,
+                              num_layers=layers, dtype="float32",
+                              use_pallas_attn=False)
+        cfg = bundle.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        params = bundle.init_params(gen)
+        prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        reset_counts()
+        one, fed, one_ms, one_steps, one_caches, _ = self._serve(
+            bundle, params, prompt, steps)
+        got = self._mesh_serve(bundle, params, prompt, fed, mesh)
+        launches = read_counts()
+        rows = self._rows_rel(got["rows"], one)
+        cache = self._cache_rel(self._gathered_caches(got["caches"]),
+                                one_caches)
+        med, _ = self._steps_summary(got["ms"])
+        got_ms = got["prefill_ms"]
+        self.say(f"serving on a mesh (a) {cfg.name} float32, "
+                 f"{cfg.num_layers} layers, {batch} x {prompt_len} + {steps} "
+                 f"on {mesh}: prefill {got['prefill_ms']!r} ms (one device "
+                 f"{one_ms!r}), decode step median {med!r} ms (one device "
+                 f"{self._steps_summary(one_steps)[0]!r}); relative L2 "
+                 f"against one device: last logits {rows[0]!r}, steps worst "
+                 f"{max(rows[1:])!r}, caches worst {cache!r} (limit "
+                 f"{SERVE_MESH_TOL}); kernel launches {launches}")
+        fails = []
+        if max(rows) > SERVE_MESH_TOL or cache > SERVE_MESH_TOL:
+            fails.append(f"rows {rows}, caches {cache}")
+        if any(launches.values()):
+            fails.append(f"kernel launches {launches}")
+        del got
+        self._free("after (a)", "serving on a mesh")
+        out = {"rows_rel_l2": rows, "caches_rel_l2": cache,
+               "prefill_ms": got_ms, "one_device_prefill_ms": one_ms,
+               "step_ms_median": med, "mesh": repr(mesh)}
+        if controls:
+            keep_block, keep_combine = serve.cache_block, tp_mod.TP.combine
+            n = mesh.shape["model"]
+
+            def reversed_block(x, coord):
+                i = mesh.axis_names.index("model")
+                c = list(coord)
+                c[i] = n - 1 - c[i]
+                return keep_block(x, tuple(c))
+
+            def unscaled(tp, parts, members):
+                total = tp.all_reduce([p[1] for p in parts], members)
+                total = tp.replicate(total, members)
+                return [p[2].float() / t for p, t in zip(parts, total)]
+
+            def dropped(tp, parts, members):
+                kept = keep_combine(tp, parts[:-1], members[:-1])
+                return kept + [torch.zeros_like(kept[0]).to(
+                    tp.devices[members[-1]])]
+            for label, obj, name, fn in (
+                    ("cache blocks in reversed 'model' order", serve,
+                     "cache_block", reversed_block),
+                    ("combine without rescaling by the maximum",
+                     tp_mod.TP, "combine", unscaled),
+                    ("one member's partial dropped", tp_mod.TP, "combine",
+                     dropped)):
+                keep = getattr(obj, name)
+                setattr(obj, name, fn)
+                try:
+                    bad = self._mesh_serve(bundle, params, prompt, fed,
+                                           mesh)
+                finally:
+                    setattr(obj, name, keep)
+                b_rows = self._rows_rel(bad["rows"], one)
+                b_cache = self._cache_rel(
+                    self._gathered_caches(bad["caches"]), one_caches)
+                worst = max(max(b_rows), b_cache)
+                self.say(f"serving on a mesh (a) control, {label}: rows "
+                         f"relative L2 {b_rows!r}, caches {b_cache!r} (must "
+                         f"exceed {SERVE_MESH_TOL})")
+                out[f"control {label}"] = {"rows": b_rows, "caches": b_cache}
+                if worst <= SERVE_MESH_TOL:
+                    fails.append(f"the control '{label}' passes")
+                del bad
+        del params, one_caches
+        self._free("after (a)'s controls", "serving on a mesh")
+        if fails:
+            raise AssertionError("serving on a mesh (a): " + "; ".join(fails))
+        return out
+
+
+    def _argmax_held(self, got, want) -> int:
+        """Rows whose token differs from ``want``'s beyond the margin rule
+        (``want``'s top-2 margin over twice the row's max |Δ|)."""
+        bad = 0
+        for g, w in zip(got, want):
+            g, w = g.float(), w.float()
+            top2 = w.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * float((g - w).abs().max())
+            bad += int((sure & (g.argmax(-1) != w.argmax(-1))).sum())
+        return bad
+
+    def serve_mesh_model(self, arch: str, batch: int, prompt_len: int,
+                         steps: int, seed: int, extras: bool = False,
+                         devices=None, **fields):
+        """(b) / (c): ``arch`` in bfloat16 weights (drawn in bf16 from a
+        seeded generator), the kernel gate on, on (data 2, model 2):
+        prefill and ``steps`` decode steps fed one device's greedy tokens,
+        each row within relative L2 ``LM_TOL`` of one device's, its token
+        the same beyond the margin rule, every stage's cache positions on
+        the ring's slot layout; the prefill's ``swattn`` launches equal to
+        layers x the members that compute x the active ranks. With
+        ``extras``: the same mesh without the split (``spmd.tp_plan``
+        returning None), peak memory, the moves' bytes, ``gathered_peak``
+        against ``fsdp.peak_bytes`` of each plan, and a profile of one
+        decode step."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.sharding import fsdp
+        from repro_torch.sharding.rules import make_ctx
+        from repro_torch.training import spmd
+        bundle = self._bundle(arch, batch, prompt_len + steps,
+                              use_pallas_attn=True, **fields)
+        mc = bundle.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = bundle.init_params(gen, torch.bfloat16)
+        self._scale_experts(params)
+        prompt = torch.randint(0, mc.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        M = mc.num_meta_tokens
+        with saved_counts():
+            bundle.prefill(params, {"inputs": prompt})   # warm-up
+            one, fed, one_ms, one_steps, one_caches, _ = self._serve(
+                bundle, params, prompt, steps)
+            self._mesh_serve(bundle, params, prompt, fed[:, :1], mesh)
+        del one_caches
+        self._free(f"{mc.name} before the mesh run", "serving on a mesh")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        got = self._mesh_serve(bundle, params, prompt, fed, mesh)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rows = self._rows_rel(got["rows"], one)
+        flipped = self._argmax_held(got["rows"], one)
+        bad = self._ring_layout(bundle, self._gathered_caches(got["caches"]),
+                                prompt_len + M + steps - 1)
+        tctx, dctx = make_ctx(mesh, "train"), make_ctx(mesh, "decode")
+        members = 2 if spmd.tp_plan(bundle.cfg, tctx) else 1
+        want = mc.num_layers * members * 2 if not M else 0
+        med, p90 = self._steps_summary(got["ms"])
+        one_med, _ = self._steps_summary(one_steps)
+        pre, dec = got["prefill"], got["decode"]
+        plans = {k: fsdp.peak_bytes(bundle.specs, torch.bfloat16,
+                                    spmd.tp_plan(bundle.cfg, c), grads=False)
+                 for k, c in (("prefill", tctx), ("decode", dctx))}
+        held = {"prefill": pre.gathered_peak, "decode": dec.gathered_peak}
+        moves = {k: {kind: {"local": t.local, "moved": t.moved}
+                     for kind, t in f.traffic.items()}
+                 for k, f in (("prefill", pre), ("decode", dec))}
+        name = f"serving on a mesh {mc.name} ({mc.num_layers} layers)"
+        self.say(f"{name}: {batch} x {prompt_len} + {steps} steps, bf16 "
+                 f"weights, on {mesh}: prefill {got['prefill_ms']!r} ms (one "
+                 f"device {one_ms!r}), {got['launches']} swattn launches "
+                 f"(expected {want}: layers x computing members x ranks), "
+                 f"0 per step; decode step median {med!r} ms, p90 {p90!r} "
+                 f"ms, {batch / (med * 1e-3)!r} tokens/s (one device "
+                 f"{one_med!r} ms, {batch / (one_med * 1e-3)!r} tokens/s); "
+                 f"relative L2 against one device: last logits {rows[0]!r}, "
+                 f"steps worst {max(rows[1:])!r} (limit "
+                 f"{LM_TOL['bfloat16']}); {flipped} tokens off beyond the "
+                 f"margin rule; peak allocated {peak} B; kernel launches "
+                 f"{launches}")
+        self.say(f"{name}: gathered_peak {held!r} B (fsdp.peak_bytes of the "
+                 f"plans, weights only: {plans!r}); moves a call {moves!r}")
+        out = {"layers": mc.num_layers, "prefill_ms": got["prefill_ms"],
+               "one_device_prefill_ms": one_ms, "step_ms": got["ms"],
+               "step_ms_median": med, "step_ms_p90": p90,
+               "tokens_per_s": batch / (med * 1e-3),
+               "one_device_step_ms_median": one_med,
+               "one_device_tokens_per_s": batch / (one_med * 1e-3),
+               "rows_rel_l2": rows, "swattn_prefill": got["launches"],
+               "gathered_peak": held, "peak_bytes": plans, "moves": moves,
+               "peak_allocated_bytes": peak}
+        fails = []
+        if got["launches"] != want or launches["swattn"] != want or (
+                launches["filter2d_halo"] or launches["dwconv1d"]):
+            fails.append(f"launches {launches}, prefill {got['launches']}, "
+                         f"expected {want}")
+        if max(rows) > LM_TOL["bfloat16"] or flipped or bad:
+            fails.append(f"rows {rows}, {flipped} tokens off, stages off "
+                         f"the slot layout {bad}")
+        if held != plans:
+            fails.append(f"gathered_peak {held} against {plans}")
+        if extras:
+            end = prompt_len + M + steps
+            tok = got["rows"][-1].argmax(-1)[:, None]
+            self.profile(f"{name} decode step", lambda: dec(
+                got["placed"], tok, got["caches"], end))
+            del got
+            self._free(f"{mc.name} after the mesh run", "serving on a mesh")
+            keep = spmd.tp_plan
+            spmd.tp_plan = lambda rc, ctx: None
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                with saved_counts():
+                    alone = self._mesh_serve(bundle, params, prompt, fed,
+                                             mesh)
+            finally:
+                spmd.tp_plan = keep
+            a_med, _ = self._steps_summary(alone["ms"])
+            a_rows = self._rows_rel(alone["rows"], one)
+            out["without_split"] = {
+                "prefill_ms": alone["prefill_ms"], "step_ms": alone["ms"],
+                "step_ms_median": a_med,
+                "tokens_per_s": batch / (a_med * 1e-3),
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "rows_rel_l2": a_rows}
+            self.say(f"{name} without the split (each rank computes "
+                     f"alone): prefill {alone['prefill_ms']!r} ms, decode "
+                     f"step median {a_med!r} ms ({batch / (a_med * 1e-3)!r} "
+                     f"tokens/s; split / alone {med / a_med!r}), peak "
+                     f"{out['without_split']['peak_allocated_bytes']} B, "
+                     f"rows worst relative L2 {max(a_rows)!r}")
+            if max(a_rows) > LM_TOL["bfloat16"]:
+                fails.append(f"without the split: rows {a_rows}")
+            del alone
+        else:
+            del got
+        del params
+        self._free(f"{mc.name} done", "serving on a mesh")
+        if fails:
+            raise AssertionError(f"{name}: " + "; ".join(fails))
+        return out
+
+    def serve_mesh_phase(self, arch: str = "h2o_danube_1_8b",
+                         parity=(2, 4, 4608, 16), full=(4, 6144, 32),
+                         moe=(4, 2, 2048, 16)):
+        """Phase 18: prefill and decode on (data 2, model 2) of the card's
+        entries through ``sharding/serve.py``: (a) float32 parity at
+        ``parity`` (layers, batch, prompt, steps) with three controls, (b)
+        the published h2o-danube-1.8b at ``full`` (batch, prompt, steps),
+        (c) qwen3-moe-30b-a3b at ``moe`` (layers, batch, prompt, steps)
+        with its experts split, (d) (a) on distinct cards where there are
+        several. Each part runs; a failure is raised at the end. Returns
+        (the readings, the phase's launch counts)."""
+        torch = self.torch
+        self._free("start", "serving on a mesh")
+        reset_counts()
+        out, took, failed = {}, {}, []
+        layers, B, P, steps = parity
+        parts = [
+            ("a", "float32", lambda: self.serve_mesh_parity(
+                arch, layers, B, P, steps)),
+            ("b", "published", lambda: self.serve_mesh_model(
+                arch, *full, seed=22, extras=True)),
+            ("c", "qwen3-moe", lambda: self.serve_mesh_model(
+                "qwen3_moe_30b_a3b", *moe[1:], seed=23,
+                num_layers=moe[0], **self._no_drops("qwen3_moe_30b_a3b")))]
+        n_cards = torch.cuda.device_count()
+        if n_cards > 1:
+            cards = [f"cuda:{i % n_cards}" for i in range(4)]
+            parts.append(("d", "float32_cards", lambda: self.serve_mesh_parity(
+                arch, layers, B, P, steps, devices=cards, controls=False)))
+        else:
+            self.say("serving on a mesh (d): one card present; the mesh of "
+                     "distinct cards is not run")
+        for key, name, run in parts:
+            self._run_part("serving on a mesh", f"{key} {name}", name, run,
+                           out, took, failed)
+        launches = {"filter2d_halo": 0, "swattn": 0, "dwconv1d": 0}
+        for name in ("published", "qwen3-moe"):
+            if name in out:
+                launches["swattn"] += out[name]["swattn_prefill"]
+        self.f32["serve_mesh"] = f32_count()
+        self.say(f"serving on a mesh: parts took (s) {took!r}; swattn "
+                 f"launches of the mesh prefills {launches['swattn']}")
+        if failed:
+            raise AssertionError("serving on a mesh: " + "; ".join(failed))
+        return out, launches
+
     # -- phase 17: the roofline of the single-card cells ----------------------
 
     def roofline_cells(self, arch: str = "h2o_danube_1_8b", score=(1, 8192),
@@ -5323,6 +5736,28 @@ def spmd_main(torch, card, part) -> int:
     return 0
 
 
+def serve_mesh_main(torch, card, part) -> int:
+    """``--serve-mesh``: phase 18 alone. Builds the ``swattn`` library
+    (the phase's only kernel), then runs the phase and prints its readings
+    as JSON."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.swattn import _build as sw_build
+    t0 = time.perf_counter()
+    _build.build_all([sw_build.LIBRARY], verbose=True)
+    sw_build.LIBRARY.load()
+    smoke = Smoke(torch, card, part)
+    smoke.say(f"build: swattn in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out, launches = smoke.serve_mesh_phase()
+    smoke.say(f"serving on a mesh phase took {time.perf_counter() - t0:.1f} "
+              "s")
+    print(json.dumps({"serve_mesh": out, "launches": launches},
+                     default=repr), flush=True)
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
@@ -5348,6 +5783,8 @@ def main() -> int:
         return generic_main(torch, card, part)
     if sys.argv[1:] == ["--spmd"]:
         return spmd_main(torch, card, part)
+    if sys.argv[1:] == ["--serve-mesh"]:
+        return serve_mesh_main(torch, card, part)
     from repro_torch.kernels import _build
     from repro_torch.kernels.filter2d import trace
     t0 = time.perf_counter()
@@ -5445,6 +5882,10 @@ def main() -> int:
     spmd, spmd_launches = smoke.spmd_phase()
     smoke.say(f"SPMD phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    serve_mesh, serve_mesh_launches = smoke.serve_mesh_phase()
+    smoke.say(f"serving on a mesh phase took {time.perf_counter() - t0:.1f} "
+              "s")
+    t0 = time.perf_counter()
     smoke.roofline_phase(
         train_share=training["full_width"]["bf16_peak_share"])
     smoke.say(f"roofline phase took {time.perf_counter() - t0:.1f} s")
@@ -5469,12 +5910,16 @@ def main() -> int:
         "launches_lm_recurrent": rec_launches["filter2d_halo"],
         "launches_mesh_training": mesh_launches["filter2d_halo"],
         "launches_spmd_training": spmd_launches["filter2d_halo"],
+        "launches_serve_mesh": serve_mesh_launches["filter2d_halo"],
         "card": card}, {
         "name": "swattn", "route": "cuda", "source": SWATTN_SOURCE,
         "replaces": SWATTN_REPLACES,
-        "launches": sw_launches + serve_sw + kinds_sw,
+        "launches": (sw_launches + serve_sw + kinds_sw
+                     + serve_mesh_launches["swattn"]),
         "launches_lm_forward": sw_launches, "launches_lm_serving": serve_sw,
         "launches_lm_kinds": kinds_sw,
+        "launches_serve_mesh": serve_mesh_launches["swattn"],
+        "serve_mesh": serve_mesh,
         "launches_lm_training": training["full_width"]["launches_per_step"],
         "lm_training": training,
         "max_abs_err": max([sw_err] + [
@@ -5504,6 +5949,7 @@ def main() -> int:
         "launches_lm_recurrent": rec_launches["dwconv1d"],
         "launches_mesh_training": mesh_launches["dwconv1d"],
         "launches_spmd_training": spmd_launches["dwconv1d"],
+        "launches_serve_mesh": serve_mesh_launches["dwconv1d"],
         "card": card}]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

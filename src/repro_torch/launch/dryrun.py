@@ -23,17 +23,16 @@ placements and its own step. Per device:
   output_bytes     train: the updated parameters and moments, as placed,
                    and the five metrics; prefill / decode: one rank's
                    logits and caches for its rows;
-  gathered_bytes   the most a device's step holds gathered at once. To
-                   train, ``fsdp.peak_bytes`` of the specs and the
-                   step's tensor-parallel plan (``spmd.tp_plan``): the
-                   leaves outside the stacks and the largest layer of any
-                   stack, weights and float32 gradients, each split leaf
-                   at the coordinate's region and the others whole, as
-                   the mesh step gathers one layer at a time and counts
-                   in its ``gathered_peak``; to prefill or decode, the
-                   whole parameter tree (the port has no mesh serving
-                   path, and the reference's serve launcher takes no
-                   mesh);
+  gathered_bytes   the most a device's step holds gathered at once:
+                   ``fsdp.peak_bytes`` of the specs and the profile's
+                   tensor-parallel plan (``spmd.tp_plan``): the leaves
+                   outside the stacks and the largest layer of any stack,
+                   each split leaf at the coordinate's region and the
+                   others whole, as the mesh step and the mesh serving
+                   functions (``sharding/serve.py``) gather one layer at
+                   a time and count in their ``gathered_peak``: to
+                   train, weights and float32 gradients; to prefill or
+                   decode, the weights alone (forward only);
   temp_bytes, generated_code_bytes
                    XLA's, which the port cannot give: ``null``;
   matmul_flops_per_device
@@ -41,19 +40,22 @@ placements and its own step. Per device:
                    device's body on ``meta`` (its rows of the batch; to
                    train, forward and backward): the matmuls and
                    attention products it counts, not XLA's flops (the
-                   reference's ``flops_per_device``, ``null`` here). To
-                   train on a mesh with a tensor-parallel axis it is one
+                   reference's ``flops_per_device``, ``null`` here). On
+                   a mesh with a tensor-parallel axis it is one
                    coordinate's: the first of its data-parallel rank's
                    group (``sharding/tp.py``), which runs its share of
-                   every split product and the parts that run once a
+                   every split product (to decode: its block of the KV
+                   cache, flash-decode) and the parts that run once a
                    rank; the other members' shares are not run (a probe);
   tp_members       the coordinates of a rank's tensor-parallel group that
                    compute (1: none split);
   all_reduced_bytes_per_device
-                   to train, the bytes a coordinate sends into tensor
-                   parallelism's sums, on average over its group
-                   (``step.traffic``'s ``all_reduced``, from the probe's
-                   count: the members but the first send their parts);
+                   the bytes a coordinate sends into tensor
+                   parallelism's sums (to decode: the flash-decode
+                   combine's maxima, sums and outputs), on average over
+                   its group (``traffic``'s ``all_reduced``, from the
+                   probe's count: the members but the first send their
+                   parts);
   dropped_shardings
                    the placements that fell back to replication because
                    a dim does not divide: of the weights, the batch and
@@ -90,10 +92,12 @@ from repro_torch.configs.base import (ARCH_IDS, RunConfig, get_model_config,
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import module as mod
 from repro_torch.models import registry
+from repro_torch.models.attention import KVBlocks
 from repro_torch.models.module import tree_leaves
 from repro_torch.optim.adamw import AdamWState, adamw_abstract
 from repro_torch.sharding import fsdp
 from repro_torch.sharding import rules as shd_rules
+from repro_torch.sharding import serve as serve_mod
 from repro_torch.sharding.collectives import TPCounts, Traffic
 from repro_torch.sharding.placement import NamedSharding
 from repro_torch.sharding.tp import TP, Parts
@@ -150,23 +154,27 @@ def placed_bytes(tree, shardings, read=None) -> int:
 
 
 class _Reads(TorchDispatchMode):
-    """Records every tensor an operation reads (a view's base with it; a
-    view itself reads nothing): an argument no operation reads is left
-    out of the argument bytes, as ``jax.jit`` prunes an unused argument
-    from the compiled program."""
+    """Records every tensor an operation reads (a view's base with it, and
+    the tensor a ``detach`` aliases; a view itself reads nothing): an
+    argument no operation reads is left out of the argument bytes, as
+    ``jax.jit`` prunes an unused argument from the compiled program."""
 
     def __init__(self):
         super().__init__()
         self.ids = set()
+        self.alias = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if func.is_view:
-            return func(*args, **kwargs)
+            out = func(*args, **kwargs)
+            if func is torch.ops.aten.detach.default:
+                self.alias[id(out)] = args[0]
+            return out
         for t in _pytree_leaves((args, kwargs)):
             while isinstance(t, torch.Tensor):
                 self.ids.add(id(t))
-                t = t._base
+                t = t._base if t._base is not None else self.alias.get(id(t))
         return func(*args, **kwargs)
 
 
@@ -231,9 +239,20 @@ def build_cell(rc: RunConfig, mesh, kind: str,
     params_ab = mod.abstract_params(bundle.specs, param_dtype)
     B, S = rc.shape.global_batch, rc.shape.seq_len
     rows = _rank_rows(B, ctx)
-    gathered = logical_bytes(params_ab)     # serving: the whole tree
     cur = False
     plan, tp, counts = None, None, None
+    back = {"on": False}            # training's backward: sums are copies
+    if kind in ("train", "prefill", "decode"):
+        plan = spmd.tp_plan(rc, ctx)
+    if plan is not None:
+        counts = TPCounts(Traffic(), Traffic(), lambda: back["on"],
+                          exchanged=Traffic(), logits=Traffic())
+        tp = TP(ctx, ["meta"] * ctx.tp_size(), counts, probe=True)
+    kw = {} if tp is None else {"tp": tp}
+    gathered = fsdp.peak_bytes(bundle.specs, param_dtype, plan,
+                               grads=kind == "train")
+    tree = params_ab if plan is None else _split(params_ab, plan)
+    axes = bundle.cache_axes()
     if kind == "train":
         # ZeRO-1: the moments keep the FSDP (data-sharded) layout though
         # the weights are replicated over 'data'
@@ -243,14 +262,7 @@ def build_cell(rc: RunConfig, mesh, kind: str,
         args = [(params_ab, pshard),
                 (adamw_abstract(bundle.specs), AdamWState(None, mv, mv)),
                 (bspecs, batch_shardings(bspecs, ctx))]
-        plan = spmd.tp_plan(rc, ctx)
-        gathered = fsdp.peak_bytes(bundle.specs, param_dtype, plan)
         tc = rc.train
-        kw, back = {}, {"on": False}
-        if plan is not None:
-            counts = TPCounts(Traffic(), Traffic(), lambda: back["on"])
-            tp = kw["tp"] = TP(ctx, ["meta"] * ctx.tp_size(), counts,
-                               probe=True)
 
         def body():
             for t in tree_leaves(params_ab):
@@ -272,7 +284,11 @@ def build_cell(rc: RunConfig, mesh, kind: str,
 
         @torch.no_grad()
         def body():
-            return bundle.prefill(params_ab, _rows(bspecs, rows))
+            caches = (None if tp is None else probe_caches(
+                bundle.cache_abstract(rows, S), axes, ctx))
+            logits, caches = bundle.prefill(tree, _rows(bspecs, rows),
+                                            caches=caches, **kw)
+            return logits, probe_tree(caches)
     elif kind == "score":
         bspecs = bundle.input_specs("prefill")
         args = [(params_ab, pshard), (bspecs, batch_shardings(bspecs, ctx))]
@@ -282,7 +298,6 @@ def build_cell(rc: RunConfig, mesh, kind: str,
             return bundle.train_forward(params_ab, _rows(bspecs, rows))[0]
     elif kind == "decode":
         caches_ab = bundle.cache_abstract(B, S)
-        axes = bundle.cache_axes()
         ispec = bundle.input_specs("decode")
         args = [(params_ab, pshard), (ispec, batch_shardings(ispec, ctx)),
                 (caches_ab, tree_shardings(caches_ab, axes, ctx))]
@@ -292,9 +307,12 @@ def build_cell(rc: RunConfig, mesh, kind: str,
 
         @torch.no_grad()
         def body():
-            return bundle.decode_step(
-                params_ab, _rows(ispec, rows)["inputs"],
-                _rows(caches_ab, rows, axes), S - 1)
+            view = _rows(caches_ab, rows, axes)
+            if tp is not None:
+                view = probe_caches(view, axes, ctx)
+            logits, caches = bundle.decode_step(
+                tree, _rows(ispec, rows)["inputs"], view, S - 1, **kw)
+            return logits, probe_tree(caches)
     else:
         raise ValueError(kind)
     return {"ctx": ctx, "args": args, "cur": cur, "train": kind == "train",
@@ -302,6 +320,37 @@ def build_cell(rc: RunConfig, mesh, kind: str,
             "specs": bundle.specs, "plan": plan,
             "tp_members": 1 if tp is None else tp_members(plan),
             "tp_counts": counts}
+
+
+def probe_caches(tree, axes, ctx: shd_rules.ShardingCtx):
+    """A rank's caches (``meta``) as its tensor-parallel group's first
+    member holds them: each KV cache as ``attention.KVBlocks`` of the
+    member's block along ``cache_seq`` (the group's spans as the caches
+    are placed), the other leaves whole."""
+    def kv(t, ax):
+        L = t["pos"].shape[-1]
+        spans: Dict[int, Tuple[int, int]] = {}
+        for m, b in enumerate(ctx.tp_blocks((1, L),
+                                            ("act_batch", "cache_seq"))):
+            lo, hi, _ = b[1].indices(L)
+            if (lo, hi) not in spans.values():
+                spans[m] = (lo, hi)
+        lo, hi = spans[0]
+        block = {k: v.narrow(ax[k].index("cache_seq"), lo, hi - lo)
+                 for k, v in t.items()}
+        return KVBlocks({0: block}, spans, L)
+    return serve_mod.map_cache(tree, axes, kv, lambda x, ax: x)
+
+
+def probe_tree(caches):
+    """The caches a probe's body returns, its KV blocks as tensors."""
+    if isinstance(caches, KVBlocks):
+        return caches.blocks[0]
+    if isinstance(caches, dict):
+        return {k: probe_tree(v) for k, v in caches.items()}
+    if isinstance(caches, (list, tuple)):
+        return type(caches)(probe_tree(v) for v in caches)
+    return caches
 
 
 def _split(tree, plan, path=()):

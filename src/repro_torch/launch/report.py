@@ -4,13 +4,17 @@ the per-cell JSON files of ``python -m repro_torch.launch.dryrun --all
 --out DIR`` and the list that ``python -m repro_torch.launch.roofline
 --all --out FILE`` writes.
 
-The roofline table has the reference's columns and format. The dry-run
-table's columns are the port's: it has no XLA compile (``build_s`` in
-place of ``compile_s``), reports the working set a device gathers, the
-matmul flops its body counts and the members of a rank's
-tensor-parallel group that compute ("TP"; the flops are one member's),
-and its ``temp_bytes``, ``flops_per_device`` and ``bytes_per_device``
-are ``null``; a null prints as "—", never as 0.
+The roofline table has the reference's columns and format; its
+collective seconds are the port's counts (``launch/roofline.py``): a
+coordinate's gathers and, with tensor parallelism, its group's moves
+(the sums; serving, the prefill's key/value exchange, the flash-decode
+combine and the logits' blocks). The dry-run table's columns are the
+port's: it has no XLA compile (``build_s`` in place of ``compile_s``),
+reports the working set a device gathers, the matmul flops its body
+counts and the members of a rank's tensor-parallel group that compute
+("TP"; the flops are one member's, serving cells included), and its
+``temp_bytes``, ``flops_per_device`` and ``bytes_per_device`` are
+``null``; a null prints as "—", never as 0.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.report --dryrun DIR \\

@@ -10,13 +10,12 @@ No card and no allocation: every cell is built on ``meta`` tensors and a
 mesh of ``meta`` entries by the dry run's ``build_cell``, and one rank's
 body is run under two counters.
 
-What is counted, per device: to train, one coordinate of a
-data-parallel rank's tensor-parallel group (``training/spmd.py``: each
-computes its share of the split products, the first also what runs once
-a rank), the dry run's probe (``launch/dryrun.py``); to prefill or
-decode, a data-parallel rank (the port serves with no tensor
-parallelism: the ranks along 'model' hold the same rows and would
-compute them once).
+What is counted, per device: one coordinate of a data-parallel rank's
+tensor-parallel group (to train, ``training/spmd.py``; to prefill or
+decode, ``sharding/serve.py``: each computes its share of the split
+products, to decode its block of the KV cache, the first also what runs
+once a rank), the dry run's probe (``launch/dryrun.py``); to score (the
+cache-less forward with no gradient), a data-parallel rank.
 
   flops   ``torch.utils.flop_counter.FlopCounterMode``: the matmuls and
           attention products the device's body runs (to train: forward,
@@ -44,12 +43,15 @@ compute them once).
           others whole) and, to train, those of its float32 gradient it
           sends to their owners (``gathered``, ``reduce_scattered``):
           every microbatch, the stacked leaves a layer at a time in
-          forward and again in backward, the other leaves once; and, to
-          train with tensor parallelism, the bytes each member sends
-          into the group's sums (``all_reduced``: each split block's
-          output in forward, its input's gradient in backward, the
-          loss's row maxima, sums and target logits), counted by the
-          classes' probe runs. Keyed by the reference's op names under
+          forward and again in backward, the other leaves once; and,
+          with tensor parallelism, the bytes each member sends into the
+          group's sums (``all_reduced``: each split block's output in
+          forward, its input's gradient in backward, the loss's row
+          maxima, sums and target logits; to decode, the flash-decode
+          combine), and, serving, the keys and values a prefill member
+          sends to the members whose cache slots they fill (an
+          all-to-all) and the logits' vocabulary blocks put together,
+          counted by the classes' probe runs. Keyed by the reference's op names under
           its ``_WIRE_FACTOR`` convention (x 1 for all-gather and
           reduce-scatter, x 2 for all-reduce), with the bytes a ring
           carries as the op's bytes: (K - 1) blocks of a weight split K
@@ -128,12 +130,13 @@ from repro_torch.training.spmd import dp_axes
 
 # wire bytes per op byte (the reference's convention, ring algorithms), for
 # the collectives the port's mesh step issues
-_WIRE_FACTOR = {"all-gather": 1.0, "reduce-scatter": 1.0, "all-reduce": 2.0}
+_WIRE_FACTOR = {"all-gather": 1.0, "reduce-scatter": 1.0, "all-reduce": 2.0,
+                "all-to-all": 1.0}
 # the recurrences' (module, loop, body): each loop calls its body by name
 _LOOPS = ((ssm_mod, "ssd_chunked", "ssd_body"),
           (xlstm_mod, "mlstm_chunkwise", "mlstm_chunk_body"),
           (xlstm_mod, "slstm_scan", "slstm_step"))
-_KEYS = ("flops", "bytes", "unique", "all_reduce")
+_KEYS = ("flops", "bytes", "unique", "all_reduce", "exchange", "logits")
 
 
 class EagerBytes(TorchDispatchMode):
@@ -214,10 +217,14 @@ def _count_body(cell: Dict[str, Any], keep: Optional[int]
         raise ValueError(f"the loops of one class ran {sorted(set(trips))} "
                          "trips")
     counts = cell["tp_counts"]
+
+    def moved(kind):
+        t = None if counts is None else getattr(counts, kind)
+        return float(0 if t is None else t.local)
     return ({"flops": float(fc.get_total_flops()), "bytes": float(eb.bytes),
              "unique": float(args + out_bytes - 4 * cell["cur"]),
-             "all_reduce": float(0 if counts is None
-                                 else counts.all_reduced.local)},
+             "all_reduce": moved("all_reduced"),
+             "exchange": moved("exchanged"), "logits": moved("logits")},
             trips[0] if trips else 0)
 
 
@@ -304,14 +311,15 @@ def combine(counts: Dict[str, Any]) -> Dict[str, float]:
 def _active_ranks(rc: RunConfig, ctx, kind: str) -> int:
     """The coordinates that compute: the data-parallel ranks that do
     (``make_spmd_train_step``'s ``active``: all where a microbatch splits
-    over them, else the first), times, to train, the members of each
-    one's tensor-parallel group that compute (``dryrun.build_cell``'s
-    ``tp_members``)."""
+    over them, else the first; the mesh serving functions' likewise for
+    the batch), times the members of each one's tensor-parallel group
+    that compute (``dryrun.build_cell``'s ``tp_members``; none split to
+    score)."""
     R = math.prod(ctx.mesh.shape[a] for a in dp_axes(ctx))
     B = rc.shape.global_batch
     mb = (rc.train.microbatch or B) if kind == "train" else B
     dp = R if mb % R == 0 else 1
-    if kind != "train":
+    if kind == "score":
         return dp
     plan = spmd.tp_plan(rc, ctx)
     return dp * (1 if plan is None else dr.tp_members(plan))
@@ -319,7 +327,8 @@ def _active_ranks(rc: RunConfig, ctx, kind: str) -> int:
 
 def collective_bytes(rc: RunConfig, mesh, kind: str,
                      param_dtype: Optional[torch.dtype] = None,
-                     all_reduce: Optional[float] = None) -> Dict[str, Any]:
+                     moves: Optional[Dict[str, float]] = None
+                     ) -> Dict[str, Any]:
     """The collective bytes of one computing coordinate, averaged over
     those that compute, by op kind (``_WIRE_FACTOR`` applied), and their
     count (``ranks``): each computing coordinate gathers the parts of
@@ -331,9 +340,14 @@ def collective_bytes(rc: RunConfig, mesh, kind: str,
     at a time in forward and again in backward (``sharding/fsdp.py``;
     whisper's cross K/V weights twice each way, ``whisper.READ_TWICE``)
     and the other leaves once; and with tensor parallelism each member
-    sends ``all_reduce`` bytes into the group's sums over the step (the
-    classes' probe count of one rank's body, ``combine(class_counts)``,
-    where not given), scaled from the probe's rows to the batch's."""
+    sends its part of the group's moves over the step: the sums
+    (``all_reduce``: to decode, the flash-decode combine's maxima, sums
+    and outputs), and, serving, the prefill's keys and values sent to
+    the members whose cache slots they fill (``exchange``, an
+    all-to-all) and the vocabulary blocks of the logits put together
+    (``logits``, an all-gather): the classes' probe count of one rank's
+    body (``moves``: ``combine(class_counts)``, counted here where not
+    given), scaled from the probe's rows to the batch's."""
     cell = dr.build_cell(rc, mesh, kind, param_dtype)
     params, shardings = cell["args"][0]
     ctx, plan = cell["ctx"], cell["plan"]
@@ -364,19 +378,22 @@ def collective_bytes(rc: RunConfig, mesh, kind: str,
             gathered += passes * n * t.element_size()
             scattered += n * 4
     by_kind = {}
+    B = rc.shape.global_batch
     if train:
-        B = rc.shape.global_batch
         n = B // (rc.train.microbatch or B)
         gathered, scattered = n * gathered, n * scattered
         by_kind["reduce-scatter"] = (scattered / coords
                                      * _WIRE_FACTOR["reduce-scatter"])
-        if plan is not None:
-            if all_reduce is None:
-                all_reduce = combine(class_counts(rc, mesh, kind,
-                                                  param_dtype))["all_reduce"]
-            total = all_reduce * (B // cell["rank_rows"])
-            by_kind["all-reduce"] = total / coords * _WIRE_FACTOR[
-                "all-reduce"]
+    if plan is not None and kind != "score":
+        if moves is None:
+            moves = combine(class_counts(rc, mesh, kind, param_dtype))
+        ranks = B // cell["rank_rows"]
+        by_kind["all-reduce"] = (moves["all_reduce"] * ranks / coords
+                                 * _WIRE_FACTOR["all-reduce"])
+        if not train:
+            gathered += moves["logits"] * ranks
+            by_kind["all-to-all"] = (moves["exchange"] * ranks / coords
+                                     * _WIRE_FACTOR["all-to-all"])
     by_kind = {"all-gather": gathered / coords * _WIRE_FACTOR["all-gather"],
                **by_kind}
     return {"by_kind": by_kind, "ranks": coords}
@@ -440,7 +457,7 @@ def analyze_cell(arch: str, shape_name: str, *, verbose: bool = True,
     kind = kind or dr.shape_kind(shape_name)
     counts = class_counts(rc, mesh, kind, param_dtype)
     tot = combine(counts)
-    coll = collective_bytes(rc, mesh, kind, param_dtype, tot["all_reduce"])
+    coll = collective_bytes(rc, mesh, kind, param_dtype, tot)
     coll_total = sum(coll["by_kind"].values())
     n_dev = mesh.size
     peak = PEAK_OPS_PER_S[rc.model.dtype]

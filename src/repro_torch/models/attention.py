@@ -14,11 +14,20 @@ preallocated tensors it is given and returns the same dict. The
 reference's ``write_cache`` is functional (under ``jit`` XLA writes in
 place); a functional copy here would rewrite the whole cache on every
 decode step.
+
+On a mesh (``sharding/serve.py``) a KV cache lies on a data-parallel
+rank's tensor-parallel group along its sequence (``cache_seq``), as the
+reference places it: ``KVBlocks`` holds each member's block, a range of
+the slot space. ``write_cache(..., span=)`` writes into one block the
+tokens whose slots fall in it (``cache_writes`` lists them), and
+``decode_partial`` gives a member's part of one-token attention over its
+block (its row maxima, sums and unnormalised output), which the group
+combines flash-decode style (``tp.TP.combine``).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -109,17 +118,47 @@ def tp_heads(tp, num_heads: int, num_kv: int):
             for m in members]
 
 
-def tp_plan(tp, num_heads: int, num_kv: int, use_qk_norm: bool):
+def tp_kv_seq(tp, cache_len: int):
+    """The cache sequence's split where the group splits it (the decode
+    profile's ``act_kv_seq``): each member's slots, as the cache lies on
+    the group (``cache_seq``), as (member, slots) a member with a block of
+    its own, or None where it does not split (another profile, or a cache
+    length that does not divide the group: the placement is dropped and
+    the cache is whole on every member)."""
+    if "act_kv_seq" not in tp.ctx.tp_splits():
+        return None
+    blocks = tp.blocks((1, cache_len), ("act_batch", "cache_seq"))
+    members = tp.members(blocks)
+    return None if len(members) == 1 else [(m, blocks[m][1])
+                                           for m in members]
+
+
+def tp_plan(tp, num_heads: int, num_kv: int, use_qk_norm: bool,
+            cache_len: Optional[int] = None):
     """Each attention weight's region at each member ({name: [index or
     None a member]}, the shapes of ``attn_specs``), {} where the heads
-    do not split."""
+    do not split. ``cache_len``: the stage's cache where the group splits
+    its sequence (decode): the heads are whole there (where the rules
+    also map them onto the group, as the EP overrides do, the reference's
+    constraint on the cache's keys takes 'model' for the sequence first
+    and drops the heads), and each member with a block of the cache reads
+    every projection whole; a cache that does not divide the group is
+    attended whole on its first member."""
+    every = slice(None)
+    names = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm")
+                                        if use_qk_norm else ())
+    out = {k: [None] * tp.n for k in names}
+    if cache_len is not None:
+        seq = tp_kv_seq(tp, cache_len)
+        if seq is None:
+            return {}
+        for m, _ in seq:
+            for k in names:
+                out[k][m] = (every,) * (1 if k.endswith("norm") else 3)
+        return out
     split = tp_heads(tp, num_heads, num_kv)
     if split is None:
         return {}
-    every = slice(None)
-    out = {k: [None] * tp.n for k in ("wq", "wk", "wv", "wo")}
-    if use_qk_norm:
-        out.update(q_norm=[None] * tp.n, k_norm=[None] * tp.n)
     for m, hs, kvs in split:
         out["wq"][m] = (every, hs, every)
         out["wk"][m] = out["wv"][m] = (every, kvs, every)
@@ -245,10 +284,14 @@ def ring_slot(p: int, cache_len: int, sinks: int = 0) -> int:
     return sinks + (p - sinks) % (cache_len - sinks)
 
 
-def write_cache(cache, k_new: torch.Tensor, v_new: torch.Tensor, cur: int,
-                pos_new: Optional[torch.Tensor] = None, sinks: int = 0):
-    """Insert [B, S_new, Kv, hd] into the ring at absolute position
-    ``cur`` (a Python int), in place; returns ``cache``.
+def cache_writes(length: int, S_new: int, cur: int, sinks: int = 0,
+                 span: Optional[Tuple[int, int]] = None
+                 ) -> List[Tuple[slice, slice]]:
+    """Where ``write_cache`` puts a chunk of ``S_new`` tokens from
+    absolute position ``cur`` into a cache of ``length`` slots: (slots,
+    tokens) pairs of equal length, the slots relative to ``span``'s first
+    (a block of the slot space, [lo, hi); the whole cache where None),
+    only those that fall in it.
 
     Slot invariant (uniform across the batch; decode is synchronous), with
     ``sinks`` = M reserved slots: see :func:`ring_slot`. The sink slots
@@ -261,32 +304,11 @@ def write_cache(cache, k_new: torch.Tensor, v_new: torch.Tensor, cur: int,
                    (a clamp), which breaks the slot invariant.
       S_new >= L : window prefill — the sink prefix goes to its reserved
                    slots; of the rest only the last L − M tokens are kept,
-                   each at its ring slot.
-
-    ``pos_new``: [S_new] absolute positions (defaults to cur + arange).
+                   each at its ring slot (the reference's roll), a write
+                   that spans every block.
     """
-    L = cache["k"].shape[1]
-    S_new = k_new.shape[1]
-    quant = cache["k"].dtype == torch.int8
-    if quant:
-        k_new, ks_new = quantize_kv(k_new)
-        v_new, vs_new = quantize_kv(v_new)
-    if pos_new is None:
-        pos_new = cur + torch.arange(S_new, dtype=torch.int32,
-                                     device=k_new.device)
-    new = {"k": k_new, "v": v_new, "pos": pos_new}
-    if quant:
-        new["k_scale"], new["v_scale"] = ks_new, vs_new
-    M = sinks
+    L, M = length, sinks
     W = L - M
-
-    def put(dst: slice, src: slice) -> None:
-        for name, t in new.items():
-            if name == "pos":
-                cache[name][dst].copy_(t[src])
-            else:
-                cache[name][:, dst].copy_(t[:, src])
-
     if S_new < L:
         start = ring_slot(cur, L, M)
         if start + S_new > L:
@@ -294,16 +316,90 @@ def write_cache(cache, k_new: torch.Tensor, v_new: torch.Tensor, cur: int,
                 f"a chunk of {S_new} tokens from position {cur} (slot "
                 f"{start}) would wrap past the last of {L} cache slots; "
                 "write it in chunks that end at the ring's edge")
-        put(slice(start, start + S_new), slice(None))
-        return cache
-    # eviction write: sinks to their reserved slots, the ring tail for the
-    # rest, each token at its slot (the reference's roll)
-    first = cur + (S_new - W)                 # abs position of the tail's [0]
-    shift = ring_slot(first, L, M) - M
-    put(slice(0, M), slice(0, M))
-    put(slice(M + shift, L), slice(S_new - W, S_new - shift))
-    put(slice(M, M + shift), slice(S_new - shift, S_new))
+        runs = [(start, 0, S_new)]
+    else:
+        first = cur + (S_new - W)             # abs position of the tail's [0]
+        shift = ring_slot(first, L, M) - M
+        runs = [(0, 0, M), (M + shift, S_new - W, W - shift),
+                (M, S_new - shift, shift)]
+    lo, hi = span if span is not None else (0, L)
+    out = []
+    for dst, src, n in runs:
+        a, b = max(dst, lo), min(dst + n, hi)
+        if a < b:
+            out.append((slice(a - lo, b - lo),
+                        slice(src + a - dst, src + b - dst)))
+    return out
+
+
+def new_entries(k_new: torch.Tensor, v_new: torch.Tensor, dtype):
+    """A chunk's keys and values as a cache of ``dtype`` stores them:
+    {'k', 'v'}, quantised with their 'k_scale' / 'v_scale' for int8."""
+    if dtype != torch.int8:
+        return {"k": k_new, "v": v_new}
+    k, ks = quantize_kv(k_new)
+    v, vs = quantize_kv(v_new)
+    return {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
+
+
+def put_entries(cache, new, writes) -> None:
+    """Copy ``new``'s tokens (``new_entries``, and 'pos' where given)
+    into ``cache`` at ``writes`` (``cache_writes``' pairs)."""
+    for dst, src in writes:
+        for name, t in new.items():
+            if name == "pos":
+                cache[name][dst].copy_(t[src])
+            else:
+                cache[name][:, dst].copy_(t[:, src])
+
+
+def write_cache(cache, k_new: torch.Tensor, v_new: torch.Tensor, cur: int,
+                pos_new: Optional[torch.Tensor] = None, sinks: int = 0,
+                span: Optional[Tuple[int, int]] = None,
+                length: Optional[int] = None):
+    """Insert [B, S_new, Kv, hd] into the ring at absolute position
+    ``cur`` (a Python int), in place; returns ``cache``. The slots are
+    :func:`cache_writes`'. ``span`` (with ``length``, the whole cache's
+    slots): ``cache`` is the block [lo, hi) of the slot space, and only
+    the tokens whose slots fall in it are written.
+
+    ``pos_new``: [S_new] absolute positions (defaults to cur + arange).
+    """
+    S_new = k_new.shape[1]
+    if pos_new is None:
+        pos_new = cur + torch.arange(S_new, dtype=torch.int32,
+                                     device=k_new.device)
+    writes = cache_writes(cache["k"].shape[1] if span is None else length,
+                          S_new, cur, sinks, span)
+    new = new_entries(k_new, v_new, cache["k"].dtype)
+    new["pos"] = pos_new
+    put_entries(cache, new, writes)
     return cache
+
+
+class KVBlocks:
+    """A KV cache as a tensor-parallel group holds it on a mesh: the
+    cache's ``length`` slots lie along 'model' (``cache_seq``), and each
+    member m of ``spans`` (the members with a block of their own, in the
+    group's order) holds the slots ``spans[m]`` = (lo, hi) in
+    ``blocks[m]``, a tree of ``init_cache``'s leaves over those slots (on
+    the member's device; absent where the member does not run, as a dry
+    run's probe). A cache that does not divide the group is whole on
+    its first member: ``spans`` = {0: (0, length)}."""
+
+    def __init__(self, blocks: Dict[int, dict],
+                 spans: Dict[int, Tuple[int, int]], length: int):
+        self.blocks, self.spans, self.length = blocks, spans, length
+
+    @property
+    def members(self) -> List[int]:
+        return list(self.spans)
+
+    def layer(self, i: int) -> "KVBlocks":
+        """Layer ``i`` of a stage's stacked blocks (views)."""
+        return KVBlocks({m: {k: v[i] for k, v in b.items()}
+                         for m, b in self.blocks.items()},
+                        self.spans, self.length)
 
 
 def decode_attend(q: torch.Tensor, cache, num_heads: int, *, window=None,
@@ -318,6 +414,18 @@ def decode_attend(q: torch.Tensor, cache, num_heads: int, *, window=None,
     copies of the cache. Softmax in float32, as in ``attend``.
     """
     B, _, H, hd = q.shape
+    if q_pos is None:
+        q_pos = cache["pos"].max()[None, None].expand(B, 1)
+    s, cv = _decode_scores(q, cache, window, softcap, scale, q_pos, sinks)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgl,blkd->bkgd", w, cv)
+    return o.reshape(B, 1, H, hd)
+
+
+def _decode_scores(q, cache, window, softcap, scale, q_pos, sinks):
+    """The masked float32 scores [B, KV, G, L] of one query per row
+    against the cache's keys, and its values (dequantised)."""
+    B, _, H, hd = q.shape
     ck, cv = cache["k"], cache["v"]
     if ck.dtype == torch.int8:
         ck = dequantize_kv(ck, cache["k_scale"], q.dtype)
@@ -325,14 +433,25 @@ def decode_attend(q: torch.Tensor, cache, num_heads: int, *, window=None,
     KV = ck.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     kv_pos = cache["pos"][None].expand(B, -1)
-    if q_pos is None:
-        q_pos = cache["pos"].max()[None, None].expand(B, 1)
     qg = q.reshape(B, KV, H // KV, hd)
     s = torch.einsum("bkgd,blkd->bkgl", qg, ck).float() * scale
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
     m = _mask(q_pos, kv_pos, True, window, sinks)          # [B,1,1,L]
-    s = torch.where(m, s, NEG_INF)
-    w = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bkgl,blkd->bkgd", w, cv)
-    return o.reshape(B, 1, H, hd)
+    return torch.where(m, s, NEG_INF), cv
+
+
+def decode_partial(q: torch.Tensor, cache, *, window=None,
+                   softcap: float = 0.0, scale: Optional[float] = None,
+                   q_pos: torch.Tensor, sinks: int = 0):
+    """A member's part of :func:`decode_attend` over its block of the
+    cache (flash-decode): its row maxima ``mx`` and sums of exponentials
+    ``l`` ([B, KV, G, 1], float32) and its unnormalised output ``o`` =
+    exp(s − mx) · v ([B, KV, G, hd], in q's dtype). A block with no key a
+    row may attend has ``mx`` = ``NEG_INF``, and the combine scales it
+    to nothing."""
+    s, cv = _decode_scores(q, cache, window, softcap, scale, q_pos, sinks)
+    mx = s.amax(dim=-1, keepdim=True)
+    p_ = torch.exp(s - mx)
+    o = torch.einsum("bkgl,blkd->bkgd", p_.to(q.dtype), cv)
+    return mx, p_.sum(dim=-1, keepdim=True), o

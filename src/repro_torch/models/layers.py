@@ -114,6 +114,24 @@ def unembed(x: torch.Tensor, params) -> torch.Tensor:
     return x @ params["table"].to(x.dtype).t()
 
 
+def logits_of(x: torch.Tensor, params, tied: bool, tp=None) -> torch.Tensor:
+    """The logits of hidden states ``x``: ``unembed`` of ``params['embed']``
+    (``tied``) or ``lm_head`` of ``params['head']``. With ``tp`` and the
+    table or head as ``tp.Parts`` (split by vocabulary, as serving on a
+    mesh holds them): each member projects its vocabulary block and the
+    blocks are put together in order on the group's first member."""
+    w = params["embed"]["table"] if tied else params["head"]["w"]
+    if not isinstance(w, Parts):
+        return (unembed(x, params["embed"]) if tied
+                else lm_head(x, params["head"]))
+    parts = []
+    for m, xm in zip(tp.live(w.members), tp.broadcast(x, w.members)):
+        with tp.part(m):
+            parts.append(unembed(xm, {"table": w[m]}) if tied
+                         else lm_head(xm, {"w": w[m]}))
+    return tp.assemble(parts, w.members)
+
+
 def tp_vocab(tp, vocab: int):
     """Each computing member's vocabulary block at the logits' constraint
     point (``act_vocab``), None where the vocabulary does not split."""

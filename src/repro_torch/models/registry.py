@@ -6,8 +6,8 @@ reference's ``models/registry.py``.
   init_params(generator, dtype)        -> params (on the bundle's device)
   train_forward(params, batch)         -> (logits, aux_loss)
   loss_fn(params, batch, ...)          -> (loss, (aux_loss, denom))
-  prefill(params, batch)               -> (last_logits, caches)
-  decode_step(params, inp, caches, cur) -> (logits, caches)
+  prefill(params, batch, tp=None)      -> (last_logits, caches)
+  decode_step(params, inp, caches, cur, tp=None) -> (logits, caches)
   cache_init(batch, seq_len)           -> empty caches
   cache_abstract(batch, seq_len)       -> the same on ``meta`` tensors
   cache_axes()                         -> the caches' logical axes
@@ -41,7 +41,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import module as mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whisper_mod
-from repro_torch.models.layers import embed, lm_head, unembed
+from repro_torch.models.layers import embed, logits_of
 from repro_torch.training.loss import ce_loss, chunked_ce_from_hidden
 
 META = "meta_tokens"
@@ -55,8 +55,8 @@ class ModelBundle:
     init_params: Callable       # (generator, dtype) -> params
     train_forward: Callable     # (params, batch) -> (logits, aux)
     loss_fn: Callable           # (params, batch, ...) -> (loss, (aux, denom))
-    prefill: Callable           # (params, batch) -> (last logits, caches)
-    decode_step: Callable       # (params, inp, caches, cur) -> (logits, caches)
+    prefill: Callable           # (params, batch, tp) -> (last logits, caches)
+    decode_step: Callable       # (params, inp, caches, cur, tp) -> ...
     cache_init: Callable        # (batch, seq_len) -> caches
     cache_abstract: Callable    # (batch, seq_len) -> meta caches
     cache_axes: Callable        # () -> the caches' logical axes
@@ -149,31 +149,38 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         (the meta tokens' slots added)."""
         return tfm.cache_init(mc, batch, seq_len + M, device=device)
 
-    def prefill(params, batch):
+    def prefill(params, batch, tp=None, caches=None):
         """The prompt ([B,S] tokens or [B,S,D] embeddings) into fresh
         caches sized ``rc.shape.seq_len`` (+ M). Returns ([B,V] logits of
         the last position, caches). Only the last position is projected
-        to the vocabulary (the reference's stream-out discipline)."""
-        inputs, positions = _prompt(params, batch)
-        caches = cache_init(inputs.shape[0], rc.shape.seq_len)
+        to the vocabulary (the reference's stream-out discipline).
+        ``tp`` (serving on a mesh, ``sharding/serve.py``): a data-parallel
+        rank's tensor-parallel group (``tfm.forward``), and ``caches`` the
+        rank's empty caches as the mesh holds them."""
+        if tp is not None and caches is None:
+            raise ValueError("a prefill on a mesh writes the caches the mesh "
+                             "holds: pass the rank's caches")
+        inputs, positions = _prompt(params, batch, tp)
+        if caches is None:
+            caches = cache_init(inputs.shape[0], rc.shape.seq_len)
         hidden, caches, _ = tfm.forward(params, inputs, positions, mc,
-                                        caches=caches, cur=0, logits=False)
-        last = hidden[:, -1]
-        logits = (unembed(last, params["embed"]) if mc.tie_embeddings
-                  else lm_head(last, params["head"]))
+                                        caches=caches, cur=0, logits=False,
+                                        tp=tp)
+        logits = logits_of(hidden[:, -1], params, mc.tie_embeddings, tp)
         return logits, caches
 
-    def decode_step(params, inp, caches, cur: int):
+    def decode_step(params, inp, caches, cur: int, tp=None):
         """One token per stream: ``inp`` [B,1] tokens (or [B,1,D]
         embeddings) at absolute position ``cur`` (a Python int; with meta
         tokens, the prompt's length + M for the first step). The caches
-        are written in place. Returns ([B,V] logits, caches)."""
+        are written in place. Returns ([B,V] logits, caches). ``tp``: as
+        ``prefill``'s, the caches the rank's as the mesh holds them."""
         cur = operator.index(cur)
         inp = torch.as_tensor(inp, device=device)
         positions = torch.full((inp.shape[0], 1), cur, dtype=torch.int32,
                                device=device)
         logits, caches, _ = tfm.forward(params, inp, positions, mc,
-                                        caches=caches, cur=cur)
+                                        caches=caches, cur=cur, tp=tp)
         return logits[:, -1], caches
 
     def cache_abstract(batch: int, seq_len: int):
@@ -251,26 +258,34 @@ def _whisper_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
                 "cross": whisper_mod.cross_cache_init(mc, batch, seq_len,
                                                       device=device)}
 
-    def prefill(params, batch):
+    def prefill(params, batch, tp=None, caches=None):
         """Encode ``batch['frames']`` once, build the cross K/V, and run
         the decoder prompt ``batch['dec_tokens']`` [B,T0] into fresh self
         caches. Returns ([B,V] logits of the prompt's last position,
-        {'self', 'cross'})."""
+        {'self', 'cross'}). ``caches`` (serving on a mesh): the empty
+        caches the mesh holds, written in place; whisper has no
+        tensor-parallel plan, so ``tp`` is None."""
+        _no_group(tp)
         frames = torch.as_tensor(batch["frames"], device=device)
         sot = torch.as_tensor(batch["dec_tokens"], device=device)
         enc = whisper_mod.encode(params, frames, mc)
         xkv = whisper_mod.cross_kv(params, enc, mc)
         B, T0 = sot.shape
-        self_c = whisper_mod.self_cache_init(mc, B, device=device)
+        self_c = (whisper_mod.self_cache_init(mc, B, device=device)
+                  if caches is None else caches["self"])
         logits, self_c = whisper_mod.decode(params, sot, _positions(B, T0),
                                             xkv, mc, self_caches=self_c,
                                             cur=0)
+        if caches is not None:
+            tfm._store(caches["cross"], xkv)
+            xkv = caches["cross"]
         return logits[:, -1], {"self": self_c, "cross": xkv}
 
-    def decode_step(params, inp, caches, cur: int):
+    def decode_step(params, inp, caches, cur: int, tp=None):
         """One token per stream: ``inp`` [B,1] at absolute position
         ``cur`` (a Python int), against the cross cache; the self rings
         are written in place. Returns ([B,V] logits, caches)."""
+        _no_group(tp)
         cur = operator.index(cur)
         inp = torch.as_tensor(inp, device=device)
         positions = torch.full((inp.shape[0], 1), cur, dtype=torch.int32,
@@ -317,13 +332,24 @@ def _whisper_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
                        cache_axes=cache_axes, input_specs=input_specs)
 
 
+def _no_group(tp) -> None:
+    if tp is not None:
+        raise ValueError("whisper has no tensor-parallel plan: a mesh "
+                         "serves it with each rank computing alone")
+
+
 def tp_plan(rc: RunConfig, tp):
-    """The mesh train step's plan for a tensor-parallel group ``tp``
-    (``transformer.tp_plan``), None for whisper, whose layers the port
-    does not split yet (each data-parallel rank computes it whole)."""
+    """The mesh plan for a tensor-parallel group ``tp``
+    (``transformer.tp_plan``; where the group splits the KV cache's
+    sequence, for caches of ``rc.shape.seq_len`` tokens and the meta
+    tokens), None for whisper, whose layers the port does not split yet
+    (each data-parallel rank computes it whole)."""
     if rc.model.family == "encdec":
         return None
-    return tfm.tp_plan(rc.model, tp)
+    seq = None
+    if "act_kv_seq" in tp.ctx.tp_splits():
+        seq = rc.shape.seq_len + rc.model.num_meta_tokens
+    return tfm.tp_plan(rc.model, tp, seq)
 
 
 def build(rc: RunConfig, device="cuda") -> ModelBundle:

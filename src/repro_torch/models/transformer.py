@@ -53,9 +53,8 @@ from repro_torch.models import rope
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (embed, embed_specs, head_specs,
-                                       lm_head, mlp, mlp_plan, mlp_specs,
-                                       rms_norm, rms_norm_specs, tp_vocab,
-                                       unembed)
+                                       logits_of, mlp, mlp_plan, mlp_specs,
+                                       rms_norm, rms_norm_specs, tp_vocab)
 from repro_torch.models.module import p, stack_specs
 from repro_torch.sharding import fsdp
 from repro_torch.sharding.tp import Parts, at
@@ -182,17 +181,21 @@ def model_specs(cfg: ModelConfig):
     return specs
 
 
-def tp_plan(cfg: ModelConfig, tp) -> Dict[tuple, list]:
-    """The mesh train step's plan for a tensor-parallel group ``tp``: by
-    leaf path of ``model_specs(cfg)``, each member's region of the leaf
-    (None where the member does not read it), for the leaves whose
-    blocks split at the reference's constraint points: the vocabulary
-    (embedding table, head), and in each attention-bearing layer the
-    heads, the MLP's columns and the experts. A leaf left out is read
-    whole by the group's first member: the norms, hymba's meta tokens and
-    mamba part, the ``mamba``, ``mlstm`` and ``slstm`` kinds, and every
-    part whose dim does not divide the group (the reference drops that
-    mapping too)."""
+def tp_plan(cfg: ModelConfig, tp, seq_len: Optional[int] = None
+            ) -> Dict[tuple, list]:
+    """The mesh plan for a tensor-parallel group ``tp``: by leaf path of
+    ``model_specs(cfg)``, each member's region of the leaf (None where
+    the member does not read it), for the leaves whose blocks split at
+    the reference's constraint points: the vocabulary (embedding table,
+    head), and in each attention-bearing layer the heads, the MLP's
+    columns and the experts. Where the group splits the KV cache's
+    sequence instead of the heads (the decode profile; ``seq_len``: the
+    caches' tokens, meta tokens included), every member with a block of
+    a stage's cache reads that stage's attention projections whole. A
+    leaf left out is read whole by the group's first member: the norms,
+    hymba's meta tokens and mamba part, the ``mamba``, ``mlstm`` and
+    ``slstm`` kinds, and every part whose dim does not divide the group
+    (the reference drops that mapping too)."""
     every = slice(None)
     out: Dict[tuple, list] = {}
 
@@ -215,8 +218,10 @@ def tp_plan(cfg: ModelConfig, tp) -> Dict[tuple, list]:
         if st.kind not in ("dense", "moe", "hymba"):
             continue
         key = (f"stage_{i}",)
-        put(key + ("attn",), attn.tp_plan(tp, cfg.num_heads, cfg.num_kv_heads,
-                                          cfg.use_qk_norm), True)
+        put(key + ("attn",), attn.tp_plan(
+            tp, cfg.num_heads, cfg.num_kv_heads, cfg.use_qk_norm,
+            None if seq_len is None else stage_cache_len(cfg, st, seq_len)),
+            True)
         if st.kind == "moe":
             put(key + ("moe",), moe_mod.tp_plan(
                 tp, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff), True)
@@ -236,6 +241,16 @@ def cache_dtype(cfg: ModelConfig) -> torch.dtype:
     return model_dtype(cfg)
 
 
+def stage_cache_len(cfg: ModelConfig, st: Stage, seq_len: int) -> int:
+    """The slots of an attention stage's KV cache for ``seq_len`` tokens
+    (meta tokens included): the window's, and hymba's reserved sink slots
+    beside a window's ring (meta tokens never evicted by it)."""
+    cl = st.cache_len(seq_len)
+    if st.window > 0 and cfg.num_meta_tokens:
+        cl = min(cl + cfg.num_meta_tokens, seq_len)
+    return cl
+
+
 def stage_cache_init(cfg: ModelConfig, st: Stage, batch: int, seq_len: int,
                      *, device):
     """A stage's streaming state, each leaf stacked over the stage's
@@ -250,10 +265,7 @@ def stage_cache_init(cfg: ModelConfig, st: Stage, batch: int, seq_len: int,
                  "slstm": xlstm_mod.slstm_state_init}.get(st.kind)
     if recurrent is not None:
         return _stack(recurrent(cfg, batch, device=device), st.count)
-    cl = st.cache_len(seq_len)
-    if st.window > 0 and cfg.num_meta_tokens:
-        # reserved sink slots: meta tokens never evicted by the ring
-        cl = min(cl + cfg.num_meta_tokens, seq_len)
+    cl = stage_cache_len(cfg, st, seq_len)
     tree = attn.init_cache(batch, cl, cfg.num_kv_heads,
                            cfg.resolved_head_dim(), cache_dtype(cfg),
                            device=device)
@@ -343,7 +355,16 @@ def _attention_part(lp, x, cos_sin, q_pos, cfg: ModelConfig, window,
     row-split product, are summed."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     w = lp["attn"]
+    if isinstance(cache, attn.KVBlocks):
+        if h.shape[1] == 1:
+            return _decode_on_blocks(w, h, cos_sin, q_pos, cfg, window, cache,
+                                     cur, softcap, sinks, tp, pos)
+        return _prefill_on_blocks(w, h, cos_sin, q_pos, cfg, window, cache,
+                                  cur, softcap, sinks, tp, pos)
     if isinstance(w["wq"], Parts):
+        if cache is not None:
+            raise ValueError("split attention writes a cache only as the "
+                             "mesh holds it (attention.KVBlocks)")
         group = cfg.num_heads // cfg.num_kv_heads
         return tp.run(h, w["wq"].members, lambda m, hm: _attention(
             at(w, m), hm, pos[m][0], pos[m][1], cfg, window, softcap=softcap,
@@ -352,19 +373,128 @@ def _attention_part(lp, x, cos_sin, q_pos, cfg: ModelConfig, window,
                       softcap, sinks)
 
 
+def _prefill_on_blocks(w, h, cos_sin, q_pos, cfg: ModelConfig, window,
+                       cache: "attn.KVBlocks", cur, softcap, sinks, tp, pos):
+    """A prefill chunk on a mesh whose group holds the cache along its
+    sequence: attention as without a cache (the heads split over the
+    members where the projections come as ``tp.Parts``, else whole on the
+    first member), each member's keys and values of the key/value heads
+    it is the first to compute sent to every member whose slots they
+    fill (``tp.exchange``), and every block's positions written."""
+    S = h.shape[1]
+    dtype = cache.blocks[0]["k"].dtype
+    writes = {j: attn.cache_writes(cache.length, S, cur, sinks, span)
+              for j, span in cache.spans.items()}
+    for j, block in cache.blocks.items():
+        attn.put_entries(block, {"pos": pos[j][1][0]}, writes[j])
+    covered = [0]
+
+    def send(m: int, k: torch.Tensor, v: torch.Tensor, kv_first: int):
+        """Member m's keys and values (key/value heads from ``kv_first``
+        on) into every block, for the heads no earlier member sent."""
+        lo = max(covered[0], kv_first)
+        hi = kv_first + k.shape[2]
+        if lo >= hi:
+            return
+        covered[0] = hi
+        mine = slice(lo - kv_first, hi - kv_first)
+        new = attn.new_entries(k[:, :, mine], v[:, :, mine], dtype)
+        for j in cache.spans:
+            block = cache.blocks.get(j)
+            for dst, src in writes[j]:
+                for name, t in new.items():
+                    part = t[:, src]
+                    part = (tp.exchange(part, m, j) if tp is not None
+                            else part)
+                    if block is not None:
+                        block[name][:, dst, lo:hi].copy_(part)
+
+    if isinstance(w["wq"], Parts):
+        group = cfg.num_heads // cfg.num_kv_heads
+        wk = w["wk"]
+        out = tp.run(h, w["wq"].members, lambda m, hm: _attention(
+            at(w, m), hm, pos[m][0], pos[m][1], cfg, window, softcap=softcap,
+            sinks=sinks, first=w["wq"].start(m, 1), group=group,
+            kv_out=lambda k, v: send(m, k, v, wk.start(m, 1))))
+        if tp.probe:        # what the members that do not run would send
+            B, hd = h.shape[0], cfg.resolved_head_dim()
+            per = next(iter(cache.blocks.values()))
+            size = sum(per[n].element_size() * (hd if n in "kv" else 1)
+                       for n in per if n != "pos")
+            for m in w["wq"].members[1:]:
+                lo = max(covered[0], wk.start(m, 1))
+                hi = wk.index[m][1].stop
+                covered[0] = max(covered[0], hi)
+                for j in cache.spans:
+                    if j != m and hi > lo:
+                        n = sum(src.stop - src.start for _, src in writes[j])
+                        tp.exchange_unseen(B * n * (hi - lo) * size, m, j)
+        return out
+    return _attention(w, h, cos_sin, q_pos, cfg, window, softcap=softcap,
+                      sinks=sinks, kv_out=lambda k, v: send(0, k, v, 0))
+
+
+def _decode_on_blocks(w, h, cos_sin, q_pos, cfg: ModelConfig, window,
+                      cache: "attn.KVBlocks", cur, softcap, sinks, tp, pos):
+    """One token a row on a mesh whose group holds the cache along its
+    sequence (flash-decode): every member with a block projects the
+    token's query, key and value whole (the heads are replicated), the
+    member whose slots hold ``cur`` writes its key and value, each
+    attends over its block (``attention.decode_partial``), the partials
+    are combined (``tp.TP.combine``), and the members' out-projections
+    of their rescaled outputs are summed. A cache whole on the first
+    member (it does not divide the group) is attended there alone."""
+    members = cache.members
+    if len(members) == 1:
+        return _attention(w, h, cos_sin, q_pos, cfg, window,
+                          cache.blocks[0], cur, softcap, sinks,
+                          span=cache.spans[0], length=cache.length)
+    B = h.shape[0]
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim())
+    parts = []
+    live = tp.live(members)
+    for m, hm in zip(live, tp.broadcast(h, members)):
+        with tp.part(m):
+            wm = at(w, m)
+            q, k, v = attn.qkv_project(hm, wm, cfg.use_qk_norm)
+            cos, sin = pos[m][0]
+            q = rope.apply_rope(q, cos, sin)
+            k = rope.apply_rope(k, cos, sin)
+            block = cache.blocks[m]
+            attn.write_cache(block, k, v, cur, pos_new=pos[m][1][0],
+                             sinks=sinks, span=cache.spans[m],
+                             length=cache.length)
+            parts.append(attn.decode_partial(
+                q, block, window=window, softcap=softcap, scale=scale,
+                q_pos=pos[m][1], sinks=sinks))
+    outs = []
+    for m, o in zip(live, tp.combine(parts, members)):
+        with tp.part(m):
+            o = o.to(h.dtype).reshape(B, 1, cfg.num_heads, -1)
+            outs.append(attn.out_project(o, at(w, m)))
+    return tp.all_reduce(outs, members)
+
+
 def _attention(w, h, cos_sin, q_pos, cfg: ModelConfig, window, cache=None,
                cur=None, softcap: float = 0.0, sinks: int = 0,
-               first: int = 0, group=None) -> torch.Tensor:
+               first: int = 0, group=None, kv_out=None, span=None,
+               length=None) -> torch.Tensor:
     """Attention on the normed input ``h`` with the projections ``w``:
-    every head, or (``group``) the query heads from head ``first`` on."""
+    every head, or (``group``) the query heads from head ``first`` on.
+    ``kv_out(k, v)``: the keys and values after RoPE are handed to it
+    (a prefill on a mesh writes the cache's blocks with them). ``span``
+    and ``length``: ``cache`` is that block of a cache's slots."""
     q, k, v = attn.qkv_project(h, w, cfg.use_qk_norm)
     cos, sin = cos_sin
     q = rope.apply_rope(q, cos, sin)
     k = rope.apply_rope(k, cos, sin)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim())
     decode = cache is not None and q.shape[1] == 1
+    if kv_out is not None:
+        kv_out(k, v)
     if cache is not None:
-        attn.write_cache(cache, k, v, cur, pos_new=q_pos[0], sinks=sinks)
+        attn.write_cache(cache, k, v, cur, pos_new=q_pos[0], sinks=sinks,
+                         span=span, length=length)
     use_kernel = (cfg.use_pallas_attn and not decode and sinks == 0
                   and softcap == 0.0 and isinstance(window, int))
     H = q.shape[2]
@@ -501,14 +631,18 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
     written in place, or None; the aux loss summed over layers, a float32
     0-d tensor, 0 where no layer has one).
 
-    ``tp`` (the mesh train step's tensor-parallel group, ``sharding/tp.py``;
-    cache-less, hidden states only): the leaves the step's plan splits
-    come as ``tp.Parts`` and their blocks run split over the group
-    (``tp_plan``); the rest runs on the group's first member.
+    ``tp`` (a data-parallel rank's tensor-parallel group on a mesh,
+    ``sharding/tp.py``): the leaves the plan splits come as ``tp.Parts``
+    and their blocks run split over the group (``tp_plan``); the rest
+    runs on the group's first member. With caches (serving on a mesh,
+    ``sharding/serve.py``) each stage's KV cache comes as
+    ``attention.KVBlocks``, the members' blocks of its sequence, and the
+    recurrent state as the rank's whole tensors; the logits are split by
+    vocabulary and put together on the first member.
     """
-    if tp is not None and (caches is not None or logits):
-        raise ValueError("a tensor-parallel forward is the mesh train "
-                         "step's: no caches, hidden states out")
+    if tp is not None and caches is None and logits:
+        raise ValueError("a tensor-parallel forward without caches is the "
+                         "mesh train step's: hidden states out")
     dtype = model_dtype(cfg)
     if inputs.ndim == 2:
         x = embed(inputs, params["embed"], dtype, tp)
@@ -538,13 +672,13 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
                 x, aux = run(lp, x, ctx, cfg)
                 aux_total = aux_total + aux
         else:
+            run = fsdp.gathered(block)
             for layer, lp in enumerate(layer_params):
-                x, aux = block(lp, x, ctx, cfg, _layer(caches[i], layer))
+                x, aux = run(lp, x, ctx, cfg, _layer(caches[i], layer))
                 aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits:
-        x = (unembed(x, params["embed"]) if cfg.tie_embeddings
-             else lm_head(x, params["head"]))
+        x = logits_of(x, params, cfg.tie_embeddings, tp)
     return x, caches, aux_total
 
 
@@ -559,6 +693,8 @@ def _layer(tree, i: int):
         return {k: _layer(v, i) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(_layer(v, i) for v in tree)
+    if isinstance(tree, attn.KVBlocks):
+        return tree.layer(i)
     return tree[i]
 
 

@@ -198,7 +198,7 @@ def decode(params, tokens: torch.Tensor, positions: torch.Tensor, xkv,
     S_enc = xkv["k"].shape[2]
     enc_pos = torch.arange(S_enc, dtype=torch.int32,
                            device=x.device)[None].expand(B, S_enc)
-    run = (_dec_layer if self_caches is not None
+    run = (fsdp.gathered(_dec_layer) if self_caches is not None
            else tfm._remat(_dec_layer, remat_policy))
     layers = tfm._unstack(params["decoder"], cfg.num_layers)
     for i, lp in enumerate(layers):

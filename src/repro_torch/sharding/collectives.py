@@ -250,10 +250,15 @@ class TPCounts:
     """Where tensor parallelism's bytes are counted: ``all_reduced`` (the
     reference's all-reduces) and ``copies`` (the single controller's);
     ``recompute()`` says whether a forward runs again in backward, whose
-    reductions are then copies."""
+    reductions are then copies. Serving adds ``exchanged`` (a prefill's
+    keys and values sent to the members whose cache slots they fill: an
+    all-to-all) and ``logits`` (the members' vocabulary blocks of the
+    logits assembled on the first member)."""
     all_reduced: Traffic
     copies: Traffic
     recompute: Callable[[], bool] = lambda: False
+    exchanged: Optional[Traffic] = None
+    logits: Optional[Traffic] = None
 
 
 def _add(t: Optional[Traffic], x: torch.Tensor, src, dst) -> None:

@@ -39,9 +39,13 @@ Under remat ``'none'`` the rest of what autograd saves of a layer stays
 saved as it is: activations, and a weight's cast to the compute dtype
 (bf16 models), which is a copy and not the gathered tensor.
 
-With plain tensors (one device, serving, ``dp_shardmap.py``,
-``pipeline.py``) the model's trees hold no handle and the seam does
-nothing.
+Serving on a mesh (``sharding/serve.py``) gathers through the same
+seam forward only (``Group(grads=False)``): no autograd function, no
+gradient accumulators, no reduce-scatter, and a ledger of the weights
+alone (``peak_bytes(..., grads=False)``).
+
+With plain tensors (one device, ``dp_shardmap.py``, ``pipeline.py``) the
+model's trees hold no handle and the seam does nothing.
 """
 from __future__ import annotations
 
@@ -86,12 +90,14 @@ def _region_numel(s: ParamSpec, index) -> int:
     return n
 
 
-def _per_member(specs, dtype, plan, stacks: bool) -> Dict[int, int]:
+def _per_member(specs, dtype, plan, stacks: bool,
+                grads: bool = True) -> Dict[int, int]:
     other: Dict[int, int] = {}
     layer: Dict[int, Dict[str, int]] = {}
     for path, s in tree_paths(specs).items():
         for m, ix in _regions(path, s, plan):
-            nb = _region_numel(s, ix) * (_size(s, dtype) + GRAD_BYTES)
+            nb = _region_numel(s, ix) * (_size(s, dtype)
+                                         + grads * GRAD_BYTES)
             if stacks and stacked(s):
                 per = layer.setdefault(m, {})
                 per[path[0]] = per.get(path[0], 0) + nb // s.shape[0]
@@ -102,14 +108,16 @@ def _per_member(specs, dtype, plan, stacks: bool) -> Dict[int, int]:
 
 
 def peak_bytes(specs, dtype: Optional[torch.dtype] = None,
-               plan: Optional[Dict[tuple, list]] = None) -> int:
+               plan: Optional[Dict[tuple, list]] = None,
+               grads: bool = True) -> int:
     """The most a coordinate of the mesh step holds at once of gathered
     weights (in ``dtype``, else their specs') and their float32
-    gradients: every leaf outside the stacks, and the largest layer of
-    any stack (the stacked leaves under one top-level key are one
-    stack), each at the region the ``plan`` (by leaf path, see the
-    module note) gives the coordinate; the busiest coordinate's."""
-    return max(_per_member(specs, dtype, plan, True).values())
+    gradients (``grads``; a serving call's forward-only gathers hold
+    none): every leaf outside the stacks, and the largest layer of any
+    stack (the stacked leaves under one top-level key are one stack),
+    each at the region the ``plan`` (by leaf path, see the module note)
+    gives the coordinate; the busiest coordinate's."""
+    return max(_per_member(specs, dtype, plan, True, grads).values())
 
 
 def whole_bytes(specs, dtype: Optional[torch.dtype] = None,
@@ -200,8 +208,9 @@ class Group:
     the layer gathered again in backward until backward gathers the
     next (``let_go``) or ends."""
 
-    def __init__(self, members: List[Rank], plan: Dict[int, list]):
-        self.members, self.plan = members, plan
+    def __init__(self, members: List[Rank], plan: Dict[int, list],
+                 grads: bool = True):
+        self.members, self.plan, self.grads = members, plan, grads
         self.in_backward = False
         self.fresh: List[_Hold] = []       # gathered, not yet claimed
         self.whole: List[_Hold] = []       # the leaves outside the stacks
@@ -220,7 +229,10 @@ class Group:
                       for r, ix in zip(self.members, p)], index)
 
     def gather(self, x: ShardedTensor, layer: Optional[int] = None):
-        """``x`` (its layer ``layer``) at its members, through the seam."""
+        """``x`` (its layer ``layer``) at its members, through the seam
+        (forward only: gathered, with no gradient to send back)."""
+        if not self.grads:
+            return self.take(x, layer)
         return self._each(x, layer, lambda r, ix: _Gather.apply(
             r.token, self, r, x, layer, ix))
 
@@ -234,8 +246,8 @@ class Group:
         """``rank``'s gather, held (with the gradient it will receive,
         where that comes while it is held) until its holder claims and
         releases it."""
-        t, hold = rank.take(x, layer, index,
-                            self.in_backward or layer is None)
+        t, hold = rank.take(x, layer, index, self.grads and (
+            self.in_backward or layer is None))
         self.fresh.append(hold)
         return t
 
@@ -266,9 +278,13 @@ class Group:
             loss.backward()
         finally:
             self.in_backward = False
-            self.let_go()
-            _release(self.whole)
-            self.whole = []
+            self.release()
+
+    def release(self) -> None:
+        """Let go of everything this rank gathered."""
+        self.let_go()
+        _release(self.whole)
+        self.whole = []
 
 
 class _Gather(torch.autograd.Function):

@@ -23,13 +23,17 @@ Activation constraints. The reference's ``constrain`` is a hint to XLA's
 partitioner, which splits the products at the constraint points
 (attention's heads, the MLP's columns, the experts, the vocabulary) over
 the axes the rules map them to. Torch has no partitioner: the port's mesh
-step (``training/spmd.py``) splits them itself, one data-parallel rank's
-tensor-parallel group at a time, and asks this module where.
+step (``training/spmd.py``) and its mesh serving functions
+(``sharding/serve.py``) split them themselves, one data-parallel rank's
+tensor-parallel group at a time, and ask this module where.
 ``tp_axes`` names the group's mesh axes (every axis the batch does not
-take), and ``tp_blocks(shape, axes)`` gives each member's block of the
-activation a constraint point names: ``pspec(shape, axes)`` on those axes,
-its drops included (a dim that does not divide stays whole, and the part
-is computed replicated). So ``constrain`` itself, with a mesh, still
+take), ``tp_splits`` the constraint points the group splits (train:
+the heads, the MLP's columns, the experts and the vocabulary; decode:
+the KV cache's sequence in place of the heads, flash-decode style), and
+``tp_blocks(shape, axes)`` gives each member's block of the activation a
+constraint point names: ``pspec(shape, axes)`` on those axes, its drops
+included (a dim that does not divide stays whole, and the part is
+computed replicated). So ``constrain`` itself, with a mesh, still
 raises: nothing in the port passes an activation through it.
 """
 from __future__ import annotations
@@ -108,6 +112,7 @@ class ShardingCtx:
     mesh: Optional[object]
     rules: Dict[str, MeshAxes]
     dropped: list = dataclasses.field(default_factory=list)
+    profile: str = "train"
 
     # -- resolution ---------------------------------------------------------
     def _axis_size(self, names: MeshAxes) -> int:
@@ -172,18 +177,33 @@ class ShardingCtx:
         every axis of the mesh that ``act_batch`` does not map to, in mesh
         order. None where the profile splits the sequence over one of them
         (``train_sp``, ``kv_seq``: not in the port's mesh step yet, which
-        then computes each rank's rows whole, as before)."""
+        then computes each rank's rows whole, as before), except the
+        ``decode`` profile's split of the KV cache's sequence, which the
+        mesh decode step computes (``tp_splits``)."""
         if self.mesh is None:
             return ()
-        batch = self._mesh_axes("act_batch")
-        batch = (batch,) if isinstance(batch, str) else tuple(batch or ())
+        batch = _names(self._mesh_axes("act_batch"))
         axes = tuple(a for a in self.mesh.axis_names if a not in batch)
-        for seq in ("act_seq", "act_kv_seq"):
-            m = self._mesh_axes(seq)
-            m = (m,) if isinstance(m, str) else tuple(m or ())
-            if set(m) & set(axes):
+        seqs = ("act_seq",) if self.profile == "decode" else (
+            "act_seq", "act_kv_seq")
+        for seq in seqs:
+            if set(_names(self._mesh_axes(seq))) & set(axes):
                 return ()
         return axes
+
+    def tp_splits(self) -> Tuple[str, ...]:
+        """The constraint points whose activations the group splits: of
+        ``act_heads``, ``act_kv_seq``, ``act_mlp``, ``act_experts`` and
+        ``act_vocab``, those the rules map onto the group's axes. Under
+        ``train``: the heads, the MLP, the experts and the vocabulary;
+        under ``decode``: the KV cache's sequence (the cache lies on the
+        group along ``cache_seq``), the MLP, the experts and the
+        vocabulary, the heads whole."""
+        tp = set(self.tp_axes())
+        return tuple(a for a in ("act_heads", "act_kv_seq", "act_mlp",
+                                 "act_experts", "act_vocab")
+                     if tp and _names(self._mesh_axes(a))
+                     and set(_names(self._mesh_axes(a))) <= tp)
 
     def tp_size(self) -> int:
         """The members of a tensor-parallel group (1 without one)."""
@@ -300,7 +320,8 @@ EP_OVERRIDES = (
 
 def make_ctx(mesh, profile: str = "train",
              overrides: Sequence[Tuple[str, MeshAxes]] = ()) -> ShardingCtx:
-    return ShardingCtx(mesh=mesh, rules=make_rules(profile, overrides))
+    return ShardingCtx(mesh=mesh, rules=make_rules(profile, overrides),
+                       profile=profile)
 
 
 def null_ctx() -> ShardingCtx:

@@ -19,6 +19,13 @@ stay whole and are computed once a rank, on the group's first member.
   (``ShardingCtx.tp_blocks``), ``run`` computes a block's members and sums
   them, ``broadcast`` / ``replicate`` / ``all_reduce`` are the moves
   (``sharding/collectives.py``), counted in its ``counts``.
+- Serving on a mesh (``sharding/serve.py``) adds the moves of the KV
+  cache, which lies on the group along its sequence: ``exchange`` sends
+  a prefill member's keys and values to the member whose slots they
+  fill, ``combine`` is the flash-decode combine of the members' partial
+  attention over their blocks (their maxima, sums and rescaled outputs),
+  and ``assemble`` puts the members' vocabulary blocks of the logits
+  together.
 - ``CoordFlops``: ``FlopCounterMode`` with each operation counted under
   the member whose part is running (forward, and its backward, which
   autograd runs between the marks ``run`` puts on the part's input and
@@ -315,6 +322,63 @@ class TP:
     def leave(self, x: torch.Tensor) -> torch.Tensor:
         """Mark a part's input: backward leaves the part there."""
         return _Leave.apply(x)
+
+    # -- serving: the KV cache along the group ----------------------------
+    def exchange(self, t: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+        """``t``, computed at member ``src``, at member ``dst``'s device
+        (``t`` itself where they are one member), counted under
+        ``exchanged`` (a probe counts what its first member sends)."""
+        if src == dst:
+            return t
+        if self.counts is not None and self.counts.exchanged is not None:
+            self.counts.exchanged.add(t.nbytes, self.devices[src],
+                                      self.devices[dst])
+        return t.to(self.devices[dst])
+
+    def exchange_unseen(self, nbytes: int, src: int, dst: int) -> None:
+        """Count what member ``src``, which a probe does not run, would
+        send member ``dst``, as the probe's own."""
+        if self.counts is not None and self.counts.exchanged is not None:
+            self.counts.exchanged.add(nbytes, self.home, self.home)
+
+    def combine(self, parts: Sequence[Tuple[torch.Tensor, ...]],
+                members: Sequence[int]) -> List[torch.Tensor]:
+        """The flash-decode combine of ``members``' partial attention
+        (``attention.decode_partial``: each live member's row maxima,
+        sums and unnormalised output over its block of the cache): the
+        maximum M over the members, and each member's output rescaled by
+        exp(mx − M) over the sum of the members' rescaled sums, float32,
+        on the member's device (the outputs' sum over the members is the
+        softmax over the whole cache). The maxima and sums are reduced
+        here; the rescaled outputs are summed by the caller, after the
+        out-projection."""
+        live = self.live(members)
+        mx = self.all_reduce([p[0] for p in parts], members, "max")
+        mx = dict(zip(live, self.replicate(mx, members)))
+        scale = {m: torch.exp(p[0] - mx[m]) for m, p in zip(live, parts)}
+        total = self.all_reduce([p[1] * scale[m]
+                                 for m, p in zip(live, parts)], members)
+        total = dict(zip(live, self.replicate(total, members)))
+        return [p[2].float() * (scale[m] / total[m])
+                for m, p in zip(live, parts)]
+
+    def assemble(self, parts: Sequence[torch.Tensor], members: Sequence[int],
+                 dim: int = -1) -> torch.Tensor:
+        """``members``' blocks of a tensor along ``dim`` put together in
+        order on ``home``, the members' but the first counted under
+        ``logits`` (a probe's: its first member's block, the others'
+        counted as its)."""
+        live = self.live(members)
+        out = []
+        for m, t in zip(live, parts):
+            if m and self.counts is not None and self.counts.logits:
+                self.counts.logits.add(t.nbytes, t.device, self.home)
+            out.append(t.to(self.home))
+        unseen = len(members) - len(live)
+        if unseen and self.counts is not None and self.counts.logits:
+            self.counts.logits.add(unseen * parts[0].nbytes, self.home,
+                                   self.home)
+        return torch.cat(out, dim=dim)
 
     def run(self, x: torch.Tensor, members: Sequence[int],
             fn: Callable[[int, torch.Tensor], object]):

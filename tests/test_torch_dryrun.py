@@ -166,19 +166,22 @@ def _one_layer_at_a_time(arch):
     return other + max(layer.values())
 
 
-def _per_coordinate(arch, multi_pod=False):
-    """``fsdp.peak_bytes`` of the specs and the mesh step's
-    tensor-parallel plan on the production mesh: each split leaf at a
-    coordinate's region."""
+def _per_coordinate(arch, multi_pod=False, shape="train_4k"):
+    """``fsdp.peak_bytes`` of the specs and the profile's tensor-parallel
+    plan on the production mesh: each split leaf at a coordinate's
+    region; to train with the float32 gradients, to prefill or decode
+    (``sharding/serve.py``, forward only) without."""
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.sharding import fsdp
     from repro_torch.sharding.rules import make_ctx
     from repro_torch.training import spmd
-    rc = resolve(arch, "train_4k", multi_pod=multi_pod)
+    rc = resolve(arch, shape, multi_pod=multi_pod)
     mesh = make_production_mesh(["meta"] * 512, multi_pod=multi_pod)
-    ctx = make_ctx(mesh, "train")
+    kind = dryrun.shape_kind(shape)
+    ctx = make_ctx(mesh, "decode" if kind == "decode" else "train")
     specs = registry.build(rc, device="meta").specs
-    return fsdp.peak_bytes(specs, plan=spmd.tp_plan(rc, ctx))
+    return fsdp.peak_bytes(specs, plan=spmd.tp_plan(rc, ctx),
+                           grads=kind == "train")
 
 
 def test_production_figures():
@@ -247,6 +250,30 @@ def test_every_train_cell_fits_per_coordinate(arch, multi_pod):
     assert cell["gathered_bytes"] == _per_coordinate(arch, multi_pod)
     assert cell["gathered_bytes"] <= _one_layer_at_a_time(arch)
     assert args + cell["gathered_bytes"] <= dryrun.HBM_BYTES
+
+
+SERVING_CELLS = [(a, s) for a in ("mixtral_8x7b", "qwen3_moe_30b_a3b")
+                 for s in supported_shapes(get_model_config(a))
+                 if s != "train_4k"]
+
+
+@pytest.mark.parametrize("arch,shape", SERVING_CELLS)
+def test_moe_serving_cells_fit_per_coordinate(arch, shape):
+    """Every ``prefill_32k``, ``decode_32k`` and ``long_500k`` cell of
+    the two moe models on 16 x 16: a coordinate gathers its regions of
+    the profile's plan one layer at a time, weights alone (under 1 GiB),
+    its 'model' group of 16 computes, and the cell fits the card's 80 GB
+    (the whole tree gathered, as before the mesh serving path, would
+    not)."""
+    rep = dryrun.run_cell(arch, shape, False)
+    mem = rep["memory"]
+    assert mem["gathered_bytes"] == _per_coordinate(arch, shape=shape)
+    assert mem["gathered_bytes"] < 2 ** 30
+    assert rep["tp_members"] == 16 and rep["fits"] is True
+    assert rep["all_reduced_bytes_per_device"] > 0
+    whole = sum(4 * math.prod(s.shape) for s in tree_leaves(
+        registry.build(resolve(arch, shape), device="meta").specs))
+    assert mem["argument_bytes"] + whole > dryrun.HBM_BYTES
 
 
 def test_meta_meshes():

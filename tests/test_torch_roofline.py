@@ -12,13 +12,14 @@ one more of each). Its dot and convolution flops are parsed from
 ``lowered.compile().as_text()``: 2 x result elements x contracting size,
 each computation weighted by the trips of the loops that call it (XLA's
 ``known_trip_count``: the sLSTM's time loop and the layer scans), per
-device x 8 devices. The port counts the same configs on a (2, 2, 2) mesh
-of ``meta`` entries, one rank's body x its 4 data-parallel ranks; to
-train, on a (2, 2, 1) mesh, where no product splits over 'model' and a
-rank's body is its share of the whole model's products (on (2, 2, 2) the
-port's train step splits them over 'model' as XLA does, and its count is
-one coordinate's: ``tests/test_torch_tp.py`` holds that against XLA's
-per-device count).
+device x 8 devices. The port counts the same configs on a (2, 2, 1) mesh
+of ``meta`` entries, one rank's body x its 4 data-parallel ranks: no
+product splits over 'model' there, and a rank's body is its share of
+the whole model's products (on (2, 2, 2) the port's train step and its
+mesh prefill and decode split them over 'model' as XLA does, and the
+count is one coordinate's: ``tests/test_torch_tp.py`` and
+``tests/test_torch_serve_mesh.py`` hold that against XLA's per-device
+count).
 
 Each lowering is also compiled on a one-device mesh, whose count is the
 whole model's products once: on the (2, 2, 2) mesh XLA repeats on both
@@ -274,8 +275,7 @@ def _by_design(arch, kind, label):
 def test_matmul_flops_per_class_match_the_references_hlo(ref, arch, kind,
                                                          label, over):
     rc = R._analysis_rc(_tiny_rc(arch, kind), **over)
-    mesh = (_meta_mesh() if kind != "train" else
-            make_mesh((2, 2, 1), ("pod", "data", "model"), ["meta"] * 4))
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), ["meta"] * 4)
     got = R.count_cell(rc, mesh, kind)["flops"] * RANKS
     key = "/".join((arch, kind, label))
     one, eight = ref["lowerings"][key + "/1"], ref["lowerings"][key + "/8"]
