@@ -378,8 +378,20 @@ Phases, in order; any failure exits non-zero:
                 cards where there are several, else one line says so.
                 (d) ``python -m repro_torch.launch.train --arch
                 h2o_danube_1_8b --tiny --mesh 1x1 --steps 3`` exits 0
-                with a finite loss (a subprocess). Each part runs; a
-                failure is raised at the end.
+                with a finite loss (a subprocess). (e) whisper-large-v3
+                split (``whisper.tp_plan``: the heads of its three
+                attentions, both MLPs, the tied vocabulary): float32 at
+                2 + 2 layers full width, the MLP biases nonzero, 3 steps
+                on 4 x 1500 frames x 448 tokens, against one device
+                (loss and grad norm within 1e-5, parameters within
+                ``DP_PARAM_TOL``); control: ``bo`` added on every member
+                must fail; then as published (32 + 32 layers), bf16 on
+                float32 masters, 3 steps: step ms, tokens/s, peak,
+                ``gathered_peak`` against ``fsdp.peak_bytes`` of the
+                plan and the moves, beside one device and the mesh
+                without the split; (e)'s float32 run on distinct cards
+                where there are several. Each part runs; a failure is
+                raised at the end.
 
  18. serving on a mesh — ``sharding/serve.py``'s ``make_spmd_prefill``
                 and ``make_spmd_decode_step`` on (data 2, model 2) of
@@ -413,10 +425,28 @@ Phases, in order; any failure exits non-zero:
                 step. (c) qwen3-moe-30b-a3b at 4 of 48 layers (experts
                 split, capacity E / k), 2 x 2048 + 16, (b)'s checks.
                 (d) (a) on distinct cards where there are several, else
-                one line says so. ``python3 chip_smoke.py
-                --serve-mesh`` runs it alone (the ``swattn`` library
-                built alone). Each part runs; a failure is raised at
-                the end.
+                one line says so. (e) whisper-large-v3: float32 at 2 + 2
+                layers full width, the MLP biases nonzero, a prefill of
+                4 x 1500 frames and an 8-token prompt (the encoder and
+                decoder split by heads and MLP columns, each member's
+                cross K/V sent to the members whose frames they fill)
+                and 16 decode steps fed one device's greedy tokens (the
+                448-slot ring and the cross cache along their sequence),
+                the logits and every cache leaf within
+                ``SERVE_MESH_TOL`` of one device's; controls that must
+                fail: ``bo`` added on every member, the cross cache's
+                blocks in reversed 'model' order, one member's
+                cross-attention partial dropped. Then as published, bf16
+                weights, 4 x 1500 frames + 32 steps: rows within
+                ``LM_TOL`` of one device's, prefill ms, decode median
+                and p90, tokens/s beside one device and the mesh without
+                the split, ``gathered_peak`` against
+                ``fsdp.peak_bytes(grads=False)``, the moves, peak
+                memory, a profile of one decode step; (e)'s float32 run
+                on distinct cards where there are several.
+                ``python3 chip_smoke.py --serve-mesh`` runs it alone
+                (the ``swattn`` library built alone). Each part runs; a
+                failure is raised at the end.
 
 Every main path (serving, the streaming and xla engines, the ring, LM,
 mamba, LM serving, LM kinds, LM recurrent, the mesh paths, the SPMD
@@ -3817,13 +3847,13 @@ class Smoke:
         real_xkv = whisper.cross_kv
         faults = {
             "cross K/V zeroed": (
-                whisper, "cross_kv", lambda p_, e, c: {
+                whisper, "cross_kv", lambda p_, e, c, **kw: {
                     k: torch.zeros_like(v)
-                    for k, v in real_xkv(p_, e, c).items()}),
+                    for k, v in real_xkv(p_, e, c, **kw).items()}),
             "cross K/V rolled by one batch row": (
-                whisper, "cross_kv", lambda p_, e, c: {
+                whisper, "cross_kv", lambda p_, e, c, **kw: {
                     k: v.roll(1, dims=1)
-                    for k, v in real_xkv(p_, e, c).items()})}
+                    for k, v in real_xkv(p_, e, c, **kw).items()})}
         controls = self._controls("LM recurrent", bundle, params, prompt,
                                   fed, oracle, truth, min(steps, 8), faults,
                                   key="dec_tokens", more=more)
@@ -4929,6 +4959,248 @@ class Smoke:
                                  stderr=subprocess.PIPE),
                 cmd, time.perf_counter())
 
+    # -- phase 16 (e) and 18 (e): whisper on a mesh -----------------------------
+
+    def _whisper_biased(self, params, seed: int) -> None:
+        """Both stacks' MLP biases drawn nonzero, in place: the specs draw
+        them as zeros, where a bias added once per member would not
+        show."""
+        torch = self.torch
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for stack in ("encoder", "decoder"):
+            for b in ("bi", "bo"):
+                t = params[stack]["mlp"][b]
+                t.copy_(0.5 * torch.randn(t.shape, generator=gen,
+                                          device=t.device))
+
+    def _whisper_control(self, name: str):
+        """A context with one of whisper's mesh faults in place: ``bo``
+        added inside each member's MLP part (and not once after the
+        sum); the cross cache's blocks in reversed 'model' order (each
+        member holding its mirror's storage under its own frames); the
+        second member's cross-attention partial dropped from every
+        combine (its maxima at -inf)."""
+        import contextlib
+        torch = self.torch
+        from repro_torch.models import attention as attn
+        from repro_torch.models import layers, whisper
+        from repro_torch.sharding import serve
+        from repro_torch.sharding import tp as tp_mod
+        if name == "bo on every member":
+            def mlp2(x, params, act=layers._gelu_tanh, tp=None):
+                if not isinstance(params["wi"], tp_mod.Parts):
+                    return layers.mlp2(x, params, act)
+                bo = params["bo"]
+                return tp.run(x, params["wi"].members, lambda m, xm: (
+                    layers._mlp2_columns(xm, tp_mod.at(params, m), act)
+                    + bo.to(xm.device, xm.dtype)))
+            patch = (whisper, "mlp2", mlp2)
+        elif name == "cross cache blocks in reversed 'model' order":
+            keep = serve._Rank.kv
+
+            def kv(rank, tree, axes):
+                got = keep(rank, tree, axes)
+                if "pos" in tree:
+                    return got
+                ms = list(got.blocks)
+                return attn.KVBlocks(
+                    dict(zip(ms, [got.blocks[m] for m in reversed(ms)])),
+                    got.spans, got.length)
+            patch = (serve._Rank, "kv", kv)
+        else:
+            keep = attn.decode_partial
+            calls = [0]
+
+            def partial(q, cache, *, causal=True, **kw):
+                out = keep(q, cache, causal=causal, **kw)
+                if causal:
+                    return out
+                calls[0] += 1
+                if calls[0] % 2:
+                    return out
+                mx, l_, o = out
+                return (torch.full_like(mx, attn.NEG_INF),
+                        torch.zeros_like(l_), torch.zeros_like(o))
+            patch = (attn, "decode_partial", partial)
+
+        @contextlib.contextmanager
+        def patched():
+            obj, attr, fn = patch
+            saved = getattr(obj, attr)
+            setattr(obj, attr, fn)
+            try:
+                yield
+            finally:
+                setattr(obj, attr, saved)
+        return patched()
+
+    def _whisper_cut(self, layers, **fields):
+        import dataclasses
+        from repro_torch.configs.base import get_model_config
+        return dataclasses.replace(get_model_config("whisper_large_v3"),
+                                   encoder_layers=layers[0],
+                                   num_layers=layers[1], **fields)
+
+    def spmd_whisper_parity(self, layers=(2, 2), frames: int = 1500,
+                            batch: int = 4, steps: int = 3, devices=None,
+                            controls: bool = True):
+        """(e) float32 (TF32 off): whisper-large-v3 at ``layers``
+        (encoder, decoder) full width, the MLP biases nonzero,
+        ``train_loop(mesh=)`` on (data 2, model 2), its heads, MLP
+        columns and vocabulary split over 'model' (``whisper.tp_plan``),
+        against ``train_loop`` on one device from the same weights and
+        batches ([batch, frames] frames, 448 decoder tokens); the
+        control, ``bo`` added on every member, must fail."""
+        torch = self.torch
+        from repro_torch.models import registry
+        from repro_torch.models.module import tree_map
+        from repro_torch.sharding.rules import make_ctx
+        from repro_torch.training import spmd
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("SPMD (e): TF32 must be off")
+        rc = self._train_rc(self._whisper_cut(layers, dtype="float32"),
+                            frames, batch, 0)
+        mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        if not spmd.tp_plan(rc, make_ctx(mesh, "train")):
+            raise AssertionError("SPMD (e): whisper does not split")
+        start = registry.build(rc, device="cuda").init_params(
+            torch.Generator(device="cuda").manual_seed(31))
+        self._whisper_biased(start, 32)
+
+        def fresh():
+            return tree_map(lambda t: t.clone(), start)
+        single = self._train_run(rc, steps, params=fresh())
+        sound = self._train_run(rc, steps, mesh=mesh, params=fresh())
+        r = self._spmd_against(sound, single)
+        self.say(f"SPMD (e) float32 whisper-large-v3 {layers[0]} + "
+                 f"{layers[1]} layers full width, MLP biases nonzero, "
+                 f"[{batch}, {frames}] frames x {rc.model.max_target_positions}"
+                 f" tokens on {mesh}: {r!r} against one device (limits: "
+                 f"loss and grad norm {TRAIN_F32_TOL} relative, every step; "
+                 f"parameters {DP_PARAM_TOL} absolute after {steps} steps); "
+                 f"losses {[h['loss'] for h in sound[1]]!r}, single "
+                 f"{[h['loss'] for h in single[1]]!r}; traffic a step "
+                 f"{sound[1][-1]['traffic']!r}")
+        if not self._spmd_holds(r):
+            raise AssertionError(f"SPMD (e): the mesh run differs: {r}")
+        out = {"sound": r, "traffic": sound[1][-1]["traffic"],
+               "mesh": repr(mesh)}
+        del sound
+        if controls:
+            with self._whisper_control("bo on every member"):
+                bad = self._spmd_against(self._train_run(
+                    rc, steps, mesh=mesh, params=fresh()), single)
+            self.say(f"SPMD (e) control, bo on every member: {bad!r}")
+            out["control bo on every member"] = bad
+            if self._spmd_holds(bad):
+                raise AssertionError("SPMD (e): the check passes a run with "
+                                     "bo added on every member")
+        del start, single
+        self._free("after (e) float32", "SPMD")
+        return out
+
+    def spmd_whisper_published(self, frames: int = 1500, batch: int = 4,
+                               steps: int = 3, devices=None):
+        """(e) whisper-large-v3 as published (32 + 32 layers), bf16
+        compute on float32 master weights, [batch, frames] frames and 448
+        decoder tokens, ``train_loop(mesh=)`` on (data 2, model 2) split
+        over 'model', beside one device and the same mesh without the
+        split (``spmd.tp_plan`` returning None): step ms (median of
+        ``steps``), tokens/s (decoder tokens), peak memory,
+        ``gathered_peak`` against ``fsdp.peak_bytes`` of the plan, the
+        bytes each step moves; losses within ``SPMD_BF16_TOL`` of one
+        device's, no kernel launches."""
+        import math
+        import statistics
+        torch = self.torch
+        from repro_torch.configs.base import get_model_config
+        from repro_torch.models import registry
+        from repro_torch.sharding import fsdp
+        from repro_torch.sharding.rules import make_ctx
+        from repro_torch.training import spmd
+        mc = get_model_config("whisper_large_v3")
+        rc = self._train_rc(mc, frames, batch, 0)
+        mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        specs = registry.build(rc, device="meta").specs
+        plan = spmd.tp_plan(rc, make_ctx(mesh, "train"))
+        layerwise = fsdp.peak_bytes(specs, plan=plan)
+        unsplit = fsdp.peak_bytes(specs)
+        self._free("before (e) published", "SPMD")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rep, hist, params = self._train_run(rc, steps, mesh=mesh)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        del params, rep
+        self._free("after the whisper mesh run", "SPMD")
+        torch.cuda.reset_peak_memory_stats()
+        _, single, p1 = self._train_run(rc, steps)
+        single_peak = torch.cuda.max_memory_allocated()
+        del p1
+        self._free("after the whisper one-device run", "SPMD")
+        keep = spmd.tp_plan
+        spmd.tp_plan = lambda rc, ctx: None
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            _, alone, p3 = self._train_run(rc, steps, mesh=mesh)
+        finally:
+            spmd.tp_plan = keep
+        alone_peak = torch.cuda.max_memory_allocated()
+        del p3
+        self._free("after the whisper run without the split", "SPMD")
+        tokens = batch * mc.max_target_positions
+        ms = [h["ms"] for h in hist]
+        med = statistics.median(ms)
+        one_ms = [h["ms"] for h in single]
+        one_med = statistics.median(one_ms)
+        a_ms = [h["ms"] for h in alone]
+        a_med = statistics.median(a_ms)
+        losses = [h["loss"] for h in hist]
+        plain = [h["loss"] for h in single]
+        held = [h["gathered_peak"] for h in hist]
+        self.say(f"SPMD (e) whisper-large-v3 as published ({mc.encoder_layers}"
+                 f" + {mc.num_layers} layers) on {mesh}, [{batch}, {frames}] "
+                 f"frames x {mc.max_target_positions} tokens, bf16 compute: "
+                 f"losses {losses!r} (one device {plain!r}); step ms {ms!r}, "
+                 f"median {med!r} ({tokens / (med * 1e-3)!r} decoder "
+                 f"tokens/s); one device {one_ms!r}, median {one_med!r} "
+                 f"(mesh / one device {med / one_med!r}); without the split "
+                 f"{a_ms!r}, median {a_med!r} (split / alone "
+                 f"{med / a_med!r}); peak allocated {peak} B (one device "
+                 f"{single_peak} B, without the split {alone_peak} B); "
+                 f"gathered_peak {held!r} B (fsdp.peak_bytes of the plan "
+                 f"{layerwise} B, a rank computing alone {unsplit} B; without "
+                 f"the split {[h['gathered_peak'] for h in alone]!r}); "
+                 f"traffic a step {hist[-1]['traffic']!r}; kernel launches "
+                 f"{launches}")
+        fails = []
+        if any(launches.values()):
+            fails.append(f"kernel launches {launches}")
+        if not (all(math.isfinite(x) for x in losses) and all(
+                abs(a - b) <= SPMD_BF16_TOL for a, b in zip(losses, plain))):
+            fails.append(f"bf16 losses {losses} against one device's {plain}")
+        if any(h != layerwise for h in held) or layerwise >= unsplit:
+            fails.append(f"gathered_peak {held} against {layerwise} "
+                         f"(alone {unsplit})")
+        if any(h["gathered_peak"] != unsplit for h in alone) or not all(
+                abs(h["loss"] - w) <= SPMD_BF16_TOL
+                for h, w in zip(alone, plain)):
+            fails.append(f"the run without the split: {alone}")
+        if fails:
+            raise AssertionError("SPMD (e) published: " + "; ".join(fails))
+        return {"step_ms": ms, "median_step_ms": med,
+                "tokens_per_s": tokens / (med * 1e-3), "losses": losses,
+                "single_device_step_ms": one_ms,
+                "single_device_losses": plain,
+                "peak_allocated_bytes": peak,
+                "single_device_peak_bytes": single_peak,
+                "gathered_peak": held, "peak_bytes": layerwise,
+                "unsplit_peak_bytes": unsplit,
+                "traffic": hist[-1]["traffic"],
+                "without_split": {"step_ms": a_ms, "median_step_ms": a_med,
+                                  "peak_allocated_bytes": alone_peak},
+                "launches": launches, "mesh": repr(mesh)}
+
     def spmd_phase(self, arch: str = "h2o_danube_1_8b", parity=(2, 2048),
                    full=(2048, 4, 3)):
         """Phase 16: ``train_loop(mesh=)``, the weights and AdamW's moments
@@ -4939,7 +5211,10 @@ class Smoke:
         ``full`` (sequence, batch, steps) with its ``gathered_peak``, its
         coordinates' flops, the run without the split and two controls;
         (b) the elastic restart; (c) (a) and (b) on distinct cards where
-        there are several; (d) the launcher. Returns the readings."""
+        there are several; (d) the launcher; (e) whisper-large-v3 split:
+        float32 parity with its control, the published config beside one
+        device and the unsplit mesh, the parity on distinct cards where
+        there are several. Returns the readings."""
         import dataclasses
         torch = self.torch
         from repro_torch.configs.base import get_model_config
@@ -4967,6 +5242,13 @@ class Smoke:
             else:
                 self.say("SPMD (c): one card present; the meshes of "
                          "distinct cards are not run")
+            parts += [("e", "whisper_float32", self.spmd_whisper_parity),
+                      ("e", "whisper_published",
+                       self.spmd_whisper_published)]
+            if n_cards > 1:
+                parts.append(("e", "whisper_float32_cards",
+                              lambda: self.spmd_whisper_parity(
+                                  devices=cards, controls=False)))
             for key, name, run in parts:
                 self._run_part("SPMD", f"{key} {name}", name, run, out,
                                took, failed)
@@ -5007,16 +5289,18 @@ class Smoke:
 
     # -- phase 18: serving on a mesh ------------------------------------------
 
-    def _mesh_serve(self, bundle, params, prompt, feed, mesh):
-        """``sharding/serve.py``'s prefill of ``prompt`` and one decode
-        step per token of ``feed`` [B, steps] (teacher forced), on
-        ``mesh``: the weights placed by the train profile (the prefill's)
-        and the decode step on the decode profile, the caches the
-        prefill's. Returns the logits of each row that made a token
-        [steps + 1, B, V], the prefill's and each step's host ms (each
-        call synchronised), the caches (``ShardedTensor``s), the prefill's
-        ``swattn`` launches, and the two functions (their ``traffic`` and
-        ``gathered_peak``)."""
+    def _mesh_serve(self, bundle, params, prompt, feed, mesh,
+                    key: str = "inputs", more=None):
+        """``sharding/serve.py``'s prefill of ``prompt`` (the batch's
+        ``key``, beside the entries of ``more``: whisper's ``dec_tokens``
+        beside ``frames``) and one decode step per token of ``feed`` [B,
+        steps] (teacher forced), on ``mesh``: the weights placed by the
+        train profile (the prefill's) and the decode step on the decode
+        profile, the caches the prefill's. Returns the logits of each row
+        that made a token [steps + 1, B, V], the prefill's and each step's
+        host ms (each call synchronised), the caches (``ShardedTensor``s),
+        the prefill's ``swattn`` launches, and the two functions (their
+        ``traffic`` and ``gathered_peak``)."""
         torch = self.torch
         from repro_torch.sharding import serve
         from repro_torch.sharding.placement import shard_tree
@@ -5030,7 +5314,7 @@ class Smoke:
         torch.cuda.synchronize()
         before = sw.launches
         t0 = time.perf_counter()
-        last, caches = pre(placed, {"inputs": prompt})
+        last, caches = pre(placed, {key: prompt, **(more or {})})
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         launches = sw.launches - before
@@ -5330,6 +5614,216 @@ class Smoke:
             raise AssertionError(f"{name}: " + "; ".join(fails))
         return out
 
+    def _whisper_request(self, bundle, batch: int, frames: int,
+                         prompt_len: int, seed: int, dtype=None):
+        """Weights (in ``dtype``, else float32 with the MLP biases drawn
+        nonzero), ``frames`` frame embeddings a stream and a
+        ``prompt_len``-token decoder prompt, from one seeded generator."""
+        torch = self.torch
+        mc = bundle.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        if dtype is None:
+            params = bundle.init_params(gen)
+            self._whisper_biased(params, seed + 1)
+        else:
+            params = bundle.init_params(gen, dtype)
+        more = {"frames": self._stream_frames(gen, batch, frames,
+                                              mc.d_model)}
+        prompt = torch.randint(0, mc.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        return params, more, prompt
+
+    def serve_mesh_whisper_parity(self, layers=(2, 2), batch: int = 4,
+                                  frames: int = 1500, prompt_len: int = 8,
+                                  steps: int = 16, devices=None,
+                                  controls: bool = True):
+        """(e) float32 (TF32 off): whisper-large-v3 at ``layers`` full
+        width, the MLP biases nonzero, on (data 2, model 2): the mesh
+        prefill (the encoder and the decoder split by heads and MLP
+        columns, each member's cross K/V sent to the members whose frames
+        they fill) and ``steps`` decode steps fed one device's greedy
+        tokens (the 448-slot ring and the cross cache along their
+        sequence), against one device's ``prefill`` / ``decode_step``:
+        the last logits, every step's and every cache leaf gathered whole
+        within relative L2 ``SERVE_MESH_TOL``. Controls that must fail:
+        ``bo`` on every member, the cross cache's blocks in reversed
+        'model' order, one member's cross-attention partial dropped."""
+        torch = self.torch
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("serving on a mesh (e): TF32 must be off")
+        bundle = self._bundle("whisper_large_v3", batch, frames,
+                              encoder_layers=layers[0], num_layers=layers[1],
+                              dtype="float32")
+        params, more, prompt = self._whisper_request(bundle, batch, frames,
+                                                     prompt_len, 33)
+        mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        reset_counts()
+        one, fed, one_ms, one_steps, one_caches, _ = self._serve(
+            bundle, params, prompt, steps, key="dec_tokens", more=more)
+        got = self._mesh_serve(bundle, params, prompt, fed, mesh,
+                               key="dec_tokens", more=more)
+        launches = read_counts()
+        rows = self._rows_rel(got["rows"], one)
+        cache = self._cache_rel(self._gathered_caches(got["caches"]),
+                                one_caches)
+        med, _ = self._steps_summary(got["ms"])
+        self.say(f"serving on a mesh (e) whisper-large-v3 float32, "
+                 f"{layers[0]} + {layers[1]} layers, MLP biases nonzero, "
+                 f"{batch} x {frames} frames, a {prompt_len}-token prompt + "
+                 f"{steps} steps on {mesh}: prefill {got['prefill_ms']!r} ms "
+                 f"(one device {one_ms!r}), decode step median {med!r} ms "
+                 f"(one device {self._steps_summary(one_steps)[0]!r}); "
+                 f"relative L2 against one device: last logits {rows[0]!r}, "
+                 f"steps worst {max(rows[1:])!r}, caches worst {cache!r} "
+                 f"(limit {SERVE_MESH_TOL}); kernel launches {launches}")
+        fails = []
+        if max(rows) > SERVE_MESH_TOL or cache > SERVE_MESH_TOL:
+            fails.append(f"rows {rows}, caches {cache}")
+        if any(launches.values()):
+            fails.append(f"kernel launches {launches}")
+        out = {"rows_rel_l2": rows, "caches_rel_l2": cache,
+               "prefill_ms": got["prefill_ms"],
+               "one_device_prefill_ms": one_ms, "step_ms_median": med,
+               "mesh": repr(mesh)}
+        del got
+        if controls:
+            for label in ("bo on every member",
+                          "cross cache blocks in reversed 'model' order",
+                          "one member's cross-attention partial dropped"):
+                with self._whisper_control(label):
+                    bad = self._mesh_serve(bundle, params, prompt, fed, mesh,
+                                           key="dec_tokens", more=more)
+                b_rows = self._rows_rel(bad["rows"], one)
+                b_cache = self._cache_rel(
+                    self._gathered_caches(bad["caches"]), one_caches)
+                self.say(f"serving on a mesh (e) control, {label}: rows "
+                         f"relative L2 {b_rows!r}, caches {b_cache!r} (must "
+                         f"exceed {SERVE_MESH_TOL})")
+                out[f"control {label}"] = {"rows": b_rows, "caches": b_cache}
+                if max(max(b_rows), b_cache) <= SERVE_MESH_TOL:
+                    fails.append(f"the control '{label}' passes")
+                del bad
+        del params, one_caches
+        self._free("after (e) float32", "serving on a mesh")
+        if fails:
+            raise AssertionError("serving on a mesh (e): " + "; ".join(fails))
+        return out
+
+    def serve_mesh_whisper_published(self, batch: int = 4,
+                                     frames: int = 1500, prompt_len: int = 8,
+                                     steps: int = 32, devices=None):
+        """(e) whisper-large-v3 as published (32 + 32 layers), bf16
+        weights, on (data 2, model 2): a prefill of [batch, frames] frames
+        and a ``prompt_len``-token prompt and ``steps`` decode steps fed
+        one device's greedy tokens, each row within ``LM_TOL`` of one
+        device's and its token the same beyond the margin rule; prefill
+        ms, decode median and p90, tokens/s beside one device and the
+        same mesh without the split, ``gathered_peak`` against
+        ``fsdp.peak_bytes(grads=False)`` of each plan, the moves, peak
+        memory, a profile of one decode step; no kernel launches."""
+        torch = self.torch
+        from repro_torch.sharding import fsdp
+        from repro_torch.sharding.rules import make_ctx
+        from repro_torch.training import spmd
+        bundle = self._bundle("whisper_large_v3", batch, frames)
+        mc = bundle.cfg.model
+        params, more, prompt = self._whisper_request(
+            bundle, batch, frames, prompt_len, 35, torch.bfloat16)
+        mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        kw = {"key": "dec_tokens", "more": more}
+        with saved_counts():
+            bundle.prefill(params, {"dec_tokens": prompt, **more})  # warm-up
+            one, fed, one_ms, one_steps, one_caches, _ = self._serve(
+                bundle, params, prompt, steps, **kw)
+            self._mesh_serve(bundle, params, prompt, fed[:, :1], mesh, **kw)
+        del one_caches
+        self._free("whisper before the mesh run", "serving on a mesh")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        got = self._mesh_serve(bundle, params, prompt, fed, mesh, **kw)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rows = self._rows_rel(got["rows"], one)
+        flipped = self._argmax_held(got["rows"], one)
+        med, p90 = self._steps_summary(got["ms"])
+        one_med, one_p90 = self._steps_summary(one_steps)
+        pre, dec = got["prefill"], got["decode"]
+        tctx, dctx = make_ctx(mesh, "train"), make_ctx(mesh, "decode")
+        plans = {k: fsdp.peak_bytes(bundle.specs, torch.bfloat16,
+                                    spmd.tp_plan(bundle.cfg, c), grads=False)
+                 for k, c in (("prefill", tctx), ("decode", dctx))}
+        held = {"prefill": pre.gathered_peak, "decode": dec.gathered_peak}
+        moves = {k: {kind: {"local": t.local, "moved": t.moved}
+                     for kind, t in f.traffic.items()}
+                 for k, f in (("prefill", pre), ("decode", dec))}
+        name = (f"serving on a mesh (e) {mc.name} ({mc.encoder_layers} + "
+                f"{mc.num_layers} layers)")
+        self.say(f"{name}: {batch} x {frames} frames, a {prompt_len}-token "
+                 f"prompt + {steps} steps, bf16 weights, on {mesh}: prefill "
+                 f"{got['prefill_ms']!r} ms (one device {one_ms!r}); decode "
+                 f"step median {med!r} ms, p90 {p90!r} ms, "
+                 f"{batch / (med * 1e-3)!r} tokens/s (one device {one_med!r}"
+                 f" ms, p90 {one_p90!r}, {batch / (one_med * 1e-3)!r} "
+                 f"tokens/s); relative L2 against one device: last logits "
+                 f"{rows[0]!r}, steps worst {max(rows[1:])!r} (limit "
+                 f"{LM_TOL['bfloat16']}); {flipped} tokens off beyond the "
+                 f"margin rule; peak allocated {peak} B; kernel launches "
+                 f"{launches}")
+        self.say(f"{name}: gathered_peak {held!r} B (fsdp.peak_bytes of the "
+                 f"plans, weights only: {plans!r}); moves a call {moves!r}")
+        end = prompt_len + steps
+        tok = got["rows"][-1].argmax(-1)[:, None]
+        self.profile(f"{name} decode step", lambda: dec(
+            got["placed"], tok, got["caches"], end))
+        out = {"prefill_ms": got["prefill_ms"],
+               "one_device_prefill_ms": one_ms, "step_ms": got["ms"],
+               "step_ms_median": med, "step_ms_p90": p90,
+               "tokens_per_s": batch / (med * 1e-3),
+               "one_device_step_ms_median": one_med,
+               "one_device_tokens_per_s": batch / (one_med * 1e-3),
+               "rows_rel_l2": rows, "gathered_peak": held,
+               "peak_bytes": plans, "moves": moves,
+               "peak_allocated_bytes": peak}
+        del got
+        self._free("whisper after the mesh run", "serving on a mesh")
+        keep = spmd.tp_plan
+        spmd.tp_plan = lambda rc, ctx: None
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with saved_counts():
+                alone = self._mesh_serve(bundle, params, prompt, fed, mesh,
+                                         **kw)
+        finally:
+            spmd.tp_plan = keep
+        a_med, a_p90 = self._steps_summary(alone["ms"])
+        a_rows = self._rows_rel(alone["rows"], one)
+        out["without_split"] = {
+            "prefill_ms": alone["prefill_ms"], "step_ms": alone["ms"],
+            "step_ms_median": a_med, "step_ms_p90": a_p90,
+            "tokens_per_s": batch / (a_med * 1e-3),
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "rows_rel_l2": a_rows}
+        self.say(f"{name} without the split (each rank computes alone): "
+                 f"prefill {alone['prefill_ms']!r} ms, decode step median "
+                 f"{a_med!r} ms, p90 {a_p90!r} ({batch / (a_med * 1e-3)!r} "
+                 f"tokens/s; split / alone {med / a_med!r}), peak "
+                 f"{out['without_split']['peak_allocated_bytes']} B, rows "
+                 f"worst relative L2 {max(a_rows)!r}")
+        del alone, params
+        self._free("whisper done", "serving on a mesh")
+        fails = []
+        if any(launches.values()):
+            fails.append(f"kernel launches {launches}")
+        if max(rows) > LM_TOL["bfloat16"] or flipped:
+            fails.append(f"rows {rows}, {flipped} tokens off")
+        if held != plans:
+            fails.append(f"gathered_peak {held} against {plans}")
+        if max(a_rows) > LM_TOL["bfloat16"]:
+            fails.append(f"without the split: rows {a_rows}")
+        if fails:
+            raise AssertionError(f"{name}: " + "; ".join(fails))
+        return out
+
     def serve_mesh_phase(self, arch: str = "h2o_danube_1_8b",
                          parity=(2, 4, 4608, 16), full=(4, 6144, 32),
                          moe=(4, 2, 2048, 16)):
@@ -5339,8 +5833,11 @@ class Smoke:
         the published h2o-danube-1.8b at ``full`` (batch, prompt, steps),
         (c) qwen3-moe-30b-a3b at ``moe`` (layers, batch, prompt, steps)
         with its experts split, (d) (a) on distinct cards where there are
-        several. Each part runs; a failure is raised at the end. Returns
-        (the readings, the phase's launch counts)."""
+        several, (e) whisper-large-v3: float32 parity with its three
+        controls, the published config beside one device and the unsplit
+        mesh, the parity on distinct cards where there are several. Each
+        part runs; a failure is raised at the end. Returns (the readings,
+        the phase's launch counts)."""
         torch = self.torch
         self._free("start", "serving on a mesh")
         reset_counts()
@@ -5354,14 +5851,20 @@ class Smoke:
             ("c", "qwen3-moe", lambda: self.serve_mesh_model(
                 "qwen3_moe_30b_a3b", *moe[1:], seed=23,
                 num_layers=moe[0], **self._no_drops("qwen3_moe_30b_a3b")))]
+        parts += [("e", "whisper_float32", self.serve_mesh_whisper_parity),
+                  ("e", "whisper_published",
+                   self.serve_mesh_whisper_published)]
         n_cards = torch.cuda.device_count()
         if n_cards > 1:
             cards = [f"cuda:{i % n_cards}" for i in range(4)]
             parts.append(("d", "float32_cards", lambda: self.serve_mesh_parity(
                 arch, layers, B, P, steps, devices=cards, controls=False)))
+            parts.append(("e", "whisper_float32_cards",
+                          lambda: self.serve_mesh_whisper_parity(
+                              devices=cards, controls=False)))
         else:
-            self.say("serving on a mesh (d): one card present; the mesh of "
-                     "distinct cards is not run")
+            self.say("serving on a mesh (d), (e): one card present; the "
+                     "meshes of distinct cards are not run")
         for key, name, run in parts:
             self._run_part("serving on a mesh", f"{key} {name}", name, run,
                            out, took, failed)

@@ -45,8 +45,10 @@ placements and its own step. Per device:
                    coordinate's: the first of its data-parallel rank's
                    group (``sharding/tp.py``), which runs its share of
                    every split product (to decode: its block of the KV
-                   cache, flash-decode) and the parts that run once a
-                   rank; the other members' shares are not run (a probe);
+                   cache, flash-decode; whisper's: its blocks of the
+                   self ring and of the cross cache's frames) and the
+                   parts that run once a rank; the other members' shares
+                   are not run (a probe);
   tp_members       the coordinates of a rank's tensor-parallel group that
                    compute (1: none split);
   all_reduced_bytes_per_device
@@ -324,11 +326,12 @@ def build_cell(rc: RunConfig, mesh, kind: str,
 
 def probe_caches(tree, axes, ctx: shd_rules.ShardingCtx):
     """A rank's caches (``meta``) as its tensor-parallel group's first
-    member holds them: each KV cache as ``attention.KVBlocks`` of the
-    member's block along ``cache_seq`` (the group's spans as the caches
-    are placed), the other leaves whole."""
+    member holds them: each KV cache (whisper's cross cache too, its
+    length from its keys) as ``attention.KVBlocks`` of the member's block
+    along ``cache_seq`` (the group's spans as the caches are placed), the
+    other leaves whole."""
     def kv(t, ax):
-        L = t["pos"].shape[-1]
+        _, _, L = serve_mod.kv_length(t, ax)
         spans: Dict[int, Tuple[int, int]] = {}
         for m, b in enumerate(ctx.tp_blocks((1, L),
                                             ("act_batch", "cache_seq"))):

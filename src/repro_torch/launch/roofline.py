@@ -338,8 +338,9 @@ def collective_bytes(rc: RunConfig, mesh, kind: str,
     those of the weight's float32 gradient to their owners. To train, a
     coordinate does so every microbatch, gathering a stacked leaf a layer
     at a time in forward and again in backward (``sharding/fsdp.py``;
-    whisper's cross K/V weights twice each way, ``whisper.READ_TWICE``)
-    and the other leaves once; and with tensor parallelism each member
+    whisper's cross K/V weights twice each way, ``whisper.READ_TWICE``,
+    and to prefill twice: by ``cross_kv`` and by their decoder layer; a
+    decode step gathers no encoder layer) and the other leaves once; and with tensor parallelism each member
     sends its part of the group's moves over the step: the sums
     (``all_reduce``: to decode, the flash-decode combine's maxima, sums
     and outputs), and, serving, the prefill's keys and values sent to
@@ -353,6 +354,9 @@ def collective_bytes(rc: RunConfig, mesh, kind: str,
     ctx, plan = cell["ctx"], cell["plan"]
     train = kind == "train"
     twice = set(whisper.READ_TWICE) if rc.model.family == "encdec" else ()
+    # a decode step runs no encoder: its layers are never gathered
+    unread = (("encoder",) if rc.model.family == "encdec"
+              and kind == "decode" else ())
     sh_at = tree_paths(shardings)
     specs = tree_paths(cell["specs"])
     # every data-parallel rank's group moves as much as the first's
@@ -363,11 +367,13 @@ def collective_bytes(rc: RunConfig, mesh, kind: str,
     dp = coords // (1 if plan is None else dr.tp_members(plan))
     gathered = scattered = 0
     for path, t in tree_paths(params).items():
+        if path[0] in unread:
+            continue
         sh = sh_at[path]
         regions = plan.get(path) if plan is not None else None
-        passes = 1
+        passes = 2 if path in twice and kind != "decode" else 1
         if train and fsdp.stacked(specs[path]):
-            passes = 4 if path in twice else 2
+            passes *= 2
         for m, at in enumerate(group):
             if regions is None and m:
                 continue            # the first member's, whole

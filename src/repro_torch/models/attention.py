@@ -422,9 +422,11 @@ def decode_attend(q: torch.Tensor, cache, num_heads: int, *, window=None,
     return o.reshape(B, 1, H, hd)
 
 
-def _decode_scores(q, cache, window, softcap, scale, q_pos, sinks):
+def _decode_scores(q, cache, window, softcap, scale, q_pos, sinks,
+                   causal: bool = True):
     """The masked float32 scores [B, KV, G, L] of one query per row
-    against the cache's keys, and its values (dequantised)."""
+    against the cache's keys, and its values (dequantised). ``causal``
+    False: no mask (a cross cache of encoder frames, every key valid)."""
     B, _, H, hd = q.shape
     ck, cv = cache["k"], cache["v"]
     if ck.dtype == torch.int8:
@@ -432,25 +434,31 @@ def _decode_scores(q, cache, window, softcap, scale, q_pos, sinks):
         cv = dequantize_kv(cv, cache["v_scale"], q.dtype)
     KV = ck.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    kv_pos = cache["pos"][None].expand(B, -1)
     qg = q.reshape(B, KV, H // KV, hd)
     s = torch.einsum("bkgd,blkd->bkgl", qg, ck).float() * scale
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
+    if not causal:
+        return s, cv
+    kv_pos = cache["pos"][None].expand(B, -1)
     m = _mask(q_pos, kv_pos, True, window, sinks)          # [B,1,1,L]
     return torch.where(m, s, NEG_INF), cv
 
 
 def decode_partial(q: torch.Tensor, cache, *, window=None,
                    softcap: float = 0.0, scale: Optional[float] = None,
-                   q_pos: torch.Tensor, sinks: int = 0):
+                   q_pos: Optional[torch.Tensor] = None, sinks: int = 0,
+                   causal: bool = True):
     """A member's part of :func:`decode_attend` over its block of the
     cache (flash-decode): its row maxima ``mx`` and sums of exponentials
     ``l`` ([B, KV, G, 1], float32) and its unnormalised output ``o`` =
     exp(s − mx) · v ([B, KV, G, hd], in q's dtype). A block with no key a
     row may attend has ``mx`` = ``NEG_INF``, and the combine scales it
-    to nothing."""
-    s, cv = _decode_scores(q, cache, window, softcap, scale, q_pos, sinks)
+    to nothing. ``causal`` False: every key of the block is attended
+    (whisper's cross-attention over its block of encoder frames, a cache
+    of 'k' and 'v' alone)."""
+    s, cv = _decode_scores(q, cache, window, softcap, scale, q_pos, sinks,
+                           causal)
     mx = s.amax(dim=-1, keepdim=True)
     p_ = torch.exp(s - mx)
     o = torch.einsum("bkgl,blkd->bkgd", p_.to(q.dtype), cv)

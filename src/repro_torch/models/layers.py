@@ -75,9 +75,22 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp2(x: torch.Tensor, params, act=_gelu_tanh) -> torch.Tensor:
+def mlp2(x: torch.Tensor, params, act=_gelu_tanh, tp=None) -> torch.Tensor:
+    """With ``tp`` and the weights as ``tp.Parts``: ``wi`` and ``bi``
+    split by columns, ``wo`` by rows, each member's product from its
+    columns, summed over the members; ``bo`` added once, after the
+    sum."""
+    if isinstance(params["wi"], Parts):
+        y = tp.run(x, params["wi"].members,
+                   lambda m, xm: _mlp2_columns(xm, at(params, m), act))
+    else:
+        y = _mlp2_columns(x, params, act)
+    return y + params["bo"].to(x.dtype)
+
+
+def _mlp2_columns(x: torch.Tensor, params, act) -> torch.Tensor:
     h = act(x @ params["wi"].to(x.dtype) + params["bi"].to(x.dtype))
-    return h @ params["wo"].to(x.dtype) + params["bo"].to(x.dtype)
+    return h @ params["wo"].to(x.dtype)
 
 
 # -- embedding ----------------------------------------------------------------
@@ -150,17 +163,25 @@ def tp_columns(tp, f: int):
                                            for m in members]
 
 
-def mlp_plan(tp, f: int):
-    """The gated MLP's regions at each member (``mlp_specs``' shapes), {}
-    where its columns do not split."""
+def mlp_plan(tp, f: int, gated: bool = True):
+    """The MLP's regions at each member, {} where its columns do not
+    split: the gated MLP's (``mlp_specs``' shapes), or with ``gated``
+    False the ungated ``mlp2``'s (``wi``, ``bi`` and ``wo``; ``bo`` is
+    left whole on the first member, which adds it once)."""
     split = tp_columns(tp, f)
     if split is None:
         return {}
     every = slice(None)
-    out = {k: [None] * tp.n for k in ("wi", "wg", "wo")}
+    cols_of = ("wi", "wg") if gated else ("wi",)
+    out = {k: [None] * tp.n for k in cols_of + ("wo",)}
+    if not gated:
+        out["bi"] = [None] * tp.n
     for m, cols in split:
-        out["wi"][m] = out["wg"][m] = (every, cols)
+        for k in cols_of:
+            out[k][m] = (every, cols)
         out["wo"][m] = (cols, every)
+        if not gated:
+            out["bi"][m] = (cols,)
     return out
 
 

@@ -41,8 +41,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import module as mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whisper_mod
-from repro_torch.models.layers import embed, logits_of
-from repro_torch.training.loss import ce_loss, chunked_ce_from_hidden
+from repro_torch.models.layers import embed, logits_of, unembed
+from repro_torch.sharding.tp import Parts
+from repro_torch.training.loss import (ce_loss, chunked_ce_from_hidden,
+                                       split_ce_loss)
 
 META = "meta_tokens"
 
@@ -225,31 +227,49 @@ def _whisper_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         return torch.arange(T, dtype=torch.int32,
                             device=device)[None].expand(B, T)
 
+    def _decoded(params, batch, remat_policy, tp=None, logits=True):
+        """``batch['frames']`` [B,S_enc,D] through the encoder and its
+        cross K/V, ``batch['dec_tokens']`` [B,T] through the decoder:
+        the logits, or the final hidden states."""
+        frames = torch.as_tensor(batch["frames"], device=device)
+        tokens = torch.as_tensor(batch["dec_tokens"], device=device)
+        enc = whisper_mod.encode(params, frames, mc,
+                                 remat_policy=remat_policy, tp=tp)
+        xkv = whisper_mod.cross_kv(params, enc, mc, tp=tp)
+        B, T = tokens.shape
+        out, _ = whisper_mod.decode(params, tokens, _positions(B, T), xkv,
+                                    mc, remat_policy=remat_policy, tp=tp,
+                                    logits=logits)
+        return out
+
     def train_forward(params, batch, remat_policy: str = "none"):
         """The cache-less forward: ``batch['frames']`` [B,S_enc,D] through
         the encoder, ``batch['dec_tokens']`` [B,T] through the decoder.
         Returns ([B,T,V] logits, a float32 0-d zero: no aux loss)."""
-        frames = torch.as_tensor(batch["frames"], device=device)
-        tokens = torch.as_tensor(batch["dec_tokens"], device=device)
-        enc = whisper_mod.encode(params, frames, mc,
-                                 remat_policy=remat_policy)
-        xkv = whisper_mod.cross_kv(params, enc, mc)
-        B, T = tokens.shape
-        logits, _ = whisper_mod.decode(params, tokens, _positions(B, T), xkv,
-                                       mc, remat_policy=remat_policy)
+        logits = _decoded(params, batch, remat_policy)
         return logits, torch.zeros((), dtype=torch.float32, device=device)
 
     def loss_fn(params, batch, remat_policy: str = "none",
                 loss_chunk: int = 2048, z_loss: float = 0.0,
-                aux_weight: float = 0.01):
+                aux_weight: float = 0.01, tp=None):
         """Mean CE of ``batch['labels']`` [B,T] over the whole logit plane
         (``ce_loss``, as the reference; ``loss_chunk`` and ``aux_weight``
-        are the LM bundle's arguments, unused here). Returns (loss, (0,
-        the count of labels))."""
-        logits, aux = train_forward(params, batch, remat_policy=remat_policy)
+        are the LM bundle's arguments, unused here). ``tp``: the mesh
+        train step's tensor-parallel group; with the tied table split by
+        vocabulary the loss is vocabulary-parallel (``split_ce_loss``:
+        the same function, its sums over the vocabulary blocks). Returns
+        (loss, (0, the count of labels))."""
+        hidden = _decoded(params, batch, remat_policy, tp, logits=False)
         labels = torch.as_tensor(batch["labels"], device=device)
-        loss, denom = ce_loss(logits, labels, z_loss)
-        return loss, (aux, denom)
+        table = params["embed"]["table"]
+        if isinstance(table, Parts):
+            loss, denom = split_ce_loss(hidden, table, labels, z_loss,
+                                        transpose_head=True, tp=tp)
+        else:
+            loss, denom = ce_loss(unembed(hidden, params["embed"]), labels,
+                                  z_loss)
+        return loss, (torch.zeros((), dtype=torch.float32, device=device),
+                      denom)
 
     def cache_init(batch: int, seq_len: int):
         """Empty caches: the decoder's self rings and a zero cross cache
@@ -263,36 +283,42 @@ def _whisper_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         the decoder prompt ``batch['dec_tokens']`` [B,T0] into fresh self
         caches. Returns ([B,V] logits of the prompt's last position,
         {'self', 'cross'}). ``caches`` (serving on a mesh): the empty
-        caches the mesh holds, written in place; whisper has no
-        tensor-parallel plan, so ``tp`` is None."""
-        _no_group(tp)
+        caches the mesh holds, written in place; ``tp`` (with it the
+        caches as ``attention.KVBlocks``): the rank's tensor-parallel
+        group (``whisper.decode``)."""
+        if tp is not None and caches is None:
+            raise ValueError("a prefill on a mesh writes the caches the mesh "
+                             "holds: pass the rank's caches")
         frames = torch.as_tensor(batch["frames"], device=device)
         sot = torch.as_tensor(batch["dec_tokens"], device=device)
-        enc = whisper_mod.encode(params, frames, mc)
-        xkv = whisper_mod.cross_kv(params, enc, mc)
+        enc = whisper_mod.encode(params, frames, mc, tp=tp)
+        xkv = whisper_mod.cross_kv(params, enc, mc, tp=tp, cache=(
+            None if tp is None else caches["cross"]))
         B, T0 = sot.shape
         self_c = (whisper_mod.self_cache_init(mc, B, device=device)
                   if caches is None else caches["self"])
         logits, self_c = whisper_mod.decode(params, sot, _positions(B, T0),
                                             xkv, mc, self_caches=self_c,
-                                            cur=0)
+                                            cur=0, tp=tp)
         if caches is not None:
-            tfm._store(caches["cross"], xkv)
+            if tp is None:
+                tfm._store(caches["cross"], xkv)
             xkv = caches["cross"]
         return logits[:, -1], {"self": self_c, "cross": xkv}
 
     def decode_step(params, inp, caches, cur: int, tp=None):
         """One token per stream: ``inp`` [B,1] at absolute position
         ``cur`` (a Python int), against the cross cache; the self rings
-        are written in place. Returns ([B,V] logits, caches)."""
-        _no_group(tp)
+        are written in place. Returns ([B,V] logits, caches). ``tp``: as
+        ``prefill``'s."""
         cur = operator.index(cur)
         inp = torch.as_tensor(inp, device=device)
         positions = torch.full((inp.shape[0], 1), cur, dtype=torch.int32,
                                device=device)
         logits, _ = whisper_mod.decode(params, inp, positions,
                                        caches["cross"], mc,
-                                       self_caches=caches["self"], cur=cur)
+                                       self_caches=caches["self"], cur=cur,
+                                       tp=tp)
         return logits[:, -1], caches
 
     def cache_abstract(batch: int, seq_len: int):
@@ -332,23 +358,17 @@ def _whisper_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
                        cache_axes=cache_axes, input_specs=input_specs)
 
 
-def _no_group(tp) -> None:
-    if tp is not None:
-        raise ValueError("whisper has no tensor-parallel plan: a mesh "
-                         "serves it with each rank computing alone")
-
-
 def tp_plan(rc: RunConfig, tp):
     """The mesh plan for a tensor-parallel group ``tp``
-    (``transformer.tp_plan``; where the group splits the KV cache's
-    sequence, for caches of ``rc.shape.seq_len`` tokens and the meta
-    tokens), None for whisper, whose layers the port does not split yet
-    (each data-parallel rank computes it whole)."""
-    if rc.model.family == "encdec":
-        return None
+    (``transformer.tp_plan``, whisper's ``whisper.tp_plan``; where the
+    group splits the caches' sequence, for caches of ``rc.shape.seq_len``
+    tokens and the meta tokens, or whisper's cross cache of that many
+    frames)."""
     seq = None
     if "act_kv_seq" in tp.ctx.tp_splits():
         seq = rc.shape.seq_len + rc.model.num_meta_tokens
+    if rc.model.family == "encdec":
+        return whisper_mod.tp_plan(rc.model, tp, seq)
     return tfm.tp_plan(rc.model, tp, seq)
 
 

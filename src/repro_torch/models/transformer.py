@@ -381,57 +381,80 @@ def _prefill_on_blocks(w, h, cos_sin, q_pos, cfg: ModelConfig, window,
     first member), each member's keys and values of the key/value heads
     it is the first to compute sent to every member whose slots they
     fill (``tp.exchange``), and every block's positions written."""
-    S = h.shape[1]
-    dtype = cache.blocks[0]["k"].dtype
-    writes = {j: attn.cache_writes(cache.length, S, cur, sinks, span)
-              for j, span in cache.spans.items()}
-    for j, block in cache.blocks.items():
-        attn.put_entries(block, {"pos": pos[j][1][0]}, writes[j])
-    covered = [0]
-
-    def send(m: int, k: torch.Tensor, v: torch.Tensor, kv_first: int):
-        """Member m's keys and values (key/value heads from ``kv_first``
-        on) into every block, for the heads no earlier member sent."""
-        lo = max(covered[0], kv_first)
-        hi = kv_first + k.shape[2]
-        if lo >= hi:
-            return
-        covered[0] = hi
-        mine = slice(lo - kv_first, hi - kv_first)
-        new = attn.new_entries(k[:, :, mine], v[:, :, mine], dtype)
-        for j in cache.spans:
-            block = cache.blocks.get(j)
-            for dst, src in writes[j]:
-                for name, t in new.items():
-                    part = t[:, src]
-                    part = (tp.exchange(part, m, j) if tp is not None
-                            else part)
-                    if block is not None:
-                        block[name][:, dst, lo:hi].copy_(part)
-
+    sends = Sends(cache, h.shape[1], cur, sinks, tp,
+                  {j: pos[j][1][0] for j in cache.blocks})
     if isinstance(w["wq"], Parts):
         group = cfg.num_heads // cfg.num_kv_heads
         wk = w["wk"]
         out = tp.run(h, w["wq"].members, lambda m, hm: _attention(
             at(w, m), hm, pos[m][0], pos[m][1], cfg, window, softcap=softcap,
             sinks=sinks, first=w["wq"].start(m, 1), group=group,
-            kv_out=lambda k, v: send(m, k, v, wk.start(m, 1))))
-        if tp.probe:        # what the members that do not run would send
-            B, hd = h.shape[0], cfg.resolved_head_dim()
-            per = next(iter(cache.blocks.values()))
-            size = sum(per[n].element_size() * (hd if n in "kv" else 1)
-                       for n in per if n != "pos")
-            for m in w["wq"].members[1:]:
-                lo = max(covered[0], wk.start(m, 1))
-                hi = wk.index[m][1].stop
-                covered[0] = max(covered[0], hi)
-                for j in cache.spans:
-                    if j != m and hi > lo:
-                        n = sum(src.stop - src.start for _, src in writes[j])
-                        tp.exchange_unseen(B * n * (hi - lo) * size, m, j)
+            kv_out=lambda k, v: sends(m, k, v, wk.start(m, 1))))
+        sends.unseen(wk, h.shape[0], cfg.resolved_head_dim())
         return out
     return _attention(w, h, cos_sin, q_pos, cfg, window, softcap=softcap,
-                      sinks=sinks, kv_out=lambda k, v: send(0, k, v, 0))
+                      sinks=sinks, kv_out=lambda k, v: sends(0, k, v, 0))
+
+
+class Sends:
+    """A chunk of ``S`` tokens from position ``cur`` written into a KV
+    cache a tensor-parallel group holds along its sequence
+    (``attention.KVBlocks``): the new positions into every block's 'pos'
+    (``pos``: the positions [S] at each member with a block; a cache of
+    'k' and 'v' alone takes none), and each member's keys and values, of
+    the key/value heads it is the first to compute, sent to every member
+    whose slots they fill (``tp.exchange``)."""
+
+    def __init__(self, cache: "attn.KVBlocks", S: int, cur: int, sinks: int,
+                 tp, pos: Optional[Dict[int, torch.Tensor]] = None):
+        self.cache, self.tp = cache, tp
+        self.dtype = cache.blocks[0]["k"].dtype
+        self.writes = {j: attn.cache_writes(cache.length, S, cur, sinks,
+                                            span)
+                       for j, span in cache.spans.items()}
+        for j, block in cache.blocks.items():
+            if "pos" in block:
+                attn.put_entries(block, {"pos": pos[j]}, self.writes[j])
+        self.covered = 0
+
+    def __call__(self, m: int, k: torch.Tensor, v: torch.Tensor,
+                 kv_first: int) -> None:
+        """Member m's keys and values (key/value heads from ``kv_first``
+        on) into every block, for the heads no earlier member sent."""
+        lo = max(self.covered, kv_first)
+        hi = kv_first + k.shape[2]
+        if lo >= hi:
+            return
+        self.covered = hi
+        mine = slice(lo - kv_first, hi - kv_first)
+        new = attn.new_entries(k[:, :, mine], v[:, :, mine], self.dtype)
+        for j in self.cache.spans:
+            block = self.cache.blocks.get(j)
+            for dst, src in self.writes[j]:
+                for name, t in new.items():
+                    part = t[:, src]
+                    if self.tp is not None:
+                        part = self.tp.exchange(part, m, j)
+                    if block is not None:
+                        block[name][:, dst, lo:hi].copy_(part)
+
+    def unseen(self, wk: Parts, B: int, hd: int) -> None:
+        """A probe's count of what the members it does not run would send
+        (their key/value heads, the regions of the key projection ``wk``
+        [D, KV, hd]), as its own."""
+        if not self.tp.probe:
+            return
+        per = next(iter(self.cache.blocks.values()))
+        size = sum(per[n].element_size() * (hd if n in "kv" else 1)
+                   for n in per if n != "pos")
+        for m in wk.members[1:]:
+            lo = max(self.covered, wk.start(m, 1))
+            hi = wk.index[m][1].stop
+            self.covered = max(self.covered, hi)
+            for j in self.cache.spans:
+                if j != m and hi > lo:
+                    n = sum(src.stop - src.start for _, src in self.writes[j])
+                    self.tp.exchange_unseen(B * n * (hi - lo) * size, m, j)
 
 
 def _decode_on_blocks(w, h, cos_sin, q_pos, cfg: ModelConfig, window,
@@ -449,17 +472,12 @@ def _decode_on_blocks(w, h, cos_sin, q_pos, cfg: ModelConfig, window,
         return _attention(w, h, cos_sin, q_pos, cfg, window,
                           cache.blocks[0], cur, softcap, sinks,
                           span=cache.spans[0], length=cache.length)
-    B = h.shape[0]
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim())
     parts = []
-    live = tp.live(members)
-    for m, hm in zip(live, tp.broadcast(h, members)):
+    for m, hm in zip(tp.live(members), tp.broadcast(h, members)):
         with tp.part(m):
-            wm = at(w, m)
-            q, k, v = attn.qkv_project(hm, wm, cfg.use_qk_norm)
-            cos, sin = pos[m][0]
-            q = rope.apply_rope(q, cos, sin)
-            k = rope.apply_rope(k, cos, sin)
+            q, k, v = attn.qkv_project(hm, at(w, m), cfg.use_qk_norm)
+            q, k = _rope(q, k, pos[m][0])
             block = cache.blocks[m]
             attn.write_cache(block, k, v, cur, pos_new=pos[m][1][0],
                              sinks=sinks, span=cache.spans[m],
@@ -467,12 +485,28 @@ def _decode_on_blocks(w, h, cos_sin, q_pos, cfg: ModelConfig, window,
             parts.append(attn.decode_partial(
                 q, block, window=window, softcap=softcap, scale=scale,
                 q_pos=pos[m][1], sinks=sinks))
+    return combined(w, parts, members, tp, h.dtype)
+
+
+def combined(w, parts, members, tp, dtype) -> torch.Tensor:
+    """The members' partial one-token attention (``decode_partial``)
+    combined (``tp.TP.combine``), each member's rescaled output
+    out-projected with its projections ``w`` and the products summed."""
     outs = []
-    for m, o in zip(live, tp.combine(parts, members)):
+    for m, o in zip(tp.live(members), tp.combine(parts, members)):
         with tp.part(m):
-            o = o.to(h.dtype).reshape(B, 1, cfg.num_heads, -1)
+            o = o.to(dtype).reshape(o.shape[0], 1, -1, o.shape[-1])
             outs.append(attn.out_project(o, at(w, m)))
     return tp.all_reduce(outs, members)
+
+
+def _rope(q: torch.Tensor, k: torch.Tensor, cos_sin):
+    """RoPE on the queries and keys, or none (``cos_sin`` None: whisper,
+    whose positions are added to its inputs)."""
+    if cos_sin is None:
+        return q, k
+    cos, sin = cos_sin
+    return rope.apply_rope(q, cos, sin), rope.apply_rope(k, cos, sin)
 
 
 def _attention(w, h, cos_sin, q_pos, cfg: ModelConfig, window, cache=None,
@@ -485,9 +519,7 @@ def _attention(w, h, cos_sin, q_pos, cfg: ModelConfig, window, cache=None,
     (a prefill on a mesh writes the cache's blocks with them). ``span``
     and ``length``: ``cache`` is that block of a cache's slots."""
     q, k, v = attn.qkv_project(h, w, cfg.use_qk_norm)
-    cos, sin = cos_sin
-    q = rope.apply_rope(q, cos, sin)
-    k = rope.apply_rope(k, cos, sin)
+    q, k = _rope(q, k, cos_sin)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim())
     decode = cache is not None and q.shape[1] == 1
     if kv_out is not None:
@@ -758,6 +790,8 @@ def _remat(block, policy: str):
         tp = ctx.get("tp") if isinstance(ctx, dict) else None
         if tp is None:
             return out
+        if not isinstance(out, tuple):      # whisper's layers: x' alone
+            return tp.recomputed_first(out)
         y, aux = out
         return tp.recomputed_first(y), aux
 

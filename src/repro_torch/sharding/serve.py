@@ -28,12 +28,19 @@ The rank gathers one layer at a time through the mesh step's seam
   attending over its block of the cache and the partials combined
   (``tp.TP.combine``); the MLP, experts and vocabulary split as above.
 
+Whisper splits the same way (``whisper.tp_plan``): to prefill, the
+encoder's and the decoder's heads and the MLP columns, each member's
+cross K/V (its heads over every frame) sent to the members whose block of
+the cross cache holds those frames; to decode, its 448-slot self ring and
+its cross cache both along their sequence, a member's partials over its
+blocks combined.
+
 The norms, residual adds, and the parts the port does not split (mamba,
-mLSTM, sLSTM; whisper has no plan) run on the rank's first coordinate;
-their state caches are gathered there whole for the rank's rows and
-written back to their blocks after the call. A cache whose length does
-not divide 'model' is placed whole on every member (the reference drops
-that mapping) and attended on the first. The logits come back whole on
+mLSTM, sLSTM) run on the rank's first coordinate; their state caches are
+gathered there whole for the rank's rows and written back to their
+blocks after the call. A cache whose length does not divide 'model' is
+placed whole on every member (the reference drops that mapping) and
+attended on the first. The logits come back whole on
 the mesh's first entry, the ranks' rows in order.
 
 On one card whose entries make the mesh, a gather returns an alias of
@@ -87,14 +94,23 @@ def cache_block(x: ShardedTensor, coord: Coord) -> torch.Tensor:
 
 
 def _is_kv(tree) -> bool:
-    return isinstance(tree, dict) and "k" in tree and "pos" in tree
+    return isinstance(tree, dict) and "k" in tree and "v" in tree
+
+
+def kv_length(tree, axes) -> Tuple[str, int, int]:
+    """A KV cache's leaf that its sequence is read from ('pos', or 'k'
+    for a cache of keys and values alone, whisper's cross cache), that
+    leaf's ``cache_seq`` dim, and the cache's length."""
+    name = "pos" if "pos" in tree else "k"
+    dim = axes[name].index("cache_seq")
+    return name, dim, tree[name].shape[dim]
 
 
 def map_cache(tree, axes, fn_kv, fn_leaf):
     """A cache tree (``bundle.cache_axes()``' logical ``axes`` beside it)
     mapped: ``fn_kv(tree, axes)`` of each KV cache (a dict with 'k' and
-    'pos') where ``fn_kv`` is given, else ``fn_leaf(leaf, axes)`` of
-    every leaf."""
+    'v') where ``fn_kv`` is given, else ``fn_leaf(leaf, axes)`` of every
+    leaf."""
     if fn_kv is not None and _is_kv(tree):
         return fn_kv(tree, axes)
     if isinstance(tree, dict):
@@ -138,14 +154,14 @@ class _Rank:
                                                     self.lo + self.rows)
         return tuple(region)
 
-    def kv(self, tree: Dict[str, ShardedTensor], axes=None) -> KVBlocks:
+    def kv(self, tree: Dict[str, ShardedTensor], axes) -> KVBlocks:
         """A KV cache's blocks at the members with a block of their own
-        (their spans from the 'pos' leaf's placement)."""
-        pos = tree["pos"]
-        length = pos.shape[-1]
+        (their spans from the placement of its sequence, ``kv_length``)."""
+        name, dim, length = kv_length(tree, axes)
+        x = tree[name]
         spans: Dict[int, Tuple[int, int]] = {}
         for m, c in enumerate(self.members):
-            lo, hi, _ = pos.sharding.index(c, pos.shape)[-1].indices(length)
+            lo, hi, _ = x.sharding.index(c, x.shape)[dim].indices(length)
             if (lo, hi) not in spans.values():
                 spans[m] = (lo, hi)
         blocks = {m: {k: cache_block(x, self.members[m])

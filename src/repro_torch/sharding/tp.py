@@ -380,6 +380,18 @@ class TP:
                                    self.home)
         return torch.cat(out, dim=dim)
 
+    def apply(self, m: int, xm: torch.Tensor,
+              fn: Callable[[int, torch.Tensor], object]
+              ) -> Tuple[torch.Tensor, ...]:
+        """Member m's part ``fn(m, xm)`` on its input ``xm`` (already at
+        its device), its outputs as a tuple, marked for backward's count
+        where ``marks``."""
+        mark = self.marks(xm)
+        with self.part(m):
+            y = fn(m, self.leave(xm) if mark else xm)
+        ys = y if isinstance(y, tuple) else (y,)
+        return self.enter(m, *ys) if mark else ys
+
     def run(self, x: torch.Tensor, members: Sequence[int],
             fn: Callable[[int, torch.Tensor], object]):
         """Σ over ``members`` of ``fn(m, x at member m)``, on ``home``.
@@ -387,12 +399,7 @@ class TP:
         are the first member's."""
         outs, rest = [], None
         for m, xm in zip(self.live(members), self.broadcast(x, members)):
-            mark = self.marks(xm)
-            with self.part(m):
-                y = fn(m, self.leave(xm) if mark else xm)
-            ys = y if isinstance(y, tuple) else (y,)
-            if mark:
-                ys = self.enter(m, *ys)
+            ys = self.apply(m, xm, fn)
             outs.append(ys[0])
             if rest is None:
                 rest = ys[1:]

@@ -63,10 +63,8 @@ def chunked_ce_from_hidden(hidden: torch.Tensor, head_w,
     split = isinstance(head_w, Parts)
     if S % chunk != 0:                       # fall back: rare, test shapes
         if split:
-            tot, cnt = _split_terms(hidden, head_w, labels, z_loss,
-                                    transpose_head, tp)
-            denom = torch.clamp(cnt, min=1.0)
-            return tot / denom, denom
+            return split_ce_loss(hidden, head_w, labels, z_loss,
+                                 transpose_head, tp)
         logits = _project(hidden, head_w, transpose_head)
         return ce_loss(logits, labels, z_loss)
 
@@ -91,6 +89,18 @@ def chunked_ce_from_hidden(hidden: torch.Tensor, head_w,
                         if remat else body(*args))
         tot = tot + c_tot
         cnt = cnt + c_cnt
+    denom = torch.clamp(cnt, min=1.0)
+    return tot / denom, denom
+
+
+def split_ce_loss(hidden: torch.Tensor, head_w, labels: torch.Tensor,
+                  z_loss: float = 0.0, transpose_head: bool = False,
+                  tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ce_loss`` of the logits ``hidden`` @ head, vocabulary-parallel
+    (module note) and in one piece: the head's blocks as ``tp.Parts``.
+    Returns (loss, denom)."""
+    tot, cnt = _split_terms(hidden, head_w, labels, z_loss, transpose_head,
+                            tp)
     denom = torch.clamp(cnt, min=1.0)
     return tot / denom, denom
 

@@ -39,11 +39,13 @@ and every one of them computes: each gathers its own block of the split
 weights over the other axes only (the model's plan,
 ``registry.tp_plan``) and runs its query heads (with the key/value heads
 they read), its MLP columns, its experts or expert columns, and its
-vocabulary block of the embedding and of the loss; the members' partial
-outputs are summed where the reference's program all-reduces
-(``sharding/tp.py``). The residual stream, the norms, RoPE, the residual
-adds and the layers the port does not split yet (mamba, mLSTM, sLSTM,
-whisper) run once a rank, on its own coordinate. On one card whose
+vocabulary block of the embedding and of the loss (whisper: the heads of
+its encoder's and decoder's attentions, its cross K/V for those heads,
+both stacks' MLP columns and the tied vocabulary, ``whisper.tp_plan``);
+the members' partial outputs are summed where the reference's program
+all-reduces (``sharding/tp.py``). The residual stream, the norms, RoPE,
+the residual adds and the layers the port does not split yet (mamba,
+mLSTM, sLSTM) run once a rank, on its own coordinate. On one card whose
 entries make the mesh, a gather returns an alias of the one stored
 tensor (no copy), the sums and copies move nothing and the
 reduce-scatter adds into views of the owners' accumulators: ``traffic``

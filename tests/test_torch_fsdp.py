@@ -216,10 +216,10 @@ def test_gathered_peak_is_the_specs_reckoning(arch):
     want = fsdp.peak_bytes(bundle.specs, plan=plan)
     assert step.gathered_peak == want
     assert want < fsdp.whole_bytes(bundle.specs, plan=plan)
-    # whisper is not split: every layer whole on the rank's coordinate
+    # every arch splits (whisper too: its heads, MLP columns and
+    # vocabulary), so a coordinate holds less than a rank computing alone
     unsplit = fsdp.peak_bytes(bundle.specs)
-    assert (plan is None) == (arch == "whisper")
-    assert want == unsplit if plan is None else want < unsplit
+    assert plan is not None and want < unsplit
     # the reckoning by hand: the largest layer of any stack and every
     # leaf outside the stacks, float32 weights and gradients
     layer, other = {}, 0
@@ -340,26 +340,25 @@ def test_a_sharded_leading_dim_is_refused():
                                              ("whisper", 2)])
 def test_traffic_equals_the_rooflines_collective_bytes(arch, microbatch):
     """Every microbatch and coordinate that computes (both of each
-    rank's 'model' coordinates, but whisper's, which the port does not
-    split): the stacked leaves gathered in forward and in backward
-    (whisper's cross K/V weights twice each), the other leaves once,
-    every gradient reduce-scattered, and with tensor parallelism the
-    members' parts of the group's sums all-reduced (x 2 on the wire)."""
+    rank's 'model' coordinates, whisper's too): the stacked leaves
+    gathered in forward and in backward (whisper's cross K/V weights
+    twice each), the other leaves once, every gradient reduce-scattered,
+    and with tensor parallelism the members' parts of the group's sums
+    all-reduced (x 2 on the wire)."""
     rc = _rc(ARCHS[arch], "full", microbatch=microbatch)
     step, _, _, _ = _step(rc)
     got = R.collective_bytes(rc, make_mesh((2, 2), ("data", "model"),
                                            ["meta"] * 4), "train")
     t = step.traffic
     n = got["ranks"]
-    assert n == (2 if arch == "whisper" else 4)
+    assert n == 4
     want = {
         "all-gather": (t["gathered"].local + t["gathered"].moved) / n,
         "reduce-scatter": (t["reduce_scattered"].local
-                           + t["reduce_scattered"].moved) / n}
-    if arch != "whisper":
-        want["all-reduce"] = 2 * (t["all_reduced"].local
-                                  + t["all_reduced"].moved) / n
-        assert want["all-reduce"] > 0
+                           + t["reduce_scattered"].moved) / n,
+        "all-reduce": 2 * (t["all_reduced"].local
+                           + t["all_reduced"].moved) / n}
+    assert want["all-reduce"] > 0
     assert got["by_kind"] == want
 
 

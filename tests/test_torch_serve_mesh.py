@@ -633,8 +633,10 @@ def test_the_dry_run_counts_one_coordinate():
 def test_the_unsplit_kinds_serve_as_one_device_does(arch):
     """What the mesh train step leaves whole stays whole: xlstm's layers
     on each rank's first coordinate (its vocabulary split), its states
-    gathered there and written back to their blocks; whisper with no
-    plan (each rank alone, its caches gathered whole for its rows).
+    gathered there and written back to their blocks. Whisper now splits
+    (``whisper.tp_plan``: to prefill its heads, MLP columns and
+    vocabulary, to decode its self ring and cross cache along their
+    sequence) and is held to one device the same way.
     (data 2, model 2) of CPU entries against the port on one device,
     within 1e-5."""
     mc = tiny_of(arch)
@@ -660,7 +662,12 @@ def test_the_unsplit_kinds_serve_as_one_device_does(arch):
         want.append(lg)
     mesh = _mesh((2, 2), ("data", "model"))
     tctx, dctx = make_ctx(mesh, "train"), make_ctx(mesh, "decode")
-    assert (spmd.tp_plan(rc, tctx) is None) == (arch == "whisper_large_v3")
+    plans = [spmd.tp_plan(rc, c) for c in (tctx, dctx)]
+    assert all(p is not None for p in plans)
+    if arch == "whisper_large_v3":
+        assert ("decoder", "cross_attn", "wq") in plans[0]
+        assert plans[1][("decoder", "cross_attn", "wq")] == [
+            (slice(None),) * 4] * 2
     placed = shard_tree(params, tctx.spec_tree_shardings(bundle.specs))
     pre = serve.make_spmd_prefill(bundle, rc, tctx)
     dec = serve.make_spmd_decode_step(bundle, rc, dctx)
