@@ -279,7 +279,8 @@ Phases, in order; any failure exits non-zero:
  14. LM recurrent — the recurrent kinds and the encoder-decoder, which
                 launch no kernel (the reference runs their convs and
                 attention plain): the three counts must stay 0. (a)
-                xlstm-350m as published (21 mLSTM, 3 sLSTM layers), bf16
+                xlstm-350m at full width, 8 of its 24 layers (7 mLSTM,
+                1 sLSTM; ``PUBLISHED_CUT``), bf16
                 weights drawn on the card, the convs scaled to their taps'
                 fan-in (``_conv_at_own_fan_in``: at the spec's std the
                 mLSTM's memory cannot move the logits), 4 x 2048 prompt
@@ -355,8 +356,9 @@ Phases, in order; any failure exits non-zero:
                 reduction taken as a sum, the clip norm counting
                 replicated blocks, the blocks gathered in reversed
                 'model' order (inside the per-layer gather). Then
-                h2o-danube-1.8b as published, bf16 compute on float32
-                master weights, 4 x 2048, 3 steps: step ms and peak
+                h2o-danube-1.8b at full width, 12 of its 24 layers
+                (``PUBLISHED_CUT``), bf16 compute on float32 master
+                weights, 4 x 2048, 3 steps: step ms and peak
                 memory beside one device's and beside the same mesh
                 without the split (each rank computing alone), tokens/s,
                 the bytes a step gathers, reduce-scatters and
@@ -385,13 +387,33 @@ Phases, in order; any failure exits non-zero:
                 on 4 x 1500 frames x 448 tokens, against one device
                 (loss and grad norm within 1e-5, parameters within
                 ``DP_PARAM_TOL``); control: ``bo`` added on every member
-                must fail; then as published (32 + 32 layers), bf16 on
-                float32 masters, 3 steps: step ms, tokens/s, peak,
+                must fail; then at full width, 16 + 16 of its 32 + 32
+                layers (``PUBLISHED_CUT``), bf16 on float32 masters, 3
+                steps: step ms, tokens/s, peak,
                 ``gathered_peak`` against ``fsdp.peak_bytes`` of the
                 plan and the moves, beside one device and the mesh
                 without the split; (e)'s float32 run on distinct cards
-                where there are several. Each part runs; a failure is
-                raised at the end.
+                where there are several. (f) the recurrent layers split
+                over 'model' (``act_ssm``: hymba's mamba part by channels,
+                the mLSTM by channels and heads, the sLSTM by heads and
+                its FFN by columns): float32 (TF32 off) at full width,
+                hymba-1.5b at 2 layers (its meta tokens included) on
+                4 x 1024 and xlstm-350m at 8 (7 mLSTM + 1 sLSTM as
+                published) on 4 x 64 (its sLSTM scan is a Python loop
+                over time), 3 steps, against one device (loss and grad
+                norm within 1e-5, parameters within ``DP_PARAM_TOL``);
+                controls that must fail within their one step: the
+                norms' mean square from a member's own channels, one
+                member's ``out_proj`` / ``down_proj`` partial dropped;
+                then each at full width, its depth cut (hymba 2 of 32
+                layers, xlstm 8 of 24), bf16 on float32 masters, 3 steps
+                on the same sequences: step ms, tokens/s, peak,
+                ``gathered_peak`` against ``fsdp.peak_bytes`` of the plan
+                and the moves, beside one device and the mesh without
+                the split, a profile of one step (the device's activity
+                alone); (f)'s float32 runs on distinct cards where there
+                are several. Each part runs and prints its seconds; a
+                failure is raised at the end.
 
  18. serving on a mesh — ``sharding/serve.py``'s ``make_spmd_prefill``
                 and ``make_spmd_decode_step`` on (data 2, model 2) of
@@ -436,14 +458,34 @@ Phases, in order; any failure exits non-zero:
                 ``SERVE_MESH_TOL`` of one device's; controls that must
                 fail: ``bo`` added on every member, the cross cache's
                 blocks in reversed 'model' order, one member's
-                cross-attention partial dropped. Then as published, bf16
-                weights, 4 x 1500 frames + 32 steps: rows within
+                cross-attention partial dropped. Then at full width, 16
+                + 16 of its 32 + 32 layers, bf16 weights, 4 x 1500
+                frames + 32 steps: rows within
                 ``LM_TOL`` of one device's, prefill ms, decode median
                 and p90, tokens/s beside one device and the mesh without
                 the split, ``gathered_peak`` against
                 ``fsdp.peak_bytes(grads=False)``, the moves, peak
                 memory, a profile of one decode step; (e)'s float32 run
-                on distinct cards where there are several.
+                on distinct cards where there are several. (f) hymba-1.5b
+                (2 layers) and xlstm-350m (8) split over 'model' as in
+                16 (f), their conv states on the members' blocks along
+                ``act_ssm`` and the whole states put together: float32,
+                a 4 x 256 prefill and 16 decode steps fed one device's
+                greedy tokens, every cache leaf within
+                ``SERVE_MESH_TOL`` of one device's and the logits within
+                the larger of it and ``ROUNDING_FLOOR_TIMES`` x how far
+                one device's logits move when every weight moves by one
+                rounding (measured in the run); controls that must fail:
+                the conv-state blocks written back in reversed 'model'
+                order, one member's partial dropped. Then each at full
+                width, its depth cut as in 16 (f), bf16 weights, hymba
+                4 x 1024 + 32 steps, xlstm 4 x 512 + 32: rows no farther
+                from one device's float32 rows than its bf16 rows are,
+                plus ``LM_TOL``; prefill ms, decode median and p90,
+                tokens/s beside one device and the mesh without the
+                split, the idle share and a profile of one decode step;
+                (f)'s float32 runs on distinct cards where there are
+                several.
                 ``python3 chip_smoke.py --serve-mesh`` runs it alone
                 (the ``swattn`` library built alone). Each part runs; a
                 failure is raised at the end.
@@ -459,6 +501,7 @@ The line before the last is the ``kernels`` JSON summary; the last line is
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -582,6 +625,20 @@ PIPE_TOL = {"bfloat16": 4e-2, "float32": 1e-5}
 # of the logits and of every cache leaf (the split products summed in
 # another order)
 SERVE_MESH_TOL = 1e-5
+# Depth cuts of earlier as-published parts, so that the whole run, the
+# recurrent layers' mesh parts (16 (f), 18 (f)) included, fits its time
+# on a slow host (the final run of the tree before them took 1,155 s to
+# the end of phase 18 on one; widths stay as published): phase 16 (a)'s
+# h2o-danube-1.8b (24 layers), phases 16 (e) / 18 (e)'s whisper (32 +
+# 32), phase 14 (a)'s xlstm-350m (24: one sLSTM layer left of three).
+PUBLISHED_CUT = {"spmd_a": 12, "whisper_e": (16, 16), "recurrent_a": 8}
+# Phase 18 (f): a float32 model whose rows move by more than that when
+# every weight moves by one rounding (xlstm-350m at 8 layers: 1.35e-5 on
+# the CPU; its mLSTM's exponential gates and normaliser carry a rounding
+# through) is held to this many times that movement, measured in the
+# same run: the split's float32 partial sums round otherwise than one
+# product, as the reference's partitioned program's do.
+ROUNDING_FLOOR_TIMES = 2
 
 
 def counters():
@@ -1296,16 +1353,19 @@ class Smoke:
                  f"geometry {geo}")
         return row
 
-    def _profiled(self, fn):
+    def _profiled(self, fn, cpu: bool = True):
         """One call of ``fn`` under ``torch.profiler``: ([(device ms,
         launches, name)] of each device operation, the call's wall ms).
-        Its launches are not the main path's."""
+        ``cpu`` False: the device's activity alone (the host's operations
+        not recorded, so a call of 10^5 launches is summed in seconds, not
+        minutes). Its launches are not the main path's."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
+        acts = ([ProfilerActivity.CPU] if cpu else []) + [
+            ProfilerActivity.CUDA]
         with saved_counts():
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=acts) as prof:
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
@@ -1321,17 +1381,17 @@ class Smoke:
                 rows.append((us / 1e3, e.count, e.key))
         return rows, wall_ms
 
-    def profile(self, label: str, fn, top: int = 8, warm: bool = False
-                ) -> None:
+    def profile(self, label: str, fn, top: int = 8, warm: bool = False,
+                cpu: bool = True) -> None:
         """One warm call of ``fn`` under ``torch.profiler`` (``warm``: the
-        caller has run it already, so no call precedes it): the device's
-        busy and idle share of the call's wall time, and the kernels that
-        took the most device time. Its launches are not the main
-        path's."""
+        caller has run it already, so no call precedes it; ``cpu``: as
+        ``_profiled``): the device's busy and idle share of the call's
+        wall time, and the kernels that took the most device time. Its
+        launches are not the main path's."""
         if not warm:
             with saved_counts():
                 fn()
-        rows, wall_ms = self._profiled(fn)
+        rows, wall_ms = self._profiled(fn, cpu)
         if not rows:
             self.say(f"profile {label}: the profiler saw no device time "
                      f"(wall {wall_ms!r} ms)")
@@ -3603,7 +3663,8 @@ class Smoke:
         arch = "xlstm_350m"
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        bundle = self._bundle(arch, batch, prompt_len + steps)
+        bundle = self._bundle(arch, batch, prompt_len + steps,
+                              num_layers=PUBLISHED_CUT["recurrent_a"])
         mc = bundle.cfg.model
         gen = torch.Generator(device="cuda").manual_seed(seed)
         params = bundle.init_params(gen, torch.bfloat16)
@@ -3638,9 +3699,9 @@ class Smoke:
         rows, fed, prefill_ms, ms, caches, _ = self._serve(
             bundle, params, prompt, steps)
         oracle = self._oracle(bundle, params, prompt, fed)
-        truth = self._oracle(self._bundle(arch, batch, prompt_len + steps,
-                                          dtype="float32"),
-                             params, prompt, fed)
+        truth = self._oracle(self._bundle(
+            arch, batch, prompt_len + steps, dtype="float32",
+            num_layers=PUBLISHED_CUT["recurrent_a"]), params, prompt, fed)
         worst, worst_l2, excluded, fails, gap = self._decode_check(
             rows, oracle, truth)
         if fails:
@@ -3670,8 +3731,9 @@ class Smoke:
         from repro_torch.models import transformer
         kinds = [st.kind for st in transformer.make_stages(mc)
                  for _ in range(st.count)]
-        self.say(f"LM recurrent (a) {mc.name} as published ({mc.num_layers} "
-                 f"layers: {kinds.count('mlstm')} mLSTM, "
+        self.say(f"LM recurrent (a) {mc.name} at full width ({mc.num_layers} "
+                 f"of 24 layers, depth cut to fit the run: "
+                 f"{kinds.count('mlstm')} mLSTM, "
                  f"{kinds.count('slstm')} sLSTM): {weights} B of bf16 weights "
                  f"drawn in {init_s!r} s, init peak {init_peak} B; {batch} x "
                  f"{prompt_len} prompt, {steps} greedy steps: prefill "
@@ -4763,7 +4825,8 @@ class Smoke:
         alone_med = statistics.median(alone_ms)
         flops = counted[0]["coord_flops"]
         reduced = hist[-1]["traffic"]["all_reduced"]
-        self.say(f"SPMD (a) {mc.name} train_loop(mesh=) on {mesh}: {n} "
+        self.say(f"SPMD (a) {mc.name} at {mc.num_layers} layers (depth cut "
+                 f"to fit the run) train_loop(mesh=) on {mesh}: {n} "
                  f"parameters, [{batch},{seq}], {mc.dtype} compute; losses "
                  f"{losses!r} (one device {plain!r}); step ms {ms!r}, median "
                  f"{med!r} ({batch * seq / (med * 1e-3)!r} tokens/s; one "
@@ -4841,11 +4904,15 @@ class Smoke:
                                          "one_device": plain[0]},
                 "launches": launches, "mesh": repr(mesh)}
 
-    def spmd_profiles(self, rc, mesh) -> None:
-        """``profile`` lines of one warm step of the mesh step, split over
-        'model' and without the split (``spmd.tp_plan`` returning None),
-        each on fresh weights: the device's busy and idle share and the
-        kernels that took the most device time."""
+    def spmd_profiles(self, rc, mesh, label: str = "(a)",
+                      both: bool = True, cpu: bool = True,
+                      warm: bool = False) -> None:
+        """``profile`` lines of one step of the mesh step (after a warm-up
+        step, unless ``warm``: the caller has run the same shapes), split
+        over 'model' and (``both``) without the split (``spmd.tp_plan``
+        returning None), each on fresh weights: the device's busy and idle
+        share and the kernels that took the most device time (``cpu``: as
+        ``_profiled``)."""
         torch = self.torch
         from repro_torch.data import make_train_batch
         from repro_torch.models import registry
@@ -4855,8 +4922,8 @@ class Smoke:
         from repro_torch.training import spmd
         ctx = make_ctx(mesh, "train")
         keep = spmd.tp_plan
-        for label, plan in (("split", keep), ("without the split",
-                                              lambda rc, ctx: None)):
+        runs = (("split", keep), ("without the split", lambda rc, ctx: None))
+        for which, plan in runs[:2 if both else 1]:
             spmd.tp_plan = plan
             try:
                 bundle = registry.build(rc, device=mesh.devices.flat[0])
@@ -4870,12 +4937,13 @@ class Smoke:
                       for k, s in bundle.input_specs("train").items()}
                 batch = make_train_batch(rc, 0, bundle.device, mesh, bs)
                 step = spmd.make_spmd_train_step(bundle, rc, ctx)
-                self.profile(f"SPMD (a) step {label}",
-                             lambda: step(params, opt, batch), top=12)
+                self.profile(f"SPMD {label} step {which}",
+                             lambda: step(params, opt, batch), top=12,
+                             warm=warm, cpu=cpu)
             finally:
                 spmd.tp_plan = keep
             del bundle, params, opt, batch, step
-            self._free(f"after the profile {label}", "SPMD")
+            self._free(f"after the profile {which}", "SPMD")
 
     def spmd_elastic(self, mc, seq: int = 2048, batch: int = 4,
                      devices=None):
@@ -5113,12 +5181,11 @@ class Smoke:
         import math
         import statistics
         torch = self.torch
-        from repro_torch.configs.base import get_model_config
         from repro_torch.models import registry
         from repro_torch.sharding import fsdp
         from repro_torch.sharding.rules import make_ctx
         from repro_torch.training import spmd
-        mc = get_model_config("whisper_large_v3")
+        mc = self._whisper_cut(PUBLISHED_CUT["whisper_e"])
         rc = self._train_rc(mc, frames, batch, 0)
         mesh = self._mesh_of((2, 2), ("data", "model"), devices)
         specs = registry.build(rc, device="meta").specs
@@ -5158,8 +5225,9 @@ class Smoke:
         losses = [h["loss"] for h in hist]
         plain = [h["loss"] for h in single]
         held = [h["gathered_peak"] for h in hist]
-        self.say(f"SPMD (e) whisper-large-v3 as published ({mc.encoder_layers}"
-                 f" + {mc.num_layers} layers) on {mesh}, [{batch}, {frames}] "
+        self.say(f"SPMD (e) whisper-large-v3 at full width ({mc.encoder_layers}"
+                 f" + {mc.num_layers} of 32 + 32 layers: depth cut to fit the "
+                 f"run) on {mesh}, [{batch}, {frames}] "
                  f"frames x {mc.max_target_positions} tokens, bf16 compute: "
                  f"losses {losses!r} (one device {plain!r}); step ms {ms!r}, "
                  f"median {med!r} ({tokens / (med * 1e-3)!r} decoder "
@@ -5201,6 +5269,286 @@ class Smoke:
                                   "peak_allocated_bytes": alone_peak},
                 "launches": launches, "mesh": repr(mesh)}
 
+    # -- phase 16 (f) and 18 (f): the recurrent layers on a mesh --------------
+
+    # (arch, float32 layers, published layers, the train parts' sequence,
+    # the published serving prompt). Each as-published part cuts its depth
+    # to fit the run's time (on the card, NVIDIA H100 80GB HBM3 at 700 W:
+    # hymba-1.5b's 32-layer split step took 19.5 s, xlstm-350m's 24-layer
+    # one 53.2 s, at 4 x 1024), and xlstm's train parts their sequence:
+    # its sLSTM scan is a Python loop over time, ~4.4 ms a time step a
+    # layer on one device to train.
+    RECURRENT = (("hymba_1_5b", 2, 2, 1024, 1024),
+                 ("xlstm_350m", 8, 8, 64, 512))
+
+    def _recurrent_cut(self, arch: str, layers: int, **fields):
+        import dataclasses
+        from repro_torch.configs.base import get_model_config
+        return dataclasses.replace(get_model_config(arch), num_layers=layers,
+                                   **fields)
+
+    def _recurrent_control(self, name: str):
+        """A context with one of the recurrent split's faults in place: a
+        norm's mean square taken from each member's own channels (no
+        sum); the last member's ``out_proj`` / ``down_proj`` partial
+        dropped from the sum; the conv states' blocks handed to the
+        members in reversed 'model' order (each writing its mirror's
+        block)."""
+        import contextlib
+        torch = self.torch
+        from repro_torch.sharding import serve
+        from repro_torch.sharding import tp as tp_mod
+        if name == "mean square from a member's own channels":
+            def own(tp, parts, members, width):
+                return [(t * t).sum(dim=-1, keepdim=True)
+                        / (width / len(members)) for t in parts]
+            patch = (tp_mod.TP, "mean_square", own)
+        elif name == "one member's partial dropped":
+            def dropped(tp, parts, members):
+                kept = list(parts[:-1]) + [torch.zeros_like(parts[-1])]
+                return tp.all_reduce(kept, members)
+            patch = (tp_mod.TP, "row_sum", dropped)
+        else:
+            keep = serve._Rank.blocks
+
+            def blocks(rank, x, axes):
+                got = keep(rank, x, axes)
+                if got is None:
+                    return None
+                return tp_mod.Parts(got.tensors[::-1], got.index)
+            patch = (serve._Rank, "blocks", blocks)
+
+        @contextlib.contextmanager
+        def patched():
+            obj, attr, fn = patch
+            saved = getattr(obj, attr)
+            setattr(obj, attr, fn)
+            try:
+                yield
+            finally:
+                setattr(obj, attr, saved)
+        return patched()
+
+    def _recurrent_parts(self, parity, published, cards, train: bool):
+        """Phase 16's or 18's (f) parts for each of ``RECURRENT``: the
+        float32 parity, the published run, and the parity on ``cards``
+        (distinct cards) where given, without its controls."""
+        parts = []
+        for arch, layers, cut, seq, prompt in self.RECURRENT:
+            size = {"seq": seq} if train else {}
+            more = ({"seq": seq} if train else {"prompt_len": prompt})
+            parts += [
+                ("f", f"{arch}_float32", functools.partial(
+                    parity, arch, layers, **size)),
+                ("f", f"{arch}_published", functools.partial(
+                    published, arch, cut, **more))]
+            if cards:
+                parts.append(("f", f"{arch}_float32_cards", functools.partial(
+                    parity, arch, layers, devices=cards, controls=False,
+                    **size)))
+        return parts
+
+    def _one_rounding(self, params, seed: int):
+        """``params`` with every weight moved by at most one float32
+        rounding (each times 1 + u, |u| <= 2^-24, drawn from ``seed``)."""
+        torch = self.torch
+        from repro_torch.models.module import tree_map
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return tree_map(lambda t: t * (1 + (torch.rand(
+            t.shape, generator=gen, device=t.device) - 0.5) * 2.0 ** -23),
+            params)
+
+    def _recurrent_splits(self, rc, ctx) -> list:
+        """The recurrent leaves the plan splits (a failure where none)."""
+        from repro_torch.training import spmd
+        plan = spmd.tp_plan(rc, ctx) or {}
+        got = sorted({"/".join(p[1:]) for p in plan
+                      if len(p) > 1 and p[1] in ("mamba", "mlstm", "slstm")
+                      and "ffn" not in p})
+        if not got:
+            raise AssertionError(f"{rc.model.name}: no recurrent leaf splits")
+        return got
+
+    def spmd_recurrent_parity(self, arch: str, layers: int, seq: int = 1024,
+                              batch: int = 4, steps: int = 3, devices=None,
+                              controls: bool = True):
+        """(f) float32 (TF32 off): ``arch`` at ``layers`` full width,
+        ``train_loop(mesh=)`` on (data 2, model 2), its recurrent layers
+        split over 'model', against ``train_loop`` on one device from the
+        same weights and batches; the controls (a norm's mean square from
+        a member's own channels, one member's partial dropped) must fail
+        within their first step, which is all they run."""
+        torch = self.torch
+        from repro_torch.models import registry
+        from repro_torch.models.module import tree_map
+        from repro_torch.sharding.rules import make_ctx
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("SPMD (f): TF32 must be off")
+        rc = self._train_rc(self._recurrent_cut(arch, layers,
+                                                dtype="float32"),
+                            seq, batch, 0)
+        mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        split = self._recurrent_splits(rc, make_ctx(mesh, "train"))
+        start = registry.build(rc, device="cuda").init_params(
+            torch.Generator(device="cuda").manual_seed(41))
+        self._conv_at_own_fan_in(start)
+
+        def fresh():
+            return tree_map(lambda t: t.clone(), start)
+        single = self._train_run(rc, steps, params=fresh())
+        sound = self._train_run(rc, steps, mesh=mesh, params=fresh())
+        r = self._spmd_against(sound, single)
+        mc = rc.model
+        self.say(f"SPMD (f) float32 {mc.name} {layers} layers full width, "
+                 f"[{batch}, {seq}]{self._cut_note(arch, layers, seq)} on "
+                 f"{mesh}, split leaves {split}: {r!r} "
+                 f"against one device (limits: loss and grad norm "
+                 f"{TRAIN_F32_TOL} relative, every step; parameters "
+                 f"{DP_PARAM_TOL} absolute after {steps} steps); losses "
+                 f"{[h['loss'] for h in sound[1]]!r}, single "
+                 f"{[h['loss'] for h in single[1]]!r}; traffic a step "
+                 f"{sound[1][-1]['traffic']!r}")
+        if not self._spmd_holds(r):
+            raise AssertionError(f"SPMD (f) {mc.name}: the mesh run "
+                                 f"differs: {r}")
+        out = {"sound": r, "traffic": sound[1][-1]["traffic"],
+               "split": split, "mesh": repr(mesh)}
+        del sound
+        if controls:
+            h0 = single[1][0]
+            for label in ("mean square from a member's own channels",
+                          "one member's partial dropped"):
+                with self._recurrent_control(label):
+                    g = self._train_run(rc, 1, mesh=mesh,
+                                        params=fresh())[1][0]
+                bad = {k: abs(g[k] - h0[k]) / abs(h0[k])
+                       for k in ("loss", "grad_norm")}
+                self.say(f"SPMD (f) {mc.name} control, {label}, its first "
+                         f"step against one device's: {bad!r}")
+                out[f"control {label}"] = bad
+                if max(bad.values()) <= TRAIN_F32_TOL:
+                    raise AssertionError(f"SPMD (f) {mc.name}: the check "
+                                         f"passes the control '{label}'")
+        del start, single
+        self._free(f"after (f) float32 {mc.name}", "SPMD")
+        return out
+
+    def _cut_note(self, arch: str, layers: int, seq: int,
+                  what: str = "sequence") -> str:
+        """The line's note of a part cut from the published config."""
+        from repro_torch.configs.base import get_model_config
+        full = get_model_config(arch)
+        notes = []
+        if layers != full.num_layers:
+            notes.append(f"depth cut to {layers} of {full.num_layers} layers")
+        if arch == "xlstm_350m" and what == "sequence" and seq < 1024:
+            notes.append(f"sequence cut to {seq}: the sLSTM scan is a "
+                         "Python loop over time")
+        return f" ({'; '.join(notes)})" if notes else ""
+
+    def spmd_recurrent_published(self, arch: str, layers=None,
+                                 seq: int = 1024, batch: int = 4,
+                                 steps: int = 3, devices=None):
+        """(f) ``arch`` as published at full width (``layers``: its depth
+        cut to fit the run), bf16 compute on float32 master weights,
+        [batch, seq], ``train_loop(mesh=)`` on (data 2, model 2) with its
+        recurrent layers split, beside one device and the same mesh
+        without the split: step ms (median of ``steps``), tokens/s, peak
+        memory, ``gathered_peak`` against ``fsdp.peak_bytes`` of the plan,
+        the bytes each step moves, a profile of one step; losses within
+        ``SPMD_BF16_TOL`` of one device's, no kernel launches."""
+        import math
+        import statistics
+        torch = self.torch
+        from repro_torch.models import registry
+        from repro_torch.sharding import fsdp
+        from repro_torch.sharding.rules import make_ctx
+        from repro_torch.training import spmd
+        from repro_torch.configs.base import get_model_config
+        mc = (self._recurrent_cut(arch, layers) if layers
+              else get_model_config(arch))
+        rc = self._train_rc(mc, seq, batch, 0)
+        mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        specs = registry.build(rc, device="meta").specs
+        plan = spmd.tp_plan(rc, make_ctx(mesh, "train"))
+        layerwise = fsdp.peak_bytes(specs, plan=plan)
+        unsplit = fsdp.peak_bytes(specs)
+        self._free(f"before (f) published {mc.name}", "SPMD")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rep, hist, params = self._train_run(rc, steps, mesh=mesh)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        del params, rep
+        self._free(f"after the {mc.name} mesh run", "SPMD")
+        torch.cuda.reset_peak_memory_stats()
+        _, single, p1 = self._train_run(rc, steps)
+        single_peak = torch.cuda.max_memory_allocated()
+        del p1
+        self._free(f"after the {mc.name} one-device run", "SPMD")
+        keep = spmd.tp_plan
+        spmd.tp_plan = lambda rc, ctx: None
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            _, alone, p3 = self._train_run(rc, steps, mesh=mesh)
+        finally:
+            spmd.tp_plan = keep
+        alone_peak = torch.cuda.max_memory_allocated()
+        del p3
+        self._free(f"after the {mc.name} run without the split", "SPMD")
+        tokens = batch * seq
+        ms = [h["ms"] for h in hist]
+        med = statistics.median(ms)
+        one_ms = [h["ms"] for h in single]
+        one_med = statistics.median(one_ms)
+        a_ms = [h["ms"] for h in alone]
+        a_med = statistics.median(a_ms)
+        losses = [h["loss"] for h in hist]
+        plain = [h["loss"] for h in single]
+        held = [h["gathered_peak"] for h in hist]
+        name = (f"SPMD (f) {mc.name} as published"
+                f"{self._cut_note(arch, mc.num_layers, seq)}")
+        self.say(f"{name} on {mesh}, [{batch}, {seq}], bf16 compute: "
+                 f"losses {losses!r} (one device {plain!r}); step ms {ms!r}, "
+                 f"median {med!r} ({tokens / (med * 1e-3)!r} tokens/s); one "
+                 f"device {one_ms!r}, median {one_med!r} (mesh / one device "
+                 f"{med / one_med!r}); without the split {a_ms!r}, median "
+                 f"{a_med!r} (split / alone {med / a_med!r}); peak allocated "
+                 f"{peak} B (one device {single_peak} B, without the split "
+                 f"{alone_peak} B); gathered_peak {held!r} B (fsdp.peak_bytes "
+                 f"of the plan {layerwise} B, a rank computing alone "
+                 f"{unsplit} B); traffic a step {hist[-1]['traffic']!r}; "
+                 f"kernel launches {launches}")
+        self.spmd_profiles(rc, mesh, label=f"(f) {mc.name}", both=False,
+                           cpu=False, warm=True)
+        fails = []
+        if any(launches.values()):
+            fails.append(f"kernel launches {launches}")
+        if not (all(math.isfinite(x) for x in losses) and all(
+                abs(a - b) <= SPMD_BF16_TOL for a, b in zip(losses, plain))):
+            fails.append(f"bf16 losses {losses} against one device's {plain}")
+        if any(h != layerwise for h in held) or layerwise >= unsplit:
+            fails.append(f"gathered_peak {held} against {layerwise} "
+                         f"(alone {unsplit})")
+        if not all(abs(h["loss"] - w) <= SPMD_BF16_TOL
+                   for h, w in zip(alone, plain)):
+            fails.append(f"the run without the split: {alone}")
+        if fails:
+            raise AssertionError(f"{name}: " + "; ".join(fails))
+        return {"seq": seq, "batch": batch, "step_ms": ms,
+                "median_step_ms": med,
+                "tokens_per_s": tokens / (med * 1e-3), "losses": losses,
+                "single_device_step_ms": one_ms,
+                "single_device_losses": plain,
+                "peak_allocated_bytes": peak,
+                "single_device_peak_bytes": single_peak,
+                "gathered_peak": held, "peak_bytes": layerwise,
+                "unsplit_peak_bytes": unsplit,
+                "traffic": hist[-1]["traffic"],
+                "without_split": {"step_ms": a_ms, "median_step_ms": a_med,
+                                  "peak_allocated_bytes": alone_peak},
+                "launches": launches, "mesh": repr(mesh)}
+
     def spmd_phase(self, arch: str = "h2o_danube_1_8b", parity=(2, 2048),
                    full=(2048, 4, 3)):
         """Phase 16: ``train_loop(mesh=)``, the weights and AdamW's moments
@@ -5214,7 +5562,8 @@ class Smoke:
         there are several; (d) the launcher; (e) whisper-large-v3 split:
         float32 parity with its control, the published config beside one
         device and the unsplit mesh, the parity on distinct cards where
-        there are several. Returns the readings."""
+        there are several; (f) hymba-1.5b and xlstm-350m with their
+        recurrent layers split, as (e). Returns the readings."""
         import dataclasses
         torch = self.torch
         from repro_torch.configs.base import get_model_config
@@ -5230,7 +5579,8 @@ class Smoke:
                 ("a", "float32", lambda: self.spmd_parity(cut,
                                                           seq=parity[1])),
                 ("a", "published", lambda: self.spmd_full_width(
-                    published, *full))]
+                    dataclasses.replace(published, num_layers=PUBLISHED_CUT[
+                        "spmd_a"]), *full))]
             n_cards = torch.cuda.device_count()
             if n_cards > 1:
                 cards = [f"cuda:{i % n_cards}" for i in range(4)]
@@ -5249,6 +5599,9 @@ class Smoke:
                 parts.append(("e", "whisper_float32_cards",
                               lambda: self.spmd_whisper_parity(
                                   devices=cards, controls=False)))
+            parts += self._recurrent_parts(
+                self.spmd_recurrent_parity, self.spmd_recurrent_published,
+                cards if n_cards > 1 else None, train=True)
             for key, name, run in parts:
                 self._run_part("SPMD", f"{key} {name}", name, run, out,
                                took, failed)
@@ -5725,7 +6078,9 @@ class Smoke:
         from repro_torch.sharding import fsdp
         from repro_torch.sharding.rules import make_ctx
         from repro_torch.training import spmd
-        bundle = self._bundle("whisper_large_v3", batch, frames)
+        enc, dec_layers = PUBLISHED_CUT["whisper_e"]
+        bundle = self._bundle("whisper_large_v3", batch, frames,
+                              encoder_layers=enc, num_layers=dec_layers)
         mc = bundle.cfg.model
         params, more, prompt = self._whisper_request(
             bundle, batch, frames, prompt_len, 35, torch.bfloat16)
@@ -5757,7 +6112,8 @@ class Smoke:
                      for kind, t in f.traffic.items()}
                  for k, f in (("prefill", pre), ("decode", dec))}
         name = (f"serving on a mesh (e) {mc.name} ({mc.encoder_layers} + "
-                f"{mc.num_layers} layers)")
+                f"{mc.num_layers} of 32 + 32 layers: depth cut to fit the "
+                f"run)")
         self.say(f"{name}: {batch} x {frames} frames, a {prompt_len}-token "
                  f"prompt + {steps} steps, bf16 weights, on {mesh}: prefill "
                  f"{got['prefill_ms']!r} ms (one device {one_ms!r}); decode "
@@ -5824,6 +6180,221 @@ class Smoke:
             raise AssertionError(f"{name}: " + "; ".join(fails))
         return out
 
+    def serve_mesh_recurrent_parity(self, arch: str, layers: int,
+                                    batch: int = 4, prompt_len: int = 256,
+                                    steps: int = 16, devices=None,
+                                    controls: bool = True):
+        """(f) float32 (TF32 off): ``arch`` at ``layers`` full width on
+        (data 2, model 2), its recurrent layers split over 'model' (the
+        conv states on the members' blocks, the whole states put
+        together on a rank's first member): the mesh prefill and
+        ``steps`` decode steps fed one device's greedy tokens, against
+        one device's: the last logits, every step's and every cache leaf
+        gathered whole within relative L2 ``SERVE_MESH_TOL``. Controls
+        that must fail: the conv-state blocks written back in reversed
+        'model' order, one member's partial dropped."""
+        torch = self.torch
+        from repro_torch.sharding.rules import make_ctx
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("serving on a mesh (f): TF32 must be off")
+        bundle = self._bundle(arch, batch, prompt_len + steps + 128,
+                              num_layers=layers, dtype="float32",
+                              use_pallas_attn=False)
+        cfg = bundle.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(43)
+        params = bundle.init_params(gen)
+        self._conv_at_own_fan_in(params)
+        prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        split = self._recurrent_splits(bundle.cfg, make_ctx(mesh, "decode"))
+        reset_counts()
+        one, fed, one_ms, one_steps, one_caches, _ = self._serve(
+            bundle, params, prompt, steps)
+        got = self._mesh_serve(bundle, params, prompt, fed, mesh)
+        launches = read_counts()
+        rows = self._rows_rel(got["rows"], one)
+        cache = self._cache_rel(self._gathered_caches(got["caches"]),
+                                one_caches)
+        med, _ = self._steps_summary(got["ms"])
+        # the float32 rows' own floor: one device's rows with every weight
+        # moved by one rounding (a relative 2^-24 at most), the same tokens
+        floor = max(self._rows_rel(self._serve(
+            bundle, self._one_rounding(params, 47), prompt, steps,
+            feed=fed)[0], one))
+        limit = max(SERVE_MESH_TOL, ROUNDING_FLOOR_TIMES * floor)
+        name = f"serving on a mesh (f) {cfg.name} float32, {layers} layers"
+        self.say(f"{name}, {batch} x {prompt_len} + {steps} on {mesh}, split "
+                 f"leaves {split}: prefill {got['prefill_ms']!r} ms (one "
+                 f"device {one_ms!r}), decode step median {med!r} ms (one "
+                 f"device {self._steps_summary(one_steps)[0]!r}); relative "
+                 f"L2 against one device: last logits {rows[0]!r}, steps "
+                 f"worst {max(rows[1:])!r} (limit {limit!r}: the larger of "
+                 f"{SERVE_MESH_TOL} and {ROUNDING_FLOOR_TIMES} x one "
+                 f"device's rows moved by a rounding of every weight, "
+                 f"{floor!r}), caches worst {cache!r} (limit "
+                 f"{SERVE_MESH_TOL}); moves a decode step "
+                 f"{ {k: t.local + t.moved for k, t in got['decode'].traffic.items()}!r}; "
+                 f"kernel launches {launches}")
+        fails = []
+        if max(rows) > limit or cache > SERVE_MESH_TOL:
+            fails.append(f"rows {rows} (limit {limit}), caches {cache}")
+        if any(launches.values()):
+            fails.append(f"kernel launches {launches}")
+        out = {"rows_rel_l2": rows, "caches_rel_l2": cache,
+               "rounding_floor": floor, "rows_limit": limit,
+               "prefill_ms": got["prefill_ms"],
+               "one_device_prefill_ms": one_ms, "step_ms_median": med,
+               "split": split, "mesh": repr(mesh)}
+        del got
+        if controls:
+            for label in ("conv-state blocks in reversed 'model' order",
+                          "one member's partial dropped"):
+                with self._recurrent_control(label):
+                    bad = self._mesh_serve(bundle, params, prompt, fed, mesh)
+                b_rows = self._rows_rel(bad["rows"], one)
+                b_cache = self._cache_rel(
+                    self._gathered_caches(bad["caches"]), one_caches)
+                self.say(f"{name} control, {label}: rows relative L2 "
+                         f"worst {max(b_rows)!r} (must exceed {limit!r}), "
+                         f"caches {b_cache!r} (or exceed {SERVE_MESH_TOL})")
+                out[f"control {label}"] = {"rows": b_rows, "caches": b_cache}
+                if max(b_rows) <= limit and b_cache <= SERVE_MESH_TOL:
+                    fails.append(f"the control '{label}' passes")
+                del bad
+        del params, one_caches
+        self._free(f"after (f) float32 {cfg.name}", "serving on a mesh")
+        if fails:
+            raise AssertionError(f"{name}: " + "; ".join(fails))
+        return out
+
+    def serve_mesh_recurrent_published(self, arch: str, layers=None,
+                                       batch: int = 4,
+                                       prompt_len: int = 2048,
+                                       steps: int = 32, devices=None):
+        """(f) ``arch`` as published at full width (``layers``: its depth
+        cut to fit the run), bf16 weights, on (data 2, model 2), its
+        recurrent layers split: a ``prompt_len`` prefill and ``steps``
+        decode steps fed one device's greedy tokens; each row no farther
+        (relative L2) from one device's float32 rows on the same weights
+        than one device's bf16 rows are, plus ``LM_TOL``, and its token
+        the same beyond the margin rule (``_decode_check``: hymba's bf16
+        rounding alone moves its logits 3-7% from float32); prefill ms,
+        decode median and p90, tokens/s beside one device and the same
+        mesh without the split, ``gathered_peak`` against
+        ``fsdp.peak_bytes(grads=False)`` of each plan, the moves, peak
+        memory, the idle share and a profile of one decode step; no
+        kernel launches."""
+        torch = self.torch
+        from repro_torch.models.module import tree_map
+        from repro_torch.sharding import fsdp
+        from repro_torch.sharding.rules import make_ctx
+        from repro_torch.training import spmd
+        fields = {"num_layers": layers} if layers else {}
+        bundle = self._bundle(arch, batch, prompt_len + steps + 128,
+                              use_pallas_attn=False, **fields)
+        mc = bundle.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(45)
+        params = bundle.init_params(gen, torch.bfloat16)
+        self._conv_at_own_fan_in(params)
+        prompt = torch.randint(0, mc.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        mesh = self._mesh_of((2, 2), ("data", "model"), devices)
+        with saved_counts():
+            one, fed, one_ms, one_steps, one_caches, _ = self._serve(
+                bundle, params, prompt, steps)
+            self._mesh_serve(bundle, params, prompt, fed[:, :1], mesh)
+            b32 = self._bundle(arch, batch, prompt_len + steps + 128,
+                               use_pallas_attn=False, dtype="float32",
+                               **fields)
+            truth = self._serve(b32, tree_map(lambda t: t.float(), params),
+                                prompt, steps, feed=fed)[0]
+            del b32
+        del one_caches
+        self._free(f"{mc.name} before the mesh run", "serving on a mesh")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        got = self._mesh_serve(bundle, params, prompt, fed, mesh)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rows = self._rows_rel(got["rows"], one)
+        err, _, _, why, gap = self._decode_check(got["rows"], one, truth)
+        med, p90 = self._steps_summary(got["ms"])
+        one_med, one_p90 = self._steps_summary(one_steps)
+        pre, dec = got["prefill"], got["decode"]
+        tctx, dctx = make_ctx(mesh, "train"), make_ctx(mesh, "decode")
+        plans = {k: fsdp.peak_bytes(bundle.specs, torch.bfloat16,
+                                    spmd.tp_plan(bundle.cfg, c), grads=False)
+                 for k, c in (("prefill", tctx), ("decode", dctx))}
+        held = {"prefill": pre.gathered_peak, "decode": dec.gathered_peak}
+        moves = {k: {kind: {"local": t.local, "moved": t.moved}
+                     for kind, t in f.traffic.items()}
+                 for k, f in (("prefill", pre), ("decode", dec))}
+        name = (f"serving on a mesh (f) {mc.name} as published"
+                f"{self._cut_note(arch, mc.num_layers, prompt_len, 'prompt')}")
+        self.say(f"{name}: {batch} x {prompt_len} + {steps} steps, bf16 "
+                 f"weights, on {mesh}: prefill {got['prefill_ms']!r} ms (one "
+                 f"device {one_ms!r}); decode step median {med!r} ms, p90 "
+                 f"{p90!r} ms, {batch / (med * 1e-3)!r} tokens/s (one device "
+                 f"{one_med!r} ms, p90 {one_p90!r}, "
+                 f"{batch / (one_med * 1e-3)!r} tokens/s); relative L2 "
+                 f"against one device's bf16 rows: last logits {rows[0]!r}, "
+                 f"steps worst {max(rows[1:])!r}; against its float32 rows, "
+                 f"beyond the bf16 rows' own distance {gap!r}: worst "
+                 f"{err!r} (limit {LM_TOL['bfloat16']}); peak allocated "
+                 f"{peak} B; kernel launches {launches}")
+        self.say(f"{name}: gathered_peak {held!r} B (fsdp.peak_bytes of the "
+                 f"plans, weights only: {plans!r}); moves a call {moves!r}")
+        end = prompt_len + mc.num_meta_tokens + steps
+        tok = got["rows"][-1].argmax(-1)[:, None]
+        self.profile(f"{name} decode step", lambda: dec(
+            got["placed"], tok, got["caches"], end), cpu=False)
+        out = {"prefill_ms": got["prefill_ms"],
+               "one_device_prefill_ms": one_ms, "step_ms": got["ms"],
+               "step_ms_median": med, "step_ms_p90": p90,
+               "tokens_per_s": batch / (med * 1e-3),
+               "one_device_step_ms_median": one_med,
+               "one_device_tokens_per_s": batch / (one_med * 1e-3),
+               "rows_rel_l2": rows, "beyond_bf16_against_float32": err,
+               "gathered_peak": held, "peak_bytes": plans, "moves": moves,
+               "peak_allocated_bytes": peak}
+        del got
+        self._free(f"{mc.name} after the mesh run", "serving on a mesh")
+        keep = spmd.tp_plan
+        spmd.tp_plan = lambda rc, ctx: None
+        try:
+            with saved_counts():
+                alone = self._mesh_serve(bundle, params, prompt, fed, mesh)
+        finally:
+            spmd.tp_plan = keep
+        a_med, a_p90 = self._steps_summary(alone["ms"])
+        a_rows = self._rows_rel(alone["rows"], one)
+        a_err, _, _, a_why, _ = self._decode_check(alone["rows"], one, truth)
+        out["without_split"] = {
+            "prefill_ms": alone["prefill_ms"], "step_ms": alone["ms"],
+            "step_ms_median": a_med, "step_ms_p90": a_p90,
+            "tokens_per_s": batch / (a_med * 1e-3), "rows_rel_l2": a_rows}
+        self.say(f"{name} without the split (each rank computes alone): "
+                 f"prefill {alone['prefill_ms']!r} ms, decode step median "
+                 f"{a_med!r} ms, p90 {a_p90!r} ({batch / (a_med * 1e-3)!r} "
+                 f"tokens/s; split / alone {med / a_med!r}), rows worst "
+                 f"relative L2 {max(a_rows)!r}, against float32 beyond the "
+                 f"bf16 rows' own {a_err!r}")
+        del alone, params, truth
+        self._free(f"{mc.name} done", "serving on a mesh")
+        fails = []
+        if any(launches.values()):
+            fails.append(f"kernel launches {launches}")
+        if why:
+            fails.append(f"rows: {why}")
+        if held != plans:
+            fails.append(f"gathered_peak {held} against {plans}")
+        if a_why:
+            fails.append(f"without the split: {a_why}")
+        if fails:
+            raise AssertionError(f"{name}: " + "; ".join(fails))
+        return out
+
     def serve_mesh_phase(self, arch: str = "h2o_danube_1_8b",
                          parity=(2, 4, 4608, 16), full=(4, 6144, 32),
                          moe=(4, 2, 2048, 16)):
@@ -5835,9 +6406,12 @@ class Smoke:
         with its experts split, (d) (a) on distinct cards where there are
         several, (e) whisper-large-v3: float32 parity with its three
         controls, the published config beside one device and the unsplit
-        mesh, the parity on distinct cards where there are several. Each
-        part runs; a failure is raised at the end. Returns (the readings,
-        the phase's launch counts)."""
+        mesh, the parity on distinct cards where there are several, (f)
+        hymba-1.5b and xlstm-350m with their recurrent layers split:
+        float32 parity with two controls each, each as published beside
+        one device and the unsplit mesh, the parities on distinct cards
+        where there are several. Each part runs; a failure is raised at
+        the end. Returns (the readings, the phase's launch counts)."""
         torch = self.torch
         self._free("start", "serving on a mesh")
         reset_counts()
@@ -5863,8 +6437,12 @@ class Smoke:
                           lambda: self.serve_mesh_whisper_parity(
                               devices=cards, controls=False)))
         else:
-            self.say("serving on a mesh (d), (e): one card present; the "
+            self.say("serving on a mesh (d), (e), (f): one card present; the "
                      "meshes of distinct cards are not run")
+        parts += self._recurrent_parts(
+            self.serve_mesh_recurrent_parity,
+            self.serve_mesh_recurrent_published,
+            cards if n_cards > 1 else None, train=False)
         for key, name, run in parts:
             self._run_part("serving on a mesh", f"{key} {name}", name, run,
                            out, took, failed)

@@ -102,7 +102,7 @@ from repro_torch.sharding import rules as shd_rules
 from repro_torch.sharding import serve as serve_mod
 from repro_torch.sharding.collectives import TPCounts, Traffic
 from repro_torch.sharding.placement import NamedSharding
-from repro_torch.sharding.tp import TP, Parts
+from repro_torch.sharding.tp import TP, Parts, take_region
 from repro_torch.training import spmd
 from repro_torch.training.spmd import dp_axes
 
@@ -248,12 +248,17 @@ def build_cell(rc: RunConfig, mesh, kind: str,
         plan = spmd.tp_plan(rc, ctx)
     if plan is not None:
         counts = TPCounts(Traffic(), Traffic(), lambda: back["on"],
-                          exchanged=Traffic(), logits=Traffic())
+                          exchanged=Traffic(), logits=Traffic(),
+                          states=Traffic())
         tp = TP(ctx, ["meta"] * ctx.tp_size(), counts, probe=True)
     kw = {} if tp is None else {"tp": tp}
     gathered = fsdp.peak_bytes(bundle.specs, param_dtype, plan,
                                grads=kind == "train")
-    tree = params_ab if plan is None else _split(params_ab, plan)
+    def split():
+        """The probe's tree, its regions taken inside the body (a region
+        of several slices is a new tensor: its read of the argument is
+        recorded there)."""
+        return params_ab if plan is None else _split(params_ab, plan)
     axes = bundle.cache_axes()
     if kind == "train":
         # ZeRO-1: the moments keep the FSDP (data-sharded) layout though
@@ -269,8 +274,7 @@ def build_cell(rc: RunConfig, mesh, kind: str,
         def body():
             for t in tree_leaves(params_ab):
                 t.requires_grad_(True)
-            tree = params_ab if plan is None else _split(params_ab, plan)
-            loss, _ = bundle.loss_fn(tree, _rows(bspecs, rows),
+            loss, _ = bundle.loss_fn(split(), _rows(bspecs, rows),
                                      remat_policy=tc.remat_policy,
                                      loss_chunk=tc.loss_chunk,
                                      z_loss=tc.z_loss, **kw)
@@ -288,7 +292,7 @@ def build_cell(rc: RunConfig, mesh, kind: str,
         def body():
             caches = (None if tp is None else probe_caches(
                 bundle.cache_abstract(rows, S), axes, ctx))
-            logits, caches = bundle.prefill(tree, _rows(bspecs, rows),
+            logits, caches = bundle.prefill(split(), _rows(bspecs, rows),
                                             caches=caches, **kw)
             return logits, probe_tree(caches)
     elif kind == "score":
@@ -313,7 +317,7 @@ def build_cell(rc: RunConfig, mesh, kind: str,
             if tp is not None:
                 view = probe_caches(view, axes, ctx)
             logits, caches = bundle.decode_step(
-                tree, _rows(ispec, rows)["inputs"], view, S - 1, **kw)
+                split(), _rows(ispec, rows)["inputs"], view, S - 1, **kw)
             return logits, probe_tree(caches)
     else:
         raise ValueError(kind)
@@ -328,8 +332,9 @@ def probe_caches(tree, axes, ctx: shd_rules.ShardingCtx):
     """A rank's caches (``meta``) as its tensor-parallel group's first
     member holds them: each KV cache (whisper's cross cache too, its
     length from its keys) as ``attention.KVBlocks`` of the member's block
-    along ``cache_seq`` (the group's spans as the caches are placed), the
-    other leaves whole."""
+    along ``cache_seq`` (the group's spans as the caches are placed), a
+    conv state split along ``act_ssm`` as ``tp.Parts`` of the member's
+    block, the other leaves whole."""
     def kv(t, ax):
         _, _, L = serve_mod.kv_length(t, ax)
         spans: Dict[int, Tuple[int, int]] = {}
@@ -342,13 +347,25 @@ def probe_caches(tree, axes, ctx: shd_rules.ShardingCtx):
         block = {k: v.narrow(ax[k].index("cache_seq"), lo, hi - lo)
                  for k, v in t.items()}
         return KVBlocks({0: block}, spans, L)
-    return serve_mod.map_cache(tree, axes, kv, lambda x, ax: x)
+
+    def leaf(x, ax):
+        if "act_ssm" not in ax:
+            return x
+        blocks = ctx.tp_blocks(x.shape, [a if a == "act_ssm" else None
+                                         for a in ax])
+        if len(TP.members(blocks)) == 1:
+            return x
+        return Parts([x[blocks[0]]] + [None] * (len(blocks) - 1), blocks)
+    return serve_mod.map_cache(tree, axes, kv, leaf)
 
 
 def probe_tree(caches):
-    """The caches a probe's body returns, its KV blocks as tensors."""
+    """The caches a probe's body returns, its KV blocks and conv state
+    blocks as tensors."""
     if isinstance(caches, KVBlocks):
         return caches.blocks[0]
+    if isinstance(caches, Parts):
+        return caches[0]
     if isinstance(caches, dict):
         return {k: probe_tree(v) for k, v in caches.items()}
     if isinstance(caches, (list, tuple)):
@@ -364,7 +381,8 @@ def _split(tree, plan, path=()):
     p = plan.get(path)
     if p is None:
         return tree
-    return Parts([None if ix is None else tree[ix] for ix in p], p)
+    return Parts([None if ix is None else take_region(tree, ix) for ix in p],
+                 p)
 
 
 def tp_members(plan) -> int:

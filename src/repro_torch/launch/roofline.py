@@ -125,6 +125,7 @@ from repro_torch.models.module import tree_leaves, tree_paths
 from repro_torch.models.transformer import make_stages
 from repro_torch.obs.roofline import HBM_BW, PEAK_OPS_PER_S, link_bw
 from repro_torch.sharding import fsdp
+from repro_torch.sharding.tp import region_pieces
 from repro_torch.training import spmd
 from repro_torch.training.spmd import dp_axes
 
@@ -136,7 +137,8 @@ _WIRE_FACTOR = {"all-gather": 1.0, "reduce-scatter": 1.0, "all-reduce": 2.0,
 _LOOPS = ((ssm_mod, "ssd_chunked", "ssd_body"),
           (xlstm_mod, "mlstm_chunkwise", "mlstm_chunk_body"),
           (xlstm_mod, "slstm_scan", "slstm_step"))
-_KEYS = ("flops", "bytes", "unique", "all_reduce", "exchange", "logits")
+_KEYS = ("flops", "bytes", "unique", "all_reduce", "exchange", "logits",
+         "states")
 
 
 class EagerBytes(TorchDispatchMode):
@@ -224,7 +226,8 @@ def _count_body(cell: Dict[str, Any], keep: Optional[int]
     return ({"flops": float(fc.get_total_flops()), "bytes": float(eb.bytes),
              "unique": float(args + out_bytes - 4 * cell["cur"]),
              "all_reduce": moved("all_reduced"),
-             "exchange": moved("exchanged"), "logits": moved("logits")},
+             "exchange": moved("exchanged"), "logits": moved("logits"),
+             "states": moved("states")},
             trips[0] if trips else 0)
 
 
@@ -343,7 +346,11 @@ def collective_bytes(rc: RunConfig, mesh, kind: str,
     decode step gathers no encoder layer) and the other leaves once; and with tensor parallelism each member
     sends its part of the group's moves over the step: the sums
     (``all_reduce``: to decode, the flash-decode combine's maxima, sums
-    and outputs), and, serving, the prefill's keys and values sent to
+    and outputs; the recurrent layers' partial products and the sums of
+    squares of their norms), the recurrent layers' blocks (``states``,
+    an all-gather: the sLSTM's hidden states put together and, serving,
+    the members' blocks of the whole states sent and put back), and,
+    serving, the prefill's keys and values sent to
     the members whose cache slots they fill (``exchange``, an
     all-to-all) and the vocabulary blocks of the logits put together
     (``logits``, an all-gather): the classes' probe count of one rank's
@@ -380,7 +387,9 @@ def collective_bytes(rc: RunConfig, mesh, kind: str,
             index = None if regions is None else regions[m]
             if regions is not None and index is None:
                 continue
-            n = dp * sum(k for _, k in sh.foreign(t.shape, at, index))
+            pieces = [None] if index is None else region_pieces(index)[1]
+            n = dp * sum(k for ix in pieces
+                         for _, k in sh.foreign(t.shape, at, ix))
             gathered += passes * n * t.element_size()
             scattered += n * 4
     by_kind = {}
@@ -396,6 +405,7 @@ def collective_bytes(rc: RunConfig, mesh, kind: str,
         ranks = B // cell["rank_rows"]
         by_kind["all-reduce"] = (moves["all_reduce"] * ranks / coords
                                  * _WIRE_FACTOR["all-reduce"])
+        gathered += moves["states"] * ranks
         if not train:
             gathered += moves["logits"] * ranks
             by_kind["all-to-all"] = (moves["exchange"] * ranks / coords

@@ -32,7 +32,8 @@ and state into its slice of the stage's stacked tensors and returns the
 same tree (the reference returns a new tree; a copy here would rewrite
 the whole cache on every decode step). A recurrent layer's state (the
 conv's last inputs, the ssm carry, xLSTM's memory tuples) is computed
-whole and copied into its slice.
+whole and copied into its slice; on a mesh each member writes its own
+block of a conv state and its heads or channels of the others.
 """
 from __future__ import annotations
 
@@ -187,23 +188,28 @@ def tp_plan(cfg: ModelConfig, tp, seq_len: Optional[int] = None
     ``model_specs(cfg)``, each member's region of the leaf (None where
     the member does not read it), for the leaves whose blocks split at
     the reference's constraint points: the vocabulary (embedding table,
-    head), and in each attention-bearing layer the heads, the MLP's
-    columns and the experts. Where the group splits the KV cache's
+    head), in each attention-bearing layer the heads, the MLP's columns
+    and the experts, and in each recurrent layer its inner dim
+    (``act_ssm``): the channels of hymba's mamba part and of the
+    ``mamba`` kind (``ssm.tp_plan``), the mLSTM's channels and heads
+    (``xlstm.mlstm_plan``), the sLSTM's heads and its FFN's columns
+    (``xlstm.slstm_plan``). Where the group splits the KV cache's
     sequence instead of the heads (the decode profile; ``seq_len``: the
     caches' tokens, meta tokens included), every member with a block of
     a stage's cache reads that stage's attention projections whole. A
     leaf left out is read whole by the group's first member: the norms,
-    hymba's meta tokens and mamba part, the ``mamba``, ``mlstm`` and
-    ``slstm`` kinds, and every part whose dim does not divide the group
-    (the reference drops that mapping too)."""
+    hymba's meta tokens, the sLSTM's conv and norm, and every part whose
+    dim does not divide the group (the reference drops that mapping
+    too)."""
     every = slice(None)
     out: Dict[tuple, list] = {}
 
     def put(path, regions, stacked=False):
         for name, per in regions.items():
-            out[path + (name,)] = [None if ix is None else
-                                   ((every,) + ix if stacked else ix)
-                                   for ix in per]
+            name = name if isinstance(name, tuple) else (name,)
+            out[path + name] = [None if ix is None else
+                                ((every,) + ix if stacked else ix)
+                                for ix in per]
 
     vocab = tp_vocab(tp, cfg.vocab_size)
     if vocab is not None:
@@ -215,9 +221,15 @@ def tp_plan(cfg: ModelConfig, tp, seq_len: Optional[int] = None
         if not cfg.tie_embeddings:
             out[("head", "w")] = cols
     for i, st in enumerate(make_stages(cfg)):
+        key = (f"stage_{i}",)
+        if st.kind in ("hymba", "mamba"):
+            put(key + ("mamba",), ssm_mod.tp_plan(tp, cfg), True)
+        if st.kind == "mlstm":
+            put(key + ("mlstm",), xlstm_mod.mlstm_plan(tp, cfg), True)
+        if st.kind == "slstm":
+            put(key + ("slstm",), xlstm_mod.slstm_plan(tp, cfg), True)
         if st.kind not in ("dense", "moe", "hymba"):
             continue
-        key = (f"stage_{i}",)
         put(key + ("attn",), attn.tp_plan(
             tp, cfg.num_heads, cfg.num_kv_heads, cfg.use_qk_norm,
             None if seq_len is None else stage_cache_len(cfg, st, seq_len)),
@@ -331,6 +343,9 @@ def _store(cache, state) -> None:
     if isinstance(cache, dict):
         for k, v in cache.items():
             _store(v, state[k])
+    elif isinstance(cache, Parts):      # each member's block, its own
+        for m in state.members:
+            cache[m].copy_(state[m])
     elif isinstance(cache, tuple):
         for c, s_ in zip(cache, state, strict=True):
             _store(c, s_)
@@ -591,7 +606,8 @@ def hymba_block(lp, x, ctx, cfg: ModelConfig, cache=None):
                  0.0)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     cm = None if cache is None else cache["mamba"]
-    m, state = ssm_mod.mamba_block(h, lp["mamba"], cfg, state_in=cm)
+    m, state = ssm_mod.mamba_block(h, lp["mamba"], cfg, state_in=cm,
+                                   tp=ctx.get("tp"))
     _store(cm, state)
     x = x + 0.5 * (a + m)
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -602,7 +618,8 @@ def mamba_block(lp, x, ctx, cfg: ModelConfig, cache=None):
     """A pre-norm mamba block (the plain conv, as in the reference); its
     state streams through ``cache``, updated in place."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    y, state = ssm_mod.mamba_block(h, lp["mamba"], cfg, state_in=cache)
+    y, state = ssm_mod.mamba_block(h, lp["mamba"], cfg, state_in=cache,
+                                   tp=ctx.get("tp"))
     _store(cache, state)
     return x + y, 0.0
 
@@ -611,7 +628,8 @@ def mlstm_block(lp, x, ctx, cfg: ModelConfig, cache=None):
     """A pre-norm mLSTM block; conv state and memory stream through
     ``cache``, updated in place."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    y, state = xlstm_mod.mlstm_block(h, lp["mlstm"], cfg, state_in=cache)
+    y, state = xlstm_mod.mlstm_block(h, lp["mlstm"], cfg, state_in=cache,
+                                     tp=ctx.get("tp"))
     _store(cache, state)
     return x + y, 0.0
 
@@ -620,7 +638,8 @@ def slstm_block(lp, x, ctx, cfg: ModelConfig, cache=None):
     """A pre-norm sLSTM block; conv state and (c, n, h, m) stream through
     ``cache``, updated in place."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    y, state = xlstm_mod.slstm_block(h, lp["slstm"], cfg, state_in=cache)
+    y, state = xlstm_mod.slstm_block(h, lp["slstm"], cfg, state_in=cache,
+                                     tp=ctx.get("tp"))
     _store(cache, state)
     return x + y, 0.0
 
@@ -668,9 +687,11 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
     and their blocks run split over the group (``tp_plan``); the rest
     runs on the group's first member. With caches (serving on a mesh,
     ``sharding/serve.py``) each stage's KV cache comes as
-    ``attention.KVBlocks``, the members' blocks of its sequence, and the
-    recurrent state as the rank's whole tensors; the logits are split by
-    vocabulary and put together on the first member.
+    ``attention.KVBlocks``, the members' blocks of its sequence, a conv
+    state the recurrent layers split as ``tp.Parts`` of the members'
+    blocks, and the other recurrent states as the rank's whole tensors;
+    the logits are split by vocabulary and put together on the first
+    member.
     """
     if tp is not None and caches is None and logits:
         raise ValueError("a tensor-parallel forward without caches is the "
@@ -727,6 +748,9 @@ def _layer(tree, i: int):
         return tuple(_layer(v, i) for v in tree)
     if isinstance(tree, attn.KVBlocks):
         return tree.layer(i)
+    if isinstance(tree, Parts):
+        return Parts([None if t is None else t[i] for t in tree.tensors],
+                     [None if ix is None else ix[1:] for ix in tree.index])
     return tree[i]
 
 

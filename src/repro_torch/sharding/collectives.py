@@ -253,12 +253,18 @@ class TPCounts:
     reductions are then copies. Serving adds ``exchanged`` (a prefill's
     keys and values sent to the members whose cache slots they fill: an
     all-to-all) and ``logits`` (the members' vocabulary blocks of the
-    logits assembled on the first member)."""
+    logits assembled on the first member). ``states``: the recurrent
+    layers' blocks (``tp.TP.send`` / ``put`` / ``collect``): a member's
+    channels or heads of a state the rank holds whole, sent to the member
+    and the new ones put back on the first member, and the sLSTM's
+    hidden states assembled there (an all-gather; its gradient's blocks
+    sent back in backward)."""
     all_reduced: Traffic
     copies: Traffic
     recompute: Callable[[], bool] = lambda: False
     exchanged: Optional[Traffic] = None
     logits: Optional[Traffic] = None
+    states: Optional[Traffic] = None
 
 
 def _add(t: Optional[Traffic], x: torch.Tensor, src, dst) -> None:

@@ -59,7 +59,7 @@ from repro_torch.models.module import ParamSpec, tree_paths
 from repro_torch.sharding.collectives import Traffic
 from repro_torch.sharding.mesh import Coord
 from repro_torch.sharding.placement import ShardedTensor
-from repro_torch.sharding.tp import Parts
+from repro_torch.sharding.tp import Parts, region_pieces
 
 GRAD_BYTES = 4          # the gradients are float32
 
@@ -83,11 +83,14 @@ def _regions(path, s: ParamSpec, plan) -> List[Tuple[int, tuple]]:
 
 
 def _region_numel(s: ParamSpec, index) -> int:
-    n = 1
-    for d, sl in zip(s.shape, index):
-        lo, hi, _ = sl.indices(d)
-        n *= hi - lo
-    return n
+    total = 0
+    for piece in region_pieces(tuple(index))[1]:
+        n = 1
+        for d, sl in zip(s.shape, piece):
+            lo, hi, _ = sl.indices(d)
+            n *= hi - lo
+        total += n
+    return total
 
 
 def _per_member(specs, dtype, plan, stacks: bool,
@@ -185,16 +188,25 @@ class Rank:
         """The gather itself (``x``'s layer ``layer``, its region
         ``index``): counted, and held in the ledger (with the gradient it
         will receive, where ``grad``) until its holder releases it."""
-        t = x.gather_layer(self.device, layer, self.traffic["gathered"],
-                           self.at, index)
+        d, pieces = (None, [index]) if index is None else \
+            region_pieces(tuple(index))
+        ts = [x.gather_layer(self.device, layer, self.traffic["gathered"],
+                             self.at, ix) for ix in pieces]
+        t = ts[0] if d is None else torch.cat(ts, dim=d - (layer is not None))
         return t, self.ledger.hold(t, t.nbytes
                                    + grad * GRAD_BYTES * t.numel())
 
     def scatter(self, x: ShardedTensor, layer: Optional[int], index,
                 grad: torch.Tensor) -> None:
-        x.scatter_add(grad, self.accs[id(x)], layer, index)
-        x.count_scatter(self.at, self.traffic["reduce_scattered"],
-                        layer is not None, index)
+        d, pieces = (None, [index]) if index is None else \
+            region_pieces(tuple(index))
+        grads = [grad] if d is None else grad.split(
+            [p[d].indices(x.shape[d])[1] - p[d].indices(x.shape[d])[0]
+             for p in pieces], dim=d - (layer is not None))
+        for ix, g in zip(pieces, grads, strict=True):
+            x.scatter_add(g, self.accs[id(x)], layer, ix)
+            x.count_scatter(self.at, self.traffic["reduce_scattered"],
+                            layer is not None, ix)
 
 
 class Group:

@@ -28,8 +28,9 @@ step (``training/spmd.py``) and its mesh serving functions
 tensor-parallel group at a time, and ask this module where.
 ``tp_axes`` names the group's mesh axes (every axis the batch does not
 take), ``tp_splits`` the constraint points the group splits (train:
-the heads, the MLP's columns, the experts and the vocabulary; decode:
-the KV cache's sequence in place of the heads, flash-decode style), and
+the heads, the MLP's columns, the experts, the vocabulary and the
+recurrent layers' inner dim ``act_ssm``; decode: the KV cache's sequence
+in place of the heads, flash-decode style), and
 ``tp_blocks(shape, axes)`` gives each member's block of the activation a
 constraint point names: ``pspec(shape, axes)`` on those axes, its drops
 included (a dim that does not divide stays whole, and the part is
@@ -193,15 +194,17 @@ class ShardingCtx:
 
     def tp_splits(self) -> Tuple[str, ...]:
         """The constraint points whose activations the group splits: of
-        ``act_heads``, ``act_kv_seq``, ``act_mlp``, ``act_experts`` and
-        ``act_vocab``, those the rules map onto the group's axes. Under
-        ``train``: the heads, the MLP, the experts and the vocabulary;
-        under ``decode``: the KV cache's sequence (the cache lies on the
-        group along ``cache_seq``), the MLP, the experts and the
-        vocabulary, the heads whole."""
+        ``act_heads``, ``act_kv_seq``, ``act_mlp``, ``act_experts``,
+        ``act_vocab`` and ``act_ssm``, those the rules map onto the
+        group's axes. Under ``train``: the heads, the MLP, the experts,
+        the vocabulary and the recurrent layers' inner dim (mamba's and
+        mLSTM's channels, sLSTM's heads); under ``decode``: the KV cache's
+        sequence (the cache lies on the group along ``cache_seq``), the
+        MLP, the experts, the vocabulary and the recurrent inner dim, the
+        heads whole."""
         tp = set(self.tp_axes())
         return tuple(a for a in ("act_heads", "act_kv_seq", "act_mlp",
-                                 "act_experts", "act_vocab")
+                                 "act_experts", "act_vocab", "act_ssm")
                      if tp and _names(self._mesh_axes(a))
                      and set(_names(self._mesh_axes(a))) <= tp)
 

@@ -35,10 +35,18 @@ the cross cache holds those frames; to decode, its 448-slot self ring and
 its cross cache both along their sequence, a member's partials over its
 blocks combined.
 
-The norms, residual adds, and the parts the port does not split (mamba,
-mLSTM, sLSTM) run on the rank's first coordinate; their state caches are
-gathered there whole for the rank's rows and written back to their
-blocks after the call. A cache whose length does not divide 'model' is
+The recurrent layers split over the group by their inner dim
+(``act_ssm``, in both profiles): mamba's channels (hymba's mamba part and
+the ``mamba`` kind), the mLSTM's channels and heads, the sLSTM's heads
+and its FFN's columns, as the mesh train step splits them. Their states
+lie as the reference's ``cache_logical_axes`` place them: the mamba and
+mLSTM conv states along ``act_ssm``, each member reading and writing its
+own block in place (``_Rank.blocks``); the mamba ssm state, the mLSTM
+memory (C, n, m) and the sLSTM state whole, gathered on the rank's first
+coordinate for its rows, each member's heads or channels sent to it and
+the new ones put together there (``states``), and written back to their
+blocks after the call. The norms and residual adds run on the rank's
+first coordinate. A cache whose length does not divide 'model' is
 placed whole on every member (the reference drops that mapping) and
 attended on the first. The logits come back whole on
 the mesh's first entry, the ranks' rows in order.
@@ -65,11 +73,11 @@ from repro_torch.sharding.mesh import Coord, mesh_device
 from repro_torch.sharding.placement import (ShardedTensor, _box, _meet,
                                             _within, shard_tree)
 from repro_torch.sharding.rules import ShardingCtx
-from repro_torch.sharding.tp import TP, CoordFlops
+from repro_torch.sharding.tp import TP, CoordFlops, Parts
 from repro_torch.training import spmd
 
-KINDS = ("gathered", "all_reduced", "exchanged", "logits", "copies",
-         "replicas", "batch")
+KINDS = ("gathered", "all_reduced", "exchanged", "logits", "states",
+         "copies", "replicas", "batch")
 
 
 def cache_shardings(bundle, batch: int, ctx: ShardingCtx):
@@ -196,14 +204,35 @@ class _Rank:
                 dst[_within(part, box)].copy_(src)
         self.states = []
 
+    def blocks(self, x: ShardedTensor, axes):
+        """A recurrent conv state placed along ``act_ssm`` as the members'
+        blocks of the rank's rows (``tp.Parts`` of views of the stored
+        blocks: each member reads and writes its own in place), or None
+        where the placement does not split it over the group."""
+        want = _box(self._region(x, axes), x.shape)
+        dim = axes.index("act_ssm")
+        tensors, index = [], []
+        for c in self.members:
+            box = _box(x.sharding.index(c, x.shape), x.shape)
+            part = _meet(box, want)
+            tensors.append(x.block(c)[_within(part, box)])
+            index.append(tuple(slice(lo, hi) for lo, hi in part))
+        if len({ix[dim] for ix in index}) == 1:
+            return None
+        return Parts(tensors, index)
+
     def caches(self, tree, axes, split: bool):
         """The rank's view of the placed caches (logical ``axes``, the
         bundle's ``cache_axes()``), as the model takes it: with ``split``
         (the rank's group computes together) each KV cache as its
-        members' blocks and the other leaves whole on the first member;
-        else every leaf whole there."""
-        return map_cache(tree, axes, self.kv if split else None,
-                          self.whole)
+        members' blocks, each conv state the placement splits along
+        ``act_ssm`` as its members' blocks (``blocks``), and the other
+        leaves whole on the first member; else every leaf whole there."""
+        def leaf(x, ax):
+            got = (self.blocks(x, ax) if split and "act_ssm" in ax
+                   else None)
+            return self.whole(x, ax) if got is None else got
+        return map_cache(tree, axes, self.kv if split else None, leaf)
 
 
 def _rows_of(x, dev, traffic: Traffic, at: Coord) -> torch.Tensor:
@@ -272,7 +301,8 @@ class _Serving:
                             TPCounts(traffic["all_reduced"],
                                      traffic["copies"],
                                      exchanged=traffic["exchanged"],
-                                     logits=traffic["logits"]),
+                                     logits=traffic["logits"],
+                                     states=traffic["states"]),
                             names=members if flops is not None else None)
                 if flops is not None:
                     flops.default = c
@@ -331,9 +361,12 @@ def make_spmd_prefill(bundle, rc: RunConfig, ctx: ShardingCtx,
     onto the coordinates once, the other leaves once), ``all_reduced``
     (the sums of the split blocks' outputs), ``exchanged`` (keys and
     values to the members whose slots they fill), ``logits`` (the
-    vocabulary blocks put together), ``copies`` (the single controller's
-    own: inputs handed to the members, recurrent states gathered and
-    written back), ``replicas`` (cache blocks to their copies) and
+    vocabulary blocks put together), ``states`` (a member's heads or
+    channels of a whole recurrent state sent to it and the new ones put
+    together on the rank's first member, and the sLSTM's hidden states
+    assembled there), ``copies`` (the single controller's own: inputs
+    handed to the members, recurrent states gathered and written
+    back), ``replicas`` (cache blocks to their copies) and
     ``batch``; ``prefill.gathered_peak`` the most bytes of gathered
     weights a coordinate held at once (``fsdp.peak_bytes(...,
     grads=False)`` of the plan); with ``count_flops``,

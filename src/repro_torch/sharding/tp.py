@@ -26,6 +26,16 @@ stay whole and are computed once a rank, on the group's first member.
   attention over their blocks (their maxima, sums and rescaled outputs),
   and ``assemble`` puts the members' vocabulary blocks of the logits
   together.
+- The recurrent layers (``act_ssm``: mamba's and mLSTM's channels,
+  sLSTM's heads) sum their norms' squares over the members
+  (``mean_square``) and their row-split projections' partials
+  (``row_sum``), send a member its block of a state the rank holds
+  whole (``send``) and put the new blocks back on the first member
+  (``put``), assemble the sLSTM's hidden states there (``collect``) and
+  hand each member its slice of a sum (``scatter``). A weight region may
+  take several slices along one dim (mamba's ``in_proj``: a member's x
+  and z columns and the whole B, C, dt tail; ``region_pieces``,
+  ``take_region``).
 - ``CoordFlops``: ``FlopCounterMode`` with each operation counted under
   the member whose part is running (forward, and its backward, which
   autograd runs between the marks ``run`` puts on the part's input and
@@ -48,10 +58,33 @@ from repro_torch.sharding import collectives as coll
 Index = Tuple[slice, ...]
 
 
+def region_pieces(index: Index) -> Tuple[Optional[int], List[Index]]:
+    """A region whose entry along one dim may be a tuple of slices (its
+    pieces along that dim, in order) as (that dim, or None, and the
+    plain regions of its pieces)."""
+    multi = [d for d, e in enumerate(index) if isinstance(e, tuple)]
+    if not multi:
+        return None, [index]
+    if len(multi) > 1:
+        raise ValueError(f"a region takes several slices along one dim "
+                         f"only: {index}")
+    d = multi[0]
+    return d, [index[:d] + (s,) + index[d + 1:] for s in index[d]]
+
+
+def take_region(t: torch.Tensor, index: Index) -> torch.Tensor:
+    """``t[index]``, its pieces along a dim of several slices
+    concatenated there (``region_pieces``)."""
+    d, pieces = region_pieces(index)
+    if d is None:
+        return t[index]
+    return torch.cat([t[ix] for ix in pieces], dim=d)
+
+
 class Parts:
     """``tensors[i]``: member i's region ``index[i]`` of a weight (the
-    slices of the logical tensor), None where member i does not compute
-    with it."""
+    slices of the logical tensor, ``region_pieces``), None where member
+    i does not compute with it."""
 
     def __init__(self, tensors: Sequence[Optional[torch.Tensor]],
                  index: Sequence[Optional[Index]]):
@@ -169,6 +202,32 @@ class _Unseen(torch.autograd.Function):
         ctx.counts.all_reduced.add(ctx.n * grad.nbytes, grad.device,
                                    grad.device)
         return grad, None, None
+
+
+class _Collect(torch.autograd.Function):
+    """The members' blocks put together along ``dim`` on ``home``,
+    counted under ``traffic``; backward sends each block's gradient back
+    to its member, counted there too."""
+
+    @staticmethod
+    def forward(ctx, home, dim, traffic, *parts):
+        ctx.dim, ctx.traffic = dim, traffic
+        ctx.devices = [p.device for p in parts]
+        ctx.sizes = [p.shape[dim] for p in parts]
+        for p in parts[1:]:
+            if traffic is not None:
+                traffic.add(p.nbytes, p.device, home)
+        return torch.cat([p.to(home) for p in parts], dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = []
+        for i, (g, dev) in enumerate(zip(grad.split(ctx.sizes, ctx.dim),
+                                         ctx.devices)):
+            if i and ctx.traffic is not None:
+                ctx.traffic.add(g.nbytes, g.device, dev)
+            out.append(g.to(dev))
+        return (None, None, None, *out)
 
 
 class _Parents:
@@ -379,6 +438,84 @@ class TP:
             self.counts.logits.add(unseen * parts[0].nbytes, self.home,
                                    self.home)
         return torch.cat(out, dim=dim)
+
+    # -- the recurrent layers' blocks -----------------------------------
+    def mean_square(self, parts: Sequence[torch.Tensor],
+                    members: Sequence[int], width: int
+                    ) -> List[torch.Tensor]:
+        """The mean square over a dim of ``width`` whose blocks ``parts``
+        (float32, by live member) the members hold: their sums of squares
+        ([.., 1]) all-reduced on ``home`` and divided by ``width``, handed
+        back to each live member (a norm over a recurrent layer's whole
+        inner dim)."""
+        sums = self.all_reduce([(t * t).sum(dim=-1, keepdim=True)
+                                for t in parts], members)
+        return self.broadcast(sums / width, members)
+
+    def row_sum(self, parts: Sequence[torch.Tensor],
+                members: Sequence[int]) -> torch.Tensor:
+        """The sum of a row-split projection's partial outputs (a
+        recurrent layer's ``out_proj`` / ``down_proj``), on ``home``."""
+        return self.all_reduce(parts, members)
+
+    def _states(self):
+        return None if self.counts is None else self.counts.states
+
+    def send(self, t: torch.Tensor, m: int) -> torch.Tensor:
+        """``t`` (on ``home``, no gradient: a member's block of a state
+        the rank holds whole) at member m's device, counted under
+        ``states``."""
+        if m and self._states() is not None:
+            self._states().add(t.nbytes, self.home, self.devices[m])
+        return t.to(self.devices[m])
+
+    def put(self, dst: torch.Tensor, t: torch.Tensor, m: int) -> None:
+        """Member m's new block ``t`` of a state the rank holds whole into
+        ``dst`` (its view on ``home``), counted under ``states``."""
+        if m and self._states() is not None:
+            self._states().add(t.nbytes, t.device, self.home)
+        dst.copy_(t)
+
+    def states_unseen(self, nbytes: int, members: Sequence[int]) -> None:
+        """A probe's count of the ``nbytes`` of state blocks each member
+        it does not run would take and give back, as its own."""
+        unseen = len(members) - len(self.live(members))
+        if unseen and self._states() is not None:
+            self._states().add(unseen * nbytes, self.home, self.home)
+
+    def collect(self, parts: Sequence[torch.Tensor], members: Sequence[int],
+                dim: int) -> torch.Tensor:
+        """``members``' blocks of a tensor, in order along ``dim``, put
+        together on ``home`` (their gradients sent back), the members'
+        but the first counted under ``states``. A probe has its first
+        member's block alone: copies of it stand in for the others' (the
+        shape is the whole's), counted as they would be."""
+        unseen = len(members) - len(self.live(members))
+        if unseen:
+            parts = list(parts) + [parts[0]] * unseen
+        if len(parts) == 1:
+            return parts[0]
+        return _Collect.apply(self.home, dim, self._states(), *parts)
+
+    def scatter(self, x: torch.Tensor, blocks: Sequence[Index],
+                members: Sequence[int]) -> List[torch.Tensor]:
+        """Each of ``members``' block ``blocks[m]`` of ``x`` (on ``home``:
+        a sum whose slices the members compute on) at its device, with
+        its gradient sent back: a broadcast of each block to its member
+        alone (``copies`` forward, ``all_reduced`` backward, as
+        ``broadcast``)."""
+        out = []
+        for m in self.live(members):
+            part = x[blocks[m]]
+            if m == 0:
+                out.append(part)
+                continue
+            out.append(coll.broadcast(part, [self.home, self.devices[m]],
+                                      self.counts)[1])
+        unseen = len(members) - len(self.live(members))
+        if unseen and x.requires_grad and self.counts is not None:
+            out[0] = _Unseen.apply(out[0], self.counts, unseen)
+        return out
 
     def apply(self, m: int, xm: torch.Tensor,
               fn: Callable[[int, torch.Tensor], object]

@@ -41,11 +41,15 @@ weights over the other axes only (the model's plan,
 they read), its MLP columns, its experts or expert columns, and its
 vocabulary block of the embedding and of the loss (whisper: the heads of
 its encoder's and decoder's attentions, its cross K/V for those heads,
-both stacks' MLP columns and the tied vocabulary, ``whisper.tp_plan``);
-the members' partial outputs are summed where the reference's program
-all-reduces (``sharding/tp.py``). The residual stream, the norms, RoPE,
-the residual adds and the layers the port does not split yet (mamba,
-mLSTM, sLSTM) run once a rank, on its own coordinate. On one card whose
+both stacks' MLP columns and the tied vocabulary, ``whisper.tp_plan``),
+and the recurrent layers' inner dim (``act_ssm``): its channels of
+hymba's mamba part and of the ``mamba`` kind, of the mLSTM (its heads'
+memory where the channel blocks are whole heads) and its heads of the
+sLSTM, whose FFN splits by columns; the members' partial outputs are
+summed where the reference's program all-reduces (``sharding/tp.py``),
+and so are the sums of squares of the recurrent layers' norms. The
+residual stream, the norms, RoPE, the residual adds and the sLSTM's conv
+and norm run once a rank, on its own coordinate. On one card whose
 entries make the mesh, a gather returns an alias of the one stored
 tensor (no copy), the sums and copies move nothing and the
 reduce-scatter adds into views of the owners' accumulators: ``traffic``
@@ -150,7 +154,9 @@ def make_spmd_train_step(bundle, rc: RunConfig, ctx: ShardingCtx,
     microbatch and coordinate), ``all_reduced`` (tensor parallelism's
     sums: one of a split block's output in forward and one of its
     input's gradient in backward, ``sharding/collectives.py``),
-    ``copies`` (the single controller's own copies of a replicated
+    ``states`` (the sLSTM's hidden states put together on a rank's first
+    member from its members' heads, and their gradient's blocks sent
+    back), ``copies`` (the single controller's own copies of a replicated
     tensor), ``replicas`` (updated blocks to their copies) and ``batch``;
     and ``step.gathered_peak`` the most bytes of gathered weights and
     their float32 gradients a coordinate held at once (``fsdp.peak_bytes``
@@ -179,7 +185,7 @@ def make_spmd_train_step(bundle, rc: RunConfig, ctx: ShardingCtx,
 
     def step(params, opt_state: AdamWState, batch: Dict[str, ShardedTensor]):
         traffic = {k: Traffic() for k in ("gathered", "reduce_scattered",
-                                          "all_reduced", "copies",
+                                          "all_reduced", "states", "copies",
                                           "replicas", "batch")}
         leaves = tree_leaves(params)
         at_path = tree_paths(params)
@@ -226,7 +232,8 @@ def make_spmd_train_step(bundle, rc: RunConfig, ctx: ShardingCtx,
                 kw["tp"] = TP(ctx, [mesh.device(m) for m in members],
                               TPCounts(traffic["all_reduced"],
                                        traffic["copies"],
-                                       lambda: group.in_backward),
+                                       lambda: group.in_backward,
+                                       states=traffic["states"]),
                               names=members if flops is not None else None)
             sub = {k: v[lo:lo + rows] for k, v in data[dev].items()}
             count = (sub["labels"] != IGNORE).sum().float()

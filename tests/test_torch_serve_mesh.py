@@ -522,9 +522,9 @@ def test_decode_group_and_splits():
     train, decode = make_ctx(mesh, "train"), make_ctx(mesh, "decode")
     assert train.tp_axes() == decode.tp_axes() == ("model",)
     assert train.tp_splits() == ("act_heads", "act_mlp", "act_experts",
-                                 "act_vocab")
+                                 "act_vocab", "act_ssm")
     assert decode.tp_splits() == ("act_kv_seq", "act_mlp", "act_experts",
-                                  "act_vocab")
+                                  "act_vocab", "act_ssm")
     for prof in ("train_sp", "kv_seq", "dp_only"):
         assert make_ctx(mesh, prof).tp_axes() == ()
         assert make_ctx(mesh, prof).tp_splits() == ()
