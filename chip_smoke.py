@@ -412,8 +412,28 @@ Phases, in order; any failure exits non-zero:
                 and the moves, beside one device and the mesh without
                 the split, a profile of one step (the device's activity
                 alone); (f)'s float32 runs on distinct cards where there
-                are several. Each part runs and prints its seconds; a
-                failure is raised at the end.
+                are several. (g) sequence parallelism (``train_sp``: the
+                residual stream on the members' tokens, the split blocks
+                on the gathered sequence, their outputs reduce-scattered)
+                and context parallelism (``kv_seq``: each member attends
+                every query over its block of the keys, the partials
+                combined): float32 (TF32 off) at full width,
+                h2o-danube-1.8b at 2 layers and gemma3-4b at its first 6
+                (a local and a global layer), 4 x 1024, 3 steps under
+                each profile against one device (loss and grad norm
+                within 1e-5, parameters within ``DP_PARAM_TOL``);
+                controls that must fail within their one step: under
+                ``kv_seq`` one member's partial dropped from the combine,
+                a member's key positions taken block-local; under
+                ``train_sp`` a block's reduce-scatter replaced by the
+                member's own partial. Then h2o-danube-1.8b at (a)'s
+                published cut, bf16 on float32 masters, 4 x 4096, 3
+                steps under each profile beside ``train`` and one
+                device: step ms, tokens/s, peak, ``gathered_peak``
+                against ``fsdp.peak_bytes`` of each profile's plan, the
+                bytes of each collective, the idle share of one profiled
+                step. Each part runs and prints its seconds; a failure
+                is raised at the end.
 
  18. serving on a mesh — ``sharding/serve.py``'s ``make_spmd_prefill``
                 and ``make_spmd_decode_step`` on (data 2, model 2) of
@@ -485,7 +505,17 @@ Phases, in order; any failure exits non-zero:
                 tokens/s beside one device and the mesh without the
                 split, the idle share and a profile of one decode step;
                 (f)'s float32 runs on distinct cards where there are
-                several.
+                several. (g) the prefill under ``train_sp`` and
+                ``kv_seq`` (a member's keys into its own cache block
+                where the slots coincide, the rest sent): float32
+                h2o-danube-1.8b (2 layers) and gemma3-4b (6), 4 x 512 +
+                4 decode steps from its caches (the decode profile),
+                rows and every cache leaf within ``SERVE_MESH_TOL`` of
+                one device's; h2o-danube-1.8b at 16 (a)'s published cut,
+                bf16, gate on, 4 x 4096: prefill ms beside one device,
+                rows within ``LM_TOL``, ``swattn`` launches (layers x 4
+                under ``train_sp``: each member on its heads; none under
+                ``kv_seq``, whose partials run the plain attention).
                 ``python3 chip_smoke.py --serve-mesh`` runs it alone
                 (the ``swattn`` library built alone). Each part runs; a
                 failure is raised at the end.
@@ -1382,12 +1412,13 @@ class Smoke:
         return rows, wall_ms
 
     def profile(self, label: str, fn, top: int = 8, warm: bool = False,
-                cpu: bool = True) -> None:
+                cpu: bool = True):
         """One warm call of ``fn`` under ``torch.profiler`` (``warm``: the
         caller has run it already, so no call precedes it; ``cpu``: as
         ``_profiled``): the device's busy and idle share of the call's
         wall time, and the kernels that took the most device time. Its
-        launches are not the main path's."""
+        launches are not the main path's. Returns the idle share (None
+        where the profiler saw no device time)."""
         if not warm:
             with saved_counts():
                 fn()
@@ -1395,7 +1426,7 @@ class Smoke:
         if not rows:
             self.say(f"profile {label}: the profiler saw no device time "
                      f"(wall {wall_ms!r} ms)")
-            return
+            return None
         busy = sum(r[0] for r in rows)
         self.say(f"profile {label}: wall {wall_ms!r} ms (profiled), device "
                  f"busy {busy!r} ms, idle share {1 - busy / wall_ms!r}, "
@@ -1404,6 +1435,7 @@ class Smoke:
         for ms, count, key in sorted(rows, reverse=True)[:top]:
             self.say(f"profile {label}:   {ms!r} ms ({ms / busy:.3f} of "
                      f"busy) x{count} {key[:90]}")
+        return 1 - busy / wall_ms
 
     # -- phase 6 -------------------------------------------------------------
 
@@ -5549,6 +5581,379 @@ class Smoke:
                                   "peak_allocated_bytes": alone_peak},
                 "launches": launches, "mesh": repr(mesh)}
 
+    # -- phases 16 (g) and 18 (g): sequence and context parallelism --------
+
+    def _seq_run(self, rc, steps: int, mesh, profile: str, params,
+                 flops: bool = False):
+        """``make_spmd_train_step`` under ``profile`` (``train``,
+        ``train_sp`` or ``kv_seq``) on ``mesh`` for ``steps`` steps from
+        ``params`` (a tree on the card, placed by the profile and updated
+        in place), the batches ``train_loop``'s: every step's metrics as
+        floats, its wall ms (the mesh's cards synchronised before and
+        after), traffic and ``gathered_peak``. Returns (the records, the
+        placed parameters, a call of one more step for a profile)."""
+        torch = self.torch
+        from repro_torch.data import make_train_batch
+        from repro_torch.models import registry
+        from repro_torch.optim import adamw_init
+        from repro_torch.sharding.placement import shard_tree
+        from repro_torch.sharding.rules import make_ctx
+        from repro_torch.training import spmd
+        ctx = make_ctx(mesh, profile)
+        bundle = registry.build(rc, device=mesh.devices.flat[0])
+        placed = shard_tree(params, ctx.spec_tree_shardings(bundle.specs))
+        opt = adamw_init(placed)
+        bs = {k: ctx.sharding(s.shape, ("act_batch",) + (None,) * (
+            s.ndim - 1)) for k, s in bundle.input_specs("train").items()}
+        step = spmd.make_spmd_train_step(bundle, rc, ctx, flops)
+        cards = mesh.distinct_devices()
+        hist = []
+        for i in range(steps):
+            batch = make_train_batch(rc, i, bundle.device, mesh, bs)
+            for c in cards:
+                torch.cuda.synchronize(c)
+            t0 = time.perf_counter()
+            placed, opt, m = step(placed, opt, batch)
+            for c in cards:
+                torch.cuda.synchronize(c)
+            rec = {k: float(v) for k, v in m.items()}
+            rec["ms"] = (time.perf_counter() - t0) * 1e3
+            rec["traffic"] = {k: {"moved": t.moved, "local": t.local}
+                              for k, t in step.traffic.items()}
+            rec["gathered_peak"] = step.gathered_peak
+            if flops:
+                rec["coord_flops"] = {str(c): f for c, f in
+                                      step.coord_flops.items()}
+            hist.append(rec)
+
+        def again():
+            step(placed, opt, batch)
+        return hist, placed, again
+
+    def _seq_control(self, label: str):
+        """A fault of phase (g)'s controls, applied while the context is
+        open: under ``kv_seq`` one member's partial dropped from the
+        combine, or a member's key positions taken block-local; under
+        ``train_sp`` a block's reduce-scatter replaced by each member's
+        own partial."""
+        import contextlib
+        from repro_torch.models import attention as attn
+        from repro_torch.sharding import tp as tp_mod
+        real_combine = tp_mod.TP.combine
+        real_partial = attn.attend_partial
+
+        def dropped(tp, parts, members):
+            out = real_combine(tp, parts, members)
+            return [o * 0 if k == len(out) - 1 else o
+                    for k, o in enumerate(out)]
+
+        def local(q, k, v, q_pos, kv_pos, **kw):
+            return real_partial(q, k, v, q_pos, kv_pos - kv_pos[:, :1], **kw)
+
+        def own(tp, parts, members, spans):
+            return tp_mod.Seq([p.narrow(1, spans[m].start,
+                                        spans[m].stop - spans[m].start)
+                               for m, p in zip(tp.live(members), parts)],
+                              spans)
+        obj, attr, fake = {
+            "one member's partial dropped from the combine":
+                (tp_mod.TP, "combine", dropped),
+            "key positions taken block-local": (attn, "attend_partial",
+                                                local),
+            "reduce-scatter replaced by the member's own partial":
+                (tp_mod.TP, "scatter_sum", own)}[label]
+
+        @contextlib.contextmanager
+        def patched():
+            keep = getattr(obj, attr)
+            setattr(obj, attr, fake)
+            try:
+                yield
+            finally:
+                setattr(obj, attr, keep)
+        return patched()
+
+    SEQ_CONTROLS = (
+        ("kv_seq", "one member's partial dropped from the combine"),
+        ("kv_seq", "key positions taken block-local"),
+        ("train_sp", "reduce-scatter replaced by the member's own partial"))
+
+    def spmd_seq_parity(self, arch: str, layers: int, seq: int = 1024,
+                        batch: int = 4, steps: int = 3,
+                        controls: bool = True):
+        """(g) float32 (TF32 off): ``arch`` at ``layers`` layers, full
+        width, the mesh step under ``train_sp`` (sequence parallelism) and
+        ``kv_seq`` (context parallelism) on (data 2, model 2), each against
+        ``train_loop`` on one device from the same weights and batches:
+        loss and grad norm within ``TRAIN_F32_TOL`` relative every step,
+        the parameters within ``DP_PARAM_TOL`` after ``steps``; the
+        controls (``SEQ_CONTROLS``) must fail within their first step."""
+        import math
+        torch = self.torch
+        from repro_torch.configs.base import get_model_config
+        from repro_torch.models import registry
+        from repro_torch.models.module import tree_map
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("SPMD (g): TF32 must be off")
+        import dataclasses
+        mc = dataclasses.replace(get_model_config(arch), num_layers=layers,
+                                 dtype="float32")
+        rc = self._train_rc(mc, seq, batch, 0)
+        mesh = self._mesh_of((2, 2), ("data", "model"))
+        start = registry.build(rc, device="cuda").init_params(
+            torch.Generator(device="cuda").manual_seed(43))
+
+        def fresh():
+            return tree_map(lambda t: t.clone(), start)
+        single = self._train_run(rc, steps, params=fresh())
+        out = {}
+        for profile in ("train_sp", "kv_seq"):
+            hist, placed, _ = self._seq_run(rc, steps, mesh, profile,
+                                            fresh())
+            r = self._spmd_against((None, hist, placed), single)
+            self.say(f"SPMD (g) float32 {mc.name} {layers} layers full "
+                     f"width{self._cut_note(arch, layers, seq)}, [{batch}, "
+                     f"{seq}], {profile} on {mesh}: {r!r} against one device "
+                     f"(limits: loss and grad norm {TRAIN_F32_TOL} relative, "
+                     f"every step; parameters {DP_PARAM_TOL} absolute after "
+                     f"{steps} steps); losses {[h['loss'] for h in hist]!r}, "
+                     f"one device {[h['loss'] for h in single[1]]!r}; "
+                     f"traffic a step {hist[-1]['traffic']!r}")
+            if not self._spmd_holds(r):
+                raise AssertionError(f"SPMD (g) {mc.name} {profile}: the "
+                                     f"mesh run differs: {r}")
+            out[profile] = {"sound": r, "traffic": hist[-1]["traffic"]}
+            del placed
+        if controls:
+            h0 = single[1][0]
+            for profile, label in self.SEQ_CONTROLS:
+                with self._seq_control(label):
+                    g = self._seq_run(rc, 1, mesh, profile, fresh())[0][0]
+                bad = {k: abs(g[k] - h0[k]) / abs(h0[k])
+                       for k in ("loss", "grad_norm")}
+                self.say(f"SPMD (g) {mc.name} control ({profile}), {label}, "
+                         f"its first step against one device's: {bad!r}")
+                out[f"control {label}"] = bad
+                if all(math.isfinite(x) and x <= TRAIN_F32_TOL
+                       for x in bad.values()):
+                    raise AssertionError(f"SPMD (g) {mc.name}: the check "
+                                         f"passes the control '{label}'")
+        out["mesh"] = repr(mesh)
+        del start, single
+        self._free(f"after (g) float32 {mc.name}", "SPMD")
+        return out
+
+    def spmd_seq_published(self, arch: str = "h2o_danube_1_8b",
+                           seq: int = 4096, batch: int = 4, steps: int = 3):
+        """(g) ``arch`` as published at full width, its depth cut as
+        (a)'s (``PUBLISHED_CUT['spmd_a']``), bf16 compute on float32
+        master weights, [batch, seq]: the mesh step on (data 2, model 2)
+        under ``train_sp``, ``kv_seq`` and ``train``, and ``train_loop``
+        on one device: step ms (median of ``steps``), tokens/s, peak
+        allocated, ``gathered_peak`` against ``fsdp.peak_bytes`` of each
+        profile's plan, the bytes of each collective a step, each
+        coordinate's matmul flops, and the idle share of one profiled
+        step; losses within ``SPMD_BF16_TOL`` of one device's, no kernel
+        launches."""
+        import dataclasses
+        import math
+        import statistics
+        torch = self.torch
+        from repro_torch.configs.base import get_model_config
+        from repro_torch.models import registry
+        from repro_torch.sharding import fsdp
+        from repro_torch.sharding.rules import make_ctx
+        from repro_torch.training import spmd
+        mc = dataclasses.replace(get_model_config(arch),
+                                 num_layers=PUBLISHED_CUT["spmd_a"])
+        rc = self._train_rc(mc, seq, batch, 0)
+        mesh = self._mesh_of((2, 2), ("data", "model"))
+        specs = registry.build(rc, device="meta").specs
+        tokens = batch * seq
+        self._free("before (g) published", "SPMD")
+        torch.cuda.reset_peak_memory_stats()
+        _, single, p1 = self._train_run(rc, steps)
+        one_peak = torch.cuda.max_memory_allocated()
+        del p1
+        self._free("after the (g) one-device run", "SPMD")
+        plain = [h["loss"] for h in single]
+        one_ms = [h["ms"] for h in single]
+        one_med = statistics.median(one_ms)
+        out, fails = {"one_device": {"step_ms": one_ms,
+                                     "median_step_ms": one_med,
+                                     "tokens_per_s": tokens / (one_med * 1e-3),
+                                     "peak_allocated_bytes": one_peak,
+                                     "losses": plain}}, []
+        name = (f"SPMD (g) {mc.name} as published"
+                f"{self._cut_note(arch, mc.num_layers, seq)}")
+        for profile in ("train_sp", "kv_seq", "train"):
+            plan = spmd.tp_plan(rc, make_ctx(mesh, profile))
+            layerwise = fsdp.peak_bytes(specs, plan=plan)
+            start = registry.build(rc, device="cuda").init_params(
+                torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            hist, placed, again = self._seq_run(rc, steps, mesh, profile,
+                                                start, flops=False)
+            launches = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            idle = self.profile(f"SPMD (g) {profile} step", again, top=8,
+                                warm=True, cpu=False)
+            del placed, again, start
+            self._free(f"after the (g) {profile} run", "SPMD")
+            ms = [h["ms"] for h in hist]
+            med = statistics.median(ms)
+            losses = [h["loss"] for h in hist]
+            held = [h["gathered_peak"] for h in hist]
+            t = hist[-1]["traffic"]
+            self.say(f"{name} {profile} on {mesh}, [{batch}, {seq}], bf16 "
+                     f"compute: losses {losses!r} (one device {plain!r}); "
+                     f"step ms {ms!r}, median {med!r} "
+                     f"({tokens / (med * 1e-3)!r} tokens/s; one device "
+                     f"median {one_med!r}, mesh / one device "
+                     f"{med / one_med!r}); peak allocated {peak} B (one "
+                     f"device {one_peak} B); gathered_peak {held!r} B "
+                     f"(fsdp.peak_bytes of the plan {layerwise} B); idle "
+                     f"share {idle!r}; group collectives a step: all-reduced "
+                     f"{t['all_reduced']!r}, all-gathered "
+                     f"{t['tp_gathered']!r}, reduce-scattered "
+                     f"{t['tp_scattered']!r} B; weights gathered "
+                     f"{t['gathered']!r}, gradients reduce-scattered "
+                     f"{t['reduce_scattered']!r}, the controller's copies "
+                     f"{t['copies']!r} B; kernel launches {launches}")
+            if any(launches.values()):
+                fails.append(f"{profile}: kernel launches {launches}")
+            if not (all(math.isfinite(x) for x in losses) and all(
+                    abs(a - b) <= SPMD_BF16_TOL
+                    for a, b in zip(losses, plain))):
+                fails.append(f"{profile}: bf16 losses {losses} against one "
+                             f"device's {plain}")
+            if any(h != layerwise for h in held):
+                fails.append(f"{profile}: gathered_peak {held} against "
+                             f"{layerwise}")
+            if profile != "train" and not (t["tp_gathered"]["local"]
+                                           + t["tp_gathered"]["moved"]):
+                fails.append(f"{profile}: nothing all-gathered in the group")
+            out[profile] = {"step_ms": ms, "median_step_ms": med,
+                            "tokens_per_s": tokens / (med * 1e-3),
+                            "losses": losses, "peak_allocated_bytes": peak,
+                            "gathered_peak": held, "peak_bytes": layerwise,
+                            "traffic": t, "idle_share": idle,
+                            "launches": launches}
+        if fails:
+            raise AssertionError(f"{name}: " + "; ".join(fails))
+        out["mesh"] = repr(mesh)
+        out["seq"], out["batch"] = seq, batch
+        return out
+
+    def serve_mesh_seq_parity(self, arch: str, layers: int, batch: int = 4,
+                              prompt_len: int = 512, steps: int = 4):
+        """(g) float32 (TF32 off): ``arch`` at ``layers`` layers, full
+        width, the plain attention (gate off): the mesh prefill under
+        ``train_sp`` and ``kv_seq`` on (data 2, model 2), its caches fed
+        to ``steps`` decode steps (the decode profile), against one
+        device's ``prefill`` / ``decode_step`` from the same weights: the
+        rows and every cache leaf within relative L2 ``SERVE_MESH_TOL``."""
+        torch = self.torch
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("serving on a mesh (g): TF32 must be off")
+        bundle = self._bundle(arch, batch, prompt_len + steps,
+                              num_layers=layers, dtype="float32",
+                              use_pallas_attn=False)
+        cfg = bundle.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        params = bundle.init_params(gen)
+        prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        mesh = self._mesh_of((2, 2), ("data", "model"))
+        one, fed, one_ms, _, one_caches, _ = self._serve(
+            bundle, params, prompt, steps)
+        out = {}
+        for profile in ("train_sp", "kv_seq"):
+            got = self._mesh_serve(bundle, params, prompt, fed, mesh,
+                                   profile=profile)
+            rows = self._rows_rel(got["rows"], one)
+            cache = self._cache_rel(self._gathered_caches(got["caches"]),
+                                    one_caches)
+            t = got["prefill"].traffic
+            self.say(f"serving on a mesh (g) {cfg.name} float32, "
+                     f"{cfg.num_layers} layers, {batch} x {prompt_len} + "
+                     f"{steps}, prefill under {profile} on {mesh}: prefill "
+                     f"{got['prefill_ms']!r} ms (one device {one_ms!r}); rows "
+                     f"against one device {rows!r}, caches {cache!r} (limit "
+                     f"{SERVE_MESH_TOL} relative L2); the prefill's group "
+                     f"collectives: all-reduced "
+                     f"{t['all_reduced'].local + t['all_reduced'].moved} B, "
+                     f"all-gathered "
+                     f"{t['tp_gathered'].local + t['tp_gathered'].moved} B, "
+                     f"reduce-scattered "
+                     f"{t['tp_scattered'].local + t['tp_scattered'].moved} B, "
+                     f"exchanged {t['exchanged'].local + t['exchanged'].moved}"
+                     " B")
+            if max(rows) > SERVE_MESH_TOL or cache > SERVE_MESH_TOL:
+                raise AssertionError(f"serving on a mesh (g) {cfg.name} "
+                                     f"{profile}: rows {rows}, caches "
+                                     f"{cache}")
+            out[profile] = {"rows": rows, "caches": cache,
+                            "prefill_ms": got["prefill_ms"]}
+            del got
+        del params, one_caches
+        self._free(f"after (g) float32 {cfg.name}", "serving on a mesh")
+        return out
+
+    def serve_mesh_seq_published(self, arch: str = "h2o_danube_1_8b",
+                                 batch: int = 4, prompt_len: int = 4096):
+        """(g) ``arch`` as published, its depth cut as 16 (a)'s, bf16, the
+        kernel gate on: the mesh prefill of [batch, prompt_len] under
+        ``train_sp`` (the members run ``swattn`` on their heads) and
+        ``kv_seq`` (the partials over the key blocks: no launch), beside
+        one device's: ms, ``swattn`` launches, the rows within
+        ``LM_TOL``."""
+        torch = self.torch
+        bundle = self._bundle(arch, batch, prompt_len,
+                              num_layers=PUBLISHED_CUT["spmd_a"],
+                              use_pallas_attn=True)
+        cfg = bundle.cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(25)
+        params = bundle.init_params(gen)
+        prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                               generator=gen, device="cuda")
+        mesh = self._mesh_of((2, 2), ("data", "model"))
+        one, fed, one_ms, _, one_caches, one_sw = self._serve(
+            bundle, params, prompt, 1)
+        del one_caches
+        out = {"one_device": {"prefill_ms": one_ms, "swattn": one_sw}}
+        launches = 0
+        for profile in ("train_sp", "kv_seq"):
+            self._mesh_serve(bundle, params, prompt, fed, mesh,
+                             profile=profile)          # a warm-up call
+            got = self._mesh_serve(bundle, params, prompt, fed, mesh,
+                                   profile=profile)
+            rows = self._rows_rel(got["rows"], one)
+            self.say(f"serving on a mesh (g) {cfg.name} as published "
+                     f"({cfg.num_layers} layers: depth cut as 16 (a)), bf16, "
+                     f"gate on, {batch} x {prompt_len}, prefill under "
+                     f"{profile} on {mesh}: {got['prefill_ms']!r} ms (one "
+                     f"device {one_ms!r} ms), swattn launches "
+                     f"{got['launches']} (one device {one_sw}); rows against "
+                     f"one device {rows!r} (limit {LM_TOL['bfloat16']})")
+            want = (cfg.num_layers * 2 * 2 if profile == "train_sp" else 0)
+            if got["launches"] != want:
+                raise AssertionError(f"serving on a mesh (g) {profile}: "
+                                     f"{got['launches']} swattn launches, "
+                                     f"expected {want}")
+            if max(rows) > LM_TOL["bfloat16"]:
+                raise AssertionError(f"serving on a mesh (g) {profile}: rows "
+                                     f"{rows}")
+            launches += got["launches"]
+            out[profile] = {"prefill_ms": got["prefill_ms"],
+                            "swattn": got["launches"], "rows": rows}
+            del got
+        out["swattn_prefill"] = launches
+        del params
+        self._free("after (g) published", "serving on a mesh")
+        return out
+
     def spmd_phase(self, arch: str = "h2o_danube_1_8b", parity=(2, 2048),
                    full=(2048, 4, 3)):
         """Phase 16: ``train_loop(mesh=)``, the weights and AdamW's moments
@@ -5563,7 +5968,12 @@ class Smoke:
         float32 parity with its control, the published config beside one
         device and the unsplit mesh, the parity on distinct cards where
         there are several; (f) hymba-1.5b and xlstm-350m with their
-        recurrent layers split, as (e). Returns the readings."""
+        recurrent layers split, as (e); (g) sequence parallelism
+        (``train_sp``) and context parallelism (``kv_seq``) over 'model':
+        float32 parity of h2o-danube-1.8b (2 layers) with three controls
+        and gemma3-4b (its first 6 layers: a local and a global one), and
+        h2o-danube-1.8b as (a)'s published cut at [4, 4096] under both
+        profiles beside ``train`` and one device. Returns the readings."""
         import dataclasses
         torch = self.torch
         from repro_torch.configs.base import get_model_config
@@ -5602,6 +6012,11 @@ class Smoke:
             parts += self._recurrent_parts(
                 self.spmd_recurrent_parity, self.spmd_recurrent_published,
                 cards if n_cards > 1 else None, train=True)
+            parts += [("g", "seq_float32", lambda: self.spmd_seq_parity(
+                          "h2o_danube_1_8b", 2)),
+                      ("g", "seq_float32_gemma3", lambda: self.spmd_seq_parity(
+                          "gemma3_4b", 6, controls=False)),
+                      ("g", "seq_published", self.spmd_seq_published)]
             for key, name, run in parts:
                 self._run_part("SPMD", f"{key} {name}", name, run, out,
                                took, failed)
@@ -5643,7 +6058,7 @@ class Smoke:
     # -- phase 18: serving on a mesh ------------------------------------------
 
     def _mesh_serve(self, bundle, params, prompt, feed, mesh,
-                    key: str = "inputs", more=None):
+                    key: str = "inputs", more=None, profile: str = "train"):
         """``sharding/serve.py``'s prefill of ``prompt`` (the batch's
         ``key``, beside the entries of ``more``: whisper's ``dec_tokens``
         beside ``frames``) and one decode step per token of ``feed`` [B,
@@ -5653,13 +6068,14 @@ class Smoke:
         that made a token [steps + 1, B, V], the prefill's and each step's
         host ms (each call synchronised), the caches (``ShardedTensor``s),
         the prefill's ``swattn`` launches, and the two functions (their
-        ``traffic`` and ``gathered_peak``)."""
+        ``traffic`` and ``gathered_peak``). ``profile``: the prefill's
+        (``train``, or phase (g)'s ``train_sp`` / ``kv_seq``)."""
         torch = self.torch
         from repro_torch.sharding import serve
         from repro_torch.sharding.placement import shard_tree
         from repro_torch.sharding.rules import make_ctx
         rc = bundle.cfg
-        tctx, dctx = make_ctx(mesh, "train"), make_ctx(mesh, "decode")
+        tctx, dctx = make_ctx(mesh, profile), make_ctx(mesh, "decode")
         placed = shard_tree(params, tctx.spec_tree_shardings(bundle.specs))
         pre = serve.make_spmd_prefill(bundle, rc, tctx)
         dec = serve.make_spmd_decode_step(bundle, rc, dctx)
@@ -6410,7 +6826,11 @@ class Smoke:
         hymba-1.5b and xlstm-350m with their recurrent layers split:
         float32 parity with two controls each, each as published beside
         one device and the unsplit mesh, the parities on distinct cards
-        where there are several. Each part runs; a failure is raised at
+        where there are several; (g) the prefill under ``train_sp`` and
+        ``kv_seq``: float32 parity of h2o-danube-1.8b (2 layers) and
+        gemma3-4b (6) with 4 decode steps from its caches, and
+        h2o-danube-1.8b as 16 (a)'s published cut, bf16, gate on, with
+        its ``swattn`` launches. Each part runs; a failure is raised at
         the end. Returns (the readings, the phase's launch counts)."""
         torch = self.torch
         self._free("start", "serving on a mesh")
@@ -6443,11 +6863,16 @@ class Smoke:
             self.serve_mesh_recurrent_parity,
             self.serve_mesh_recurrent_published,
             cards if n_cards > 1 else None, train=False)
+        parts += [("g", "seq_float32", lambda: self.serve_mesh_seq_parity(
+                      "h2o_danube_1_8b", 2)),
+                  ("g", "seq_float32_gemma3",
+                   lambda: self.serve_mesh_seq_parity("gemma3_4b", 6)),
+                  ("g", "seq_published", self.serve_mesh_seq_published)]
         for key, name, run in parts:
             self._run_part("serving on a mesh", f"{key} {name}", name, run,
                            out, took, failed)
         launches = {"filter2d_halo": 0, "swattn": 0, "dwconv1d": 0}
-        for name in ("published", "qwen3-moe"):
+        for name in ("published", "qwen3-moe", "seq_published"):
             if name in out:
                 launches["swattn"] += out[name]["swattn_prefill"]
         self.f32["serve_mesh"] = f32_count()

@@ -10,8 +10,13 @@ For each cell the step the shape names is built, on ``meta`` tensors
   decode_32k/long_500k -> decode_step (one token against a seq_len cache)
 with the reference's profile choice (``build_lowered``): ``decode`` for
 decode cells; ``train_sp`` / ``zero1`` / ``kv_seq`` / ``dp_only`` by
-``rc.sharding_profile``; ``zero1``'s moments on the train profile's
-placement; ``EP_OVERRIDES`` for ``ep``.
+``rc.sharding_profile`` (``--profile sp`` / ``zero1`` / ``cp`` /
+``dp``); ``zero1``'s moments on the train profile's placement;
+``EP_OVERRIDES`` for ``ep``. Under ``train_sp`` (sequence parallelism)
+and ``kv_seq`` (context parallelism) a rank keeps its 'model' group, as
+under ``train``: the train step and the prefill split the sequence of
+the residual stream, or of the keys, over it (``tp_splits``); a decode
+cell runs the ``decode`` profile whatever ``rc.sharding_profile`` says.
 
 The port has no XLA lowering, so its figures come from its own
 placements and its own step. Per device:
@@ -58,6 +63,15 @@ placements and its own step. Per device:
                    its group (``traffic``'s ``all_reduced``, from the
                    probe's count: the members but the first send their
                    parts);
+  all_gathered_bytes_per_device, reduce_scattered_bytes_per_device
+                   the same for the group's all-gathers and
+                   reduce-scatters (``tp_gathered``, ``tp_scattered``):
+                   under ``train_sp`` the members' token blocks gathered
+                   before each split block and its outputs scattered over
+                   the tokens, and the keys and values each member
+                   projects from its own tokens; under ``kv_seq`` the
+                   query heads gathered and each member's heads of the
+                   combined attention output; 0 under ``train``;
   dropped_shardings
                    the placements that fell back to replication because
                    a dim does not divide: of the weights, the batch and
@@ -249,7 +263,8 @@ def build_cell(rc: RunConfig, mesh, kind: str,
     if plan is not None:
         counts = TPCounts(Traffic(), Traffic(), lambda: back["on"],
                           exchanged=Traffic(), logits=Traffic(),
-                          states=Traffic())
+                          states=Traffic(), tp_gathered=Traffic(),
+                          tp_scattered=Traffic())
         tp = TP(ctx, ["meta"] * ctx.tp_size(), counts, probe=True)
     kw = {} if tp is None else {"tp": tp}
     gathered = fsdp.peak_bytes(bundle.specs, param_dtype, plan,
@@ -444,6 +459,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         "all_reduced_bytes_per_device": (
             None if cell["tp_counts"] is None
             else cell["tp_counts"].all_reduced.local / cell["tp_members"]),
+        "all_gathered_bytes_per_device": (
+            None if cell["tp_counts"] is None
+            else cell["tp_counts"].tp_gathered.local / cell["tp_members"]),
+        "reduce_scattered_bytes_per_device": (
+            None if cell["tp_counts"] is None
+            else cell["tp_counts"].tp_scattered.local / cell["tp_members"]),
         "flops_per_device": None, "bytes_per_device": None,
         "memory": {"argument_bytes": args, "output_bytes": out_bytes,
                    "gathered_bytes": cell["gathered_bytes"],
@@ -460,6 +481,10 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None, help="dir for per-cell JSON")
+    ap.add_argument("--profile", default="default",
+                    help="the run config's sharding profile (sp: train_sp, "
+                    "cp: kv_seq, zero1, dp, as the reference's "
+                    "build_lowered maps them)")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -474,8 +499,11 @@ def main(argv=None):
     failures = []
     for arch, shape, mp in cells:
         tag = f"{arch}/{shape}/{'2x16x16' if mp else '16x16'}"
+        if args.profile != "default":
+            tag += f"/{args.profile}"
         try:
-            rep = run_cell(arch, shape, mp)
+            rep = run_cell(arch, shape, mp, rc=resolve(
+                arch, shape, multi_pod=mp, sharding_profile=args.profile))
         except Exception as e:  # noqa: BLE001 - report and continue
             print(f"[dryrun] FAIL {tag}: {type(e).__name__}: {e}")
             failures.append((tag, str(e)))

@@ -48,7 +48,12 @@ cache-less forward with no gradient), a data-parallel rank.
           group's sums (``all_reduced``: each split block's output in
           forward, its input's gradient in backward, the loss's row
           maxima, sums and target logits; to decode, the flash-decode
-          combine), and, serving, the keys and values a prefill member
+          combine; ``train_sp``'s all-gathers of the members' token
+          blocks and reduce-scatters of the split blocks' outputs,
+          ``kv_seq``'s of the query heads and of the combined output's
+          heads, ``tp_gathered`` / ``tp_scattered``, counted with the
+          all-gathers and the reduce-scatters), and, serving, the keys
+          and values a prefill member
           sends to the members whose cache slots they fill (an
           all-to-all) and the logits' vocabulary blocks put together,
           counted by the classes' probe runs. Keyed by the reference's op names under
@@ -137,7 +142,8 @@ _WIRE_FACTOR = {"all-gather": 1.0, "reduce-scatter": 1.0, "all-reduce": 2.0,
 _LOOPS = ((ssm_mod, "ssd_chunked", "ssd_body"),
           (xlstm_mod, "mlstm_chunkwise", "mlstm_chunk_body"),
           (xlstm_mod, "slstm_scan", "slstm_step"))
-_KEYS = ("flops", "bytes", "unique", "all_reduce", "exchange", "logits",
+_KEYS = ("flops", "bytes", "unique", "all_reduce", "tp_gather",
+         "tp_scatter", "exchange", "logits",
          "states")
 
 
@@ -226,6 +232,8 @@ def _count_body(cell: Dict[str, Any], keep: Optional[int]
     return ({"flops": float(fc.get_total_flops()), "bytes": float(eb.bytes),
              "unique": float(args + out_bytes - 4 * cell["cur"]),
              "all_reduce": moved("all_reduced"),
+             "tp_gather": moved("tp_gathered"),
+             "tp_scatter": moved("tp_scattered"),
              "exchange": moved("exchanged"), "logits": moved("logits"),
              "states": moved("states")},
             trips[0] if trips else 0)
@@ -405,7 +413,11 @@ def collective_bytes(rc: RunConfig, mesh, kind: str,
         ranks = B // cell["rank_rows"]
         by_kind["all-reduce"] = (moves["all_reduce"] * ranks / coords
                                  * _WIRE_FACTOR["all-reduce"])
-        gathered += moves["states"] * ranks
+        if moves["tp_scatter"]:
+            by_kind["reduce-scatter"] = by_kind.get("reduce-scatter", 0.0) \
+                + (moves["tp_scatter"] * ranks / coords
+                   * _WIRE_FACTOR["reduce-scatter"])
+        gathered += moves["states"] * ranks + moves["tp_gather"] * ranks
         if not train:
             gathered += moves["logits"] * ranks
             by_kind["all-to-all"] = (moves["exchange"] * ranks / coords

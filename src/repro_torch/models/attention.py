@@ -22,7 +22,9 @@ the slot space. ``write_cache(..., span=)`` writes into one block the
 tokens whose slots fall in it (``cache_writes`` lists them), and
 ``decode_partial`` gives a member's part of one-token attention over its
 block (its row maxima, sums and unnormalised output), which the group
-combines flash-decode style (``tp.TP.combine``).
+combines flash-decode style (``tp.TP.combine``). ``attend_partial`` is
+the same for every query of a chunk over a member's block of its keys
+(the ``kv_seq`` profile's context parallelism).
 """
 from __future__ import annotations
 
@@ -100,15 +102,16 @@ def repeat_kv(k: torch.Tensor, num_heads: int, first: int = 0,
     return k.repeat_interleave(num_heads // Kv, dim=2)
 
 
-def tp_heads(tp, num_heads: int, num_kv: int):
+def tp_heads(tp, num_heads: int, num_kv: int, rule: str = "act_heads"):
     """The heads' split at the attention's constraint points (q, and
     k / v repeated to the heads: ``act_heads``) as (member, query heads,
     key/value heads) a computing member, or None where the heads do not
     split. A member's key/value heads are those its query heads read:
     its own block where they split with the heads, else the GQA groups of
-    its heads, taken from the replicated weights."""
+    its heads, taken from the replicated weights. ``rule``: the logical
+    axis the heads' split is read from (``'heads'``: the weights')."""
     blocks = tp.blocks((1, 1, num_heads, 1),
-                       ("act_batch", None, "act_heads", None))
+                       ("act_batch", None, rule, None))
     members = tp.members(blocks)
     if len(members) == 1:
         return None
@@ -134,7 +137,7 @@ def tp_kv_seq(tp, cache_len: int):
 
 
 def tp_plan(tp, num_heads: int, num_kv: int, use_qk_norm: bool,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, kv_own: bool = False):
     """Each attention weight's region at each member ({name: [index or
     None a member]}, the shapes of ``attn_specs``), {} where the heads
     do not split. ``cache_len``: the stage's cache where the group splits
@@ -143,7 +146,11 @@ def tp_plan(tp, num_heads: int, num_kv: int, use_qk_norm: bool,
     constraint on the cache's keys takes 'model' for the sequence first
     and drops the heads), and each member with a block of the cache reads
     every projection whole; a cache that does not divide the group is
-    attended whole on its first member."""
+    attended whole on its first member. ``kv_own`` (``train_sp``,
+    ``kv_seq``): each member projects the keys and values of its own
+    tokens, every key/value head, and reads ``wk``, ``wv`` and the norms
+    whole; its query heads are the weights' (the ``heads`` rule, which
+    ``kv_seq`` keeps where it leaves ``act_heads`` whole)."""
     every = slice(None)
     names = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm")
                                         if use_qk_norm else ())
@@ -156,12 +163,14 @@ def tp_plan(tp, num_heads: int, num_kv: int, use_qk_norm: bool,
             for k in names:
                 out[k][m] = (every,) * (1 if k.endswith("norm") else 3)
         return out
-    split = tp_heads(tp, num_heads, num_kv)
-    if split is None:
+    split = tp_heads(tp, num_heads, num_kv, "heads" if kv_own
+                     else "act_heads")
+    if split is None or kv_own and len(split) != tp.n:
         return {}
     for m, hs, kvs in split:
         out["wq"][m] = (every, hs, every)
-        out["wk"][m] = out["wv"][m] = (every, kvs, every)
+        out["wk"][m] = out["wv"][m] = (every, every if kv_own else kvs,
+                                       every)
         out["wo"][m] = (hs, every, every)
         if use_qk_norm:
             out["q_norm"][m] = out["k_norm"][m] = (every,)
@@ -214,6 +223,44 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q_chunk and Sq > q_chunk and Sq % q_chunk == 0:
         return torch.cat([block(q[:, i:i + q_chunk], q_pos[:, i:i + q_chunk])
                           for i in range(0, Sq, q_chunk)], dim=1)
+    return block(q, q_pos)
+
+
+def attend_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                   causal: bool = True, window=None, softcap: float = 0.0,
+                   q_chunk: int = 1024, scale: Optional[float] = None,
+                   sinks: int = 0):
+    """A member's part of :func:`attend` over its block of the keys
+    (context parallelism, the ``kv_seq`` profile): q [B,Sq,H,hd] every
+    query, k, v [B,Sk,H,hd] the block's keys and values (pre-repeated),
+    ``kv_pos`` [B,Sk] their absolute positions, which the mask reads (so
+    a block's keys mask as they do in the whole). Returns its row maxima
+    ``mx`` and sums of exponentials ``l`` ([B,H,Sq,1], float32) and its
+    unnormalised output ``o`` = exp(s − mx) · v ([B,H,Sq,hd], in q's
+    dtype), q-chunked as ``attend``; ``tp.TP.combine`` joins the members'
+    parts. The softcap comes before the mask, as in ``attend``. A row
+    with no key of the block it may attend has ``mx`` = ``NEG_INF`` and
+    ``l`` = ``o`` = 0. The maxima carry no gradient: the combined result
+    does not depend on them."""
+    B, Sq, H, hd = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+
+    def block(q_blk, qp_blk):
+        s = torch.einsum("bqhk,bshk->bhqs", q_blk, k).float() * scale
+        if softcap > 0.0:
+            s = torch.tanh(s / softcap) * softcap
+        m = _mask(qp_blk, kv_pos, causal, window, sinks)
+        s = torch.where(m, s, NEG_INF)
+        mx = s.detach().amax(dim=-1, keepdim=True)
+        p_ = torch.where(m, torch.exp(s - mx), 0.0)
+        o = torch.einsum("bhqs,bshk->bhqk", p_.to(q.dtype), v)
+        return mx, p_.sum(dim=-1, keepdim=True), o
+
+    if q_chunk and Sq > q_chunk and Sq % q_chunk == 0:
+        parts = [block(q[:, i:i + q_chunk], q_pos[:, i:i + q_chunk])
+                 for i in range(0, Sq, q_chunk)]
+        return tuple(torch.cat(t, dim=2) for t in zip(*parts))
     return block(q, q_pos)
 
 

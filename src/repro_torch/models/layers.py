@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.module import p
-from repro_torch.sharding.tp import Parts, at
+from repro_torch.sharding.tp import Parts, Seq, at
 
 
 # -- norms -------------------------------------------------------------------
@@ -20,6 +20,11 @@ def rms_norm_specs(d: int):
 
 
 def rms_norm(x: torch.Tensor, params, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32. ``x`` a ``tp.Seq`` (``train_sp``): each
+    member's tokens, with its copy of the scale (``params`` as
+    ``tp.Parts``)."""
+    if isinstance(x, Seq):
+        return x.map(lambda m, t: rms_norm(t, at(params, m), eps))
     xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     return (y * params["scale"].float()).to(x.dtype)
@@ -57,6 +62,8 @@ def mlp(x: torch.Tensor, params, act=F.silu, tp=None) -> torch.Tensor:
     if isinstance(params["wi"], Parts):
         return tp.run(x, params["wi"].members,
                       lambda m, xm: mlp(xm, at(params, m), act))
+    if isinstance(x, Seq):      # columns that do not split: on the first
+        return tp.run(x, [0], lambda m, xm: mlp(xm, params, act))
     h = x @ params["wi"].to(x.dtype)
     g = x @ params["wg"].to(x.dtype)
     return (act(g) * h) @ params["wo"].to(x.dtype)
@@ -122,6 +129,19 @@ def embed(tokens: torch.Tensor, params,
     return table[tokens].to(dtype)
 
 
+def embed_seq(tokens: torch.Tensor, params, dtype: torch.dtype, tp,
+              spans) -> Seq:
+    """The rows of ``tokens`` (on the group's first member) as the
+    members' token blocks ``spans`` (``train_sp``): each member looks its
+    tokens up in its copy of the table (``params['table']`` as
+    ``tp.Parts`` of whole regions)."""
+    table = params["table"]
+    n = range(len(spans))
+    return Seq([embed(tok[:, spans[m]], {"table": table[m]}, dtype)
+                for m, tok in zip(tp.live(n), tp.replicate(tokens, n))],
+               spans)
+
+
 def unembed(x: torch.Tensor, params) -> torch.Tensor:
     """Logits from hidden states: [.., d] @ [vocab, d]^T."""
     return x @ params["table"].to(x.dtype).t()
@@ -137,12 +157,37 @@ def logits_of(x: torch.Tensor, params, tied: bool, tp=None) -> torch.Tensor:
     if not isinstance(w, Parts):
         return (unembed(x, params["embed"]) if tied
                 else lm_head(x, params["head"]))
+    members, regions = vocab_regions(w, tp, tied)
     parts = []
-    for m, xm in zip(tp.live(w.members), tp.broadcast(x, w.members)):
+    for m, xm in zip(tp.live(members), tp.broadcast(x, members)):
         with tp.part(m):
-            parts.append(unembed(xm, {"table": w[m]}) if tied
-                         else lm_head(xm, {"w": w[m]}))
-    return tp.assemble(parts, w.members)
+            wm = w[m][regions[m]]
+            parts.append(unembed(xm, {"table": wm}) if tied
+                         else lm_head(xm, {"w": wm}))
+    return tp.assemble(parts, members)
+
+
+def vocab_regions(w: Parts, tp, tied: bool):
+    """The members that project the logits' vocabulary blocks and each
+    one's region of its part of the table or head ``w``: the whole part
+    where the plan gives vocabulary blocks; where it gives every member
+    the whole table (``train_sp``, whose loss projects each member's
+    tokens over the whole vocabulary), the block of the last position's
+    logits at their constraint (``act_vocab``, as the reference's
+    prefill)."""
+    vdim = 0 if tied else 1
+    V = w[w.members[0]].shape[vdim]
+    whole = all(w.index[m][vdim] == slice(None) for m in w.members)
+    if not whole:
+        return w.members, {m: (slice(None),) * 2 for m in w.members}
+    blocks = tp.blocks((1, V), ("act_batch", "act_vocab"))
+    members = tp.members(blocks)
+    regions = {}
+    for m in members:
+        ix = [slice(None), slice(None)]
+        ix[vdim] = blocks[m][1]
+        regions[m] = tuple(ix)
+    return members, regions
 
 
 def tp_vocab(tp, vocab: int):

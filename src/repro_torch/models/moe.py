@@ -135,25 +135,34 @@ def dispatch_rows(slot: torch.Tensor, keep: torch.Tensor, num_experts: int,
     return sel
 
 
-def tp_experts(tp, num_experts: int, d_ff: int):
+def tp_experts(tp, num_experts: int, d_ff: int, expert_tp: bool = True):
     """The experts' split at their constraint points (the dispatched rows
     ``act_experts``, their hidden ``act_experts`` then ``act_mlp``) as
     (member, experts, columns) a computing member, or None where neither
     splits: the experts where they divide the axis, else (expert-TP) each
-    expert's columns."""
-    blocks = tp.blocks((1, num_experts, 1, d_ff),
-                       ("act_batch", "act_experts", None, "act_mlp"))
+    expert's columns. ``expert_tp`` False (``moe_specs``' EP axes): where
+    the hidden's constraint leaves the columns whole (the EP overrides
+    give 'expert' to the experts first, and ``act_mlp`` on ('expert',
+    'model') is dropped), each member takes its columns as the weights
+    lie (``expert_mlp``, on 'model'), as the reference's partitioned
+    program computes them; else the other 'model' members sit idle."""
+    shape = (1, num_experts, 1, d_ff)
+    blocks = tp.blocks(shape, ("act_batch", "act_experts", None, "act_mlp"))
+    if not expert_tp and all(b[3] == slice(0, d_ff) for b in blocks):
+        blocks = tp.blocks(shape, ("act_batch", "act_experts", None,
+                                   "expert_mlp"))
     members = tp.members(blocks)
     if len(members) == 1:
         return None
     return [(m, blocks[m][1], blocks[m][3]) for m in members]
 
 
-def tp_plan(tp, num_experts: int, d_ff: int):
-    """The MoE weights' regions at each member (``moe_specs``' shapes),
-    {} where nothing splits: the router whole at every computing member,
-    each one's experts or columns of the three products."""
-    split = tp_experts(tp, num_experts, d_ff)
+def tp_plan(tp, num_experts: int, d_ff: int, expert_tp: bool = True):
+    """The MoE weights' regions at each member (``moe_specs``' shapes,
+    ``expert_tp`` its flag), {} where nothing splits: the router whole at
+    every computing member, each one's experts or columns of the three
+    products."""
+    split = tp_experts(tp, num_experts, d_ff, expert_tp)
     if split is None:
         return {}
     every = slice(None)

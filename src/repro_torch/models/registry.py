@@ -42,7 +42,7 @@ from repro_torch.models import module as mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whisper_mod
 from repro_torch.models.layers import embed, logits_of, unembed
-from repro_torch.sharding.tp import Parts
+from repro_torch.sharding.tp import Parts, Seq
 from repro_torch.training.loss import (ce_loss, chunked_ce_from_hidden,
                                        split_ce_loss)
 
@@ -104,8 +104,11 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=device)[None].expand(B, S)
         if M:
-            x = (embed(inputs, params["embed"], dt, tp) if inputs.ndim == 2
-                 else inputs.to(dt))
+            table = params["embed"]["table"]
+            if isinstance(table, Parts) and tp.seq_spans(S + M):
+                table = table[0]        # train_sp: whole at every member
+            x = (embed(inputs, {"table": table}, dt, tp)
+                 if inputs.ndim == 2 else inputs.to(dt))
             inputs, positions = _with_meta(params, x, positions)
         return inputs, positions
 
@@ -135,7 +138,8 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
                                      remat_policy=remat_policy, logits=False,
                                      tp=tp)
         if M:
-            hidden = hidden[:, M:]
+            hidden = (drop_front(hidden, M, tp) if isinstance(hidden, Seq)
+                      else hidden[:, M:])
         if mc.tie_embeddings:
             head_w, tr = params["embed"]["table"], True
         else:
@@ -168,7 +172,11 @@ def _lm_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
         hidden, caches, _ = tfm.forward(params, inputs, positions, mc,
                                         caches=caches, cur=0, logits=False,
                                         tp=tp)
-        logits = logits_of(hidden[:, -1], params, mc.tie_embeddings, tp)
+        if isinstance(hidden, Seq):     # the last token, on the last member
+            last = tp.exchange(hidden.tensors[-1][:, -1], tp.n - 1, 0)
+        else:
+            last = hidden[:, -1]
+        logits = logits_of(last, params, mc.tie_embeddings, tp)
         return logits, caches
 
     def decode_step(params, inp, caches, cur: int, tp=None):
@@ -358,17 +366,25 @@ def _whisper_bundle(rc: RunConfig, device: torch.device) -> ModelBundle:
                        cache_axes=cache_axes, input_specs=input_specs)
 
 
+def drop_front(hidden: Seq, M: int, tp) -> Seq:
+    """The hidden states of ``train_sp``'s token blocks without their
+    first ``M`` (hymba's meta tokens), split again over the group: put
+    together on the first member, cut, and scattered."""
+    whole = tp.gather(hidden, [0])[0][:, M:]
+    spans = tp.seq_spans(whole.shape[1])
+    return whole if spans is None else tp.split(whole, spans)
+
+
 def tp_plan(rc: RunConfig, tp):
     """The mesh plan for a tensor-parallel group ``tp``
     (``transformer.tp_plan``, whisper's ``whisper.tp_plan``; where the
     group splits the caches' sequence, for caches of ``rc.shape.seq_len``
     tokens and the meta tokens, or whisper's cross cache of that many
     frames)."""
-    seq = None
-    if "act_kv_seq" in tp.ctx.tp_splits():
-        seq = rc.shape.seq_len + rc.model.num_meta_tokens
+    seq = rc.shape.seq_len + rc.model.num_meta_tokens
     if rc.model.family == "encdec":
-        return whisper_mod.tp_plan(rc.model, tp, seq)
+        return whisper_mod.tp_plan(
+            rc.model, tp, seq if tp.ctx.profile == "decode" else None)
     return tfm.tp_plan(rc.model, tp, seq)
 
 

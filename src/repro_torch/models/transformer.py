@@ -53,12 +53,13 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rope
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (embed, embed_specs, head_specs,
-                                       logits_of, mlp, mlp_plan, mlp_specs,
-                                       rms_norm, rms_norm_specs, tp_vocab)
-from repro_torch.models.module import p, stack_specs
+from repro_torch.models.layers import (embed, embed_seq, embed_specs,
+                                       head_specs, logits_of, mlp, mlp_plan,
+                                       mlp_specs, rms_norm, rms_norm_specs,
+                                       tp_vocab)
+from repro_torch.models.module import p, stack_specs, tree_paths
 from repro_torch.sharding import fsdp
-from repro_torch.sharding.tp import Parts, at
+from repro_torch.sharding.tp import Parts, Seq, at
 
 # the reference's layer kinds the port does not run yet: none
 NOT_PORTED: tuple = ()
@@ -156,10 +157,8 @@ def layer_specs(cfg: ModelConfig, kind: str):
         "ln2": rms_norm_specs(cfg.d_model),
     }
     if kind == "moe":
-        # the flag changes only the logical axis names (expert-TP or EP)
-        expert_tp = cfg.num_experts < 16 and not cfg.moe_force_ep
         specs["moe"] = moe_mod.moe_specs(cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
-                                         cfg.num_experts, expert_tp)
+                                         cfg.num_experts, expert_tp(cfg))
         return specs
     if kind == "hymba":
         specs["mamba"] = ssm_mod.mamba_specs(
@@ -167,6 +166,13 @@ def layer_specs(cfg: ModelConfig, kind: str):
             state=cfg.ssm_state, conv_width=cfg.ssm_conv_width)
     specs["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff)
     return specs
+
+
+def expert_tp(cfg: ModelConfig) -> bool:
+    """Whether the experts' weights take expert-TP's logical axes (each
+    expert's columns on 'model') or EP's (the experts on their own axis);
+    the flag changes only the axis names."""
+    return cfg.num_experts < 16 and not cfg.moe_force_ep
 
 
 def model_specs(cfg: ModelConfig):
@@ -193,14 +199,20 @@ def tp_plan(cfg: ModelConfig, tp, seq_len: Optional[int] = None
     (``act_ssm``): the channels of hymba's mamba part and of the
     ``mamba`` kind (``ssm.tp_plan``), the mLSTM's channels and heads
     (``xlstm.mlstm_plan``), the sLSTM's heads and its FFN's columns
-    (``xlstm.slstm_plan``). Where the group splits the KV cache's
-    sequence instead of the heads (the decode profile; ``seq_len``: the
-    caches' tokens, meta tokens included), every member with a block of
-    a stage's cache reads that stage's attention projections whole. A
-    leaf left out is read whole by the group's first member: the norms,
-    hymba's meta tokens, the sLSTM's conv and norm, and every part whose
-    dim does not divide the group (the reference drops that mapping
-    too)."""
+    (``xlstm.slstm_plan``). ``seq_len``: the sequence's tokens, meta
+    tokens included (the caches' under the decode profile). Where the
+    group splits the KV cache's sequence instead of the heads (the
+    decode profile), every member with a block of a stage's cache reads
+    that stage's attention projections whole. Where it splits the
+    residual stream's sequence (``train_sp``) or the keys' (``kv_seq``),
+    each member projects the keys and values of its own tokens and
+    reads the key and value projections whole, its query heads and
+    their out-projection as under ``train`` (the heads' weight rule);
+    under ``train_sp`` every member also reads the norms, the embedding
+    table and the head whole. A leaf left out is read whole by the
+    group's first member: the norms, hymba's meta tokens, the sLSTM's
+    conv and norm, and every part whose dim does not divide the group
+    (the reference drops that mapping too)."""
     every = slice(None)
     out: Dict[tuple, list] = {}
 
@@ -211,7 +223,17 @@ def tp_plan(cfg: ModelConfig, tp, seq_len: Optional[int] = None
                                 ((every,) + ix if stacked else ix)
                                 for ix in per]
 
-    vocab = tp_vocab(tp, cfg.vocab_size)
+    decode = seq_len if tp.ctx.profile == "decode" else None
+    sp = seq_len is not None and tp.seq_spans(seq_len) is not None
+    if sp:
+        # the residual stream on the members' tokens: every member reads
+        # the norms, and the table and head whole (the loss projects a
+        # member's tokens over the whole vocabulary)
+        for path, spec in tree_paths(model_specs(cfg)).items():
+            if path[-2:-1] in (("ln1",), ("ln2",), ("final_norm",)) or \
+                    path[0] in ("embed", "head"):
+                out[path] = [(every,) * len(spec.shape)] * tp.n
+    vocab = None if sp else tp_vocab(tp, cfg.vocab_size)
     if vocab is not None:
         rows = [None] * tp.n
         cols = [None] * tp.n
@@ -232,11 +254,12 @@ def tp_plan(cfg: ModelConfig, tp, seq_len: Optional[int] = None
             continue
         put(key + ("attn",), attn.tp_plan(
             tp, cfg.num_heads, cfg.num_kv_heads, cfg.use_qk_norm,
-            None if seq_len is None else stage_cache_len(cfg, st, seq_len)),
-            True)
+            None if decode is None else stage_cache_len(cfg, st, decode),
+            kv_own=sp or _kv_spans(tp, seq_len or 0) is not None), True)
         if st.kind == "moe":
             put(key + ("moe",), moe_mod.tp_plan(
-                tp, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff), True)
+                tp, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff,
+                expert_tp(cfg)), True)
         else:
             put(key + ("mlp",), mlp_plan(tp, cfg.d_ff), True)
     return out
@@ -376,6 +399,10 @@ def _attention_part(lp, x, cos_sin, q_pos, cfg: ModelConfig, window,
                                      cur, softcap, sinks, tp, pos)
         return _prefill_on_blocks(w, h, cos_sin, q_pos, cfg, window, cache,
                                   cur, softcap, sinks, tp, pos)
+    if isinstance(h, Seq):
+        return _attention_sp(w, h, cfg, window, softcap, sinks, tp, pos)
+    if isinstance(w["wq"], Parts) and _kv_spans(tp, h.shape[1]):
+        return _attention_cp(w, h, cfg, window, softcap, sinks, tp, pos)
     if isinstance(w["wq"], Parts):
         if cache is not None:
             raise ValueError("split attention writes a cache only as the "
@@ -398,6 +425,14 @@ def _prefill_on_blocks(w, h, cos_sin, q_pos, cfg: ModelConfig, window,
     fill (``tp.exchange``), and every block's positions written."""
     sends = Sends(cache, h.shape[1], cur, sinks, tp,
                   {j: pos[j][1][0] for j in cache.blocks})
+    if isinstance(h, Seq) or (isinstance(w["wq"], Parts)
+                              and _kv_spans(tp, h.shape[1])):
+        run = _attention_sp if isinstance(h, Seq) else _attention_cp
+        out = run(w, h, cfg, window, softcap, sinks, tp, pos,
+                  kv_out=sends.tokens)
+        sends.tokens_unseen(h.shape[0], cfg.resolved_head_dim(),
+                            _kv_spans(tp, h.shape[1]) or h.spans)
+        return out
     if isinstance(w["wq"], Parts):
         group = cfg.num_heads // cfg.num_kv_heads
         wk = w["wk"]
@@ -453,6 +488,47 @@ class Sends:
                     if block is not None:
                         block[name][:, dst, lo:hi].copy_(part)
 
+    def tokens(self, m: int, k: torch.Tensor, v: torch.Tensor,
+               first: int) -> None:
+        """Member m's keys and values of its tokens (every key/value head;
+        the chunk's tokens from ``first`` on) into every block whose slots
+        they fill: its own block in place, the others' sent
+        (``tp.exchange``)."""
+        new = attn.new_entries(k, v, self.dtype)
+        last = first + k.shape[1]
+        for j in self.cache.spans:
+            block = self.cache.blocks.get(j)
+            for dst, src in self.writes[j]:
+                lo, hi = max(src.start, first), min(src.stop, last)
+                if lo >= hi:
+                    continue
+                at_dst = slice(dst.start + lo - src.start,
+                               dst.start + hi - src.start)
+                for name, t in new.items():
+                    part = self.tp.exchange(t[:, lo - first:hi - first], m, j)
+                    if block is not None:
+                        block[name][:, at_dst].copy_(part)
+
+    def tokens_unseen(self, B: int, hd: int, spans) -> None:
+        """A probe's count of what the members it does not run would send
+        of their tokens (``spans``: each member's), as its own."""
+        if not self.tp.probe:
+            return
+        per = next(iter(self.cache.blocks.values()))
+        size = sum(per[n].element_size() * (hd if n in "kv" else 1)
+                   * per[n].shape[2] for n in per if n != "pos")
+        for m, sp in enumerate(spans):
+            if m == 0:
+                continue
+            for j in self.cache.spans:
+                if j == m:
+                    continue
+                n = sum(max(0, min(src.stop, sp.stop) - max(src.start,
+                                                            sp.start))
+                        for _, src in self.writes[j])
+                if n:
+                    self.tp.exchange_unseen(B * n * size, m, j)
+
     def unseen(self, wk: Parts, B: int, hd: int) -> None:
         """A probe's count of what the members it does not run would send
         (their key/value heads, the regions of the key projection ``wk``
@@ -470,6 +546,167 @@ class Sends:
                 if j != m and hi > lo:
                     n = sum(src.stop - src.start for _, src in self.writes[j])
                     self.tp.exchange_unseen(B * n * (hi - lo) * size, m, j)
+
+
+def _kv_spans(tp, S: int):
+    """Each member's keys of a chunk of ``S`` where the group splits the
+    keys' sequence over every query (``act_kv_seq`` without a cache:
+    ``kv_seq``), None where it does not."""
+    if tp is None or tp.ctx.profile != "kv_seq":
+        return None
+    blocks = tp.blocks((1, S), ("act_batch", "act_kv_seq"))
+    if len(tp.members(blocks)) != tp.n:
+        return None
+    return [b[1] for b in blocks]
+
+
+def _own_kv(w, hm: torch.Tensor, cfg: ModelConfig, cos_sin):
+    """A member's keys and values of its tokens ``hm`` (every key/value
+    head, after RoPE at ``cos_sin``, their positions)."""
+    k = attn._project(hm, w["wk"])
+    v = attn._project(hm, w["wv"])
+    if cfg.use_qk_norm:
+        k = attn._rms(k, w["k_norm"])
+    if cos_sin is not None:
+        k = rope.apply_rope(k, *cos_sin)
+    return k, v
+
+
+def _own_q(w, hm: torch.Tensor, cfg: ModelConfig, cos_sin):
+    """A member's query heads (its region of ``wq``) of ``hm``."""
+    q = attn._project(hm, w["wq"])
+    if cfg.use_qk_norm:
+        q = attn._rms(q, w["q_norm"])
+    if cos_sin is not None:
+        q = rope.apply_rope(q, *cos_sin)
+    return q
+
+
+def _span(cos_sin, sp: slice):
+    return None if cos_sin is None else tuple(t[:, sp] for t in cos_sin)
+
+
+def _members_kv(w, tp, h_blocks, spans, cfg, pos, kv_out):
+    """Each live member's keys and values of its tokens (``h_blocks``:
+    its normed inputs there), its operations its own; ``kv_out(m, k, v,
+    first)`` is handed them (a prefill writes the cache's blocks)."""
+    kvs = []
+    for m, hm in zip(tp.live(range(tp.n)), h_blocks):
+        k, v = tp.apply(m, hm, lambda m_, x: _own_kv(
+            at(w, m_), x, cfg, _span(pos[m_][0], spans[m_])))
+        if kv_out is not None:
+            kv_out(m, k, v, spans[m].start)
+        kvs.append((k, v))
+    return kvs
+
+
+def _attention_sp(w, h: "Seq", cfg: ModelConfig, window, softcap, sinks,
+                  tp, pos, kv_out=None) -> "Seq":
+    """Attention under ``train_sp`` (Megatron sequence parallelism), as
+    the reference's partitioned program computes it: each member projects
+    the keys and values of its own tokens (every key/value head), which
+    are all-gathered; the normed blocks are all-gathered and each member
+    projects its query heads over the whole sequence, attends with them
+    (the ``swattn`` kernel where the gate admits it, outside training)
+    and out-projects them; the partial outputs are reduce-scattered over
+    the tokens. Projections that do not split by heads run whole on the
+    first member, over the gathered sequence."""
+    if not isinstance(w["wq"], Parts):
+        whole = tp.gather(h, [0])[0]
+        o = _attention(w, whole, tuple(t for t in pos[0][0]), pos[0][1],
+                       cfg, window, softcap=softcap, sinks=sinks,
+                       kv_out=None if kv_out is None else (
+                           lambda k, v: kv_out(0, k, v, 0)))
+        return tp.split(o, h.spans)
+    kvs = _members_kv(w, tp, h.tensors, h.spans, cfg, pos, kv_out)
+    n = range(tp.n)
+    ks = tp.all_gather([k for k, _ in kvs], n, 1)
+    vs = tp.all_gather([v for _, v in kvs], n, 1)
+    members = w["wq"].members
+    group = cfg.num_heads // cfg.num_kv_heads
+    kv = dict(zip(tp.live(n), zip(ks, vs)))
+    outs = []
+    for m, hm in zip(tp.live(members), tp.gather(h, members)):
+        outs.append(tp.apply(m, hm, lambda m_, x: attn.out_project(
+            _heads_attend(_own_q(at(w, m_), x, cfg, pos[m_][0]),
+                          *kv[m_], pos[m_][1], cfg, window, softcap, sinks,
+                          w["wq"].start(m_, 1), group), at(w, m_)))[0])
+    return tp.scatter_sum(outs, members, h.spans)
+
+
+def _attention_cp(w, h: torch.Tensor, cfg: ModelConfig, window, softcap,
+                  sinks, tp, pos, kv_out=None, causal: bool = True
+                  ) -> torch.Tensor:
+    """Attention under ``kv_seq`` (context parallelism), as the
+    reference's partitioned program computes it: each member projects its
+    query heads over every token, and the keys and values of its block
+    of the tokens (every key/value head), and attends every query over
+    them (``cp_attend``). ``kv_out(m, k, v, first)``: as
+    ``_members_kv``'s."""
+    spans = _kv_spans(tp, h.shape[1])
+    n = range(tp.n)
+    hs = tp.broadcast(h, n)
+    kvs = _members_kv(w, tp, [x[:, spans[m]] for m, x in
+                              zip(tp.live(n), hs)], spans, cfg, pos, kv_out)
+    return cp_attend(w, hs, kvs, [p[1] for p in pos],
+                     [p[1][:, spans[m]] for m, p in zip(tp.live(n), pos)],
+                     cfg, tp, h.dtype, window=window, softcap=softcap,
+                     sinks=sinks, causal=causal,
+                     cos_sin=[p[0] for p in pos])
+
+
+def cp_attend(w, hs, kvs, q_pos, kv_pos, cfg: ModelConfig, tp, dtype, *,
+              window=None, softcap: float = 0.0, sinks: int = 0,
+              causal: bool = True, cos_sin=None) -> torch.Tensor:
+    """Context parallelism's attention from each live member's normed
+    input ``hs`` (every token) and its block of the keys and values
+    ``kvs`` (every key/value head; ``kv_pos``: their positions): each
+    member projects its query heads (``w['wq']`` by heads, RoPE at its
+    ``cos_sin``), the heads are all-gathered, each member attends every
+    query over its block (``attention.attend_partial``), the partials
+    are combined (``tp.TP.combine``), each member's heads of the
+    combined output are reduce-scattered to it, and the members'
+    out-projections of their heads are summed, on the first member."""
+    n = range(tp.n)
+    cos_sin = cos_sin or [None] * len(hs)
+    qs = [tp.apply(m, hm, lambda m_, x, cs=cs: _own_q(at(w, m_), x, cfg,
+                                                       cs))[0]
+          for m, hm, cs in zip(tp.live(n), hs, cos_sin)]
+    qs = tp.all_gather(qs, n, 2)
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim())
+    parts = []
+    for m, q, (k, v), qp, kp in zip(tp.live(n), qs, kvs, q_pos, kv_pos):
+        def part(m_, q_, k=k, v=v, qp=qp, kp=kp):
+            return attn.attend_partial(
+                q_, attn.repeat_kv(k.to(q_.dtype), cfg.num_heads),
+                attn.repeat_kv(v.to(q_.dtype), cfg.num_heads), qp, kp,
+                causal=causal, window=window, softcap=softcap, scale=scale,
+                sinks=sinks, q_chunk=cfg.q_chunk)
+        parts.append(tp.apply(m, q, part))
+    heads = [w["wq"].index[m][1] for m in n]
+    o = tp.reduce_scatter(tp.combine(parts, n), n, heads, 1)
+    outs = []
+    for m, om in zip(tp.live(n), o):
+        outs.append(tp.apply(m, om, lambda m_, x: attn.out_project(
+            x.transpose(1, 2).to(dtype), at(w, m_)))[0])
+    return tp.all_reduce(outs, n)
+
+
+def _heads_attend(q, k, v, q_pos, cfg: ModelConfig, window, softcap, sinks,
+                  first: int, group: int) -> torch.Tensor:
+    """A member's query heads ``q`` (from head ``first`` on) attended
+    over the whole sequence's keys and values ``k``, ``v`` (every
+    key/value head): the banded ``swattn`` kernel where the gate admits
+    it, else plain ``attend``."""
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim())
+    kf = attn.repeat_kv(k[:, :, first // group:], q.shape[2], first, group)
+    vf = attn.repeat_kv(v[:, :, first // group:], q.shape[2], first, group)
+    if (cfg.use_pallas_attn and sinks == 0 and softcap == 0.0
+            and isinstance(window, int)):
+        return swattn_cuda(q, kf, vf, window=window, scale=scale)
+    return attn.attend(q, kf, vf, q_pos, q_pos, causal=True, window=window,
+                       softcap=softcap, scale=scale, sinks=sinks,
+                       q_chunk=cfg.q_chunk)
 
 
 def _decode_on_blocks(w, h, cos_sin, q_pos, cfg: ModelConfig, window,
@@ -595,7 +832,7 @@ def moe_block(lp, x, ctx, cfg: ModelConfig, cache=None):
                                k=cfg.num_experts_per_tok,
                                capacity_factor=cfg.capacity_factor,
                                tp=ctx.get("tp"))
-    return x + y.reshape(B, S, D), aux
+    return x + (y if isinstance(y, Seq) else y.reshape(B, S, D)), aux
 
 
 def hymba_block(lp, x, ctx, cfg: ModelConfig, cache=None):
@@ -606,10 +843,11 @@ def hymba_block(lp, x, ctx, cfg: ModelConfig, cache=None):
                  0.0)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     cm = None if cache is None else cache["mamba"]
-    m, state = ssm_mod.mamba_block(h, lp["mamba"], cfg, state_in=cm,
-                                   tp=ctx.get("tp"))
+    tp = ctx.get("tp")
+    m, state = ssm_mod.mamba_block(_whole(h, tp), lp["mamba"], cfg,
+                                   state_in=cm, tp=tp)
     _store(cm, state)
-    x = x + 0.5 * (a + m)
+    x = x + 0.5 * (a + _like(m, x, tp))
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp(h2, lp["mlp"], tp=ctx.get("tp")), 0.0
 
@@ -617,31 +855,47 @@ def hymba_block(lp, x, ctx, cfg: ModelConfig, cache=None):
 def mamba_block(lp, x, ctx, cfg: ModelConfig, cache=None):
     """A pre-norm mamba block (the plain conv, as in the reference); its
     state streams through ``cache``, updated in place."""
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = _whole(rms_norm(x, lp["ln1"], cfg.norm_eps), ctx.get("tp"))
     y, state = ssm_mod.mamba_block(h, lp["mamba"], cfg, state_in=cache,
                                    tp=ctx.get("tp"))
     _store(cache, state)
-    return x + y, 0.0
+    return x + _like(y, x, ctx.get("tp")), 0.0
 
 
 def mlstm_block(lp, x, ctx, cfg: ModelConfig, cache=None):
     """A pre-norm mLSTM block; conv state and memory stream through
     ``cache``, updated in place."""
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = _whole(rms_norm(x, lp["ln1"], cfg.norm_eps), ctx.get("tp"))
     y, state = xlstm_mod.mlstm_block(h, lp["mlstm"], cfg, state_in=cache,
                                      tp=ctx.get("tp"))
     _store(cache, state)
-    return x + y, 0.0
+    return x + _like(y, x, ctx.get("tp")), 0.0
 
 
 def slstm_block(lp, x, ctx, cfg: ModelConfig, cache=None):
     """A pre-norm sLSTM block; conv state and (c, n, h, m) stream through
     ``cache``, updated in place."""
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = _whole(rms_norm(x, lp["ln1"], cfg.norm_eps), ctx.get("tp"))
     y, state = xlstm_mod.slstm_block(h, lp["slstm"], cfg, state_in=cache,
                                      tp=ctx.get("tp"))
     _store(cache, state)
-    return x + y, 0.0
+    return x + _like(y, x, ctx.get("tp")), 0.0
+
+
+def _whole(h, tp):
+    """``h``, or under ``train_sp`` (a ``tp.Seq``) its whole sequence on
+    the group's first member: the recurrent layers scan the sequence
+    there, their inner dim split over the group as under ``train``."""
+    return tp.gather(h, [0])[0] if isinstance(h, Seq) else h
+
+
+def _like(y, x, tp):
+    """A block's output ``y`` as the residual stream ``x`` holds it: a
+    whole sequence on the first member split into ``x``'s token blocks
+    under ``train_sp``."""
+    if isinstance(x, Seq) and not isinstance(y, Seq):
+        return tp.split(y, x.spans)
+    return y
 
 
 BLOCKS = {"dense": dense_block, "moe": moe_block, "hymba": hymba_block,
@@ -685,7 +939,11 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
     ``tp`` (a data-parallel rank's tensor-parallel group on a mesh,
     ``sharding/tp.py``): the leaves the plan splits come as ``tp.Parts``
     and their blocks run split over the group (``tp_plan``); the rest
-    runs on the group's first member. With caches (serving on a mesh,
+    runs on the group's first member. Where the group splits the
+    sequence (``train_sp``) the residual stream is a ``tp.Seq`` of the
+    members' token blocks from the embedding to the final norm, and so
+    are the hidden states returned; under ``kv_seq`` each member attends
+    every query over its block of the keys. With caches (serving on a mesh,
     ``sharding/serve.py``) each stage's KV cache comes as
     ``attention.KVBlocks``, the members' blocks of its sequence, a conv
     state the recurrent layers split as ``tp.Parts`` of the members'
@@ -697,10 +955,16 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
         raise ValueError("a tensor-parallel forward without caches is the "
                          "mesh train step's: hidden states out")
     dtype = model_dtype(cfg)
-    if inputs.ndim == 2:
+    spans = (tp.seq_spans(inputs.shape[1])
+             if tp is not None and inputs.shape[1] > 1 else None)
+    if spans is not None and inputs.ndim == 2:
+        x = embed_seq(inputs, params["embed"], dtype, tp, spans)
+    elif inputs.ndim == 2:
         x = embed(inputs, params["embed"], dtype, tp)
     else:
         x = inputs.to(dtype)
+        if spans is not None:
+            x = tp.split(x, spans)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     cos_sin = _positions_cos_sin(cfg, positions)
@@ -709,7 +973,8 @@ def forward(params, inputs: torch.Tensor, positions: torch.Tensor,
         cos, sin, at_pos = (tp.replicate(t, range(tp.n))
                             for t in (*cos_sin, positions))
         pos = list(zip(zip(cos, sin), at_pos))
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32,
+                            device=tp.home if tp is not None else x.device)
     for i, st in enumerate(make_stages(cfg)):
         block = BLOCKS[st.kind]
         sp = params[f"stage_{i}"]

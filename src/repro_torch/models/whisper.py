@@ -103,7 +103,11 @@ def tp_plan(cfg: ModelConfig, tp, seq_len: Optional[int] = None
     columns (``bo`` whole). Where the group splits the caches' sequence
     (the decode profile; ``seq_len``: the cross cache's frames), each
     member with a block of the 448-slot ring reads the self-attention
-    whole, and each with a block of the frames the cross-attention. A
+    whole, and each with a block of the frames the cross-attention.
+    Under ``kv_seq`` each member reads its query heads and their
+    out-projection, and the key and value projections whole, for the
+    keys of its block of the tokens or frames (``attention.tp_plan``'s
+    ``kv_own``). A
     leaf left out is read whole by the first member: the norms, the
     learned positions, and every part whose dim does not divide the
     group (the reference drops that mapping too)."""
@@ -123,9 +127,12 @@ def tp_plan(cfg: ModelConfig, tp, seq_len: Optional[int] = None
         out[("embed", "table")] = rows
     H, Kv = cfg.num_heads, cfg.num_kv_heads
     ring = None if seq_len is None else cfg.max_target_positions
-    put(("encoder", "attn"), attn.tp_plan(tp, H, Kv, False))
-    put(("decoder", "self_attn"), attn.tp_plan(tp, H, Kv, False, ring))
-    put(("decoder", "cross_attn"), attn.tp_plan(tp, H, Kv, False, seq_len))
+    own = tp.ctx.profile == "kv_seq"
+    put(("encoder", "attn"), attn.tp_plan(tp, H, Kv, False, kv_own=own))
+    put(("decoder", "self_attn"), attn.tp_plan(tp, H, Kv, False, ring,
+                                               kv_own=own))
+    put(("decoder", "cross_attn"), attn.tp_plan(tp, H, Kv, False, seq_len,
+                                                kv_own=own))
     for stack in ("encoder", "decoder"):
         put((stack, "mlp"), mlp_plan(tp, cfg.d_ff, gated=False))
     return out
@@ -161,6 +168,10 @@ def _self_part(w, h, ctx, cfg: ModelConfig, causal: bool) -> torch.Tensor:
     ``tp.Parts`` each member's heads, the out-projections summed."""
     if not isinstance(w["wq"], Parts):
         return _attention(w, h, ctx["pos"], cfg, causal)
+    if tfm._kv_spans(ctx["tp"], h.shape[1]):     # kv_seq: a block of keys
+        return tfm._attention_cp(w, h, cfg, None, 0.0, 0, ctx["tp"],
+                                 [(None, p) for p in ctx["at"]],
+                                 causal=causal)
     group = cfg.num_heads // cfg.num_kv_heads
     return ctx["tp"].run(h, w["wq"].members, lambda m, hm: _attention(
         at(w, m), hm, ctx["at"][m], cfg, causal, w["wq"].start(m, 1),
@@ -278,6 +289,10 @@ def _cross_kv_layer(lw, enc_states: torch.Tensor, tp=None, at_members=None,
     if not at_members:
         at_members.update(zip(tp.live(members),
                               tp.broadcast(enc_states, members)))
+    spans = tfm._kv_spans(tp, enc_states.shape[1])
+    if spans is not None:       # kv_seq: each member's block of the frames
+        return _cross_kv_blocks(wk, wv, enc_states, tp, at_members, sends,
+                                spans)
     ks, vs = [None] * tp.n, [None] * tp.n
     for m in tp.live(members):
         ks[m], vs[m] = tp.apply(m, at_members[m], lambda j, e: (
@@ -289,6 +304,24 @@ def _cross_kv_layer(lw, enc_states: torch.Tensor, tp=None, at_members=None,
     every = slice(None)
     index = [None if ix is None else (every, every, ix[1], every)
              for ix in wk.index]
+    return Parts(ks, index), Parts(vs, index)
+
+
+def _cross_kv_blocks(wk, wv, enc_states, tp, at_members, sends, spans):
+    """``kv_seq``: each member's keys and values of its block of the
+    frames (every key/value head, ``tp.Parts`` along the frames), sent
+    into the cross cache's blocks where ``sends``."""
+    ks, vs = [None] * tp.n, [None] * tp.n
+    for m in tp.live(range(tp.n)):
+        ks[m], vs[m] = tp.apply(m, at_members[m][:, spans[m]],
+                                lambda j, e: (attn._project(e, wk[j]),
+                                              attn._project(e, wv[j])))
+        if sends is not None:
+            sends.tokens(m, ks[m], vs[m], spans[m].start)
+    if sends is not None:
+        sends.tokens_unseen(enc_states.shape[0], wk[0].shape[-1], spans)
+    every = slice(None)
+    index = [(every, sp, every, every) for sp in spans]
     return Parts(ks, index), Parts(vs, index)
 
 
@@ -308,7 +341,9 @@ def _cross(w, h, xk, xv, pos, enc_pos, first: int = 0,
 
 def _cross_part(w, h, ctx, cfg: ModelConfig) -> torch.Tensor:
     """The cross-attention sub-block: whole; split by heads (the
-    projections and the cross K/V as ``tp.Parts``); or, one token a row
+    projections and the cross K/V as ``tp.Parts``); under ``kv_seq``
+    each member's query heads gathered and attended over its block of
+    the frames (``transformer.cp_attend``); or, one token a row
     against a cross cache the group holds along its frames
     (``attention.KVBlocks``), each member's partial over its frames,
     combined (``transformer.combined``)."""
@@ -329,6 +364,16 @@ def _cross_part(w, h, ctx, cfg: ModelConfig) -> torch.Tensor:
     if not isinstance(w["wq"], Parts):
         return _cross(w, h, cross["k"], cross["v"], ctx["pos"],
                       ctx["enc_pos"])
+    spans = (tfm._kv_spans(tp, ctx["enc_at"][0].shape[1])
+             if ctx.get("enc_at") else None)
+    if spans is not None:       # kv_seq: each member's block of the frames
+        n = range(tp.n)
+        live = tp.live(n)
+        return tfm.cp_attend(
+            w, tp.broadcast(h, n),
+            [(cross["k"][m], cross["v"][m]) for m in live], ctx["at"],
+            [e[:, spans[m]] for m, e in zip(live, ctx["enc_at"])], cfg, tp,
+            h.dtype, causal=False)
     group = cfg.num_heads // cfg.num_kv_heads
     return tp.run(h, w["wq"].members, lambda m, hm: _cross(
         at(w, m), hm, cross["k"][m], cross["v"][m], ctx["at"][m],
@@ -366,7 +411,10 @@ def _frames(xkv) -> int:
     if isinstance(xkv, attn.KVBlocks):
         return xkv.length
     k = xkv["k"]
-    if isinstance(k, Parts):
+    if isinstance(k, Parts):        # by heads, or (kv_seq) by frames
+        last = k.index[k.members[-1]][2]
+        if last.stop is not None:
+            return last.stop
         k = k[k.members[0]]
     return k.shape[2]
 

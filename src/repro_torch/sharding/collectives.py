@@ -258,13 +258,20 @@ class TPCounts:
     channels or heads of a state the rank holds whole, sent to the member
     and the new ones put back on the first member, and the sLSTM's
     hidden states assembled there (an all-gather; its gradient's blocks
-    sent back in backward)."""
+    sent back in backward). ``tp_gathered`` and ``tp_scattered``: the
+    group's all-gathers and reduce-scatters (``train_sp``: the members'
+    token blocks gathered before a split block and its partial outputs
+    reduce-scattered over the tokens after it; ``kv_seq``: the members'
+    query heads gathered, and each member's heads of the combined
+    attention output), each counting the other's gradient in backward."""
     all_reduced: Traffic
     copies: Traffic
     recompute: Callable[[], bool] = lambda: False
     exchanged: Optional[Traffic] = None
     logits: Optional[Traffic] = None
     states: Optional[Traffic] = None
+    tp_gathered: Optional[Traffic] = None
+    tp_scattered: Optional[Traffic] = None
 
 
 def _add(t: Optional[Traffic], x: torch.Tensor, src, dst) -> None:

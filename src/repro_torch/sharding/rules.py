@@ -29,8 +29,10 @@ tensor-parallel group at a time, and ask this module where.
 ``tp_axes`` names the group's mesh axes (every axis the batch does not
 take), ``tp_splits`` the constraint points the group splits (train:
 the heads, the MLP's columns, the experts, the vocabulary and the
-recurrent layers' inner dim ``act_ssm``; decode: the KV cache's sequence
-in place of the heads, flash-decode style), and
+recurrent layers' inner dim ``act_ssm``; train_sp: the residual
+stream's sequence besides them; kv_seq: the keys' sequence in place of
+the heads, context parallelism; decode: the KV cache's sequence in place
+of the heads, flash-decode style), and
 ``tp_blocks(shape, axes)`` gives each member's block of the activation a
 constraint point names: ``pspec(shape, axes)`` on those axes, its drops
 included (a dim that does not divide stays whole, and the part is
@@ -176,35 +178,37 @@ class ShardingCtx:
     def tp_axes(self) -> Tuple[str, ...]:
         """The mesh axes of a data-parallel rank's tensor-parallel group:
         every axis of the mesh that ``act_batch`` does not map to, in mesh
-        order. None where the profile splits the sequence over one of them
-        (``train_sp``, ``kv_seq``: not in the port's mesh step yet, which
-        then computes each rank's rows whole, as before), except the
-        ``decode`` profile's split of the KV cache's sequence, which the
-        mesh decode step computes (``tp_splits``)."""
+        order, under every profile. What the group splits is the
+        profile's (``tp_splits``): the heads under ``train`` and
+        ``zero1``, the residual stream's sequence besides them under
+        ``train_sp``, the keys' sequence in place of the heads under
+        ``kv_seq`` and ``decode``. ``dp_only`` keeps no group: its
+        ``act_batch`` spans every axis."""
         if self.mesh is None:
             return ()
         batch = _names(self._mesh_axes("act_batch"))
-        axes = tuple(a for a in self.mesh.axis_names if a not in batch)
-        seqs = ("act_seq",) if self.profile == "decode" else (
-            "act_seq", "act_kv_seq")
-        for seq in seqs:
-            if set(_names(self._mesh_axes(seq))) & set(axes):
-                return ()
-        return axes
+        return tuple(a for a in self.mesh.axis_names if a not in batch)
 
     def tp_splits(self) -> Tuple[str, ...]:
         """The constraint points whose activations the group splits: of
-        ``act_heads``, ``act_kv_seq``, ``act_mlp``, ``act_experts``,
-        ``act_vocab`` and ``act_ssm``, those the rules map onto the
-        group's axes. Under ``train``: the heads, the MLP, the experts,
-        the vocabulary and the recurrent layers' inner dim (mamba's and
-        mLSTM's channels, sLSTM's heads); under ``decode``: the KV cache's
-        sequence (the cache lies on the group along ``cache_seq``), the
-        MLP, the experts, the vocabulary and the recurrent inner dim, the
-        heads whole."""
+        ``act_seq``, ``act_heads``, ``act_kv_seq``, ``act_mlp``,
+        ``act_experts``, ``act_vocab`` and ``act_ssm``, those the rules
+        map onto the group's axes. Under ``train``: the heads, the MLP,
+        the experts, the vocabulary and the recurrent layers' inner dim
+        (mamba's and mLSTM's channels, sLSTM's heads); under ``train_sp``
+        the residual stream's sequence besides them (Megatron sequence
+        parallelism: the norms and residual adds on a member's tokens,
+        the split blocks on the gathered sequence); under ``kv_seq`` the
+        keys' sequence (context parallelism: each member attends every
+        query over its block of the keys), the MLP, the experts, the
+        vocabulary and the recurrent inner dim, the heads whole; under
+        ``decode``: the KV cache's sequence (the cache lies on the group
+        along ``cache_seq``), the MLP, the experts, the vocabulary and
+        the recurrent inner dim, the heads whole."""
         tp = set(self.tp_axes())
-        return tuple(a for a in ("act_heads", "act_kv_seq", "act_mlp",
-                                 "act_experts", "act_vocab", "act_ssm")
+        return tuple(a for a in ("act_seq", "act_heads", "act_kv_seq",
+                                 "act_mlp", "act_experts", "act_vocab",
+                                 "act_ssm")
                      if tp and _names(self._mesh_axes(a))
                      and set(_names(self._mesh_axes(a))) <= tp)
 

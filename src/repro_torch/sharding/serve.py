@@ -76,8 +76,8 @@ from repro_torch.sharding.rules import ShardingCtx
 from repro_torch.sharding.tp import TP, CoordFlops, Parts
 from repro_torch.training import spmd
 
-KINDS = ("gathered", "all_reduced", "exchanged", "logits", "states",
-         "copies", "replicas", "batch")
+KINDS = ("gathered", "all_reduced", "tp_gathered", "tp_scattered",
+         "exchanged", "logits", "states", "copies", "replicas", "batch")
 
 
 def cache_shardings(bundle, batch: int, ctx: ShardingCtx):
@@ -302,7 +302,9 @@ class _Serving:
                                      traffic["copies"],
                                      exchanged=traffic["exchanged"],
                                      logits=traffic["logits"],
-                                     states=traffic["states"]),
+                                     states=traffic["states"],
+                                     tp_gathered=traffic["tp_gathered"],
+                                     tp_scattered=traffic["tp_scattered"]),
                             names=members if flops is not None else None)
                 if flops is not None:
                     flops.default = c

@@ -36,6 +36,20 @@ stay whole and are computed once a rank, on the group's first member.
   take several slices along one dim (mamba's ``in_proj``: a member's x
   and z columns and the whole B, C, dt tail; ``region_pieces``,
   ``take_region``).
+- Sequence parallelism (``train_sp``): the residual stream is a ``Seq``,
+  each member's block of the rank's tokens on its device, and the norms
+  and residual adds run there; ``run`` all-gathers the blocks before a
+  split block (``gather``) and reduce-scatters the members' partial
+  outputs over the tokens after it (``scatter_sum``), in place of the
+  broadcast and the all-reduce. ``split`` and ``gather(x, [0])`` move a
+  whole sequence on the first member to the blocks and back, for the
+  parts that run there whole.
+- Context parallelism (``kv_seq``): each member attends every query over
+  its block of the keys (``attention.attend_partial``), and ``combine``
+  joins the partials as it joins the flash-decode ones; ``all_gather``
+  puts the members' blocks of a tensor (their query heads) together at
+  every member, and ``reduce_scatter`` hands each member its block of a
+  sum (its heads of the combined output).
 - ``CoordFlops``: ``FlopCounterMode`` with each operation counted under
   the member whose part is running (forward, and its backward, which
   autograd runs between the marks ``run`` puts on the part's input and
@@ -269,6 +283,159 @@ class CoordFlops(FlopCounterMode):
                 if k != "Global"}
 
 
+class _Backward(torch.autograd.Function):
+    """Identity; its backward counts ``nbytes`` under ``traffic`` (what
+    the members a probe does not run would move in backward)."""
+
+    @staticmethod
+    def forward(ctx, x, traffic, nbytes):
+        ctx.traffic, ctx.nbytes = traffic, nbytes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.traffic.add(ctx.nbytes, grad.device, grad.device)
+        return grad, None, None
+
+
+def _kind(counts, name: str):
+    """Where a forward move of kind ``name`` is counted: ``copies`` while
+    a recomputed forward runs in backward."""
+    if counts is None:
+        return None
+    return counts.copies if counts.recompute() else getattr(counts, name)
+
+
+class _Gather(torch.autograd.Function):
+    """The blocks ``parts`` (of members ``srcs``) put together along
+    ``dim`` at each destination (member, device) of ``dsts``: an
+    all-gather, each move between two members counted under
+    ``tp_gathered``; backward hands each block the sum of the
+    destinations' gradients of it (a reduce-scatter), counted under
+    ``tp_scattered``."""
+
+    @staticmethod
+    def forward(ctx, dim, srcs, dsts, counts, *parts):
+        ctx.dim, ctx.srcs, ctx.dsts, ctx.counts = dim, srcs, dsts, counts
+        ctx.devices = [p.device for p in parts]
+        ctx.sizes = [p.shape[dim] for p in parts]
+        kind = _kind(counts, "tp_gathered")
+        out = []
+        for j, dev in dsts:
+            for i, p in zip(srcs, parts):
+                if i != j and kind is not None:
+                    kind.add(p.nbytes, p.device, dev)
+            out.append(torch.cat([p.to(dev) for p in parts], dim=dim))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        kind = None if ctx.counts is None else ctx.counts.tp_scattered
+        out, lo = [], 0
+        for i, dev, n in zip(ctx.srcs, ctx.devices, ctx.sizes):
+            acc = None
+            for (j, _), g in zip(ctx.dsts, grads):
+                if g is None:
+                    continue
+                piece = g.narrow(ctx.dim, lo, n)
+                if i != j and kind is not None:
+                    kind.add(piece.nbytes, piece.device, dev)
+                piece = piece.to(dev)
+                acc = piece if acc is None else acc + piece
+            out.append(acc)
+            lo += n
+        return (None,) * 4 + tuple(out)
+
+
+class _Scatter(torch.autograd.Function):
+    """Each destination (member, device, span) of ``dsts`` takes its span
+    along ``dim`` of the sum of ``parts`` (of members ``srcs``): a
+    reduce-scatter, each move between two members counted under
+    ``tp_scattered``; backward hands each part the destinations'
+    gradients put together (an all-gather; zeros for spans no
+    destination runs), counted under ``tp_gathered``."""
+
+    @staticmethod
+    def forward(ctx, dim, srcs, dsts, spans, counts, *parts):
+        ctx.dim, ctx.srcs, ctx.dsts, ctx.spans = dim, srcs, dsts, spans
+        ctx.counts = counts
+        ctx.devices = [p.device for p in parts]
+        ctx.shape = parts[0].shape
+        kind = _kind(counts, "tp_scattered")
+        out = []
+        for j, dev, sp in dsts:
+            acc = None
+            for i, p in zip(srcs, parts):
+                piece = p.narrow(dim, sp.start, sp.stop - sp.start)
+                if i != j and kind is not None:
+                    kind.add(piece.nbytes, p.device, dev)
+                acc = (piece.to(dev, copy=True) if acc is None
+                       else acc + piece.to(dev))
+            out.append(acc)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        kind = None if ctx.counts is None else ctx.counts.tp_gathered
+        got = {j: g for (j, _, _), g in zip(ctx.dsts, grads)}
+        out = []
+        for i, dev in zip(ctx.srcs, ctx.devices):
+            pieces = []
+            for j, sp in enumerate(ctx.spans):
+                g = got.get(j)
+                if g is None:
+                    shape = list(ctx.shape)
+                    shape[ctx.dim] = sp.stop - sp.start
+                    pieces.append(torch.zeros(shape, device=dev,
+                                              dtype=grads[0].dtype))
+                    continue
+                if i != j and kind is not None:
+                    kind.add(g.nbytes, g.device, dev)
+                pieces.append(g.to(dev))
+            out.append(torch.cat(pieces, dim=ctx.dim))
+        return (None,) * 5 + tuple(out)
+
+
+class Seq:
+    """A rank's residual stream as its group holds it under ``train_sp``:
+    split along the sequence (dim 1), ``tensors[k]`` the k-th live
+    member's block, tokens ``spans[k]``, on its device (a probe holds its
+    first member's alone). Elementwise work runs on each block: ``map``,
+    ``+`` and a scalar ``*``."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor],
+                 spans: Sequence[slice]):
+        self.tensors, self.spans = list(tensors), list(spans)
+
+    @property
+    def length(self) -> int:
+        return self.spans[-1].stop
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The whole sequence's shape."""
+        t = self.tensors[0]
+        return (t.shape[0], self.length) + tuple(t.shape[2:])
+
+    def map(self, fn: Callable[[int, torch.Tensor], torch.Tensor]
+            ) -> "Seq":
+        return Seq([fn(m, t) for m, t in enumerate(self.tensors)],
+                   self.spans)
+
+    def __add__(self, other):
+        if isinstance(other, Seq):
+            return Seq([a + b for a, b in zip(self.tensors, other.tensors,
+                                              strict=True)], self.spans)
+        return self.map(lambda m, t: t + other)
+
+    __radd__ = __add__
+
+    def __mul__(self, k):
+        return self.map(lambda m, t: t * k)
+
+    __rmul__ = __mul__
+
+
 # -- the group ------------------------------------------------------------------
 
 
@@ -303,6 +470,8 @@ class TP:
         thread first (``_Recompute``), where the members are distinct
         cards (autograd runs each card's backward on a thread of its
         own); ``x`` itself on one card."""
+        if isinstance(x, Seq):
+            return x.map(lambda m, t: self.recomputed_first(t))
         if (len(set(self.devices)) == 1 or not torch.is_grad_enabled()
                 or not x.requires_grad):
             return x
@@ -410,14 +579,16 @@ class TP:
         on the member's device (the outputs' sum over the members is the
         softmax over the whole cache). The maxima and sums are reduced
         here; the rescaled outputs are summed by the caller, after the
-        out-projection."""
+        out-projection. The sums and outputs carry their gradients
+        through (``attention.attend_partial``'s, to train under
+        ``kv_seq``); the maxima carry none."""
         live = self.live(members)
         mx = self.all_reduce([p[0] for p in parts], members, "max")
         mx = dict(zip(live, self.replicate(mx, members)))
         scale = {m: torch.exp(p[0] - mx[m]) for m, p in zip(live, parts)}
         total = self.all_reduce([p[1] * scale[m]
                                  for m, p in zip(live, parts)], members)
-        total = dict(zip(live, self.replicate(total, members)))
+        total = dict(zip(live, self.broadcast(total, members)))
         return [p[2].float() * (scale[m] / total[m])
                 for m, p in zip(live, parts)]
 
@@ -517,6 +688,97 @@ class TP:
             out[0] = _Unseen.apply(out[0], self.counts, unseen)
         return out
 
+    # -- sequence parallelism (train_sp) and context parallelism (kv_seq) --
+    def seq_spans(self, S: int) -> Optional[List[slice]]:
+        """Each member's tokens of a sequence of ``S`` where the group
+        splits the residual stream's sequence (``act_seq``: ``train_sp``),
+        None where it does not (another profile, or ``S`` that does not
+        divide the group)."""
+        if "act_seq" not in self.ctx.tp_splits():
+            return None
+        blocks = self.blocks((1, S, 1), ("act_batch", "act_seq", None))
+        if len(self.members(blocks)) == 1:
+            return None
+        return [b[1] for b in blocks]
+
+    def _probe_moves(self, out: torch.Tensor, fwd: str, bwd: str,
+                     nbytes: int) -> torch.Tensor:
+        """A probe's count of a collective's ``nbytes`` (the group's
+        whole), forward under ``fwd`` and, where ``out`` takes a
+        gradient, backward under ``bwd``."""
+        if self.counts is None or not nbytes:
+            return out
+        kind = _kind(self.counts, fwd)
+        if kind is not None:
+            kind.add(nbytes, self.home, self.home)
+        if out.requires_grad and getattr(self.counts, bwd) is not None:
+            out = _Backward.apply(out, getattr(self.counts, bwd), nbytes)
+        return out
+
+    def all_gather(self, parts: Sequence[torch.Tensor],
+                   members: Sequence[int], dim: int,
+                   dsts: Optional[Sequence[int]] = None
+                   ) -> List[torch.Tensor]:
+        """``members``' blocks (by live member) put together along ``dim``
+        at each live member of ``dsts`` (default ``members``), the
+        gradient of each block summed back at its member. A probe's
+        first member has its own block alone: copies of it stand in for
+        the others', and the group's moves are counted as its."""
+        dsts = list(members if dsts is None else dsts)
+        live = self.live(dsts)
+        parts = list(parts)
+        if self.probe:
+            parts += [parts[0]] * (len(members) - len(parts))
+        if len(parts) == 1 and dsts == [members[0]]:
+            return parts
+        counts = None if self.probe else self.counts
+        out = list(_Gather.apply(dim, tuple(members),
+                                 tuple((m, self.devices[m]) for m in live),
+                                 counts, *parts))
+        if self.probe:
+            out[0] = self._probe_moves(out[0], "tp_gathered", "tp_scattered",
+                                       len(dsts) * (len(members) - 1)
+                                       * parts[0].nbytes)
+        return out
+
+    def reduce_scatter(self, parts: Sequence[torch.Tensor],
+                       members: Sequence[int], spans: Sequence[slice],
+                       dim: int) -> List[torch.Tensor]:
+        """Member j's ``spans[j]`` along ``dim`` of the sum of
+        ``members``' parts (by live member), at each live member of the
+        group; one part: a scatter. A probe counts the group's moves as
+        its first member's."""
+        srcs = tuple(self.live(members))
+        dsts = tuple((j, self.devices[j], spans[j])
+                     for j in self.live(range(len(spans))))
+        counts = None if self.probe else self.counts
+        out = list(_Scatter.apply(dim, srcs, dsts, tuple(spans), counts,
+                                  *parts))
+        if self.probe:
+            k, n = len(members), len(spans)
+            out[0] = self._probe_moves(out[0], "tp_scattered",
+                                       "tp_gathered",
+                                       k * (n - 1) * parts[0].nbytes // n)
+        return out
+
+    def gather(self, x: Seq, members: Sequence[int]) -> List[torch.Tensor]:
+        """The whole sequence of ``x`` at each of ``members``' (live)
+        devices: the all-gather before a split block (``[0]``: the
+        sequence put together on the first member)."""
+        return self.all_gather(x.tensors, range(len(x.spans)), 1, members)
+
+    def scatter_sum(self, parts: Sequence[torch.Tensor],
+                    members: Sequence[int], spans: Sequence[slice]) -> Seq:
+        """The sum of ``members``' partial outputs (whole sequences) as
+        the members' token blocks: the reduce-scatter after a split
+        block."""
+        return Seq(self.reduce_scatter(parts, members, spans, 1), spans)
+
+    def split(self, x: torch.Tensor, spans: Sequence[slice]) -> Seq:
+        """``x``, a whole sequence on the first member, as the members'
+        token blocks (a scatter; its gradient gathered back)."""
+        return self.scatter_sum([x], [0], spans)
+
     def apply(self, m: int, xm: torch.Tensor,
               fn: Callable[[int, torch.Tensor], object]
               ) -> Tuple[torch.Tensor, ...]:
@@ -533,12 +795,17 @@ class TP:
             fn: Callable[[int, torch.Tensor], object]):
         """Σ over ``members`` of ``fn(m, x at member m)``, on ``home``.
         ``fn`` may return a tuple: its first element is summed, the rest
-        are the first member's."""
+        are the first member's. ``x`` a ``Seq`` (``train_sp``): the
+        members' blocks are all-gathered at each of ``members`` and the
+        sum is reduce-scattered over the tokens, a ``Seq`` too."""
         outs, rest = [], None
-        for m, xm in zip(self.live(members), self.broadcast(x, members)):
+        xs = (self.gather(x, members) if isinstance(x, Seq)
+              else self.broadcast(x, members))
+        for m, xm in zip(self.live(members), xs):
             ys = self.apply(m, xm, fn)
             outs.append(ys[0])
             if rest is None:
                 rest = ys[1:]
-        out = self.all_reduce(outs, members)
+        out = (self.scatter_sum(outs, members, x.spans) if isinstance(x, Seq)
+               else self.all_reduce(outs, members))
         return (out, *rest) if rest else out

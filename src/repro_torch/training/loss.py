@@ -15,7 +15,9 @@ at its constraint (``loss.py:61``, ``act_vocab``): each member projects
 its vocabulary block of the chunk; the row maximum and the sum of
 exponentials are reduced over the members, the target's logit comes from
 the member that holds it, and the z-loss squares the global
-log-sum-exp.
+log-sum-exp. Under ``train_sp`` (the hidden states as the members'
+token blocks, ``tp.Seq``) each member takes the CE of its own tokens over
+the whole vocabulary (``seq_ce_loss``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding.tp import Parts
+from repro_torch.sharding.tp import Parts, Seq
 
 IGNORE = -100
 
@@ -58,15 +60,31 @@ def chunked_ce_from_hidden(hidden: torch.Tensor, head_w,
     head_w: [D, V] (or [V, D] with transpose_head=True — tied embeddings),
     or its vocabulary blocks as ``tp.Parts`` with ``tp`` (module note).
     """
+    if isinstance(hidden, Seq):
+        return seq_ce_loss(hidden, head_w, labels, chunk=chunk,
+                           z_loss=z_loss, transpose_head=transpose_head,
+                           tp=tp)
+    if isinstance(head_w, Parts) and hidden.shape[1] % min(
+            chunk, hidden.shape[1]):
+        return split_ce_loss(hidden, head_w, labels, z_loss,
+                             transpose_head, tp)
+    tot, cnt = _ce_sums(hidden, head_w, labels, chunk, z_loss,
+                        transpose_head, tp)
+    denom = torch.clamp(cnt, min=1.0)
+    return tot / denom, denom
+
+
+def _ce_sums(hidden: torch.Tensor, head_w, labels: torch.Tensor,
+             chunk: int, z_loss: float, transpose_head: bool, tp=None):
+    """``chunked_ce_from_hidden``'s sum of the CE terms and count of
+    labels."""
     B, S, D = hidden.shape
     chunk = min(chunk, S)
     split = isinstance(head_w, Parts)
     if S % chunk != 0:                       # fall back: rare, test shapes
-        if split:
-            return split_ce_loss(hidden, head_w, labels, z_loss,
-                                 transpose_head, tp)
-        logits = _project(hidden, head_w, transpose_head)
-        return ce_loss(logits, labels, z_loss)
+        ce, mask = _ce_terms(_project(hidden, head_w, transpose_head),
+                             labels, z_loss)
+        return ce.sum(), mask.sum()
 
     def body(h, lab, *w):
         if split:
@@ -89,7 +107,33 @@ def chunked_ce_from_hidden(hidden: torch.Tensor, head_w,
                         if remat else body(*args))
         tot = tot + c_tot
         cnt = cnt + c_cnt
-    denom = torch.clamp(cnt, min=1.0)
+    return tot, cnt
+
+
+def seq_ce_loss(hidden: Seq, head_w: Parts, labels: torch.Tensor, *,
+                chunk: int, z_loss: float, transpose_head: bool, tp
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The loss under ``train_sp`` (``hidden`` the members' token blocks,
+    ``head_w`` every member's whole copy): each member takes the CE of
+    its tokens over the whole vocabulary, chunked as
+    ``chunked_ce_from_hidden`` (the reference's logits constraint gives
+    'model' to the sequence and leaves the vocabulary whole); the sums
+    of the CE terms and the counts of labels are all-reduced, so the mean
+    over the labels is exact. Returns (loss, denom)."""
+    members = range(len(hidden.spans))
+    tots, cnts = [], []
+    for m, h, lab in zip(tp.live(members), hidden.tensors,
+                         tp.replicate(labels, members)):
+        lab = lab[:, hidden.spans[m]]
+
+        def part(m_, x, lab=lab):
+            return _ce_sums(x, head_w[m_], lab, chunk, z_loss,
+                            transpose_head)
+        tot, cnt = tp.apply(m, h, part)
+        tots.append(tot)
+        cnts.append(cnt)
+    tot = tp.all_reduce(tots, members)
+    denom = torch.clamp(tp.all_reduce(cnts, members), min=1.0)
     return tot / denom, denom
 
 

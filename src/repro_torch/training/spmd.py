@@ -185,7 +185,8 @@ def make_spmd_train_step(bundle, rc: RunConfig, ctx: ShardingCtx,
 
     def step(params, opt_state: AdamWState, batch: Dict[str, ShardedTensor]):
         traffic = {k: Traffic() for k in ("gathered", "reduce_scattered",
-                                          "all_reduced", "states", "copies",
+                                          "all_reduced", "tp_gathered",
+                                          "tp_scattered", "states", "copies",
                                           "replicas", "batch")}
         leaves = tree_leaves(params)
         at_path = tree_paths(params)
@@ -233,7 +234,9 @@ def make_spmd_train_step(bundle, rc: RunConfig, ctx: ShardingCtx,
                               TPCounts(traffic["all_reduced"],
                                        traffic["copies"],
                                        lambda: group.in_backward,
-                                       states=traffic["states"]),
+                                       states=traffic["states"],
+                                       tp_gathered=traffic["tp_gathered"],
+                                       tp_scattered=traffic["tp_scattered"]),
                               names=members if flops is not None else None)
             sub = {k: v[lo:lo + rows] for k, v in data[dev].items()}
             count = (sub["labels"] != IGNORE).sum().float()

@@ -133,6 +133,9 @@ def test_argument_bytes_equal_the_references_compiled(ref, arch, shape,
     assert rep["memory"]["generated_code_bytes"] is None
     assert rep["matmul_flops_per_device"] > 0
     assert rep["mesh"] == "2x2x2" and rep["devices"] == 8
+    if profile in ("sp", "cp"):
+        # sequence and context parallelism split each rank over 'model'
+        assert rep["tp_members"] > 1
 
 
 def test_production_cell_builds_on_meta():

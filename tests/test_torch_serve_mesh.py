@@ -516,8 +516,9 @@ def test_gathered_peak_is_the_plans_weights():
 
 def test_decode_group_and_splits():
     """Under ``decode`` a rank's group is its 'model' coordinates, as
-    under ``train``; what it splits differs; ``train_sp`` and ``kv_seq``
-    keep no group."""
+    under ``train``; what it splits differs; ``train_sp`` adds the
+    sequence to ``train``'s splits, ``kv_seq`` splits the keys' sequence
+    in place of the heads; ``dp_only`` keeps no group."""
     mesh = make_mesh((2, 2), ("data", "model"), ["meta"] * 4)
     train, decode = make_ctx(mesh, "train"), make_ctx(mesh, "decode")
     assert train.tp_axes() == decode.tp_axes() == ("model",)
@@ -525,9 +526,13 @@ def test_decode_group_and_splits():
                                  "act_vocab", "act_ssm")
     assert decode.tp_splits() == ("act_kv_seq", "act_mlp", "act_experts",
                                   "act_vocab", "act_ssm")
-    for prof in ("train_sp", "kv_seq", "dp_only"):
-        assert make_ctx(mesh, prof).tp_axes() == ()
-        assert make_ctx(mesh, prof).tp_splits() == ()
+    assert make_ctx(mesh, "train_sp").tp_splits() == (
+        "act_seq",) + train.tp_splits()
+    assert make_ctx(mesh, "kv_seq").tp_splits() == decode.tp_splits()
+    for prof in ("train_sp", "kv_seq"):
+        assert make_ctx(mesh, prof).tp_axes() == ("model",)
+    assert make_ctx(mesh, "dp_only").tp_axes() == ()
+    assert make_ctx(mesh, "dp_only").tp_splits() == ()
 
 
 @pytest.mark.parametrize("S_new,cur,sinks", [(1, 5, 0), (1, 13, 0),

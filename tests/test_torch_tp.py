@@ -424,9 +424,10 @@ def test_split_moe(E, split, cf, rng):
 
 def test_the_split_is_resolved_from_the_constraints():
     """``ShardingCtx.tp_blocks``: the constraint's ``pspec`` on the
-    group's axes, its drops included and not recorded; no group where
-    the profile splits the sequence over 'model'; ``constrain`` still
-    raises, naming the mesh step."""
+    group's axes, its drops included and not recorded; the group kept
+    where the profile splits the sequence over 'model' (``train_sp``,
+    ``kv_seq``), none under ``dp_only``; ``constrain`` still raises,
+    naming the mesh step."""
     mesh = make_mesh((2, 2), ("data", "model"), ["meta"] * 4)
     ctx = make_ctx(mesh, "train")
     assert ctx.tp_axes() == ("model",) and ctx.tp_size() == 2
@@ -441,8 +442,8 @@ def test_the_split_is_resolved_from_the_constraints():
     b = ctx.tp_blocks((1, 1, 5), ("act_batch", None, "act_mlp"))
     assert b[0] == b[1] and TP.members(b) == [0]
     assert ctx.dropped == []
-    assert make_ctx(mesh, "train_sp").tp_axes() == ()
-    assert make_ctx(mesh, "kv_seq").tp_axes() == ()
+    assert make_ctx(mesh, "train_sp").tp_axes() == ("model",)
+    assert make_ctx(mesh, "kv_seq").tp_axes() == ("model",)
     assert make_ctx(mesh, "dp_only").tp_axes() == ()
     with pytest.raises(NotImplementedError, match="training/spmd.py"):
         ctx.constrain(torch.zeros(2), "act_batch")
